@@ -1,0 +1,335 @@
+"""H3GAT — heterogeneous local-window + global-grid graph attention fusion
+(port of ``hmvit_tpu/models/hetero_fusion.py``, sequential mode).
+
+As in the JAX package: modality-typed parameters are stacked on a type
+axis, the relation transforms fold into the K/V projection per receiver
+TYPE before the warp, the receiver axis is a batch dimension, and only
+the senders' K/V are warped (queries live in the receiver's frame).
+The warp is the pair-warp kernel, the local phase the stripe attention
+kernel and the grid phase the plain attention kernel — on CUDA tensors
+for every shape the module accepts, on CPU tensors their plain twins.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..nn import DTYPES, normal_, xavier_uniform_
+from ..ops import use_kernel
+from ..ops.fused_warp import fused_pair_warp, pair_warp_coefficients
+from ..ops.warp import roi_and_agent_mask
+from ..ops.window_attention import (
+    fused_plain_window_attention,
+    fused_stripe_window_attention,
+)
+from .layers import HeteroDense, HeteroFeedForward, HeteroLayerNorm
+
+
+def pairwise_roi_mask(pairwise, agent_mask, hw, discrete_ratio,
+                      downsample_rate):
+    """(B, I, H, W, J) combined warped-ROI and agent-validity mask for
+    every (receiver, sender) pair."""
+    b, l = agent_mask.shape
+    h, w = hw
+    t_ij = pairwise.transpose(1, 2)
+    mask = roi_and_agent_mask(
+        b * l, l, h, w,
+        agent_mask[:, None].expand(b, l, l).reshape(-1, l),
+        t_ij.reshape(-1, l, 4, 4),
+        discrete_ratio, downsample_rate)
+    return mask.reshape(b, l, h, w, l)
+
+
+def relative_position_index(win: int) -> np.ndarray:
+    """(win^2, win^2) index into the (2*win-1)^2 relative-bias table."""
+    coords = np.stack(
+        np.meshgrid(np.arange(win), np.arange(win), indexing="ij")
+    ).reshape(2, -1)
+    rel = coords[:, :, None] - coords[:, None, :]
+    rel = rel.transpose(1, 2, 0)
+    rel[:, :, 0] += win - 1
+    rel[:, :, 1] += win - 1
+    rel[:, :, 0] *= 2 * win - 1
+    return rel.sum(-1)
+
+
+def _window_split(x, win: int, style: str):
+    """(..., H, W, C) -> (..., X, Y, win*win, C); 'local' = contiguous
+    windows (x w1)(y w2), 'grid' = dilated grid (w1 x)(w2 y)."""
+    *b, h, w, c = x.shape
+    nb = len(b)
+    if style == "local":
+        x = x.reshape(*b, h // win, win, w // win, win, c).movedim(-3, -4)
+    else:
+        x = x.reshape(*b, win, h // win, win, w // win, c)
+        x = x.permute(*range(nb), nb + 1, nb + 3, nb, nb + 2, nb + 4)
+    return x.reshape(*b, h // win, w // win, win * win, c)
+
+
+def _window_merge(x, win: int, style: str, h: int, w: int):
+    """Inverse of :func:`_window_split`."""
+    *b, nx, ny, _, c = x.shape
+    nb = len(b)
+    x = x.reshape(*b, nx, ny, win, win, c)
+    if style == "local":
+        return x.movedim(-3, -4).reshape(*b, h, w, c)
+    x = x.permute(*range(nb), nb + 2, nb, nb + 3, nb + 1, nb + 4)
+    return x.reshape(*b, h, w, c)
+
+
+class HeteroWindowAttention(nn.Module):
+    """Modality-typed windowed attention across agents, all receivers at
+    once.  x (B, L, H, W, C) layer-normed per-agent maps in their own
+    frames; mode (B, L) 0 = camera, 1 = lidar; pairwise (B, L, L, 4, 4)
+    with pairwise[:, j, i] mapping j's frame into i's.  Returns the
+    (B, I, H, W, C) message for each receiver."""
+
+    def __init__(self, dim: int, dim_head: int = 32, window: int = 8,
+                 style: str = "local", num_types: int = 2,
+                 discrete_ratio: float = 0.4, downsample_rate: float = 4.0,
+                 exclude_self: bool = False,
+                 compute_dtype: str = "float32"):
+        super().__init__()
+        self.dim, self.dim_head, self.window = dim, dim_head, window
+        self.style, self.num_types = style, num_types
+        self.discrete_ratio = discrete_ratio
+        self.downsample_rate = downsample_rate
+        self.exclude_self = exclude_self
+        self.compute_dtype = DTYPES[compute_dtype]
+        heads = dim // dim_head
+        self.to_q = HeteroDense(dim, dim, num_types)
+        self.to_k = HeteroDense(dim, dim, num_types)
+        self.to_v = HeteroDense(dim, dim, num_types)
+        self.to_out = HeteroDense(dim, dim, num_types)
+        num_rel = num_types ** 2
+        self.relation_att = nn.Parameter(
+            torch.empty(num_rel, heads, dim_head, dim_head))
+        self.relation_msg = nn.Parameter(
+            torch.empty(num_rel, heads, dim_head, dim_head))
+        self.rel_pos_bias = nn.Parameter(
+            torch.empty((2 * window - 1) ** 2, heads))
+        self.register_buffer(
+            "rel_index",
+            torch.as_tensor(relative_position_index(window), dtype=torch.long),
+            persistent=False)
+
+    def reset_parameters(self, gen):
+        xavier_uniform_(self.relation_att, gen)
+        xavier_uniform_(self.relation_msg, gen)
+        normal_(self.rel_pos_bias, 0.02, gen)
+
+    def _typed_kv(self, x, mode, static_modes, taus_used):
+        """(B, TAU, L, H, W, 2C) = per receiver-type variant, each sender's
+        relation-transformed [K | V], accumulated in float32."""
+        b, l, h, w, c = x.shape
+        heads, d = self.dim // self.dim_head, self.dim_head
+        cdt = self.compute_dtype
+        f32 = torch.float32
+        ty_n = self.num_types
+        ntau = len(taus_used)
+        if static_modes is not None:
+            # fold W_kv[ty] @ blockdiag_heads(R[tau*T+ty]) at the parameter
+            # level and emit the [K|V] variants with one contraction
+            wk, bk = self.to_k(x, mode, return_params=True)
+            wv, bv = self.to_v(x, mode, return_params=True)
+            tsel = list(taus_used)
+            ra = self.relation_att.reshape(ty_n, ty_n, heads, d, d)[tsel]
+            rm = self.relation_msg.reshape(ty_n, ty_n, heads, d, d)[tsel]
+            ck = torch.einsum("yche,tyhDe->tychD",
+                              wk.reshape(ty_n, c, heads, d), ra)
+            cv = torch.einsum("yche,tyhDe->tychD",
+                              wv.reshape(ty_n, c, heads, d), rm)
+            wkv = torch.cat([ck.reshape(ntau, ty_n, c, c),
+                             cv.reshape(ntau, ty_n, c, c)], dim=-1)
+            cbk = torch.einsum("yhe,tyhDe->tyhD",
+                               bk.reshape(ty_n, heads, d), ra)
+            cbv = torch.einsum("yhe,tyhDe->tyhD",
+                               bv.reshape(ty_n, heads, d), rm)
+            bkv = torch.cat([cbk.reshape(ntau, ty_n, c),
+                             cbv.reshape(ntau, ty_n, c)], dim=-1)
+            sm_idx = list(static_modes)
+            wsel = wkv[:, sm_idx].to(cdt)   # (ntau, L, C, 2C)
+            bsel = bkv[:, sm_idx].to(cdt)   # (ntau, L, 2C)
+            # bias joins in fp32 before the compute-dtype rounding
+            kv2 = (torch.einsum("bjxyc,tjcf->btjxyf", x.to(f32),
+                                wsel.to(f32))
+                   + bsel[None, :, :, None, None].to(f32))
+            return kv2.to(cdt)
+        k = self.to_k(x, mode)
+        v = self.to_v(x, mode)
+        taus = torch.as_tensor(taus_used, device=x.device)
+        idx = taus[:, None, None] * ty_n + mode.long()[None]
+        rel = torch.stack([self.relation_att, self.relation_msg], dim=1)
+        w_t = rel.to(cdt)[idx]  # (TAU, B, J, 2, heads, d, d)
+        kvh = torch.stack([k, v], dim=-2).reshape(b, l, h, w, 2, heads, d)
+        kv2 = torch.einsum("bjxyshe,tbjshde->btjxyshd", kvh.to(f32),
+                           w_t.to(f32)).to(cdt)
+        return kv2.reshape(b, ntau, l, h, w, 2 * c)
+
+    def forward(self, x, mode, pairwise, agent_mask, pair_mask=None,
+                receivers: int | None = None,
+                static_modes: tuple | None = None, warp_coef=None):
+        b, l, h, w, c = x.shape
+        r = l if receivers is None else receivers
+        heads, d, win = self.dim // self.dim_head, self.dim_head, self.window
+        scale = d ** -0.5
+        cdt = self.compute_dtype
+        x = x.to(cdt)
+        sm_r = static_modes[:r] if static_modes is not None else None
+
+        q = self.to_q(x[:, :r], mode[:, :r], sm_r)
+        if sm_r is not None:
+            # fold only the receiver types present (one variant for the
+            # ego-only last phase)
+            taus_used = tuple(sorted({int(m) for m in sm_r}))
+            recv_variant = torch.as_tensor(
+                [taus_used.index(int(m)) if int(m) in taus_used else 0
+                 for m in static_modes], device=x.device)[None].expand(
+                    mode.shape)
+        else:
+            taus_used = tuple(range(self.num_types))
+            recv_variant = mode
+        kv2 = self._typed_kv(x, mode, static_modes, taus_used)
+
+        # sender j's [K|V] in receiver i's variant, warped into i's frame
+        kv_pair = fused_pair_warp(kv2, pairwise, recv_variant,
+                                  self.discrete_ratio, self.downsample_rate,
+                                  receivers, warp_coef)
+
+        if pair_mask is None:
+            pair_mask = pairwise_roi_mask(pairwise, agent_mask, (h, w),
+                                          self.discrete_ratio,
+                                          self.downsample_rate)
+        mask_ij = pair_mask[:, :r].movedim(-1, 2)  # (B, I, J, H, W)
+        if self.exclude_self:
+            eye = torch.eye(l, device=x.device)[:r][None, :, :, None, None]
+            mask_ij = mask_ij * (1.0 - eye)
+        bias_h = self.rel_pos_bias[self.rel_index].permute(2, 0, 1).to(cdt)
+        qs = (q * scale).to(cdt)
+
+        if self.style == "local":
+            out = fused_stripe_window_attention(
+                qs.reshape(b * r, h, w, c),
+                kv_pair.reshape(b * r, l, h, w, 2 * c), bias_h,
+                mask_ij.reshape(b * r, l, h, w).to(cdt), win, heads, d,
+            ).reshape(b, r, h, w, c)
+        else:
+            qw = _window_split(qs, win, self.style)       # (B, I, X, Y, T, C)
+            kvw = _window_split(kv_pair, win, self.style)
+            mw = _window_split(mask_ij[..., None], win, self.style)[..., 0]
+            nx, ny, t_tok = qw.shape[2], qw.shape[3], win * win
+            out = fused_plain_window_attention(
+                qw.reshape(b * r, nx * ny, t_tok, c),
+                kvw.reshape(b * r, l, nx * ny, t_tok, 2 * c), bias_h,
+                mw.reshape(b * r, l, nx * ny, t_tok).to(cdt), heads, d,
+            ).reshape(b, r, nx, ny, t_tok, c)
+            out = _window_merge(out, win, self.style, h, w)
+        out = self.to_out(out, mode[:, :r], sm_r)
+        return out.to(torch.float32)
+
+
+class HeteroFusionBlock(nn.Module):
+    """One H3GAT iteration (sequential mode): local-window then
+    global-grid hetero attention, each followed by a hetero
+    feed-forward."""
+
+    def __init__(self, input_dim: int, mlp_dim: int, window_size: int = 8,
+                 dim_head: int = 32, architect_mode: str = "sequential",
+                 discrete_ratio: float = 0.4, downsample_rate: float = 4.0,
+                 compute_dtype: str = "float32"):
+        super().__init__()
+        if architect_mode != "sequential":
+            raise ValueError(f"architect_mode {architect_mode!r} is not "
+                             "ported (sequential only)")
+        self.discrete_ratio = discrete_ratio
+        self.downsample_rate = downsample_rate
+        self.compute_dtype = DTYPES[compute_dtype]
+        for name, style in (("window", "local"), ("grid", "grid")):
+            self.add_module(f"{name}_norm", HeteroLayerNorm(input_dim))
+            self.add_module(f"{name}_attn", HeteroWindowAttention(
+                input_dim, dim_head, window_size, style,
+                discrete_ratio=discrete_ratio,
+                downsample_rate=downsample_rate,
+                compute_dtype=compute_dtype))
+            self.add_module(f"{name}_ffn_norm", HeteroLayerNorm(input_dim))
+            self.add_module(f"{name}_ffn",
+                            HeteroFeedForward(input_dim, mlp_dim))
+
+    def _phase(self, name, x, mode, pairwise, agent_mask, pair_mask,
+               receivers=None, static_modes=None, warp_coef=None):
+        r = x.shape[1] if receivers is None else receivers
+        sm_r = static_modes[:r] if static_modes is not None else None
+        x_n = getattr(self, f"{name}_norm")(x, mode)
+        msg = getattr(self, f"{name}_attn")(
+            x_n, mode, pairwise, agent_mask, pair_mask, receivers,
+            static_modes, warp_coef)
+        msg = msg * agent_mask[:, :r, None, None, None]
+        x = x[:, :r] + msg
+        ffn_in = getattr(self, f"{name}_ffn_norm")(x, mode[:, :r])
+        ffn = getattr(self, f"{name}_ffn")(ffn_in.to(self.compute_dtype),
+                                           mode[:, :r], sm_r)
+        return x + ffn.to(torch.float32)
+
+    def forward(self, x, mode, pairwise, agent_mask, pair_mask=None,
+                receivers: int | None = None,
+                static_modes: tuple | None = None, warp_coef=None):
+        """receivers restricts the block OUTPUT to the first I agents;
+        the local phase stays full (the grid phase reads every agent's
+        post-local features), only the grid phase is restricted.
+        pair_mask and warp_coef are the frame's pose-only geometry;
+        without them the block builds the mask and each warp its own
+        coefficients."""
+        if pair_mask is None:
+            pair_mask = pairwise_roi_mask(pairwise, agent_mask, x.shape[2:4],
+                                          self.discrete_ratio,
+                                          self.downsample_rate)
+        x = self._phase("window", x, mode, pairwise, agent_mask, pair_mask,
+                        static_modes=static_modes, warp_coef=warp_coef)
+        return self._phase("grid", x, mode, pairwise, agent_mask, pair_mask,
+                           receivers, static_modes, warp_coef)
+
+
+class HeteroFusion(nn.Module):
+    """num_iters x one shared HeteroFusionBlock, then the ego (slot 0)
+    map through a modality-typed MLP head.  The last iteration computes
+    only the ego receiver."""
+
+    def __init__(self, config: dict):
+        super().__init__()
+        cfg = config
+        blk = cfg["hetero_fusion_block"]
+        st = blk.get("spatial_transform", cfg.get("spatial_transform", {}))
+        self.discrete_ratio = st.get("voxel_size", [0.4])[0]
+        self.downsample_rate = st.get("downsample_rate", 4)
+        self.num_iters = cfg["num_iters"]
+        self.ego_only_last = cfg.get("ego_only_last", True)
+        self.HeteroFusionBlock_0 = HeteroFusionBlock(
+            input_dim=blk["input_dim"], mlp_dim=blk["mlp_dim"],
+            window_size=blk["window_size"], dim_head=blk["dim_head"],
+            architect_mode=blk.get("architect_mode", "sequential"),
+            discrete_ratio=self.discrete_ratio,
+            downsample_rate=self.downsample_rate,
+            compute_dtype=blk.get("compute_dtype", "float32"))
+        self.mlp_head = HeteroFeedForward(blk["input_dim"], blk["input_dim"])
+
+    def forward(self, x, mode, pairwise, agent_mask,
+                static_modes: tuple | None = None):
+        pair_mask = pairwise_roi_mask(pairwise, agent_mask, x.shape[2:4],
+                                      self.discrete_ratio,
+                                      self.downsample_rate)
+        # the pair-warp kernel's geometry, shared by every warp of the frame
+        warp_coef = (pair_warp_coefficients(pairwise, x.shape[2:4],
+                                            self.discrete_ratio,
+                                            self.downsample_rate)
+                     if use_kernel(x) else None)
+        for it in range(self.num_iters):
+            last = it == self.num_iters - 1
+            x = self.HeteroFusionBlock_0(
+                x, mode, pairwise, agent_mask, pair_mask,
+                receivers=1 if (last and self.ego_only_last) else None,
+                static_modes=static_modes, warp_coef=warp_coef)
+        ego = self.mlp_head(x[:, :1], mode[:, :1],
+                            static_modes[:1] if static_modes is not None
+                            else None)
+        return ego[:, 0]

@@ -1,0 +1,138 @@
+"""HM-ViT flagship: hetero-modal multi-agent cooperative detector (port
+of ``hmvit_tpu/models/hmvit.py`` for inference, BEVFormer planar camera
+branch).  mode convention: 0 = camera, 1 = lidar.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .bevformer import BEVFormerEncoder
+from ..nn import DTYPES
+from .hetero_fusion import HeteroFusion
+from .layers import DetectionHead, NaiveDecoder
+from .pillar_encoder import PointPillarEncoder
+
+
+class HeteroDecoder(nn.Module):
+    """Per-modality decoder + heads, selected by the ego's modality."""
+
+    def __init__(self, cin: int, num_layer: int, num_ch_dec,
+                 anchor_number: int, use_upsample: bool = False,
+                 bn_eps: float = 1e-3):
+        super().__init__()
+        for name in ("camera", "lidar"):
+            self.add_module(f"{name}_decoder", NaiveDecoder(
+                cin, num_layer, num_ch_dec, use_upsample=use_upsample,
+                bn_eps=bn_eps))
+            self.add_module(f"{name}_head",
+                            DetectionHead(num_ch_dec[0], anchor_number))
+
+    def _branch(self, name, x):
+        return getattr(self, f"{name}_head")(
+            getattr(self, f"{name}_decoder")(x))
+
+    def forward(self, x, ego_mode, static_ego_modality: int | None = None):
+        """x (B, H, W, C); ego_mode (B,).  A static ego modality (serving
+        hint) runs only that branch."""
+        if static_ego_modality == 0:
+            return self._branch("camera", x)
+        if static_ego_modality == 1:
+            return self._branch("lidar", x)
+        cam_psm, cam_rm = self._branch("camera", x)
+        lid_psm, lid_rm = self._branch("lidar", x)
+        is_lidar = (ego_mode == 1)[:, None, None, None]
+        return (torch.where(is_lidar, lid_psm, cam_psm),
+                torch.where(is_lidar, lid_rm, cam_rm))
+
+
+_SLICED = ("mode", "agent_mask", "points", "points_mask", "camera",
+           "intrinsics", "extrinsics", "prior_encoding")
+
+
+class HMViT(nn.Module):
+    """Hetero-modal cooperative detector: lidar PointPillars + camera
+    BEVFormer encoders, H3GAT fusion, per-modality decoder."""
+
+    def __init__(self, config: dict):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        if cfg.get("compression", 0):
+            raise ValueError("the bandwidth compressor is not ported")
+        if cfg.get("fusion_override"):
+            raise ValueError("fusion overrides are not ported")
+        if cfg["camera"].get("encoder", "cvt") != "bevformer":
+            raise ValueError("only the bevformer camera encoder is ported")
+        self.lidar_encoder = PointPillarEncoder(cfg["lidar"])
+        self.camera_encoder = BEVFormerEncoder(cfg["camera"])
+        self.fusion = HeteroFusion(cfg["hetero_fusion"])
+        dec = cfg["hetero_decoder"]
+        self.HeteroDecoder_0 = HeteroDecoder(
+            dec["input_dim"], dec["num_layer"], tuple(dec["num_ch_dec"]),
+            dec["anchor_number"], bn_eps=dec.get("bn_eps", 1e-3))
+
+    def forward(self, batch: dict, camera_bucket: int | None = None,
+                active_agents: int | None = None,
+                static_ego_modality: int | None = None,
+                static_modes: tuple | None = None):
+        """Serving shape buckets, as in the JAX model:
+
+        - ``active_agents`` slices the agent axis to the first A slots;
+        - ``camera_bucket`` runs the camera encoder on exactly that many
+          slots (camera-first stable order) and the lidar encoder on the
+          rest; it must equal the batch's true camera count;
+        - ``static_modes`` is the fleet's per-agent modality layout (after
+          slicing) and must equal the batch's ``mode`` row;
+        - ``static_ego_modality`` runs only the ego's decoder branch.
+        None of them: both encoders on every slot, selected by mode.
+        Returns {"psm": (B, A, H, W), "rm": (B, 7A, H, W)}."""
+        if active_agents is not None:
+            batch = {k: (v[:, :active_agents] if k in _SLICED else v)
+                     for k, v in batch.items()}
+            batch["pairwise_t_matrix"] = batch["pairwise_t_matrix"][
+                :, :active_agents, :active_agents]
+        mode = batch["mode"].long()
+        agent_mask = batch["agent_mask"].to(torch.float32)
+        pairwise = batch["pairwise_t_matrix"]
+        b, l = mode.shape
+
+        def flat(key):
+            v = batch[key]
+            return v.reshape(b * l, *v.shape[2:])
+
+        points, pmask = flat("points"), flat("points_mask")
+        cams, intr, extr = flat("camera"), flat("intrinsics"), \
+            flat("extrinsics")
+        if camera_bucket is None:
+            lidar_bev = self.lidar_encoder(points, pmask)
+            cam_bev = self.camera_encoder(cams, intr, extr)
+            is_lidar = (mode.reshape(-1) == 1)[:, None, None, None]
+            x = torch.where(is_lidar, lidar_bev, cam_bev)
+        elif camera_bucket == 0:
+            x = self.lidar_encoder(points, pmask)
+        elif camera_bucket >= l:
+            x = self.camera_encoder(cams, intr, extr)
+        else:
+            nc = camera_bucket
+            order = torch.argsort(mode.reshape(-1), stable=True)
+            cam_idx, lid_idx = order[:nc], order[nc:]
+            cam_bev = self.camera_encoder(cams[cam_idx], intr[cam_idx],
+                                          extr[cam_idx])
+            lidar_bev = self.lidar_encoder(points[lid_idx], pmask[lid_idx])
+            x = torch.zeros((b * l, *cam_bev.shape[1:]),
+                            dtype=torch.promote_types(cam_bev.dtype,
+                                                      lidar_bev.dtype),
+                            device=cam_bev.device)
+            x[cam_idx] = cam_bev.to(x.dtype)
+            x[lid_idx] = lidar_bev.to(x.dtype)
+
+        h, w, c = x.shape[1:]
+        x = x.reshape(b, l, h, w, c) * agent_mask[:, :, None, None, None]
+        ego = self.fusion(x, mode, pairwise, agent_mask,
+                          static_modes=static_modes)
+        dec = self.config["hetero_decoder"]
+        if dec.get("compute_dtype"):
+            ego = ego.to(DTYPES[dec["compute_dtype"]])
+        psm, rm = self.HeteroDecoder_0(ego, mode[:, 0], static_ego_modality)
+        return {"psm": psm.permute(0, 3, 1, 2), "rm": rm.permute(0, 3, 1, 2)}

@@ -1,0 +1,259 @@
+"""Flax-equivalent building blocks on NHWC tensors.
+
+The JAX package builds its models from ``flax.linen`` layers; these are
+their PyTorch counterparts with the same numerics:
+
+* parameters are stored in PyTorch's layout (Dense ``(out, in)``, Conv
+  OIHW, ConvTranspose ``(in, out, kh, kw)``); ``flax_leaves`` tells
+  :mod:`hmvit_tpu_torch.bridge` which flax leaf each one comes from and
+  how to convert it;
+* computation follows flax's dtype promotion: inputs and parameters are
+  promoted to their common type (a bf16 input with fp32 parameters
+  computes in fp32, as flax does with ``dtype=None``);
+* padding follows XLA: ``"SAME"`` pads ``(lo, hi)`` with the odd pixel
+  at the end, an int pads symmetrically;
+* ``reset_parameters(gen)`` draws the flax default initializer's
+  distribution from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_SQRT2 = math.sqrt(2.0)
+# flax lecun_normal: truncated to +-2 std, rescaled by this constant so
+# the truncated distribution keeps the requested variance
+_TRUNC_STD = 0.87962566103423978
+
+
+# config dtype names (``compute_dtype`` keys) -> torch dtypes
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def promote(*tensors) -> torch.dtype:
+    """Common dtype of the non-None tensors (jnp.result_type analogue)."""
+    dt = None
+    for t in tensors:
+        if t is None:
+            continue
+        dt = t.dtype if dt is None else torch.promote_types(dt, t.dtype)
+    return dt
+
+
+def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    """XLA 'SAME' (lo, hi) padding of one axis of size n."""
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def gelu(x):
+    """flax ``nn.gelu`` (tanh approximation, ``approximate=True``)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def resize_nearest(x, hw: tuple[int, int]):
+    """``jax.image.resize(x, (n, h, w, c), "nearest")`` on NHWC:
+    source index floor((i + 0.5) * in / out) per axis."""
+    n, h, w, c = x.shape
+    oh, ow = hw
+    iy = np.floor((np.arange(oh) + 0.5) * h / oh).astype(np.int64)
+    ix = np.floor((np.arange(ow) + 0.5) * w / ow).astype(np.int64)
+    iy = torch.as_tensor(np.minimum(iy, h - 1), device=x.device)
+    ix = torch.as_tensor(np.minimum(ix, w - 1), device=x.device)
+    return x.index_select(1, iy).index_select(2, ix)
+
+
+def max_pool_same(x, k: int, s: int):
+    """flax ``nn.max_pool(x, (k, k), (s, s), padding="SAME")`` on NHWC
+    (-inf padding, XLA SAME split)."""
+    ph = same_pads(x.shape[1], k, s)
+    pw = same_pads(x.shape[2], k, s)
+    xn = x.permute(0, 3, 1, 2)
+    xn = F.pad(xn, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(xn, k, s).permute(0, 2, 3, 1)
+
+
+# -- initializers drawing flax's default distributions -----------------
+
+def lecun_normal_(t, fan_in: int, gen):
+    """flax ``lecun_normal``: truncated normal, variance 1 / fan_in."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / _SQRT2))
+    hi = 0.5 * (1.0 + math.erf(2.0 / _SQRT2))
+    u = torch.empty(t.shape).uniform_(lo, hi, generator=gen)
+    z = _SQRT2 * torch.erfinv(2.0 * u - 1.0)
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        t.copy_(z * std)
+
+
+def uniform_(t, lo: float, hi: float, gen):
+    with torch.no_grad():
+        t.copy_(torch.empty(t.shape).uniform_(lo, hi, generator=gen))
+
+
+def normal_(t, std: float, gen):
+    with torch.no_grad():
+        t.copy_(torch.empty(t.shape).normal_(0.0, std, generator=gen))
+
+
+def xavier_uniform_(t, gen):
+    """flax ``xavier_uniform`` (in_axis=-2, out_axis=-1, leading axes
+    count as receptive field)."""
+    shape = t.shape
+    receptive = int(np.prod(shape)) // (shape[-1] * shape[-2])
+    fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
+    limit = math.sqrt(3.0 * 2.0 / (fan_in + fan_out))
+    uniform_(t, -limit, limit, gen)
+
+
+def init_parameters(model: nn.Module, seed: int) -> nn.Module:
+    """Fill every parameter and statistic of ``model`` from one seeded
+    CPU generator (deterministic across machines).  Children reset
+    before their parents, so a parent may override a child's default
+    (the detection head's prior bias)."""
+    gen = torch.Generator().manual_seed(seed)
+    for mod in reversed(list(model.modules())):
+        reset = getattr(mod, "reset_parameters", None)
+        if reset is not None:
+            reset(gen)
+    return model
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` on the last axis; weight ``(out, in)``."""
+    flax_leaves = {"weight": ("params", "kernel", "dense"),
+                   "bias": ("params", "bias", "copy")}
+
+    def __init__(self, din: int, dout: int, use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dout, din))
+        self.bias = nn.Parameter(torch.zeros(dout)) if use_bias else None
+
+    def reset_parameters(self, gen):
+        lecun_normal_(self.weight, self.weight.shape[1], gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = promote(x, self.weight, self.bias)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` on NHWC; weight OIHW.  ``padding`` is "SAME" or
+    a symmetric int."""
+    flax_leaves = {"weight": ("params", "kernel", "conv"),
+                   "bias": ("params", "bias", "copy")}
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding="SAME", use_bias: bool = True):
+        super().__init__()
+        self.kernel, self.stride, self.padding = kernel, stride, padding
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+
+    def reset_parameters(self, gen):
+        cout, cin, k, _ = self.weight.shape
+        lecun_normal_(self.weight, cin * k * k, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = promote(x, self.weight, self.bias)
+        if self.padding == "SAME":
+            ph = same_pads(x.shape[1], self.kernel, self.stride)
+            pw = same_pads(x.shape[2], self.kernel, self.stride)
+        else:
+            ph = pw = (self.padding, self.padding)
+        xn = x.to(dt).permute(0, 3, 1, 2)
+        if any(ph) or any(pw):
+            xn = F.pad(xn, (pw[0], pw[1], ph[0], ph[1]))
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(xn, self.weight.to(dt), b, stride=self.stride)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose`` with kernel == stride and "SAME"
+    padding (the BEV backbone's deblocks): every input pixel paints one
+    disjoint k x k output patch.  Weight ``(in, out, k, k)`` holds the
+    flax kernel spatially FLIPPED — flax does not flip the kernel of a
+    transposed convolution, PyTorch's ``conv_transpose2d`` does."""
+    flax_leaves = {"weight": ("params", "kernel", "conv_transpose")}
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int):
+        super().__init__()
+        if kernel != stride:
+            raise ValueError("ConvTranspose supports kernel == stride only")
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(cin, cout, kernel, kernel))
+
+    def reset_parameters(self, gen):
+        cin, cout, k, _ = self.weight.shape
+        lecun_normal_(self.weight, cin * k * k, gen)
+
+    def forward(self, x):
+        dt = promote(x, self.weight)
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
+                               self.weight.to(dt), stride=self.stride)
+        return y.permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` in inference (running statistics):
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    flax_leaves = {"weight": ("params", "scale", "copy"),
+                   "bias": ("params", "bias", "copy"),
+                   "running_mean": ("batch_stats", "mean", "copy"),
+                   "running_var": ("batch_stats", "var", "copy")}
+
+    def __init__(self, c: int, eps: float):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def reset_parameters(self, gen):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        y = x - self.running_mean
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (y * mul + self.bias).to(promote(x, self.weight, self.bias))
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: eps 1e-6 by default (PyTorch's is 1e-5),
+    single-pass float32 statistics ``E[x^2] - E[x]^2``."""
+    flax_leaves = {"weight": ("params", "scale", "copy"),
+                   "bias": ("params", "bias", "copy")}
+
+    def __init__(self, c: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def reset_parameters(self, gen):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        xf = x.to(promote(x, torch.empty((), dtype=torch.float32)))
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean) * mul + self.bias
+        return y.to(promote(x, self.weight, self.bias))

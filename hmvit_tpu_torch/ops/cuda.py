@@ -1,0 +1,156 @@
+"""Build, load and launch the hand-written CUDA kernels in ``csrc/``.
+
+All sources compile with nvcc, for ``sm_90a`` (Hopper), into ONE shared
+library with a plain C interface, bound with ctypes — seconds to build,
+against minutes for an extension that includes PyTorch's headers.  The
+build runs at the first launch (never at import), into ``_build/`` next
+to the package, under a name keyed by the sources' hash so an edited
+source never loads a stale library.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:class:`Kernel` raises on a non-zero code and counts successful
+launches, which is how a run proves the serving path went through the
+kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for root in ([home] if home else []) + ["/usr/local/cuda"]:
+        cand = Path(root) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels of hmvit_tpu_torch "
+                       "need the CUDA toolkit (set CUDA_HOME)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libhmvit_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into the shared library unless it exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+        if verbose:
+            print(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load_library(verbose: bool = False) -> ctypes.CDLL:
+    """Build (once per process) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build(verbose)))
+        return _lib
+
+
+class Kernel:
+    """One C entry point of the library plus its launch count.
+
+    ``n_ptrs`` leading pointer arguments, then ``n_ints`` int arguments,
+    then the stream; the C function returns a cudaError_t."""
+
+    def __init__(self, symbol: str, n_ptrs: int, n_ints: int):
+        self.symbol = symbol
+        self.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                         + [ctypes.c_void_p])
+        self.launches = 0
+        self._fn = None
+
+    def _bind(self):
+        if self._fn is None:
+            fn = getattr(load_library(), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, tensors, ints):
+        """Launch on the current stream of the tensors' device."""
+        dev = tensors[0].device
+        if dev.type != "cuda" or any(
+                t.device != dev or not t.is_contiguous() for t in tensors):
+            layout = [(str(t.device), t.is_contiguous()) for t in tensors]
+            raise ValueError(f"{self.symbol}: tensors must be contiguous and "
+                             f"on one CUDA device, got {layout}")
+        fn = self._bind()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            args = ([ctypes.c_void_p(t.data_ptr()) for t in tensors]
+                    + [ctypes.c_int(int(i)) for i in ints]
+                    + [ctypes.c_void_p(stream)])
+            rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"CUDA kernel {self.symbol} failed to launch: "
+                               f"cudaError {rc}")
+        self.launches += 1
+
+
+PAIR_WARP = Kernel("hm_pair_warp", n_ptrs=4, n_ints=8)
+STRIPE_WINDOW_ATTENTION = Kernel("hm_stripe_window_attention",
+                                 n_ptrs=5, n_ints=9)
+PLAIN_WINDOW_ATTENTION = Kernel("hm_plain_window_attention",
+                                n_ptrs=5, n_ints=9)
+KERNELS = {"pair_warp": PAIR_WARP,
+           "stripe_window_attention": STRIPE_WINDOW_ATTENTION,
+           "plain_window_attention": PLAIN_WINDOW_ATTENTION}
+
+
+def reset_launches():
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}

@@ -1,0 +1,194 @@
+"""Untyped multi-sender window attention (port of the serving half of
+``hmvit_tpu/ops/window_attention.py``).
+
+Two kernel wrappers, both over ``csrc/window_attention.cu``:
+
+* :func:`fused_stripe_window_attention` — local windows read straight
+  from unsplit (N, H, W, C) maps (replaces the Pallas
+  ``_stripe_kernel``);
+* :func:`fused_plain_window_attention` — pre-split (N, Wn, T, C) windows
+  (replaces the Pallas ``_plain_kernel``).
+
+For CPU tensors, or under :func:`hmvit_tpu_torch.ops.plain_ops`, each
+runs its plain twin built on :func:`plain_window_attention_xla`, the JAX
+package's oracle.  Backward passes recompute through the twins.  Every
+input q arrives pre-scaled by dim_head ** -0.5.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import cuda, use_kernel
+
+
+def plain_window_attention_xla(q, k, v, bias, mask, heads: int,
+                               dim_head: int):
+    """Plain twin: q (N, W, T, C); k, v (N, J, W, T, C); bias (heads,
+    T, T); mask (N, J, W, T).  Accumulates in float32 whatever the input
+    dtype; masked keys are set to -1e9, fully masked rows emit zero."""
+    n, w_cnt, t, c = q.shape
+    j = k.shape[1]
+    d = dim_head
+    f32 = torch.float32
+    qh = q.reshape(n, w_cnt, t, heads, d).to(f32)
+    kh = k.reshape(n, j, w_cnt, t, heads, d).to(f32)
+    vh = v.reshape(n, j, w_cnt, t, heads, d).to(f32)
+    sim = torch.einsum("nwthd,njwshd->njwhts", qh, kh)
+    sim = sim + bias.to(f32)[None, None, None]
+    sim = torch.where(mask[:, :, :, None, None, :] > 0, sim,
+                      torch.full((), -1e9, dtype=f32, device=sim.device))
+    sim = sim.movedim(1, -2)  # (n, w, h, t, j, s)
+    flat = sim.reshape(*sim.shape[:-2], j * t)
+    attn = torch.softmax(flat, dim=-1)
+    attn = torch.where(flat.amax(-1, keepdim=True) <= -5e8,
+                       torch.zeros_like(attn), attn)
+    attn = attn.reshape(sim.shape).movedim(-2, 1)
+    out = torch.einsum("njwhts,njwshd->nwthd", attn, vh)
+    return out.reshape(n, w_cnt, t, heads * d).to(q.dtype)
+
+
+def _split_local(z, win: int):
+    """(..., H, W, ch) -> (..., (H/win)*(W/win), win*win, ch)."""
+    *lead, h, w, ch = z.shape
+    z = z.reshape(*lead, h // win, win, w // win, win, ch).movedim(-3, -4)
+    return z.reshape(*lead, (h // win) * (w // win), win * win, ch)
+
+
+def _merge_local(z, win: int, h: int, w: int):
+    *lead, _, _, ch = z.shape
+    z = z.reshape(*lead, h // win, w // win, win, win, ch).movedim(-3, -4)
+    return z.reshape(*lead, h, w, ch)
+
+
+def stripe_window_attention_xla(q, kv, bias, mask, win: int, heads: int,
+                                dim_head: int):
+    """Plain twin of the stripe kernel: window-split, attend, merge.
+    q (N, H, W, C); kv (N, J, H, W, 2C); mask (N, J, H, W)."""
+    n, h, w, c = q.shape
+    kvw = _split_local(kv, win)
+    out = plain_window_attention_xla(
+        _split_local(q, win), kvw[..., :c], kvw[..., c:], bias,
+        _split_local(mask[..., None], win)[..., 0], heads, dim_head)
+    return _merge_local(out, win, h, w)
+
+
+def _attention_launch(kernel, q, kv, bias, mask, heads, dim_head, nwin, t,
+                      win, wcols):
+    if q.dtype not in cuda.DTYPE_CODES or kv.dtype != q.dtype:
+        raise TypeError(f"window attention: unsupported dtypes "
+                        f"{q.dtype}/{kv.dtype}")
+    n, *spatial, c = q.shape
+    j = kv.shape[1]
+    if (c != heads * dim_head or tuple(kv.shape) != (n, j, *spatial, 2 * c)
+            or tuple(mask.shape) != (n, j, *spatial)
+            or tuple(bias.shape) != (heads, t, t)):
+        raise ValueError(f"window attention: inconsistent shapes q "
+                         f"{tuple(q.shape)}, kv {tuple(kv.shape)}, mask "
+                         f"{tuple(mask.shape)}, bias {tuple(bias.shape)} for "
+                         f"{heads} heads of {dim_head}")
+    if j * t > 320 or dim_head > 64 or dim_head % 4 or t % 4:
+        raise ValueError(f"window attention kernel takes J*T <= 320, "
+                         f"dim_head <= 64 and both T and dim_head multiples "
+                         f"of 4, got J*T={j * t}, T={t}, d={dim_head}")
+    tensors = [q.contiguous(), kv.contiguous(),
+               bias.to(torch.float32).contiguous(),
+               mask.to(torch.float32).contiguous(), torch.empty_like(q)]
+    ints = [cuda.DTYPE_CODES[q.dtype], n, j, nwin, t, win, wcols, heads,
+            dim_head]
+    return lambda: kernel.launch(tensors, ints), tensors[-1]
+
+
+def stripe_window_attention_launch(q, kv, bias, mask, win, heads, dim_head):
+    """Validate and lay out one stripe-kernel launch: returns
+    (launch, out)."""
+    h, w = q.shape[1:3]
+    if h % win or w % win:
+        raise ValueError(f"map {(h, w)} not divisible by window {win}")
+    return _attention_launch(cuda.STRIPE_WINDOW_ATTENTION, q, kv, bias, mask,
+                             heads, dim_head, (h // win) * (w // win),
+                             win * win, win, w // win)
+
+
+def plain_window_attention_launch(q, kv, bias, mask, heads, dim_head):
+    """Validate and lay out one plain-kernel launch: returns
+    (launch, out)."""
+    nwin, t = q.shape[1:3]
+    return _attention_launch(cuda.PLAIN_WINDOW_ATTENTION, q, kv, bias, mask,
+                             heads, dim_head, nwin, t, 0, 0)
+
+
+def _run(prepared):
+    launch, out = prepared
+    launch()
+    return out
+
+
+def _plain_twin(q, kv, bias, mask, heads, dim_head):
+    c = q.shape[-1]
+    return plain_window_attention_xla(q, kv[..., :c], kv[..., c:], bias,
+                                      mask, heads, dim_head)
+
+
+def _recompute_grads(fn, inputs, g):
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(x.is_floating_point())
+                  for x in inputs]
+        out = fn(*leaves)
+        diff = [x for x in leaves if x.requires_grad]
+        grads = iter(torch.autograd.grad(out, diff, g, allow_unused=True))
+    return [next(grads) if x.requires_grad else None for x in leaves]
+
+
+class _StripeAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, kv, bias, mask, win, heads, dim_head):
+        ctx.save_for_backward(q, kv, bias, mask)
+        ctx.args = (win, heads, dim_head)
+        return _run(stripe_window_attention_launch(q, kv, bias, mask, win,
+                                                   heads, dim_head))
+
+    @staticmethod
+    def backward(ctx, g):
+        win, heads, d = ctx.args
+        grads = _recompute_grads(
+            lambda *a: stripe_window_attention_xla(*a, win, heads, d),
+            ctx.saved_tensors, g)
+        return (*grads, None, None, None)
+
+
+class _PlainAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, kv, bias, mask, heads, dim_head):
+        ctx.save_for_backward(q, kv, bias, mask)
+        ctx.args = (heads, dim_head)
+        return _run(plain_window_attention_launch(q, kv, bias, mask, heads,
+                                                  dim_head))
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, d = ctx.args
+        grads = _recompute_grads(
+            lambda *a: _plain_twin(*a, heads, d), ctx.saved_tensors, g)
+        return (*grads, None, None)
+
+
+def fused_stripe_window_attention(q, kv, bias, mask, win: int, heads: int,
+                                  dim_head: int):
+    """LOCAL window attention over unsplit maps: q (N, H, W, C), kv
+    (N, J, H, W, 2C) = [K | V], bias (heads, T, T), mask (N, J, H, W).
+    Returns (N, H, W, C)."""
+    if use_kernel(q):
+        return _StripeAttention.apply(q, kv, bias, mask, win, heads,
+                                      dim_head)
+    return stripe_window_attention_xla(q, kv, bias, mask, win, heads,
+                                       dim_head)
+
+
+def fused_plain_window_attention(q, kv, bias, mask, heads: int,
+                                 dim_head: int):
+    """Window attention over pre-split windows: q (N, Wn, T, C), kv
+    (N, J, Wn, T, 2C) = [K | V], bias (heads, T, T), mask (N, J, Wn, T).
+    Returns (N, Wn, T, C)."""
+    if use_kernel(q):
+        return _PlainAttention.apply(q, kv, bias, mask, heads, dim_head)
+    return _plain_twin(q, kv, bias, mask, heads, dim_head)

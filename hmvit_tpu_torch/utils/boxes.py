@@ -1,0 +1,62 @@
+"""Box geometry on tensors (torch versions of the numpy ``xp`` functions
+of ``hmvit_tpu/utils/boxes.py``).
+
+Boxes are ``(x, y, z, dims..., yaw)`` with dims ordered ``hwl`` or
+``lwh``; corners follow the reference numbering of the JAX package's
+``CORNER_TEMPLATE``: 0-3 the bottom face walked as a closed ring, 4-7
+the top face.  Rotations and transforms are written elementwise, as in
+the JAX package, so float32 geometry matches it operation for
+operation.
+"""
+from __future__ import annotations
+
+import torch
+from hmvit_tpu.utils.boxes import CORNER_TEMPLATE
+
+def boxes_to_corners_3d(boxes, order: str = "hwl"):
+    """(N, 7) center boxes -> (N, 8, 3) corners."""
+    if order == "hwl":
+        dims = boxes[:, [5, 4, 3]]
+    elif order == "lwh":
+        dims = boxes[:, 3:6]
+    else:
+        raise ValueError(f"unknown box order {order!r}")
+    tmpl = torch.as_tensor(CORNER_TEMPLATE, dtype=boxes.dtype,
+                           device=boxes.device)
+    corners = dims[:, None, :] * tmpl[None]
+    c = torch.cos(boxes[:, 6])[:, None]
+    s = torch.sin(boxes[:, 6])[:, None]
+    x, y, z = corners[..., 0], corners[..., 1], corners[..., 2]
+    corners = torch.stack([x * c - y * s, x * s + y * c, z], dim=-1)
+    return corners + boxes[:, None, 0:3]
+
+
+def project_corners(corners, transform):
+    """Transform (N, 8, 3) corners by a 4x4 matrix (elementwise)."""
+    n = corners.shape[0]
+    pts = corners.reshape(-1, 3)
+    pts = torch.cat([pts, torch.ones_like(pts[:, :1])], dim=1)
+    t = transform.to(pts.dtype)
+    return (pts[:, None, :] * t[None, :3, :]).sum(-1).reshape(n, 8, 3)
+
+
+def sane_size_mask(corners, max_len: float = 6.0):
+    x_len = corners[:, :, 0].amax(1) - corners[:, :, 0].amin(1)
+    y_len = corners[:, :, 1].amax(1) - corners[:, :, 1].amin(1)
+    return (x_len <= max_len) & (y_len <= max_len) & (y_len > 0)
+
+
+def sane_z_mask(corners, z_min: float = -3.0, z_max: float = 1.0):
+    return ((corners[:, :, 2].amin(1) >= z_min)
+            & (corners[:, :, 2].amax(1) <= z_max))
+
+
+def mask_corners_in_range(corners, limit_range):
+    """True where every corner's xy lies inside the range."""
+    lo = torch.as_tensor(limit_range[:2], dtype=corners.dtype,
+                         device=corners.device)
+    hi = torch.as_tensor(limit_range[3:5], dtype=corners.dtype,
+                         device=corners.device)
+    ok = ((corners[:, :, :2] >= lo).all(-1)
+          & (corners[:, :, :2] <= hi).all(-1))
+    return ok.all(-1)

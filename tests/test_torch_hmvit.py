@@ -1,0 +1,161 @@
+"""Port parity for the whole serving path: HMViT (lidar PointPillars +
+planar BEVFormer on ResNet-50/FPN, 2 H3GAT iterations, per-modality
+decoder) on a 4-agent mixed fleet with the serving hints of bench.py,
+then anchor decode and rotated NMS — against the JAX package on the
+CPU.  Float32; psm/rm within 1e-4 absolute (a 50-layer trunk and two
+fusion iterations of float32 sums); decoded boxes within 1e-3 m, kept
+box SETS equal (top-k and NMS may order equal scores differently).
+
+Also: neither the port nor chip_smoke.py imports jax or flax, and
+chip_smoke.py refuses to run (and prints no result) without a CUDA
+device."""
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hmvit_tpu.data.anchors import generate_anchor_grid
+from hmvit_tpu.models.hmvit import HMViT as JHMViT
+from hmvit_tpu.postprocess import decode_detections_device as jdecode
+from hmvit_tpu_torch.bridge import flax_to_state_dict
+from hmvit_tpu_torch.models.hmvit import HMViT
+from hmvit_tpu_torch.postprocess import decode_detections_device
+from hmvit_tpu_torch.utils.precision import strict_fp32
+from tiny_cfg import ANCHOR_ARGS
+from torch_parity import bridged, close, flax_variables, japply, t, \
+    tiny_batch, tiny_flagship_cfg
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    """One JAX reference run shared by the tests of this module."""
+    torch.set_num_threads(1)
+    cfg = tiny_flagship_cfg()
+    batch, _ = tiny_batch(0)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    modes = tuple(int(m) for m in batch["mode"][0, :4])
+    hints = dict(camera_bucket=int(sum(m == 0 for m in modes)),
+                 active_agents=4, static_ego_modality=modes[0],
+                 static_modes=modes)
+    jm = JHMViT(cfg)
+    v = flax_variables(jm, jb, train=False)
+    ref = japply(jm, v, jb, train=False, **hints)
+    anchors = generate_anchor_grid(ANCHOR_ARGS, "hwl")
+    jdet = jdecode(ref["psm"], ref["rm"], jnp.asarray(anchors),
+                   jnp.eye(4))
+    pm = bridged(HMViT(cfg), v)
+    return dict(cfg=cfg, batch=batch, hints=hints, variables=v, ref=ref,
+                anchors=anchors, jdet=jdet, model=pm)
+
+
+def _port_forward(f, **hints):
+    tb = {k: t(v) for k, v in f["batch"].items()}
+    with torch.no_grad():
+        return f["model"](tb, **hints)
+
+
+def test_hmvit_serving_hints_match_jax(flagship):
+    out = _port_forward(flagship, **flagship["hints"])
+    for key, shape in (("psm", (1, 2, 16, 16)), ("rm", (1, 14, 16, 16))):
+        assert tuple(out[key].shape) == shape
+        close(out[key], flagship["ref"][key], 1e-4)
+
+
+def test_run_both_equals_serving_buckets(flagship):
+    bucketed = _port_forward(flagship, **flagship["hints"])
+    run_both = _port_forward(flagship, active_agents=4)
+    for key in ("psm", "rm"):
+        close(run_both[key], bucketed[key].numpy(), 1e-5)
+
+
+def _kept(corners, scores, valid):
+    corners, scores = np.asarray(corners), np.asarray(scores)
+    valid = np.asarray(valid)
+    centers = corners[valid].mean(axis=1)
+    order = np.lexsort((centers[:, 1].round(2), centers[:, 0].round(2)))
+    return centers[order], scores[valid][order]
+
+
+def test_decode_and_nms_match_jax(flagship):
+    out = _port_forward(flagship, **flagship["hints"])
+    corners, scores, valid = decode_detections_device(
+        out["psm"], out["rm"], t(flagship["anchors"]), torch.eye(4))
+    jc, js, jv = flagship["jdet"]
+    assert corners.shape == np.asarray(jc).shape
+    got_c, got_s = _kept(corners, scores, valid)
+    want_c, want_s = _kept(jc, js, jv)
+    assert 0 < len(want_c) < valid.shape[0]  # NMS suppressed something
+    assert got_c.shape == want_c.shape
+    close(got_c, want_c, 1e-3)
+    close(got_s, want_s, 1e-4)
+
+
+def test_bridge_rejects_missing_and_extra_leaves(flagship):
+    v = jax.tree_util.tree_map(np.asarray, flagship["variables"])
+    params = dict(v["params"])
+    params.pop("fusion")
+    with pytest.raises(KeyError):
+        flax_to_state_dict(HMViT(flagship["cfg"]), dict(v, params=params))
+    extra = dict(v["params"], stray={"kernel": np.zeros(3, np.float32)})
+    with pytest.raises(KeyError):
+        flax_to_state_dict(HMViT(flagship["cfg"]), dict(v, params=extra))
+
+
+def test_strict_fp32_disables_tf32():
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with strict_fp32():
+            assert not torch.backends.cudnn.allow_tf32
+            assert not torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = (
+        "import pkgutil, sys, importlib\n"
+        "import hmvit_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(hmvit_tpu_torch.__path__,"
+        " 'hmvit_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'flax', 'jaxlib')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_chip_smoke_fails_without_cuda():
+    """On a machine without a CUDA device the smoke run must exit
+    non-zero and print no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    lines = res.stdout.strip().splitlines()
+    if lines:
+        try:
+            last = json.loads(lines[-1])
+        except ValueError:
+            last = None
+        assert not (isinstance(last, dict) and last.get("ok"))

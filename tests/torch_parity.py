@@ -1,0 +1,123 @@
+"""Shared helpers for the PyTorch-port parity tests (tests/test_torch_*):
+seeded numpy inputs and flax variables, the tiny mixed-fleet config, and
+the JAX -> port weight bridge."""
+from __future__ import annotations
+
+import copy
+
+import jax
+import numpy as np
+import torch
+
+# imported before any trace: the module builds jnp constants at import
+import hmvit_tpu.models.bevformer  # noqa: F401
+from hmvit_tpu_torch.bridge import load_flax
+
+from tiny_cfg import RANGE, TINY_CFG
+
+# tiny flagship: lidar PointPillars + bevformer planar camera branch on
+# a ResNet-50/FPN trunk, 2 H3GAT iterations (the serving structure of
+# bench.py PROD_CFG at test widths)
+TINY_CAMERA = {"encoder": "bevformer", "lift": "planar",
+               "backbone": "resnet50", "id_pick": [2, 3, 4], "fpn": True,
+               "fpn_channels": 16, "dim": 32, "bev_size": 16, "out_dim": 64,
+               "num_layers": 1, "heads": 2, "window": 4,
+               "num_points_in_pillar": 2, "decoder_layers": 0,
+               "bev_range": 20.48, "num_cams": 2}
+
+
+def tiny_flagship_cfg():
+    cfg = copy.deepcopy(TINY_CFG)
+    cfg["camera"] = copy.deepcopy(TINY_CAMERA)
+    cfg["hetero_fusion"]["num_iters"] = 2
+    return cfg
+
+
+def tiny_batch(seed=0, num_agents=4, max_cav=5):
+    from hmvit_tpu.data.synthetic import make_hetero_batch
+
+    batch, gt = make_hetero_batch(
+        seed=seed, max_cav=max_cav, num_agents=num_agents, max_points=512,
+        image_size=64, num_cams=2, camera_ratio=0.5, ego_mode="mixed",
+        lidar_range=RANGE)
+    for i in range(num_agents):  # alternating lidar/camera fleet
+        batch["mode"][:, i] = (i + 1) % 2
+    return batch, gt
+
+
+def random_variables(shapes, seed=0):
+    """A flax variables tree with the shapes of ``shapes`` (from
+    jax.eval_shape of init), drawn from numpy at fan-in scales, with
+    non-trivial BatchNorm statistics so eps and layout mistakes show."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        coll = str(getattr(path[0], "key", path[0]))
+        shp = s.shape
+        if coll == "batch_stats":
+            if name == "var":
+                return rng.uniform(0.5, 1.5, shp).astype(np.float32)
+            return (0.1 * rng.standard_normal(shp)).astype(np.float32)
+        if name == "kernel":
+            fan_in = shp[1] if len(shp) == 3 else int(np.prod(shp[:-1]))
+            return (rng.standard_normal(shp) / np.sqrt(fan_in)).astype(
+                np.float32)
+        if name == "scale":
+            return (1.0 + 0.1 * rng.standard_normal(shp)).astype(np.float32)
+        if name in ("relation_att", "relation_msg"):
+            return (rng.standard_normal(shp) / np.sqrt(shp[-1])).astype(
+                np.float32)
+        if name in ("rel_pos_bias", "bev_embedding"):
+            return (0.5 * rng.standard_normal(shp)).astype(np.float32)
+        return (0.1 * rng.standard_normal(shp)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def flax_variables(module, *args, seed=0, **kwargs):
+    """Random variables for a flax module, without running its init."""
+    shapes = jax.eval_shape(
+        lambda *a: module.init(jax.random.key(0), *a, **kwargs), *args)
+    return random_variables(shapes, seed)
+
+
+def bridged(port_module, variables):
+    """Load flax variables into a port module (eval mode, CPU)."""
+    load_flax(port_module, jax.tree_util.tree_map(np.asarray, variables))
+    return port_module.eval()
+
+
+def t(x):
+    """numpy / jax array -> torch tensor on the CPU."""
+    return torch.from_numpy(np.array(x))
+
+
+def close(got, want, atol, rtol=0.0):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+def rigid_pairwise(rng, b, l, max_t=8.0, angles=None):
+    """(B, L, L, 4, 4) pairwise transforms of random rigid agent poses;
+    pairwise[b, j, i] maps j's frame into i's."""
+    ang = (rng.uniform(-np.pi, np.pi, (b, l)) if angles is None
+           else np.broadcast_to(np.asarray(angles, np.float64), (b, l)))
+    pos = rng.uniform(-max_t, max_t, (b, l, 2))
+    m = np.tile(np.eye(4), (b, l, 1, 1))
+    m[:, :, 0, 0] = np.cos(ang)
+    m[:, :, 0, 1] = -np.sin(ang)
+    m[:, :, 1, 0] = np.sin(ang)
+    m[:, :, 1, 1] = np.cos(ang)
+    m[:, :, :2, 3] = pos
+    return np.einsum("bixy,bjyz->bjixz", np.linalg.inv(m), m).astype(
+        np.float32)
+
+
+def japply(module, variables, *arrays, **static):
+    """module.apply under jax.jit (one compile instead of per-op
+    dispatch); keyword arguments are static."""
+    return jax.jit(lambda v, *a: module.apply(v, *a, **static))(
+        variables, *arrays)
