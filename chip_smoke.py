@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port of the HM-ViT serving path.
+"""On-card smoke run of the PyTorch/CUDA port of HM-ViT.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
@@ -8,25 +8,45 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 Phases:
 
 1. require CUDA; print the card's name and power limit; build the CUDA
-   kernels from ``hmvit_tpu_torch/csrc`` (nvcc, sm_90a) and time it;
+   kernels from ``hmvit_tpu_torch/csrc`` (nvcc, sm_90a, one process per
+   source) and time it;
 2. check every kernel against its plain PyTorch twin on the card at the
-   serving shapes, in float32 (tight) and bfloat16 (stated tolerance),
-   and time, in bfloat16, the kernel launch alone, the whole wrapper and
-   the twin (CUDA events, median of 20 after warm-up);
-3. build the production forward: ``bench.py``'s ``PROD_CFG`` (4-agent
-   mixed fleet, 4 x 512^2 cameras per camera agent, 512^2 pillar grid,
-   128^2 x 256 BEV, 2 H3GAT iterations) and its request batch, with the
-   serving hints, weights drawn from a seeded ``torch.Generator``;
-4. run it in float32 with the kernels and with ``plain_ops()``, and
-   compare sigmoid(psm) and rm;
-5. answer 3 bfloat16 requests (batch seeds 0-2) through forward, anchor
-   decode and rotated NMS; every output must be finite and every kernel
-   must have launched on that path; then time 20 more requests (the 3
-   batches in turn) and print the median and spread of ms/frame.
+   production shapes, in float32 (tight) and bfloat16 (stated
+   tolerance); the resident pair warp must also equal the tile pair
+   warp, and the fused warp + attention kernel the pair warp followed
+   by the stripe attention kernel, bit for bit.  In bfloat16 it times
+   the kernel launch alone, the whole wrapper and the twin (CUDA events,
+   median of 20 after warm-up) and, for the attention kernels, the one
+   library call that computes the same attention
+   (``scaled_dot_product_attention`` over window-split heads with the
+   additive bias + mask, keys concatenated over senders) — a yardstick
+   only, the port never calls it — and works out each kernel's bound:
+   the larger of its bytes over the card's memory rate and its
+   operations over the card's peak rate;
+3. build the production forward: ``hmvit_tpu_torch.serving.PROD_CFG``
+   (4-agent mixed fleet, 4 x 512^2 cameras per camera agent, 512^2
+   pillar grid, 128^2 x 256 BEV, 2 H3GAT iterations) and its request
+   batch, with the serving hints, weights drawn from a seeded
+   ``torch.Generator``, in two variants: the split server (pair warp,
+   then stripe attention) and the ``use_fused_wa`` server (local phases
+   in the fused kernel);
+4. run both in float32 with the kernels and with ``plain_ops()``, and
+   compare sigmoid(psm) and rm; the two variants' kernel forwards must
+   be equal;
+5. answer 3 bfloat16 requests (batch seeds 0-2) through each server:
+   forward, anchor decode and rotated NMS; every output must be finite
+   and the launch counts must show each server's kernels (the fused
+   server: 2 fused launches per request and no stripe launch); then time
+   20 more requests per server in alternating blocks of 10 and print
+   the median and spread of ms/frame of each;
+6. run the typed-attention and resident-warp stages of
+   ``hmvit_tpu_torch.perf_lab``, the entry point that reaches those two
+   kernels, and count their launches.
 
-The script imports torch, numpy, the port and the jax-free numpy modules
-of the JAX package (synthetic batches, anchor grid) and ``bench.py``'s
-configuration, never jax itself.
+The script imports torch, numpy, the standard library and
+``hmvit_tpu_torch``: nothing of jax, of the JAX package ``hmvit_tpu`` or
+of ``bench.py`` (the port keeps its own copies of the batch generator,
+the anchor grid and the production configuration).
 
 The lines before the last are the per-kernel JSON record and the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.
@@ -41,15 +61,22 @@ import time
 
 import numpy as np
 
-# kernel vs plain twin on unit-normal inputs at the serving shapes.
+# kernel vs plain twin on unit-normal inputs at the production shapes.
 # float32: the same arithmetic in another summation order.
 FP32_ATOL = 1e-4
 # bfloat16: both sides compute in float32 from the same bf16 inputs and
 # round the output once; the warp's hat weights are rounded to bf16 at
 # slightly different points (fp32 hat vs bf16 1 - frac), so a few
-# output ulps (bf16 ulp = 1/64 at |x| in [2, 4)) may differ.
-BF16_ATOL = {"pair_warp": 0.0625, "stripe_window_attention": 0.0313,
-             "plain_window_attention": 0.0313}
+# output ulps (bf16 ulp = 1/64 at |x| in [2, 4)) may differ.  The fused
+# kernel attends over K/V that carry those ulps: V's pass through the
+# weighted sum and K's shift the scores and so the weights, hence twice
+# the warp's bound (its tight checks are float32 and the bit-for-bit
+# equality with the split kernels).
+BF16_ATOL = {"pair_warp": 0.0625, "pair_warp_resident": 0.0625,
+             "stripe_window_attention": 0.0313,
+             "plain_window_attention": 0.0313,
+             "typed_window_attention": 0.0313,
+             "warp_window_attention": 0.125}
 # full float32 forward, kernels vs plain twins: kernel rounding noise
 # (~1e-6 relative) carried through the decoder
 FORWARD_ATOL = 2e-3
@@ -61,19 +88,37 @@ KERNEL_META = {
                                 "hmvit_tpu/ops/window_attention.py:342"),
     "plain_window_attention": ("hmvit_tpu_torch/csrc/window_attention.cu",
                                "hmvit_tpu/ops/window_attention.py:157"),
+    "warp_window_attention": ("hmvit_tpu_torch/csrc/fused_warp_attention.cu",
+                              "hmvit_tpu/ops/fused_warp_attention.py:47"),
+    "pair_warp_resident": ("hmvit_tpu_torch/csrc/pair_warp.cu",
+                           "hmvit_tpu/ops/fused_warp.py:334"),
+    "typed_window_attention": ("hmvit_tpu_torch/csrc/window_attention.cu",
+                               "hmvit_tpu/ops/window_attention.py:26"),
 }
 
+# the path whose launch count each kernel's record carries
+KERNEL_PATH = {"pair_warp": "split", "stripe_window_attention": "split",
+               "plain_window_attention": "split",
+               "warp_window_attention": "fused_wa",
+               "pair_warp_resident": "perf_lab",
+               "typed_window_attention": "perf_lab"}
+
+# published peaks of one H100 SXM (dense): device memory bytes/s, and
+# operations/s by input type (bf16 on the tensor cores, float32 outside)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 NUM_AGENTS = 4
 TIMED_REQUESTS = 20
+TIMED_BLOCK = 10
 
 
 def prod_batch(seed: int):
-    """bench.py's request: 4 agents in 5 slots, alternating lidar /
+    """The production request: 4 agents in 5 slots, alternating lidar /
     camera, 30 000 points per lidar agent, 4 x 512^2 images per camera
     agent."""
-    from bench import PROD_RANGE
-    from hmvit_tpu.data.synthetic import make_hetero_batch
+    from hmvit_tpu_torch.data.synthetic import make_hetero_batch
+    from hmvit_tpu_torch.serving import PROD_RANGE
 
     batch, _ = make_hetero_batch(
         seed=seed, max_cav=5, num_agents=NUM_AGENTS, max_points=30000,
@@ -109,9 +154,21 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def bound_ms(tensors, out, ops: float, dtype_name: str):
+    """(ms, "bytes" | "operations"): the least time the card could take
+    — every tensor argument read once and the output written once at the
+    memory rate, or ``ops`` at the peak rate of the input type."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*tensors, out))
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
+        "operations"
+
+
 def check_kernels(dev, pairwise, agent_mask):
-    """Phase 2: each kernel vs its plain twin at the serving shapes."""
+    """Phase 2: each kernel vs its plain twin at the production shapes."""
     import torch
+    import torch.nn.functional as F
 
     from hmvit_tpu_torch.models.hetero_fusion import (
         _window_split,
@@ -122,11 +179,18 @@ def check_kernels(dev, pairwise, agent_mask):
         fused_pair_warp,
         pair_warp_launch,
     )
+    from hmvit_tpu_torch.ops.fused_warp_attention import (
+        fused_warp_window_attention,
+        warp_window_attention_launch,
+    )
     from hmvit_tpu_torch.ops.window_attention import (
+        _split_local,
         fused_plain_window_attention,
         fused_stripe_window_attention,
+        fused_window_attention,
         plain_window_attention_launch,
         stripe_window_attention_launch,
+        typed_window_attention_launch,
     )
     from hmvit_tpu_torch.utils.precision import strict_fp32
 
@@ -137,85 +201,219 @@ def check_kernels(dev, pairwise, agent_mask):
 
     l, hw, c, heads, d, win = 4, 128, 256, 8, 32, 8
     t = win * win
+    nwin = (hw // win) ** 2
     mode = torch.tensor([[1, 0, 1, 0]], device=dev)
     pair_mask = pairwise_roi_mask(pairwise, agent_mask, (hw, hw), 0.4, 4)
     mask_ij = pair_mask[0].movedim(-1, 1).contiguous()  # (I, J, H, W)
     mask_ij[0, :, :16, :16] = 0  # a fully masked patch: rows emit zeros
     bias = randn(heads, t, t) * 0.5
 
-    def warp(dt, ty, mode_, receivers):
+    def attention_ops(n, j, typed=False):
+        """Multiply-adds counted as 2: q k^T and p v over J*T keys per
+        (map, window, head); typed adds q W_att and v W_msg^T."""
+        per_head = 4 * t * j * t * d
+        if typed:
+            per_head += 2 * t * d * d * j + 2 * j * t * d * d
+        return float(n * nwin * heads * per_head)
+
+    def sdpa(qw, kw, vw, bias_, mw):
+        """The library call on pre-split windows: qw (N, Wn, T, C); kw,
+        vw (N, J, Wn, T, C); mw (N, J, Wn, T).  Operands are laid out
+        once; the returned function is the one timed call."""
+        n, wn = qw.shape[:2]
+        j = kw.shape[1]
+
+        def heads_first(z, keys):
+            z = z.reshape(n * wn, keys, heads, d)
+            return z.transpose(1, 2).contiguous()
+
+        q4 = heads_first(qw, t)
+        k4 = heads_first(kw.movedim(1, 2).reshape(n, wn, j * t, c), j * t)
+        v4 = heads_first(vw.movedim(1, 2).reshape(n, wn, j * t, c), j * t)
+        neg = torch.where(mw.movedim(1, 2) > 0, 0.0, -1e9).to(qw.dtype)
+        add = (bias_[None, :, :, None, :]
+               + neg.reshape(n * wn, 1, 1, j, t)).reshape(
+                   n * wn, heads, t, j * t).contiguous()
+        return lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=add, scale=1.0)
+
+    def warp(dt, ty, mode_, receivers, variant):
+        r = l if receivers is None else receivers
         args = (randn(1, ty, l, hw, hw, 2 * c).to(dt), pairwise, mode_,
                 0.4, 4, receivers)
-        return args, fused_pair_warp, pair_warp_launch
+        exact = None
+        if variant == "resident":
+            exact = lambda: fused_pair_warp(*args, variant="tile")  # noqa: E731
+        return dict(
+            args=args, tensors=args[:1],
+            fn=lambda *a: fused_pair_warp(*a, variant=variant),
+            prep=lambda *a: pair_warp_launch(*a, variant=variant),
+            exact=exact, library=None,
+            ops=12.0 * r * l * hw * hw * 2 * c)
 
     def stripe(dt):
         args = (randn(l, hw, hw, c).to(dt), randn(l, l, hw, hw, 2 * c).to(dt),
                 bias.to(dt), mask_ij.to(dt), win, heads, d)
-        return (args, fused_stripe_window_attention,
-                stripe_window_attention_launch)
+        q_, kv_, b_, m_ = args[:4]
+        kvw = _split_local(kv_, win)
+        return dict(
+            args=args, tensors=args[:4], fn=fused_stripe_window_attention,
+            prep=stripe_window_attention_launch, exact=None,
+            library=lambda: sdpa(_split_local(q_, win), kvw[..., :c],
+                                 kvw[..., c:], b_,
+                                 _split_local(m_[..., None], win)[..., 0]),
+            ops=attention_ops(l, l))
 
     def plain(dt, n, j, mask):
-        args = (randn(n, 256, t, c).to(dt), randn(n, j, 256, t, 2 * c).to(dt),
+        args = (randn(n, nwin, t, c).to(dt),
+                randn(n, j, nwin, t, 2 * c).to(dt), bias.to(dt), mask.to(dt),
+                heads, d)
+        q_, kv_, b_, m_ = args[:4]
+        return dict(
+            args=args, tensors=args[:4], fn=fused_plain_window_attention,
+            prep=plain_window_attention_launch, exact=None,
+            library=lambda: sdpa(q_, kv_[..., :c], kv_[..., c:], b_, m_),
+            ops=attention_ops(n, j))
+
+    def typed(dt):
+        mask = grid_mask.clone()
+        mask[0, :, 0] = 0  # receiver 0, window 0: fully masked rows
+        args = (randn(l, nwin, t, c).to(dt), randn(l, l, nwin, t, c).to(dt),
+                randn(l, l, nwin, t, c).to(dt),
+                (randn(l, l, heads, d, d) * d ** -0.5).to(dt),
+                (randn(l, l, heads, d, d) * d ** -0.5).to(dt),
                 bias.to(dt), mask.to(dt), heads, d)
-        return (args, fused_plain_window_attention,
-                plain_window_attention_launch)
+        q_, k_, v_, wa_, wm_, b_, m_ = args[:7]
+
+        def library():
+            # the relation matrices move onto K and V outside the timed
+            # call: (q W) k^T = q (k W^T)^T
+            kh = k_.reshape(l, l, nwin, t, heads, d).float()
+            vh = v_.reshape(l, l, nwin, t, heads, d).float()
+            k2 = torch.einsum("njwshe,njhde->njwshd", kh, wa_.float())
+            v2 = torch.einsum("njwshe,njhde->njwshd", vh, wm_.float())
+            return sdpa(q_, k2.reshape(k_.shape).to(dt),
+                        v2.reshape(v_.shape).to(dt), b_, m_)
+
+        return dict(
+            args=args, tensors=args[:7], fn=fused_window_attention,
+            prep=typed_window_attention_launch, exact=None, library=library,
+            ops=attention_ops(l, l, typed=True))
+
+    def fused(dt, ty, mode_, receivers):
+        r = l if receivers is None else receivers
+        # q scaled as the module scales it: the scores keep unit variance
+        args = ((randn(r, hw, hw, c) * d ** -0.5).to(dt),
+                randn(1, ty, l, hw, hw, 2 * c).to(dt), pairwise, mode_,
+                mask_ij[:r].to(dt), bias.to(dt), win, heads, d, 0.4, 4,
+                receivers)
+        q_, src_, _, _, m_, b_ = args[:6]
+
+        def exact():
+            kv_pair = fused_pair_warp(src_, pairwise, mode_, 0.4, 4,
+                                      receivers)
+            return fused_stripe_window_attention(
+                q_, kv_pair.reshape(r, l, hw, hw, 2 * c), b_, m_, win, heads,
+                d)
+
+        return dict(
+            args=args, tensors=(q_, src_, m_, b_),
+            fn=fused_warp_window_attention,
+            prep=warp_window_attention_launch, exact=exact, library=None,
+            ops=attention_ops(r, l) + 12.0 * r * l * hw * hw * 2 * c)
 
     grid_mask = _window_split(mask_ij[..., None], win, "grid")[..., 0] \
-        .reshape(l, l, 256, t)
+        .reshape(l, l, nwin, t)
+    ego_mode = torch.zeros_like(mode)
+    # the first variant of each kernel is the one its record carries
     cases = {
         "pair_warp": [
-            ("local I=4 TY=2", lambda dt: warp(dt, 2, mode, None)),
-            ("ego I=1 TY=1", lambda dt: warp(dt, 1, torch.zeros_like(mode),
-                                             1)),
+            ("local I=4 TY=2", lambda dt: warp(dt, 2, mode, None, "tile")),
+            ("ego I=1 TY=1", lambda dt: warp(dt, 1, ego_mode, 1, "tile")),
         ],
         "stripe_window_attention": [("local J=4", stripe)],
         "plain_window_attention": [
             ("grid J=4", lambda dt: plain(dt, l, l, grid_mask)),
             ("camera J=1", lambda dt: plain(
-                dt, 2, 1, torch.ones(2, 1, 256, t, device=dev))),
+                dt, 2, 1, torch.ones(2, 1, nwin, t, device=dev))),
         ],
+        "warp_window_attention": [
+            ("local I=4 TY=2", lambda dt: fused(dt, 2, mode, None)),
+            ("ego I=1 TY=1", lambda dt: fused(dt, 1, ego_mode, 1)),
+        ],
+        "pair_warp_resident": [
+            ("local I=4 TY=2",
+             lambda dt: warp(dt, 2, mode, None, "resident")),
+            ("ego I=1 TY=1",
+             lambda dt: warp(dt, 1, ego_mode, 1, "resident")),
+        ],
+        "typed_window_attention": [("N=J=4", typed)],
     }
     record = {}
     for name, variants in cases.items():
+        rec = None
         bf16_err = 0.0
-        ms = plain_ms = None
         for label, make in variants:
             for dt, tol in ((torch.float32, FP32_ATOL),
                             (torch.bfloat16, BF16_ATOL[name])):
-                args, fn, prep = make(dt)
+                case = make(dt)
+                args, fn = case["args"], case["fn"]
+                key = str(dt).split(".")[-1]
                 with strict_fp32():
                     got = fn(*args)
                     with plain_ops():
                         want = fn(*args)
+                    same = case["exact"]() if case["exact"] else None
                 torch.cuda.synchronize()
                 if got.shape != want.shape or got.dtype != want.dtype:
                     raise AssertionError(f"{name} {label}: {got.shape} "
                                          f"{got.dtype} vs {want.shape}")
                 err = float((got.float() - want.float()).abs().max())
-                key = str(dt).split(".")[-1]
                 print(f"  {name} [{label}, {key}]: max_abs_err {err:.3e} "
                       f"(tol {tol})")
                 if not np.isfinite(err) or err > tol:
                     raise AssertionError(
                         f"{name} {label} {key}: kernel vs plain twin "
                         f"max_abs_err {err} > {tol}")
+                if same is not None:
+                    diff = float((got.float() - same.float()).abs().max())
+                    print(f"  {name} [{label}, {key}]: max|diff| against "
+                          f"the split kernels {diff:.1e}")
+                    if not torch.equal(got, same):
+                        raise AssertionError(
+                            f"{name} {label} {key}: differs from the kernels "
+                            f"it must equal bit for bit (max|diff| {diff})")
                 if dt == torch.bfloat16:
                     bf16_err = max(bf16_err, err)
                     # the kernel alone (inputs laid out once), the whole
-                    # wrapper (geometry prep, layout, launch) and the twin
-                    launch, _ = prep(*args)
+                    # wrapper (geometry prep, layout, launch), the twin,
+                    # and the library call where there is one
+                    launch, out = case["prep"](*args)
                     k_ms = time_ms(launch)
                     w_ms = time_ms(lambda: fn(*args))
                     with plain_ops():
                         p_ms = time_ms(lambda: fn(*args))
+                    lib_ms = None
+                    if case["library"] is not None:
+                        call = case["library"]()
+                        lib_ms = time_ms(call)
+                        del call
+                    b_ms, b_by = bound_ms(case["tensors"], out, case["ops"],
+                                          key)
+                    lib_txt = ("none" if lib_ms is None
+                               else f"{lib_ms:.4f} ms")
                     print(f"  {name} [{label}, bfloat16]: kernel {k_ms:.4f} "
                           f"ms, wrapper {w_ms:.4f} ms, plain twin "
-                          f"{p_ms:.4f} ms")
-                    if ms is None:  # the first variant is the record's
-                        ms, plain_ms = k_ms, p_ms
-                del args, got, want
-        record[name] = {"max_abs_err": bf16_err, "ms": ms,
-                        "plain_ms": plain_ms}
+                          f"{p_ms:.4f} ms, library call {lib_txt}, bound "
+                          f"{b_ms:.4f} ms ({b_by})")
+                    if rec is None:
+                        rec = {"ms": k_ms, "plain_ms": p_ms,
+                               "bound_ms": b_ms, "bound_by": b_by,
+                               "library_ms": lib_ms}
+                    del launch, out
+                del case, args, got, want, same
+                torch.cuda.empty_cache()
+        record[name] = dict(rec, max_abs_err=bf16_err)
     return record
 
 
@@ -226,13 +424,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    from bench import PROD_CFG, PROD_RANGE
-    from hmvit_tpu.data.anchors import generate_anchor_grid
+    from hmvit_tpu_torch import perf_lab
+    from hmvit_tpu_torch.data.anchors import generate_anchor_grid
     from hmvit_tpu_torch.models.hmvit import HMViT
     from hmvit_tpu_torch.nn import init_parameters
     from hmvit_tpu_torch.ops import cuda, plain_ops
     from hmvit_tpu_torch.postprocess import decode_detections_device
     from hmvit_tpu_torch.serving import (
+        PROD_CFG,
+        PROD_RANGE,
         batch_to_device,
         serving_config,
         serving_hints,
@@ -255,10 +455,17 @@ def main() -> int:
                            geo["agent_mask"][:, :4])
     torch.cuda.empty_cache()
 
-    # -- 3. the production model -------------------------------------------
+    # -- 3. the production model, split and use_fused_wa ---------------------
     hints = serving_hints(batch0["mode"][0], NUM_AGENTS)
-    model32 = init_parameters(HMViT(serving_config(PROD_CFG, bf16=False)),
-                              seed=0).to(dev).eval()
+    variants = {"split": False, "fused_wa": True}
+
+    def build(bf16: bool, fused_wa: bool):
+        model = init_parameters(
+            HMViT(serving_config(PROD_CFG, bf16=bf16, fused_wa=fused_wa)),
+            seed=0)
+        model = model.to(dev, torch.bfloat16) if bf16 else model.to(dev)
+        return model.eval()
+
     # the anchors of the 512^2 pillar grid at feature stride 4 (128^2)
     anchor_args = {"W": 512, "H": 512, "l": 3.9, "w": 1.6, "h": 1.56,
                    "r": [0, 90], "num": 2, "feature_stride": 4,
@@ -266,54 +473,82 @@ def main() -> int:
     anchors = torch.as_tensor(generate_anchor_grid(anchor_args, "hwl"),
                               dtype=torch.float32, device=dev)
     eye = torch.eye(4, device=dev)
+    # launches per request each server must show (0: must not launch)
+    per_request = {
+        "split": {"pair_warp": 4, "stripe_window_attention": 2,
+                  "plain_window_attention": 5, "warp_window_attention": 0},
+        "fused_wa": {"pair_warp": 2, "stripe_window_attention": 0,
+                     "plain_window_attention": 5,
+                     "warp_window_attention": 2},
+    }
 
-    # -- 4. float32 forward: kernels vs plain twins -------------------------
-    cuda.reset_launches()
-    with torch.no_grad(), strict_fp32():
-        out_k = model32(geo, **hints)
-        fp32_counts = cuda.launch_counts()
-        print(f"fp32 forward with kernels: launches {fp32_counts}")
-        if min(fp32_counts.values()) <= 0:
-            raise AssertionError("fp32 forward skipped a kernel")
-        with plain_ops():
-            out_p = model32(geo, **hints)
-    torch.cuda.synchronize()
-    for key, fn in (("psm", torch.sigmoid), ("rm", lambda z: z)):
-        a, b = fn(out_k[key].float()), fn(out_p[key].float())
-        scale = max(1.0, float(b.abs().max()))
-        err = float((a - b).abs().max()) / scale
-        print(f"forward fp32 {key} {tuple(a.shape)}: kernels vs plain "
-              f"max_abs_err/scale {err:.3e} (tol {FORWARD_ATOL})")
-        if not (torch.isfinite(a).all() and err <= FORWARD_ATOL):
-            raise AssertionError(f"fp32 forward {key} disagrees: {err}")
-    # decode + NMS over every anchor (threshold 0: random weights put all
-    # scores near the focal prior 0.01, under the serving threshold)
-    kept = []
-    for out in (out_k, out_p):
-        corners, _, valid = decode_detections_device(
-            out["psm"], out["rm"], anchors, eye, score_threshold=0.0)
-        kept.append(corners[valid])
-    print(f"fp32 decode+NMS at threshold 0: kept {len(kept[0])} (kernels) "
-          f"vs {len(kept[1])} (plain) of 512 candidates")
-    if kept[0].shape != kept[1].shape or \
-            float((kept[0] - kept[1]).abs().max()) > 1e-3:
-        raise AssertionError("fp32 decode+NMS: kernels and plain twins keep "
-                             "different boxes")
-    del model32, out_k, out_p
-    torch.cuda.empty_cache()
+    def check_counts(what, name, counts, requests):
+        for kernel, n in per_request[name].items():
+            if counts[kernel] != n * requests:
+                raise AssertionError(
+                    f"{what} ({name}): {kernel} launched {counts[kernel]} "
+                    f"times, expected {n * requests}")
 
-    # -- 5. three bfloat16 requests through forward, decode, NMS ------------
-    model16 = init_parameters(HMViT(serving_config(PROD_CFG, bf16=True)),
-                              seed=0).to(dev, torch.bfloat16).eval()
+    # -- 4. float32 forward: kernels vs plain twins, fused vs split -----------
+    outs32 = {}
+    for name, fused_wa in variants.items():
+        model32 = build(False, fused_wa)
+        cuda.reset_launches()
+        with torch.no_grad(), strict_fp32():
+            out_k = model32(geo, **hints)
+            counts = cuda.launch_counts()
+            print(f"fp32 forward ({name}) with kernels: launches {counts}")
+            check_counts("fp32 forward", name, counts, 1)
+            with plain_ops():
+                out_p = model32(geo, **hints)
+        torch.cuda.synchronize()
+        for key, fn in (("psm", torch.sigmoid), ("rm", lambda z: z)):
+            a, b = fn(out_k[key].float()), fn(out_p[key].float())
+            scale = max(1.0, float(b.abs().max()))
+            err = float((a - b).abs().max()) / scale
+            print(f"forward fp32 ({name}) {key} {tuple(a.shape)}: kernels vs "
+                  f"plain max_abs_err/scale {err:.3e} (tol {FORWARD_ATOL})")
+            if not (torch.isfinite(a).all() and err <= FORWARD_ATOL):
+                raise AssertionError(f"fp32 forward ({name}) {key} "
+                                     f"disagrees: {err}")
+        # decode + NMS over every anchor (threshold 0: random weights put
+        # all scores near the focal prior 0.01, under the serving threshold)
+        kept = []
+        for out in (out_k, out_p):
+            corners, _, valid = decode_detections_device(
+                out["psm"], out["rm"], anchors, eye, score_threshold=0.0)
+            kept.append(corners[valid])
+        print(f"fp32 decode+NMS ({name}) at threshold 0: kept {len(kept[0])} "
+              f"(kernels) vs {len(kept[1])} (plain) of 512 candidates")
+        if kept[0].shape != kept[1].shape or \
+                float((kept[0] - kept[1]).abs().max()) > 1e-3:
+            raise AssertionError(f"fp32 decode+NMS ({name}): kernels and "
+                                 f"plain twins keep different boxes")
+        outs32[name] = out_k
+        del model32, out_p
+        torch.cuda.empty_cache()
+    for key in ("psm", "rm"):
+        diff = float((outs32["split"][key] - outs32["fused_wa"][key])
+                     .abs().max())
+        print(f"forward fp32 {key}: use_fused_wa vs split max|diff| "
+              f"{diff:.1e}")
+        if not torch.equal(outs32["split"][key], outs32["fused_wa"][key]):
+            raise AssertionError(f"fp32 forward {key}: the use_fused_wa "
+                                 f"forward differs from the split forward")
+    del outs32
+
+    # -- 5. bfloat16 requests through forward, decode, NMS -------------------
+    servers = {name: build(True, fused_wa)
+               for name, fused_wa in variants.items()}
     requests = [batch_to_device(prod_batch(s), dev, bf16=True)
                 for s in range(3)]
 
-    def serve(b):
+    def serve(model, b):
         """One request; returns the outputs and the host-clock ms of the
         forward and of decode + NMS (the card synchronised after each)."""
         t0 = time.perf_counter()
         with torch.no_grad():
-            out = model16(b, **hints)
+            out = model(b, **hints)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             det = decode_detections_device(out["psm"], out["rm"], anchors,
@@ -322,44 +557,66 @@ def main() -> int:
         t2 = time.perf_counter()
         return out, det, ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
 
-    serve(requests[0])  # warm-up (cuDNN autotune, allocator)
-    cuda.reset_launches()
-    for i, b in enumerate(requests):
-        out, (corners, scores, valid), stages = serve(b)
-        for key, shape in (("psm", (1, 2, 128, 128)),
-                           ("rm", (1, 14, 128, 128))):
-            if tuple(out[key].shape) != shape or \
-                    not torch.isfinite(out[key].float()).all():
-                raise AssertionError(f"request {i}: bad {key} "
-                                     f"{tuple(out[key].shape)}")
-        if not torch.isfinite(corners).all():
-            raise AssertionError(f"request {i}: non-finite boxes")
-        print(f"request {i}: {sum(stages):.2f} ms (forward {stages[0]:.2f}"
-              f", decode + NMS {stages[1]:.2f}), {int(valid.sum())} boxes "
-              f"kept")
-    counts = cuda.launch_counts()
-    print(f"launches during the 3 requests: {counts}")
-    missing = [k for k, n in counts.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the serving path: "
-                             f"{missing}")
-    stage_ms = np.asarray([serve(requests[i % len(requests)])[2]
-                           for i in range(TIMED_REQUESTS)])
-    frame_ms = stage_ms.sum(axis=1)
-    fwd_ms, dec_ms = np.median(stage_ms, axis=0)
-    print(f"bf16 serving, {TIMED_REQUESTS} requests: median "
-          f"{float(np.median(frame_ms)):.2f} ms/frame (min "
-          f"{float(frame_ms.min()):.2f}, max {float(frame_ms.max()):.2f}; "
-          f"forward + decode + NMS, batch 1; medians forward "
-          f"{fwd_ms:.2f} ms, decode + NMS {dec_ms:.2f} ms) on {card}")
+    path_counts = {}
+    for name, model in servers.items():
+        serve(model, requests[0])  # warm-up (cuDNN autotune, allocator)
+        cuda.reset_launches()
+        for i, b in enumerate(requests):
+            out, (corners, scores, valid), stages = serve(model, b)
+            for key, shape in (("psm", (1, 2, 128, 128)),
+                               ("rm", (1, 14, 128, 128))):
+                if tuple(out[key].shape) != shape or \
+                        not torch.isfinite(out[key].float()).all():
+                    raise AssertionError(f"{name} request {i}: bad {key} "
+                                         f"{tuple(out[key].shape)}")
+            if not torch.isfinite(corners).all():
+                raise AssertionError(f"{name} request {i}: non-finite boxes")
+            print(f"{name} request {i}: {sum(stages):.2f} ms (forward "
+                  f"{stages[0]:.2f}, decode + NMS {stages[1]:.2f}), "
+                  f"{int(valid.sum())} boxes kept")
+        path_counts[name] = cuda.launch_counts()
+        print(f"launches during the 3 {name} requests: {path_counts[name]}")
+        check_counts("bf16 serving", name, path_counts[name], len(requests))
+    # split, fused, fused, split: both servers see the card in the same
+    # states, TIMED_REQUESTS requests each
+    stage_ms = {name: [] for name in servers}
+    blocks = TIMED_REQUESTS // TIMED_BLOCK
+    order = [n for i in range(blocks)
+             for n in (("split", "fused_wa") if i % 2 == 0
+                       else ("fused_wa", "split"))]
+    for name in order:
+        done = len(stage_ms[name])
+        stage_ms[name] += [
+            serve(servers[name], requests[(done + i) % len(requests)])[2]
+            for i in range(TIMED_BLOCK)]
+    for name, rows in stage_ms.items():
+        rows = np.asarray(rows)
+        frame_ms = rows.sum(axis=1)
+        fwd_ms, dec_ms = np.median(rows, axis=0)
+        print(f"bf16 serving ({name}), {len(rows)} requests: median "
+              f"{float(np.median(frame_ms)):.2f} ms/frame (min "
+              f"{float(frame_ms.min()):.2f}, max {float(frame_ms.max()):.2f}"
+              f"; forward + decode + NMS, batch 1; medians forward "
+              f"{fwd_ms:.2f} ms, decode + NMS {dec_ms:.2f} ms) on {card}")
+    del servers, requests
+    torch.cuda.empty_cache()
 
-    kernels = [{"name": name, "route": "cuda",
-                "source": KERNEL_META[name][0],
-                "replaces": KERNEL_META[name][1],
-                "launches": counts[name],
-                "max_abs_err": rec["max_abs_err"],
-                "ms": rec["ms"], "plain_ms": rec["plain_ms"]}
-               for name, rec in record.items()]
+    # -- 6. the lab stages that reach the typed and resident kernels ---------
+    cuda.reset_launches()
+    perf_lab.run_stages(["attn", "pairwarp_res"], dev, iters=5)
+    path_counts["perf_lab"] = cuda.launch_counts()
+    print(f"launches during the perf_lab stages: {path_counts['perf_lab']}")
+
+    kernels = []
+    for name, rec in record.items():
+        launches = path_counts[KERNEL_PATH[name]][name]
+        if launches <= 0:
+            raise AssertionError(f"{name} never launched on its path "
+                                 f"({KERNEL_PATH[name]})")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": KERNEL_META[name][0],
+                        "replaces": KERNEL_META[name][1],
+                        "launches": launches, **rec})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 // Pair warp: every sender's typed K/V map resampled into every receiver's
-// BEV frame.
+// BEV frame.  Two kernels with one contract and bit-identical outputs.
 //
-// Replaces the Pallas kernel hmvit_tpu/ops/fused_warp.py::_warp_kernel
-// (pallas_pair_warp, tile variant).  Same contract: for receiver n
+// pair_warp_kernel replaces the Pallas kernel
+// hmvit_tpu/ops/fused_warp.py::_warp_kernel (pallas_pair_warp, tile
+// variant).  The contract: for receiver n
 // (= b * R + i) and sender j, read sender j's map in receiver n's type
 // variant, src[b, rtype[n], j], and warp it with the two-pass separable
 // bilinear resample of hmvit_tpu/ops/shear_warp.py:
@@ -12,7 +13,8 @@
 // to the compute type, the pass-1 value rounded to the compute type
 // before pass 2, taps outside [0, size) contributing zero, the source
 // read transposed when the conditioning swap is set, identity pairs
-// copied, and pairs with non-finite coefficients written as zeros.
+// copied, and pairs with non-finite coefficients written as zeros (the
+// taps live in warp_taps.cuh).
 //
 // What bounds it on the H100: bytes.  At the serving shapes (16 pairs of
 // 128 x 128 x 512 bf16) the output alone is 134 MB and every output
@@ -24,60 +26,25 @@
 // L1/L2, so device memory sees each source map about once per pair.
 // No shared memory, no tiles: the TPU's 32 x 32 destination tiles and
 // 56 x 56 DMA windows existed to feed the MXU from VMEM.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+//
+// pair_warp_resident_kernel replaces the Pallas kernel
+// hmvit_tpu/ops/fused_warp.py::_warp_kernel_resident
+// (pallas_pair_warp(variant="resident")): each source map is fetched
+// once per (receiver, sender) pair and every destination pixel reads it
+// from on-chip memory.  On this card "on-chip" is the block's shared
+// memory: one block owns a (pair, channel slab) of 8 bytes per pixel (4
+// bf16 or 2 fp32 channels), stages that slab of the whole S x S source
+// map once (S = 128: 128 KB of the 227 KB a block may use), and produces
+// every destination pixel of the slab from it with the same taps.  Still
+// bound by bytes, and the narrow slab costs it: device-memory reads and
+// writes are 8-byte segments one pixel row of channels (C * itemsize
+// bytes) apart, a quarter of a 32-byte sector each, which L2 has to
+// absorb.  Identity and invalid pairs skip the staging.
+#include "warp_taps.cuh"
 
 namespace {
 
-template <typename T>
-struct Vec8;
-
-template <>
-struct Vec8<float> {
-  static __device__ __forceinline__ void load(const float* p, float v[8]) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    const float4 b = *reinterpret_cast<const float4*>(p + 4);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float v[8]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Vec8<__nv_bfloat16> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float v[8]) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h2[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float v[8]) {
-    uint4 raw;
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      h2[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    }
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
-
-__device__ __forceinline__ float hat(float coord, float cell) {
-  return fmaxf(0.f, 1.f - fabsf(coord - cell));
-}
+using hm::WarpTaps;
 
 // coef rows (n, j, 8): m00 m01 tx v0 v1 ty_adj swap flag, where flag is
 // 0 = warp, 1 = identity copy, 2 = invalid pair (zeros).
@@ -109,66 +76,80 @@ __global__ void pair_warp_kernel(const T* __restrict__ src,
       src + (((long long)b * ty_count + rtype[n]) * nj + j) *
                 (long long)size * size * c +
       cv * 8;
-  T* dst = out + idx * 8;
-
+  const WarpTaps taps = hm::plan_taps<T>(cf, x, y, size);
   float acc[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-  const float flag = cf[7];
-  if (flag > 1.5f) {
-    Vec8<T>::store(dst, acc);
-    return;
-  }
-  if (flag > 0.5f) {
-    float v[8];
-    Vec8<T>::load(base + ((long long)y * size + x) * c, v);
-    Vec8<T>::store(dst, v);
-    return;
-  }
-  const float m00 = cf[0], m01 = cf[1], tx = cf[2];
-  const float v0 = cf[3], v1 = cf[4], tya = cf[5];
-  const bool swap = cf[6] > 0.5f;
-  const float xf = (float)x, yf = (float)y;
-  const float fsize = (float)size;
-  // explicit rounding steps: the same fp32 operation order as the JAX
-  // coordinate math, with no fused multiply-add contraction
-  const float cc =
-      __fadd_rn(__fadd_rn(__fmul_rn(m00, xf), __fmul_rn(m01, yf)), tx);
-  const float c0 = floorf(cc);
-#pragma unroll
-  for (int dc = 0; dc < 2; ++dc) {
-    const float ccell = c0 + (float)dc;
-    const float w2 = Vec8<T>::round(hat(cc, ccell));
-    if (w2 == 0.f || ccell < 0.f || ccell >= fsize) continue;
-    const int ci = (int)ccell;
-    const float rc =
-        __fadd_rn(__fadd_rn(__fmul_rn(v1, yf), __fmul_rn(v0, ccell)), tya);
-    const float r0 = floorf(rc);
-    float tmp[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) tmp[k] = 0.f;
-#pragma unroll
-    for (int dr = 0; dr < 2; ++dr) {
-      const float rcell = r0 + (float)dr;
-      const float w1 = Vec8<T>::round(hat(rc, rcell));
-      if (w1 == 0.f || rcell < 0.f || rcell >= fsize) continue;
-      const int ri = (int)rcell;
-      // src_in[row, col] is the map transposed when swapped
-      const int hh = swap ? ci : ri;
-      const int ww = swap ? ri : ci;
-      float v[8];
-      Vec8<T>::load(base + ((long long)hh * size + ww) * c, v);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) tmp[k] += w1 * v[k];
+  hm::apply_taps<T, 8>(taps, base, c, y * size + x, acc);
+  hm::store_vec<T, 8>(out + idx * 8, acc);
+}
+
+constexpr int kResidentThreads = 512;
+constexpr int kSlabBytes = 8;  // per pixel: 4 bf16 or 2 fp32 channels
+constexpr int kMaxSharedBytes = 232448;  // 227 KB, a Hopper block's limit
+
+// grid (pairs, C / slab channels); dynamic shared memory size * size * 8.
+template <typename T>
+__global__ void __launch_bounds__(kResidentThreads)
+pair_warp_resident_kernel(const T* __restrict__ src,
+                          const float* __restrict__ coef,
+                          const int* __restrict__ rtype, T* __restrict__ out,
+                          int nj, int ty_count, int n_recv, int size, int c) {
+  constexpr int kSlab = kSlabBytes / (int)sizeof(T);
+  extern __shared__ uint2 slab_words[];
+  const T* slab = reinterpret_cast<const T*>(slab_words);
+  const int pair = blockIdx.x;
+  const int n = pair / nj, j = pair - n * nj;
+  const int b = n / n_recv;
+  const int npix = size * size;
+  const float* cf = coef + (long long)pair * 8;
+  const T* map = src +
+                 (((long long)b * ty_count + rtype[n]) * nj + j) *
+                     (long long)npix * c +
+                 blockIdx.y * kSlab;
+  T* dst = out + (long long)pair * npix * c + blockIdx.y * kSlab;
+  // the flag is the pair's: uniform over the block
+  const bool staged = cf[7] <= 0.5f;
+  if (staged) {
+    for (int p = threadIdx.x; p < npix; p += blockDim.x) {
+      slab_words[p] =
+          *reinterpret_cast<const uint2*>(map + (long long)p * c);
     }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] += w2 * Vec8<T>::round(tmp[k]);
+    __syncthreads();
   }
-  Vec8<T>::store(dst, acc);
+  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
+    const int y = p / size, x = p - y * size;
+    const WarpTaps taps = hm::plan_taps<T>(cf, x, y, size);
+    float acc[kSlab];
+    if (staged) {
+      hm::apply_taps<T, kSlab>(taps, slab, kSlab, p, acc);
+    } else {
+      hm::apply_taps<T, kSlab>(taps, map, c, p, acc);
+    }
+    hm::store_vec<T, kSlab>(dst + (long long)p * c, acc);
+  }
+}
+
+template <typename T>
+int launch_resident(const void* src, const void* coef, const void* rtype,
+                    void* out, int n_pairs_recv, int nj, int ty_count,
+                    int n_recv, int size, int c, cudaStream_t s) {
+  constexpr int kSlab = kSlabBytes / (int)sizeof(T);
+  const size_t bytes = (size_t)size * size * kSlabBytes;
+  if (bytes > (size_t)kMaxSharedBytes || c / kSlab > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      pair_warp_resident_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_pairs_recv * nj, c / kSlab);
+  pair_warp_resident_kernel<T><<<grid, kResidentThreads, bytes, s>>>(
+      static_cast<const T*>(src), static_cast<const float*>(coef),
+      static_cast<const int*>(rtype), static_cast<T*>(out), nj, ty_count,
+      n_recv, size, c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
-
 // src (B, TY, J, S, S, C); coef (N, J, 8) f32; rtype (N,) i32;
 // out (N, J, S, S, C) with N = B * n_recv.  dtype 0 = f32, 1 = bf16.
 extern "C" int hm_pair_warp(const void* src, const void* coef,
@@ -198,4 +179,26 @@ extern "C" int hm_pair_warp(const void* src, const void* coef,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The resident variant: the same arguments and the same output bits.
+// size * size * 8 bytes of shared memory must fit a block (size <= 170).
+extern "C" int hm_pair_warp_resident(const void* src, const void* coef,
+                                     const void* rtype, void* out, int dtype,
+                                     int n_pairs_recv, int nj, int ty_count,
+                                     int n_recv, int size, int size_w, int c,
+                                     void* stream) {
+  if (size != size_w || (c & 7) != 0) return (int)cudaErrorInvalidValue;
+  if ((long long)n_pairs_recv * nj * size * c == 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_resident<float>(src, coef, rtype, out, n_pairs_recv, nj,
+                                  ty_count, n_recv, size, c, s);
+  }
+  if (dtype == 1) {
+    return launch_resident<__nv_bfloat16>(src, coef, rtype, out,
+                                          n_pairs_recv, nj, ty_count, n_recv,
+                                          size, c, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,8 @@
-// Multi-sender window attention, two index maps of one kernel body.
+// Multi-sender window attention: the untyped kernel with two index maps,
+// and the typed kernel, over one attention body (attention_body.cuh).
 //
-// Replaces two Pallas kernels of hmvit_tpu/ops/window_attention.py:
+// window_attention_kernel replaces two Pallas kernels of
+// hmvit_tpu/ops/window_attention.py:
 //   * STRIPE = true:  _stripe_kernel (stripe_window_attention) — local
 //     8 x 8 windows read straight from (N, H, W, C) / (N, J, H, W, 2C):
 //     window (wy, wx), token (ty, tx) is pixel (wy*win + ty, wx*win + tx);
@@ -19,67 +21,35 @@
 // (each q/k/v element is read once).  The design: one block per
 // (n, window), looping over heads; q_h, K_h, V_h of all J senders are
 // staged in fp32 shared memory (K rows padded to d+1 floats so the 32
-// lanes of a warp read 32 different banks); one warp owns 4 query rows
-// at a time, so each K or V value read from shared memory feeds 4
-// multiply-adds (q is read as broadcast float4s): each lane scores 1/32
-// of the keys, the softmax reduces with warp shuffles, and each lane
-// accumulates one output channel per row (d <= 64 channels per head, 32
-// per lane pass).  No intermediate leaves the block.  Tensor cores
-// (mma.sync / wgmma) are the next step.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+// lanes of a warp read 32 different banks); the body then gives each
+// warp 4 query rows at a time.  No intermediate leaves the block.
+// Tensor cores (mma.sync / wgmma) are the next step.
+//
+// typed_window_attention_kernel replaces the Pallas kernel
+// hmvit_tpu/ops/window_attention.py::_kernel (hetero_window_attention):
+// per pair (n, j) and head, sim = (q_h W_att[n, j, h]) k_j^T + bias,
+// the same mask, softmax over the J*T keys and zero rows, and
+// out = sum_j attn_j (v_j W_msg[n, j, h]^T), on pre-split windows with
+// K and V as separate tensors.  The same bound and the same block
+// shape; per head the block also stages the J pairs of d x d relation
+// matrices (rows padded to d + 1 floats) and computes, in fp32 shared
+// memory, the J relation-transformed query blocks q_h W_att[j] and the
+// transformed values v W_msg[j]^T before it enters the body — the raw
+// values' buffer is reused for the transformed queries.  At J = 5,
+// T = 64, d = 32 that is 194 KB of the 227 KB a block may use: one
+// block per SM.
+#include "attention_body.cuh"
 
 namespace {
 
-constexpr int kMaxKeys = 320;   // J * T (J <= 5 at T = 64)
-constexpr int kKeysPerLane = kMaxKeys / 32;
-constexpr int kMaxD = 64;
-constexpr int kDPerLane = kMaxD / 32;
-constexpr int kThreads = 256;
-constexpr int kRows = 4;        // query rows per warp pass
-static_assert(kRows == 4, "P is published as one float4 per key");
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// flat token index within one map: spatial pixel (stripe) or w * T + t
-template <bool STRIPE>
-__device__ __forceinline__ long long token_index(int wi, int tt, int t,
-                                                 int win, int wcols) {
-  if (STRIPE) {
-    const int wy = wi / wcols, wx = wi - wy * wcols;
-    const int ty = tt / win, tx = tt - ty * win;
-    return (long long)(wy * win + ty) * (wcols * win) + (wx * win + tx);
-  }
-  return (long long)wi * t + tt;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using hm::kPBufFloat4;
+using hm::kThreads;
+using hm::to_f;
+using hm::token_index;
 
 size_t smem_bytes(int nk, int t, int d) {
   const int dp = d + 1;
-  return sizeof(float4) * (kThreads / 32) * 32 +
+  return sizeof(float4) * kPBufFloat4 +
          sizeof(float) * ((size_t)t * d + (size_t)nk * dp + (size_t)nk * d +
                           (size_t)t * t + (size_t)nk);
 }
@@ -101,7 +71,7 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const int dp = d + 1;
   const long long s_per_n = (long long)nwin * t;
   float4* pbuf = smem4;          // per warp: 32 keys x 4 rows of P
-  float* qs = reinterpret_cast<float*>(smem4 + (kThreads / 32) * 32);
+  float* qs = reinterpret_cast<float*>(smem4 + kPBufFloat4);
                                  // t x d (rows 16-byte aligned)
   float* ks = qs + t * d;        // nk x dp
   float* vs = ks + nk * dp;      // nk x d
@@ -113,10 +83,6 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     ms[i] = mask[((long long)n * nj + jj) * s_per_n +
                  token_index<STRIPE>(wi, tt, t, win, wcols)];
   }
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
 
   for (int hh = 0; hh < heads; ++hh) {
     __syncthreads();  // the previous head's readers are done
@@ -137,124 +103,122 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       bs[i] = bias[(long long)hh * t * t + i];
     }
     __syncthreads();
-
-    // a warp owns kRows query rows per pass: every K/V value read from
-    // shared memory feeds kRows multiply-adds
-    for (int t0 = warp * kRows; t0 < t; t0 += nwarps * kRows) {
-      float sc[kRows][kKeysPerLane];
-      float mx[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) mx[r] = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < kKeysPerLane; ++i) {
-        const int s = i * 32 + lane;
-        const bool live = s < nk && ms[s] > 0.f;
-        float dot[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) dot[r] = 0.f;
-        if (i * 32 < nk && live) {
-          const float* krow = ks + s * dp;
-          for (int k = 0; k < d; k += 4) {
-            const float k0 = krow[k], k1 = krow[k + 1];
-            const float k2 = krow[k + 2], k3 = krow[k + 3];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              // the same q address in every lane: a broadcast read
-              const float4 qv =
-                  *reinterpret_cast<const float4*>(qs + (t0 + r) * d + k);
-              dot[r] += qv.x * k0;
-              dot[r] += qv.y * k1;
-              dot[r] += qv.z * k2;
-              dot[r] += qv.w * k3;
-            }
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float v = -INFINITY;  // padding beyond the J*T keys
-          if (s < nk) v = live ? dot[r] + bs[(t0 + r) * t + (s % t)] : -1e9f;
-          sc[r][i] = v;
-          mx[r] = fmaxf(mx[r], v);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float m = warp_max(mx[r]);
-        float den = 0.f;
-#pragma unroll
-        for (int i = 0; i < kKeysPerLane; ++i) {
-          const float e = (i * 32 + lane < nk) ? expf(sc[r][i] - m) : 0.f;
-          sc[r][i] = e;
-          den += e;
-        }
-        den = warp_sum(den);
-        // a fully masked row (every key at -1e9) emits zeros
-        const bool dead = m <= -5e8f;
-#pragma unroll
-        for (int i = 0; i < kKeysPerLane; ++i) {
-          sc[r][i] = dead ? 0.f : sc[r][i] / den;
-        }
-      }
-
-      // P . V: each lane publishes its 32-key slice of the 4 probability
-      // rows to the warp's shared buffer, then all lanes walk the keys
-      float acc[kRows][kDPerLane];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-        for (int k = 0; k < kDPerLane; ++k) acc[r][k] = 0.f;
-      }
-      float4* pw = pbuf + warp * 32;
-#pragma unroll
-      for (int i = 0; i < kKeysPerLane; ++i) {
-        if (i * 32 < nk) {  // uniform across the warp
-          __syncwarp();
-          pw[lane] = make_float4(sc[0][i], sc[1][i], sc[2][i], sc[3][i]);
-          __syncwarp();
-          const int n_src = min(32, nk - i * 32);
-#pragma unroll 4
-          for (int src = 0; src < n_src; ++src) {
-            const float4 p = pw[src];  // broadcast
-            const float* vrow = vs + (i * 32 + src) * d;
-#pragma unroll
-            for (int k = 0; k < kDPerLane; ++k) {
-              const int dd = lane + 32 * k;
-              if (dd < d) {
-                const float v = vrow[dd];
-                acc[0][k] += p.x * v;
-                acc[1][k] += p.y * v;
-                acc[2][k] += p.z * v;
-                acc[3][k] += p.w * v;
-              }
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const long long tok = token_index<STRIPE>(wi, t0 + r, t, win, wcols);
-        T* orow = out + ((long long)n * s_per_n + tok) * c + hh * d;
-#pragma unroll
-        for (int k = 0; k < kDPerLane; ++k) {
-          const int dd = lane + 32 * k;
-          if (dd < d) orow[dd] = from_f<T>(acc[r][k]);
-        }
-      }
-    }
+    hm::attend_head<T, STRIPE, false>(
+        qs, ks, vs, bs, ms, pbuf, out + (long long)n * s_per_n * c + hh * d,
+        wi, nk, t, d, c, win, wcols);
   }
+}
+
+size_t typed_smem_bytes(int nj, int t, int d) {
+  const int dp = d + 1;
+  const size_t nk = (size_t)nj * t;
+  return sizeof(float4) * kPBufFloat4 +
+         sizeof(float) * ((size_t)t * d + nk * d + nk * dp + nk * d +
+                          (size_t)t * t + nk + 2 * (size_t)nj * d * dp);
+}
+
+// grid (n_windows, N); q/out (N, Wn, T, C); k, v (N, J, Wn, T, C);
+// w_att, w_msg (N, J, heads, d, d) in the storage type; bias (heads, T,
+// T) f32; mask (N, J, Wn, T) f32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+typed_window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ w_att,
+                              const T* __restrict__ w_msg,
+                              const float* __restrict__ bias,
+                              const float* __restrict__ mask,
+                              T* __restrict__ out, int nj, int nwin, int t,
+                              int heads, int d) {
+  extern __shared__ float4 smem4[];
+  const int wi = blockIdx.x;
+  const int n = blockIdx.y;
+  const int c = heads * d;
+  const int nk = nj * t;
+  const int dp = d + 1;
+  const long long s_per_n = (long long)nwin * t;
+  float4* pbuf = smem4;
+  float* qs = reinterpret_cast<float*>(smem4 + kPBufFloat4);  // t x d
+  float* xs = qs + t * d;    // nk x d: raw V, then the J blocks of q W_att
+  float* ks = xs + nk * d;   // nk x dp
+  float* vs = ks + nk * dp;  // nk x d: v W_msg^T
+  float* bs = vs + nk * d;   // t x t
+  float* ms = bs + t * t;    // nk
+  float* was = ms + nk;      // J x d x dp: W_att[j][din][dout]
+  float* wms = was + nj * d * dp;  // J x d x dp: W_msg[j][dout][din]
+
+  for (int i = threadIdx.x; i < nk; i += blockDim.x) {
+    const int jj = i / t, tt = i - jj * t;
+    ms[i] = mask[((long long)n * nj + jj) * s_per_n + (long long)wi * t + tt];
+  }
+
+  for (int hh = 0; hh < heads; ++hh) {
+    __syncthreads();  // the previous head's readers are done
+    for (int i = threadIdx.x; i < t * d; i += blockDim.x) {
+      const int tt = i / d, dd = i - tt * d;
+      qs[i] = to_f(q[((long long)n * s_per_n + (long long)wi * t + tt) * c +
+                     hh * d + dd]);
+    }
+    for (int i = threadIdx.x; i < nk * d; i += blockDim.x) {
+      const int s = i / d, dd = i - s * d;
+      const int jj = s / t, tt = s - jj * t;
+      const long long at =
+          ((((long long)n * nj + jj) * s_per_n + (long long)wi * t + tt) * c) +
+          hh * d + dd;
+      ks[s * dp + dd] = to_f(k[at]);
+      xs[i] = to_f(v[at]);
+    }
+    for (int i = threadIdx.x; i < nj * d * d; i += blockDim.x) {
+      const int jj = i / (d * d), rest = i - jj * d * d;
+      const int a = rest / d, b = rest - a * d;
+      const long long at =
+          ((((long long)n * nj + jj) * heads + hh) * d + a) * d + b;
+      was[(jj * d + a) * dp + b] = to_f(w_att[at]);
+      wms[(jj * d + a) * dp + b] = to_f(w_msg[at]);
+    }
+    for (int i = threadIdx.x; i < t * t; i += blockDim.x) {
+      bs[i] = bias[(long long)hh * t * t + i];
+    }
+    __syncthreads();
+    // v_msg[s, a] = sum_e v[s, e] W_msg[j, a, e]
+    for (int i = threadIdx.x; i < nk * d; i += blockDim.x) {
+      const int s = i / d, a = i - s * d;
+      const float* vrow = xs + s * d;
+      const float* wrow = wms + ((s / t) * d + a) * dp;
+      float acc = 0.f;
+      for (int e = 0; e < d; ++e) acc += vrow[e] * wrow[e];
+      vs[i] = acc;
+    }
+    __syncthreads();  // raw V is consumed: xs becomes the typed queries
+    // qw[j, tt, e] = sum_a q[tt, a] W_att[j, a, e]
+    for (int i = threadIdx.x; i < nk * d; i += blockDim.x) {
+      const int s = i / d, e = i - s * d;
+      const int jj = s / t, tt = s - jj * t;
+      const float* qrow = qs + tt * d;
+      const float* wcol = was + jj * d * dp + e;
+      float acc = 0.f;
+      for (int a = 0; a < d; ++a) acc += qrow[a] * wcol[a * dp];
+      xs[i] = acc;
+    }
+    __syncthreads();
+    hm::attend_head<T, false, true>(
+        xs, ks, vs, bs, ms, pbuf, out + (long long)n * s_per_n * c + hh * d,
+        wi, nk, t, d, c, 0, 0);
+  }
+}
+
+bool bad_shape(int nj, int t, int d) {
+  return nj * t > hm::kMaxKeys || d > hm::kMaxD || d <= 0 || d % 4 != 0 ||
+         t <= 0 || t % hm::kRows != 0 || nj <= 0;
 }
 
 template <typename T, bool STRIPE>
 int launch(const void* q, const void* kv, const void* bias, const void* mask,
            void* out, int n, int nj, int nwin, int t, int win, int wcols,
            int heads, int d, cudaStream_t stream) {
-  const int nk = nj * t;
-  if (nk > kMaxKeys || d > kMaxD || d <= 0 || d % 4 != 0 || t <= 0 ||
-      t % kRows != 0 || nj <= 0) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_shape(nj, t, d)) return (int)cudaErrorInvalidValue;
   if (n == 0 || nwin == 0) return 0;
-  const size_t bytes = smem_bytes(nk, t, d);
+  const size_t bytes = smem_bytes(nj * t, t, d);
   cudaError_t err = cudaFuncSetAttribute(
       window_attention_kernel<T, STRIPE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -283,8 +247,29 @@ int dispatch(const void* q, const void* kv, const void* bias,
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
+template <typename T>
+int launch_typed(const void* q, const void* k, const void* v,
+                 const void* w_att, const void* w_msg, const void* bias,
+                 const void* mask, void* out, int n, int nj, int nwin, int t,
+                 int heads, int d, cudaStream_t stream) {
+  if (bad_shape(nj, t, d)) return (int)cudaErrorInvalidValue;
+  if (n == 0 || nwin == 0) return 0;
+  const size_t bytes = typed_smem_bytes(nj, t, d);
+  cudaError_t err = cudaFuncSetAttribute(
+      typed_window_attention_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(nwin, n);
+  typed_window_attention_kernel<T><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(w_att),
+      static_cast<const T*>(w_msg), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<T*>(out), nj, nwin, t,
+      heads, d);
+  return (int)cudaGetLastError();
+}
 
+}  // namespace
 // q/out (N, H, W, C), kv (N, J, H, W, 2C), mask (N, J, H, W) f32,
 // bias (heads, T, T) f32; windows win x win, nwin = (H/win) * (W/win),
 // wcols = W / win.  dtype 0 = f32, 1 = bf16.
@@ -307,4 +292,25 @@ extern "C" int hm_plain_window_attention(const void* q, const void* kv,
                                          int heads, int d, void* stream) {
   return dispatch<false>(q, kv, bias, mask, out, dtype, n, nj, nwin, t, win,
                          wcols, heads, d, stream);
+}
+
+// q/out (N, Wn, T, C); k, v (N, J, Wn, T, C); w_att, w_msg (N, J, heads,
+// d, d); bias (heads, T, T) f32; mask (N, J, Wn, T) f32.
+extern "C" int hm_typed_window_attention(const void* q, const void* k,
+                                         const void* v, const void* w_att,
+                                         const void* w_msg, const void* bias,
+                                         const void* mask, void* out,
+                                         int dtype, int n, int nj, int nwin,
+                                         int t, int heads, int d,
+                                         void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_typed<float>(q, k, v, w_att, w_msg, bias, mask, out, n, nj,
+                               nwin, t, heads, d, s);
+  }
+  if (dtype == 1) {
+    return launch_typed<__nv_bfloat16>(q, k, v, w_att, w_msg, bias, mask, out,
+                                       n, nj, nwin, t, heads, d, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

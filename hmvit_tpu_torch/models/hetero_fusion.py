@@ -1,13 +1,27 @@
 """H3GAT — heterogeneous local-window + global-grid graph attention fusion
-(port of ``hmvit_tpu/models/hetero_fusion.py``, sequential mode).
+(port of ``hmvit_tpu/models/hetero_fusion.py``, without its
+several-device spatial-partitioning island).
 
 As in the JAX package: modality-typed parameters are stacked on a type
 axis, the relation transforms fold into the K/V projection per receiver
 TYPE before the warp, the receiver axis is a batch dimension, and only
 the senders' K/V are warped (queries live in the receiver's frame).
-The warp is the pair-warp kernel, the local phase the stripe attention
-kernel and the grid phase the plain attention kernel — on CUDA tensors
-for every shape the module accepts, on CPU tensors their plain twins.
+
+The block configuration routes each attention phase as the JAX module
+does (``use_pallas``, ``use_stripe``, ``use_fused_wa``):
+
+* default: pair-warp kernel, then the stripe attention kernel (local
+  phase) or the plain attention kernel (grid phase);
+* ``use_fused_wa``: local phases on square maps (>= 56, % 32 == 0, window
+  dividing 32) run the fused warp + attention kernel instead;
+* ``use_stripe=False``: local phases window-split and run the plain
+  attention kernel;
+* ``use_pallas=False``: no kernel wrapper at all — the separable warp
+  (or, with ``use_mxu_warp=False``, the gather warp) and the plain
+  attention in PyTorch, the JAX package's XLA path.
+
+Kernel wrappers launch CUDA kernels on CUDA tensors and run their plain
+twins on CPU tensors.
 """
 from __future__ import annotations
 
@@ -15,13 +29,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn import DTYPES, normal_, xavier_uniform_
+from ..nn import DTYPES, Dense, LayerNorm, normal_, xavier_uniform_
 from ..ops import use_kernel
 from ..ops.fused_warp import fused_pair_warp, pair_warp_coefficients
-from ..ops.warp import roi_and_agent_mask
+from ..ops.fused_warp_attention import fused_warp_window_attention
+from ..ops.shear_warp import warp_bev_mxu
+from ..ops.warp import roi_and_agent_mask, warp_bev_nhwc
 from ..ops.window_attention import (
     fused_plain_window_attention,
     fused_stripe_window_attention,
+    plain_window_attention_xla,
 )
 from .layers import HeteroDense, HeteroFeedForward, HeteroLayerNorm
 
@@ -89,13 +106,17 @@ class HeteroWindowAttention(nn.Module):
                  style: str = "local", num_types: int = 2,
                  discrete_ratio: float = 0.4, downsample_rate: float = 4.0,
                  exclude_self: bool = False,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", use_pallas: bool = True,
+                 use_stripe: bool = True, use_fused_wa: bool = False,
+                 use_mxu_warp: bool = True):
         super().__init__()
         self.dim, self.dim_head, self.window = dim, dim_head, window
         self.style, self.num_types = style, num_types
         self.discrete_ratio = discrete_ratio
         self.downsample_rate = downsample_rate
         self.exclude_self = exclude_self
+        self.use_pallas, self.use_stripe = use_pallas, use_stripe
+        self.use_fused_wa, self.use_mxu_warp = use_fused_wa, use_mxu_warp
         self.compute_dtype = DTYPES[compute_dtype]
         heads = dim // dim_head
         self.to_q = HeteroDense(dim, dim, num_types)
@@ -192,11 +213,6 @@ class HeteroWindowAttention(nn.Module):
             recv_variant = mode
         kv2 = self._typed_kv(x, mode, static_modes, taus_used)
 
-        # sender j's [K|V] in receiver i's variant, warped into i's frame
-        kv_pair = fused_pair_warp(kv2, pairwise, recv_variant,
-                                  self.discrete_ratio, self.downsample_rate,
-                                  receivers, warp_coef)
-
         if pair_mask is None:
             pair_mask = pairwise_roi_mask(pairwise, agent_mask, (h, w),
                                           self.discrete_ratio,
@@ -207,8 +223,37 @@ class HeteroWindowAttention(nn.Module):
             mask_ij = mask_ij * (1.0 - eye)
         bias_h = self.rel_pos_bias[self.rel_index].permute(2, 0, 1).to(cdt)
         qs = (q * scale).to(cdt)
+        local = self.style == "local"
 
-        if self.style == "local":
+        if (self.use_fused_wa and self.use_pallas and self.use_stripe
+                and local and 32 % win == 0 and h == w and h % 32 == 0
+                and h >= 56):
+            # warp + attention in one kernel: kv_pair never exists
+            out = fused_warp_window_attention(
+                qs.reshape(b * r, h, w, c), kv2, pairwise, recv_variant,
+                mask_ij.reshape(b * r, l, h, w).to(cdt), bias_h, win, heads,
+                d, self.discrete_ratio, self.downsample_rate, receivers,
+                warp_coef).reshape(b, r, h, w, c)
+            return self.to_out(out, mode[:, :r], sm_r).to(torch.float32)
+
+        # sender j's [K|V] in receiver i's variant, warped into i's frame
+        if self.use_pallas:
+            kv_pair = fused_pair_warp(kv2, pairwise, recv_variant,
+                                      self.discrete_ratio,
+                                      self.downsample_rate, receivers,
+                                      warp_coef)
+        else:
+            bidx = torch.arange(b, device=x.device)[:, None]
+            kv_typed = kv2[bidx, recv_variant[:, :r].long()]
+            warp_fn = warp_bev_mxu if self.use_mxu_warp else warp_bev_nhwc
+            kv_pair = warp_fn(
+                kv_typed.reshape(b * r, l, h, w, 2 * c),
+                pairwise.transpose(1, 2)[:, :r].reshape(b * r, l, 4, 4),
+                self.discrete_ratio, self.downsample_rate,
+            ).reshape(b, r, l, h, w, 2 * c)
+
+        if (self.use_stripe and self.use_pallas and local
+                and h % win == 0 and w % win == 0):
             out = fused_stripe_window_attention(
                 qs.reshape(b * r, h, w, c),
                 kv_pair.reshape(b * r, l, h, w, 2 * c), bias_h,
@@ -219,29 +264,61 @@ class HeteroWindowAttention(nn.Module):
             kvw = _window_split(kv_pair, win, self.style)
             mw = _window_split(mask_ij[..., None], win, self.style)[..., 0]
             nx, ny, t_tok = qw.shape[2], qw.shape[3], win * win
-            out = fused_plain_window_attention(
-                qw.reshape(b * r, nx * ny, t_tok, c),
-                kvw.reshape(b * r, l, nx * ny, t_tok, 2 * c), bias_h,
-                mw.reshape(b * r, l, nx * ny, t_tok).to(cdt), heads, d,
-            ).reshape(b, r, nx, ny, t_tok, c)
-            out = _window_merge(out, win, self.style, h, w)
+            qw = qw.reshape(b * r, nx * ny, t_tok, c)
+            kvw = kvw.reshape(b * r, l, nx * ny, t_tok, 2 * c)
+            mw = mw.reshape(b * r, l, nx * ny, t_tok).to(cdt)
+            if self.use_pallas:
+                out = fused_plain_window_attention(qw, kvw, bias_h, mw,
+                                                   heads, d)
+            else:
+                out = plain_window_attention_xla(
+                    qw, kvw[..., :c], kvw[..., c:], bias_h, mw, heads, d)
+            out = _window_merge(out.reshape(b, r, nx, ny, t_tok, c), win,
+                                self.style, h, w)
         out = self.to_out(out, mode[:, :r], sm_r)
         return out.to(torch.float32)
 
 
+class SplitAttn(nn.Module):
+    """ResNeSt-style radix softmax over parallel branches: the branches'
+    sum, averaged over the map, goes through a bias-less fc1, a
+    LayerNorm (eps 1e-5), ReLU and a bias-less fc2 to one logit per
+    branch and channel; the branches are mixed by the softmax over the
+    branch axis."""
+
+    def __init__(self, input_dim: int, branches: int = 2):
+        super().__init__()
+        self.input_dim = input_dim
+        self.fc1 = Dense(input_dim, input_dim, use_bias=False)
+        self.bn1 = LayerNorm(input_dim, eps=1e-5)
+        self.fc2 = Dense(input_dim, branches * input_dim, use_bias=False)
+
+    def forward(self, branches):
+        """branches: list of (B, L, H, W, C)."""
+        n = len(branches)
+        stacked = torch.stack(branches, dim=-2)  # (B, L, H, W, N, C)
+        gap = sum(branches).mean(dim=(2, 3), keepdim=True)
+        hidden = torch.relu(self.bn1(self.fc1(gap)))
+        logits = self.fc2(hidden)
+        logits = logits.reshape(*logits.shape[:-1], n, self.input_dim)
+        return (stacked * torch.softmax(logits, dim=-2)).sum(dim=-2)
+
+
 class HeteroFusionBlock(nn.Module):
-    """One H3GAT iteration (sequential mode): local-window then
-    global-grid hetero attention, each followed by a hetero
-    feed-forward."""
+    """One H3GAT iteration: local-window then global-grid hetero
+    attention, each followed by a hetero feed-forward (sequential mode),
+    or both on the same input, mixed by :class:`SplitAttn` (parallel
+    mode)."""
 
     def __init__(self, input_dim: int, mlp_dim: int, window_size: int = 8,
                  dim_head: int = 32, architect_mode: str = "sequential",
                  discrete_ratio: float = 0.4, downsample_rate: float = 4.0,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", use_pallas: bool = True,
+                 use_stripe: bool = True, use_fused_wa: bool = False):
         super().__init__()
-        if architect_mode != "sequential":
-            raise ValueError(f"architect_mode {architect_mode!r} is not "
-                             "ported (sequential only)")
+        if architect_mode not in ("sequential", "parallel"):
+            raise ValueError(f"unknown architect_mode {architect_mode!r}")
+        self.architect_mode = architect_mode
         self.discrete_ratio = discrete_ratio
         self.downsample_rate = downsample_rate
         self.compute_dtype = DTYPES[compute_dtype]
@@ -251,10 +328,13 @@ class HeteroFusionBlock(nn.Module):
                 input_dim, dim_head, window_size, style,
                 discrete_ratio=discrete_ratio,
                 downsample_rate=downsample_rate,
-                compute_dtype=compute_dtype))
+                compute_dtype=compute_dtype, use_pallas=use_pallas,
+                use_stripe=use_stripe, use_fused_wa=use_fused_wa))
             self.add_module(f"{name}_ffn_norm", HeteroLayerNorm(input_dim))
             self.add_module(f"{name}_ffn",
                             HeteroFeedForward(input_dim, mlp_dim))
+        if architect_mode == "parallel":
+            self.SplitAttn_0 = SplitAttn(input_dim)
 
     def _phase(self, name, x, mode, pairwise, agent_mask, pair_mask,
                receivers=None, static_modes=None, warp_coef=None):
@@ -274,9 +354,10 @@ class HeteroFusionBlock(nn.Module):
     def forward(self, x, mode, pairwise, agent_mask, pair_mask=None,
                 receivers: int | None = None,
                 static_modes: tuple | None = None, warp_coef=None):
-        """receivers restricts the block OUTPUT to the first I agents;
-        the local phase stays full (the grid phase reads every agent's
-        post-local features), only the grid phase is restricted.
+        """receivers restricts the block OUTPUT to the first I agents.
+        In sequential mode the local phase stays full (the grid phase
+        reads every agent's post-local features) and only the grid phase
+        is restricted; in parallel mode both phases are.
         pair_mask and warp_coef are the frame's pose-only geometry;
         without them the block builds the mask and each warp its own
         coefficients."""
@@ -284,6 +365,11 @@ class HeteroFusionBlock(nn.Module):
             pair_mask = pairwise_roi_mask(pairwise, agent_mask, x.shape[2:4],
                                           self.discrete_ratio,
                                           self.downsample_rate)
+        if self.architect_mode == "parallel":
+            return self.SplitAttn_0([
+                self._phase(name, x, mode, pairwise, agent_mask, pair_mask,
+                            receivers, static_modes, warp_coef)
+                for name in ("window", "grid")])
         x = self._phase("window", x, mode, pairwise, agent_mask, pair_mask,
                         static_modes=static_modes, warp_coef=warp_coef)
         return self._phase("grid", x, mode, pairwise, agent_mask, pair_mask,
@@ -310,7 +396,11 @@ class HeteroFusion(nn.Module):
             architect_mode=blk.get("architect_mode", "sequential"),
             discrete_ratio=self.discrete_ratio,
             downsample_rate=self.downsample_rate,
-            compute_dtype=blk.get("compute_dtype", "float32"))
+            compute_dtype=blk.get("compute_dtype", "float32"),
+            use_pallas=blk.get("use_pallas", True),
+            use_stripe=blk.get("use_stripe", True),
+            use_fused_wa=blk.get("use_fused_wa", False))
+        self.use_pallas = blk.get("use_pallas", True)
         self.mlp_head = HeteroFeedForward(blk["input_dim"], blk["input_dim"])
 
     def forward(self, x, mode, pairwise, agent_mask,
@@ -322,7 +412,7 @@ class HeteroFusion(nn.Module):
         warp_coef = (pair_warp_coefficients(pairwise, x.shape[2:4],
                                             self.discrete_ratio,
                                             self.downsample_rate)
-                     if use_kernel(x) else None)
+                     if self.use_pallas and use_kernel(x) else None)
         for it in range(self.num_iters):
             last = it == self.num_iters - 1
             x = self.HeteroFusionBlock_0(

@@ -2,10 +2,12 @@
 
 All sources compile with nvcc, for ``sm_90a`` (Hopper), into ONE shared
 library with a plain C interface, bound with ctypes — seconds to build,
-against minutes for an extension that includes PyTorch's headers.  The
-build runs at the first launch (never at import), into ``_build/`` next
-to the package, under a name keyed by the sources' hash so an edited
-source never loads a stale library.
+against minutes for an extension that includes PyTorch's headers.  Each
+``.cu`` file compiles in an nvcc process of its own, all started
+together, and one more links the objects.  The build runs at the first
+launch (never at import), into ``_build/`` next to the package, under a
+name keyed by the hash of every source and header so an edited file
+never loads a stale library.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :class:`Kernel` raises on a non-zero code and counts successful
@@ -29,7 +31,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,35 +56,50 @@ def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libhmvit_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` into the shared library unless it exists."""
+    """Compile ``csrc/*.cu`` into the shared library unless it exists:
+    one nvcc per source, all running at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            objects.append(obj)
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [log for proc, log in zip(procs, logs) if proc.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         if verbose:
-            print(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            print("\n".join(logs))
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+                               *objects], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout
+                               + link.stderr)
+        os.replace(lib, out)
     return out
 
 
@@ -138,13 +155,21 @@ class Kernel:
 
 
 PAIR_WARP = Kernel("hm_pair_warp", n_ptrs=4, n_ints=8)
+PAIR_WARP_RESIDENT = Kernel("hm_pair_warp_resident", n_ptrs=4, n_ints=8)
 STRIPE_WINDOW_ATTENTION = Kernel("hm_stripe_window_attention",
                                  n_ptrs=5, n_ints=9)
 PLAIN_WINDOW_ATTENTION = Kernel("hm_plain_window_attention",
                                 n_ptrs=5, n_ints=9)
+TYPED_WINDOW_ATTENTION = Kernel("hm_typed_window_attention",
+                                n_ptrs=8, n_ints=7)
+WARP_WINDOW_ATTENTION = Kernel("hm_warp_window_attention",
+                               n_ptrs=7, n_ints=9)
 KERNELS = {"pair_warp": PAIR_WARP,
            "stripe_window_attention": STRIPE_WINDOW_ATTENTION,
-           "plain_window_attention": PLAIN_WINDOW_ATTENTION}
+           "plain_window_attention": PLAIN_WINDOW_ATTENTION,
+           "warp_window_attention": WARP_WINDOW_ATTENTION,
+           "pair_warp_resident": PAIR_WARP_RESIDENT,
+           "typed_window_attention": TYPED_WINDOW_ATTENTION}
 
 
 def reset_launches():

@@ -1,8 +1,10 @@
 """Per-pair BEV warp of typed sender maps into every receiver's frame
 (port of ``hmvit_tpu/ops/fused_warp.py``).
 
-:func:`fused_pair_warp` launches the CUDA kernel ``csrc/pair_warp.cu``
-for CUDA tensors (the replacement of the Pallas ``_warp_kernel``) and
+:func:`fused_pair_warp` launches a CUDA kernel of ``csrc/pair_warp.cu``
+for CUDA tensors — the tile kernel (the replacement of the Pallas
+``_warp_kernel``) or, with ``variant="resident"``, the resident kernel
+(the replacement of ``_warp_kernel_resident``; same output bits) — and
 runs :func:`pair_warp_xla` — type gather + :func:`warp_bev_mxu`, the
 JAX package's oracle — for CPU tensors or under
 :func:`hmvit_tpu_torch.ops.plain_ops`.  Its backward recomputes through
@@ -77,13 +79,36 @@ def pair_warp_xla(src_typed, pairwise, mode, discrete_ratio,
     ).reshape(bsz, r, l, h, w, ck)
 
 
+# the resident kernel stages 8 bytes per pixel of one whole source map
+# in a block's shared memory (227 KB on Hopper)
+RESIDENT_SLAB_BYTES = 8
+MAX_SHARED_BYTES = 232448
+
+
+def resolve_variant(variant: str, h: int, w: int) -> str:
+    """The kernel a requested variant runs on an (h, w) map, by the JAX
+    package's rule: ``auto`` is ``tile``; ``resident`` holds only for a
+    square map with h >= 64 and h % 32 == 0 that fits on chip (here: a
+    block's shared memory), else it falls to ``tile``."""
+    if variant not in ("auto", "tile", "resident"):
+        raise ValueError(f"unknown pair-warp variant {variant!r}")
+    if variant == "resident" and h == w and h >= 64 and h % 32 == 0 \
+            and h * w * RESIDENT_SLAB_BYTES <= MAX_SHARED_BYTES:
+        return "resident"
+    return "tile"
+
+
 def pair_warp_launch(src_typed, pairwise, mode, discrete_ratio,
-                     downsample_rate, num_receivers=None, coef=None):
+                     downsample_rate, num_receivers=None, coef=None,
+                     variant: str = "auto"):
     """Validate and lay out one pair-warp launch: returns (launch, out)
     where ``launch()`` runs the kernel into ``out`` (B, I, J, H, W, C).
     ``coef`` is the frame's :func:`pair_warp_coefficients` of
     ``pairwise``, or None to compute them here."""
     bsz, ty_count, l, h, w, ck = src_typed.shape
+    kernel = (cuda.PAIR_WARP_RESIDENT
+              if resolve_variant(variant, h, w) == "resident"
+              else cuda.PAIR_WARP)
     r = l if num_receivers is None else num_receivers
     if src_typed.dtype not in cuda.DTYPE_CODES:
         raise TypeError(f"pair warp: unsupported dtype {src_typed.dtype}")
@@ -109,17 +134,16 @@ def pair_warp_launch(src_typed, pairwise, mode, discrete_ratio,
     out = torch.empty((bsz, r, l, h, w, ck), dtype=src.dtype,
                       device=src.device)
     ints = [cuda.DTYPE_CODES[src.dtype], bsz * r, l, ty_count, r, h, w, ck]
-    return (lambda: cuda.PAIR_WARP.launch([src, coef, rtype, out], ints),
-            out)
+    return lambda: kernel.launch([src, coef, rtype, out], ints), out
 
 
 class _PairWarp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, src_typed, pairwise, mode, dr, ds, nr, coef):
+    def forward(ctx, src_typed, pairwise, mode, dr, ds, nr, coef, variant):
         ctx.save_for_backward(src_typed, pairwise, mode)
         ctx.args = (dr, ds, nr)
         launch, out = pair_warp_launch(src_typed, pairwise, mode, dr, ds, nr,
-                                       coef)
+                                       coef, variant)
         launch()
         return out
 
@@ -130,17 +154,21 @@ class _PairWarp(torch.autograd.Function):
             s = src.detach().requires_grad_()
             out = pair_warp_xla(s, pairwise, mode, *ctx.args)
             (gs,) = torch.autograd.grad(out, s, g)
-        return gs, None, None, None, None, None, None
+        return gs, None, None, None, None, None, None, None
 
 
 def fused_pair_warp(src_typed, pairwise, mode, discrete_ratio,
-                    downsample_rate, num_receivers=None, coef=None):
+                    downsample_rate, num_receivers=None, coef=None,
+                    variant: str = "auto"):
     """CUDA kernel forward (plain-twin backward) for CUDA tensors; the
     plain twin for CPU tensors and under ``plain_ops()``.  ``coef``, the
     frame's :func:`pair_warp_coefficients`, spares the kernel path its
-    geometry; the plain twin derives its own from ``pairwise``."""
+    geometry; the plain twin derives its own from ``pairwise``.
+    ``variant`` picks the kernel (:func:`resolve_variant`); both give
+    the same bits, and the twin is the same for both."""
+    resolve_variant(variant, *src_typed.shape[3:5])
     if use_kernel(src_typed):
         return _PairWarp.apply(src_typed, pairwise, mode, discrete_ratio,
-                               downsample_rate, num_receivers, coef)
+                               downsample_rate, num_receivers, coef, variant)
     return pair_warp_xla(src_typed, pairwise, mode, discrete_ratio,
                          downsample_rate, num_receivers)

@@ -1,0 +1,129 @@
+"""Fused pair warp + local window attention (port of
+``hmvit_tpu/ops/fused_warp_attention.py``).
+
+:func:`fused_warp_window_attention` launches the CUDA kernel
+``csrc/fused_warp_attention.cu`` for CUDA tensors (the replacement of
+the Pallas ``_fused_kernel``): the attention output comes straight from
+the typed sender maps, bit-identical to :func:`fused_pair_warp` followed
+by :func:`fused_stripe_window_attention`, and the warped (N, J, H, W,
+2C) tensor never reaches device memory.  For CPU tensors, or under
+:func:`hmvit_tpu_torch.ops.plain_ops`, it runs
+:func:`warp_window_attention_xla` — pair-warp twin, window split, plain
+attention twin, merge: the JAX package's oracle.  The backward
+recomputes through the twin and gives gradients for q, src_typed and
+bias; the geometry and the 0/1 mask carry none.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import cuda, use_kernel
+from .fused_warp import _prep_affines, pair_warp_xla
+from .window_attention import (
+    _check_kernel_limits,
+    _recompute_grads,
+    stripe_window_attention_xla,
+)
+
+
+def warp_window_attention_xla(q, src_typed, pairwise, mode, mask, bias,
+                              win: int, heads: int, dim_head: int,
+                              discrete_ratio, downsample_rate,
+                              num_receivers=None):
+    """Plain twin.  q (B*I, H, W, C) pre-scaled queries; src_typed (B,
+    TY, J, H, W, 2C) typed sender [K | V] maps; pairwise (B, L, L, 4, 4);
+    mode (B, L) receiver variants; mask (B*I, J, H, W); bias (heads, T,
+    T).  Returns (B*I, H, W, C)."""
+    l, h, w, ck2 = src_typed.shape[2:]
+    kv_pair = pair_warp_xla(src_typed, pairwise, mode, discrete_ratio,
+                            downsample_rate, num_receivers)
+    return stripe_window_attention_xla(
+        q, kv_pair.reshape(q.shape[0], l, h, w, ck2), bias, mask, win,
+        heads, dim_head)
+
+
+def warp_window_attention_launch(q, src_typed, pairwise, mode, mask, bias,
+                                 win, heads, dim_head, discrete_ratio,
+                                 downsample_rate, num_receivers=None,
+                                 coef=None):
+    """Validate and lay out one fused launch: returns (launch, out).
+    ``coef`` is the frame's ``pair_warp_coefficients`` of ``pairwise``,
+    or None to compute them here."""
+    bsz, ty_count, l, h, w, ck2 = src_typed.shape
+    r = l if num_receivers is None else num_receivers
+    c, t = heads * dim_head, win * win
+    if q.dtype not in cuda.DTYPE_CODES or src_typed.dtype != q.dtype:
+        raise TypeError(f"warp + attention: unsupported dtypes {q.dtype}/"
+                        f"{src_typed.dtype}")
+    if h != w or h % win or dim_head % 8:
+        raise ValueError(f"warp + attention needs square maps divisible by "
+                         f"the window and dim_head % 8 == 0, got {(h, w)}, "
+                         f"window {win}, d={dim_head}")
+    if (ck2 != 2 * c or not 0 < r <= l
+            or tuple(q.shape) != (bsz * r, h, w, c)
+            or tuple(mask.shape) != (bsz * r, l, h, w)
+            or tuple(bias.shape) != (heads, t, t)
+            or tuple(pairwise.shape) != (bsz, l, l, 4, 4)
+            or tuple(mode.shape) != (bsz, l)):
+        raise ValueError(
+            f"warp + attention: inconsistent shapes q {tuple(q.shape)}, src "
+            f"{tuple(src_typed.shape)}, pairwise {tuple(pairwise.shape)}, "
+            f"mode {tuple(mode.shape)}, mask {tuple(mask.shape)}, bias "
+            f"{tuple(bias.shape)} for {r} receivers, {heads} heads of "
+            f"{dim_head}")
+    if coef is not None and (tuple(coef.shape) != (bsz, l, l, 8)
+                             or coef.dtype != torch.float32):
+        raise ValueError(f"warp + attention: coefficients "
+                         f"{tuple(coef.shape)} {coef.dtype}, want "
+                         f"({bsz}, {l}, {l}, 8) float32")
+    _check_kernel_limits(l, t, dim_head)
+    coef, rtype = _prep_affines(pairwise, mode, (h, w), discrete_ratio,
+                                downsample_rate, r, coef)
+    # the kernel reads src[b, rtype[n]]: an out-of-range variant raises
+    # (asynchronously, on the device) instead of reading past the map
+    torch._assert_async(((rtype >= 0) & (rtype < ty_count)).all(),
+                        "warp + attention: receiver variant out of range")
+    tensors = [q.contiguous(), src_typed.contiguous(), coef, rtype,
+               bias.to(torch.float32).contiguous(),
+               mask.to(torch.float32).contiguous(), torch.empty_like(q)]
+    ints = [cuda.DTYPE_CODES[q.dtype], bsz * r, l, ty_count, r, h, win,
+            heads, dim_head]
+    return (lambda: cuda.WARP_WINDOW_ATTENTION.launch(tensors, ints),
+            tensors[-1])
+
+
+class _WarpWindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, src_typed, bias, pairwise, mode, mask, coef, args):
+        ctx.save_for_backward(q, src_typed, bias, pairwise, mode, mask)
+        ctx.args = args
+        launch, out = warp_window_attention_launch(
+            q, src_typed, pairwise, mode, mask, bias, *args, coef)
+        launch()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, src, bias, pairwise, mode, mask = ctx.saved_tensors
+        grads = _recompute_grads(
+            lambda q_, s_, b_: warp_window_attention_xla(
+                q_, s_, pairwise, mode, mask, b_, *ctx.args),
+            (q, src, bias), g)
+        return (*grads, None, None, None, None, None)
+
+
+def fused_warp_window_attention(q, src_typed, pairwise, mode, mask, bias,
+                                win: int, heads: int, dim_head: int,
+                                discrete_ratio, downsample_rate,
+                                num_receivers=None, coef=None):
+    """CUDA kernel forward (plain-twin backward) for CUDA tensors; the
+    plain twin for CPU tensors and under ``plain_ops()``.  Arguments as
+    :func:`warp_window_attention_xla`; ``coef``, the frame's
+    ``pair_warp_coefficients``, spares the kernel path its geometry."""
+    args = (win, heads, dim_head, discrete_ratio, downsample_rate,
+            num_receivers)
+    if use_kernel(q):
+        return _WarpWindowAttention.apply(q, src_typed, bias, pairwise, mode,
+                                          mask, coef, args)
+    return warp_window_attention_xla(q, src_typed, pairwise, mode, mask,
+                                     bias, *args)

@@ -1,6 +1,7 @@
 """BEV affine geometry between agent frames (port of
 ``hmvit_tpu/ops/warp.py``): discretized transforms, the centred-pivot
-affine, align_corners=True normalization and the warped ROI masks.
+affine, align_corners=True normalization, the warped ROI masks and the
+gather (non-separable) bilinear warp ``warp_bev_nhwc``.
 
 All 3x3 algebra runs in float32 with the same operation order as the
 JAX package, so per-pixel source coordinates (and the rounded ROI masks
@@ -95,6 +96,44 @@ def _source_coords(m, src_hw, dsize):
     px = (row(0) + 1.0) * (w - 1) / 2.0
     py = (row(1) + 1.0) * (h - 1) / 2.0
     return px, py
+
+
+def warp_affine_nhwc(src, m, dsize, mode: str = "bilinear"):
+    """Warp (N, H, W, C) maps by pixel-space affines m (N, 2, 3), as
+    affine_grid(align_corners=True) + grid_sample with zero padding:
+    ``m`` maps source pixels to destination pixels, sampling uses its
+    inverse.  Plain gathers of whole channel rows."""
+    n, h, w, c = src.shape
+    out_h, out_w = dsize
+    px, py = _source_coords(m, (h, w), dsize)
+    flat = src.reshape(n, h * w, c)
+
+    def gather(yy, xx):
+        valid = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        idx = yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+        vals = torch.gather(flat, 1, idx.reshape(n, -1, 1).expand(-1, -1, c))
+        vals = vals.reshape(n, out_h, out_w, c)
+        return torch.where(valid[..., None], vals, torch.zeros_like(vals))
+
+    if mode == "nearest":
+        return gather(torch.round(py).long(), torch.round(px).long())
+    x0 = torch.floor(px).long()
+    y0 = torch.floor(py).long()
+    wx = (px - x0.to(px.dtype)).to(src.dtype)[..., None]
+    wy = (py - y0.to(py.dtype)).to(src.dtype)[..., None]
+    top = gather(y0, x0) * (1 - wx) + gather(y0, x0 + 1) * wx
+    bot = gather(y0 + 1, x0) * (1 - wx) + gather(y0 + 1, x0 + 1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def warp_bev_nhwc(features, transform, discrete_ratio: float,
+                  downsample_rate: float, mode: str = "bilinear"):
+    """Warp (..., H, W, C) BEV maps by (..., 4, 4) per-map transforms."""
+    *batch, h, w, c = features.shape
+    m = discretize_transform(transform, discrete_ratio, downsample_rate)
+    t = centered_affine(m.reshape(-1, 2, 3).to(torch.float32), (h, w))
+    out = warp_affine_nhwc(features.reshape(-1, h, w, c), t, (h, w), mode)
+    return out.reshape(*batch, h, w, c)
 
 
 def roi_mask(shape, transform, discrete_ratio: float,

@@ -1,18 +1,22 @@
-"""Untyped multi-sender window attention (port of the serving half of
+"""Multi-sender window attention (port of
 ``hmvit_tpu/ops/window_attention.py``).
 
-Two kernel wrappers, both over ``csrc/window_attention.cu``:
+Three kernel wrappers, all over ``csrc/window_attention.cu``:
 
 * :func:`fused_stripe_window_attention` — local windows read straight
   from unsplit (N, H, W, C) maps (replaces the Pallas
   ``_stripe_kernel``);
 * :func:`fused_plain_window_attention` — pre-split (N, Wn, T, C) windows
-  (replaces the Pallas ``_plain_kernel``).
+  (replaces the Pallas ``_plain_kernel``);
+* :func:`fused_window_attention` — the typed form, with per-pair
+  relation matrices applied to q and v inside the kernel (replaces the
+  Pallas ``_kernel`` of ``hetero_window_attention``).
 
 For CPU tensors, or under :func:`hmvit_tpu_torch.ops.plain_ops`, each
-runs its plain twin built on :func:`plain_window_attention_xla`, the JAX
-package's oracle.  Backward passes recompute through the twins.  Every
-input q arrives pre-scaled by dim_head ** -0.5.
+runs its plain twin — :func:`plain_window_attention_xla` and
+:func:`hetero_window_attention_xla`, the JAX package's oracles.
+Backward passes recompute through the twins.  Every input q arrives
+pre-scaled by dim_head ** -0.5.
 """
 from __future__ import annotations
 
@@ -47,6 +51,36 @@ def plain_window_attention_xla(q, k, v, bias, mask, heads: int,
     return out.reshape(n, w_cnt, t, heads * d).to(q.dtype)
 
 
+def hetero_window_attention_xla(q, k, v, w_att, w_msg, bias, mask,
+                                heads: int, dim_head: int):
+    """Plain twin of the typed kernel: q (N, W, T, C); k, v (N, J, W, T,
+    C); w_att, w_msg (N, J, heads, d, d); bias (heads, T, T); mask (N,
+    J, W, T).  sim = (q W_att) k^T + bias over the J*T keys of each
+    window, out = sum_j attn_j (v W_msg^T); float32 accumulation, masked
+    keys at -1e9, fully masked rows emit zero."""
+    n, w_cnt, t, c = q.shape
+    j = k.shape[1]
+    d = dim_head
+    f32 = torch.float32
+    qh = q.reshape(n, w_cnt, t, heads, d).to(f32)
+    kh = k.reshape(n, j, w_cnt, t, heads, d).to(f32)
+    vh = v.reshape(n, j, w_cnt, t, heads, d).to(f32)
+    q_rel = torch.einsum("nwthd,njhde->njwthe", qh, w_att.to(f32))
+    sim = torch.einsum("njwthe,njwshe->njwhts", q_rel, kh)
+    sim = sim + bias.to(f32)[None, None, None]
+    sim = torch.where(mask[:, :, :, None, None, :] > 0, sim,
+                      torch.full((), -1e9, dtype=f32, device=sim.device))
+    sim = sim.movedim(1, -2)  # (n, w, h, t, j, s)
+    flat = sim.reshape(*sim.shape[:-2], j * t)
+    attn = torch.softmax(flat, dim=-1)
+    attn = torch.where(flat.amax(-1, keepdim=True) <= -5e8,
+                       torch.zeros_like(attn), attn)
+    attn = attn.reshape(sim.shape).movedim(-2, 1)
+    v_msg = torch.einsum("njhde,njwshe->njwshd", w_msg.to(f32), vh)
+    out = torch.einsum("njwhts,njwshd->nwthd", attn, v_msg)
+    return out.reshape(n, w_cnt, t, heads * d).to(q.dtype)
+
+
 def _split_local(z, win: int):
     """(..., H, W, ch) -> (..., (H/win)*(W/win), win*win, ch)."""
     *lead, h, w, ch = z.shape
@@ -72,6 +106,13 @@ def stripe_window_attention_xla(q, kv, bias, mask, win: int, heads: int,
     return _merge_local(out, win, h, w)
 
 
+def _check_kernel_limits(j, t, dim_head):
+    if j * t > 320 or dim_head > 64 or dim_head % 4 or t % 4:
+        raise ValueError(f"window attention kernel takes J*T <= 320, "
+                         f"dim_head <= 64 and both T and dim_head multiples "
+                         f"of 4, got J*T={j * t}, T={t}, d={dim_head}")
+
+
 def _attention_launch(kernel, q, kv, bias, mask, heads, dim_head, nwin, t,
                       win, wcols):
     if q.dtype not in cuda.DTYPE_CODES or kv.dtype != q.dtype:
@@ -86,10 +127,7 @@ def _attention_launch(kernel, q, kv, bias, mask, heads, dim_head, nwin, t,
                          f"{tuple(q.shape)}, kv {tuple(kv.shape)}, mask "
                          f"{tuple(mask.shape)}, bias {tuple(bias.shape)} for "
                          f"{heads} heads of {dim_head}")
-    if j * t > 320 or dim_head > 64 or dim_head % 4 or t % 4:
-        raise ValueError(f"window attention kernel takes J*T <= 320, "
-                         f"dim_head <= 64 and both T and dim_head multiples "
-                         f"of 4, got J*T={j * t}, T={t}, d={dim_head}")
+    _check_kernel_limits(j, t, dim_head)
     tensors = [q.contiguous(), kv.contiguous(),
                bias.to(torch.float32).contiguous(),
                mask.to(torch.float32).contiguous(), torch.empty_like(q)]
@@ -115,6 +153,38 @@ def plain_window_attention_launch(q, kv, bias, mask, heads, dim_head):
     nwin, t = q.shape[1:3]
     return _attention_launch(cuda.PLAIN_WINDOW_ATTENTION, q, kv, bias, mask,
                              heads, dim_head, nwin, t, 0, 0)
+
+
+def typed_window_attention_launch(q, k, v, w_att, w_msg, bias, mask, heads,
+                                  dim_head):
+    """Validate and lay out one typed-kernel launch: returns
+    (launch, out)."""
+    if q.dtype not in cuda.DTYPE_CODES or any(
+            x.dtype != q.dtype for x in (k, v, w_att, w_msg)):
+        raise TypeError(f"typed window attention: unsupported dtypes "
+                        f"{[x.dtype for x in (q, k, v, w_att, w_msg)]}")
+    n, nwin, t, c = q.shape
+    j = k.shape[1]
+    rel = (n, j, heads, dim_head, dim_head)
+    if (c != heads * dim_head or tuple(k.shape) != (n, j, nwin, t, c)
+            or v.shape != k.shape or tuple(w_att.shape) != rel
+            or tuple(w_msg.shape) != rel
+            or tuple(mask.shape) != (n, j, nwin, t)
+            or tuple(bias.shape) != (heads, t, t)):
+        raise ValueError(
+            f"typed window attention: inconsistent shapes q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+            f"w_att {tuple(w_att.shape)}, w_msg {tuple(w_msg.shape)}, mask "
+            f"{tuple(mask.shape)}, bias {tuple(bias.shape)} for {heads} "
+            f"heads of {dim_head}")
+    _check_kernel_limits(j, t, dim_head)
+    tensors = [q.contiguous(), k.contiguous(), v.contiguous(),
+               w_att.contiguous(), w_msg.contiguous(),
+               bias.to(torch.float32).contiguous(),
+               mask.to(torch.float32).contiguous(), torch.empty_like(q)]
+    ints = [cuda.DTYPE_CODES[q.dtype], n, j, nwin, t, heads, dim_head]
+    return (lambda: cuda.TYPED_WINDOW_ATTENTION.launch(tensors, ints),
+            tensors[-1])
 
 
 def _run(prepared):
@@ -170,6 +240,36 @@ class _PlainAttention(torch.autograd.Function):
         grads = _recompute_grads(
             lambda *a: _plain_twin(*a, heads, d), ctx.saved_tensors, g)
         return (*grads, None, None)
+
+
+class _TypedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, w_att, w_msg, bias, mask, heads, dim_head):
+        ctx.save_for_backward(q, k, v, w_att, w_msg, bias, mask)
+        ctx.args = (heads, dim_head)
+        return _run(typed_window_attention_launch(
+            q, k, v, w_att, w_msg, bias, mask, heads, dim_head))
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, d = ctx.args
+        grads = _recompute_grads(
+            lambda *a: hetero_window_attention_xla(*a, heads, d),
+            ctx.saved_tensors, g)
+        return (*grads, None, None)
+
+
+def fused_window_attention(q, k, v, w_att, w_msg, bias, mask, heads: int,
+                           dim_head: int):
+    """Typed window attention over pre-split windows: q (N, Wn, T, C);
+    k, v (N, J, Wn, T, C); w_att, w_msg (N, J, heads, d, d) relation
+    matrices of each (receiver, sender) pair; bias (heads, T, T); mask
+    (N, J, Wn, T).  Returns (N, Wn, T, C)."""
+    if use_kernel(q):
+        return _TypedAttention.apply(q, k, v, w_att, w_msg, bias, mask,
+                                     heads, dim_head)
+    return hetero_window_attention_xla(q, k, v, w_att, w_msg, bias, mask,
+                                       heads, dim_head)
 
 
 def fused_stripe_window_attention(q, kv, bias, mask, win: int, heads: int,

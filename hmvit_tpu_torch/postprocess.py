@@ -5,8 +5,8 @@ NMS and the GT-range clip, all fixed-shape."""
 from __future__ import annotations
 
 import torch
-from hmvit_tpu import GT_RANGE
 
+from . import GT_RANGE
 from .data.anchors import decode_deltas
 from .utils.boxes import (
     boxes_to_corners_3d,

@@ -1,13 +1,63 @@
-"""Serving helpers for :class:`HMViT`: a model configuration's bfloat16
-or float32 serving variant, the static hints a server passes to the
-forward for a known fleet, and a numpy request batch moved to the
-device with the bfloat16 server's casts."""
+"""Serving helpers for :class:`HMViT`: the production configuration, its
+bfloat16 or float32 serving variants, the static hints a server passes
+to the forward for a known fleet, and a numpy request batch moved to
+the device with the bfloat16 server's casts."""
 from __future__ import annotations
 
 import copy
 
 import numpy as np
 import torch
+
+PROD_RANGE = [-102.4, -102.4, -3.0, 102.4, 102.4, 1.0]
+
+# The production model (the port's copy of ``bench.py``'s ``PROD_CFG``):
+# PointPillars on a 512^2 grid, ResNet-50 + FPN + planar BEVFormer at
+# 128^2 x 256, 2 H3GAT iterations with the fusion kernels in bfloat16.
+PROD_CFG = {
+    "lidar": {
+        "voxel_size": [0.4, 0.4, 4.0],
+        "lidar_range": PROD_RANGE,
+        "anchor_number": 2,
+        "pillar_vfe": {"use_norm": True, "with_distance": False,
+                       "use_absolute_xyz": True, "num_filters": [64]},
+        "point_pillar_scatter": {"num_features": 64,
+                                 "grid_size": [512, 512, 1]},
+        "base_bev_backbone": {
+            "layer_nums": [3, 5, 8],
+            "layer_strides": [2, 2, 2],
+            "num_filters": [64, 128, 256],
+            "upsample_strides": [1, 2, 4],
+            "num_upsample_filter": [128, 128, 128],
+        },
+        "shrink_header": {"kernal_size": [3], "stride": [2], "padding": [1],
+                          "dim": [256], "input_dim": 384},
+    },
+    "camera": {"encoder": "bevformer", "lift": "planar",
+               "backbone": "resnet50", "id_pick": [2, 3, 4],
+               "fpn": True, "fpn_channels": 256,
+               "dim": 256, "bev_size": 128, "out_dim": 256,
+               "num_layers": 3, "heads": 8, "window": 8,
+               "num_points_in_pillar": 4, "decoder_layers": 0,
+               "bev_range": 102.4},
+    "compression": 0,
+    "hetero_fusion": {
+        "num_iters": 2,
+        "hetero_fusion_block": {
+            "spatial_transform": {"downsample_rate": 4,
+                                  "voxel_size": [0.4, 0.4, 4.0]},
+            "architect_mode": "sequential",
+            "input_dim": 256,
+            "mlp_dim": 256,
+            "window_size": 8,
+            "dim_head": 32,
+            "drop_out": 0.0,
+            "compute_dtype": "bfloat16",
+        },
+    },
+    "hetero_decoder": {"input_dim": 256, "num_layer": 2,
+                       "num_ch_dec": [256, 256], "anchor_number": 2},
+}
 
 # kept in float32 by a bfloat16 server: calibration, geometry and raw
 # lidar points (bf16 coordinates quantize to ~0.4 m at 100 m range)
@@ -16,18 +66,26 @@ GEOMETRY_KEYS = frozenset({"pairwise_t_matrix", "transformation_matrix",
                            "spatial_correction_matrix", "points"})
 
 
-def serving_config(cfg: dict, bf16: bool) -> dict:
-    """A deep copy of ``cfg`` (e.g. ``bench.PROD_CFG``), which stays as
-    it is.  ``bf16=True`` also casts the lidar features and the decoder
-    to bfloat16, as the bfloat16 server does; ``bf16=False`` runs the
-    fusion kernels in float32."""
+def serving_config(cfg: dict, bf16: bool, fused_wa: bool = False,
+                   stripe: bool = True) -> dict:
+    """A deep copy of ``cfg`` (e.g. :data:`PROD_CFG`), which stays as it
+    is.  ``bf16=True`` also casts the lidar features and the decoder to
+    bfloat16, as the bfloat16 server does; ``bf16=False`` runs the
+    fusion kernels in float32.  ``fused_wa=True`` sends the local fusion
+    phases through the fused warp + attention kernel
+    (``use_fused_wa``); ``stripe=False`` sends them through the window
+    split and the plain attention kernel (``use_stripe``)."""
     cfg = copy.deepcopy(cfg)
+    blk = cfg["hetero_fusion"]["hetero_fusion_block"]
     if bf16:
         cfg["lidar"]["compute_dtype"] = "bfloat16"
         cfg["hetero_decoder"]["compute_dtype"] = "bfloat16"
     else:
-        cfg["hetero_fusion"]["hetero_fusion_block"]["compute_dtype"] = \
-            "float32"
+        blk["compute_dtype"] = "float32"
+    if fused_wa:
+        blk["use_fused_wa"] = True
+    if not stripe:
+        blk["use_stripe"] = False
     return cfg
 
 

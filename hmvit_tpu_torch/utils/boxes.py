@@ -1,17 +1,55 @@
 """Box geometry on tensors (torch versions of the numpy ``xp`` functions
-of ``hmvit_tpu/utils/boxes.py``).
+of ``hmvit_tpu/utils/boxes.py``), and the two numpy functions the
+synthetic scenes need.
 
 Boxes are ``(x, y, z, dims..., yaw)`` with dims ordered ``hwl`` or
-``lwh``; corners follow the reference numbering of the JAX package's
-``CORNER_TEMPLATE``: 0-3 the bottom face walked as a closed ring, 4-7
-the top face.  Rotations and transforms are written elementwise, as in
-the JAX package, so float32 geometry matches it operation for
-operation.
+``lwh``; corners follow the JAX package's numbering: 0-3 the bottom face
+walked as a closed ring, 4-7 the top face.  Rotations and transforms are
+written elementwise, as in the JAX package, so float32 geometry matches
+it operation for operation.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
-from hmvit_tpu.utils.boxes import CORNER_TEMPLATE
+
+# (8, 3) half-extent multipliers of the corner numbering above
+CORNER_TEMPLATE = np.array(
+    [
+        [1, -1, -1], [1, 1, -1], [-1, 1, -1], [-1, -1, -1],
+        [1, -1, 1], [1, 1, 1], [-1, 1, 1], [-1, -1, 1],
+    ],
+    dtype=np.float64,
+) / 2.0
+
+
+def boxes_to_corners_3d_np(boxes, order: str = "lwh") -> np.ndarray:
+    """(N, 7) center boxes -> (N, 8, 3) corners, float64 numpy."""
+    boxes = np.asarray(boxes, dtype=np.float64)
+    if order == "lwh":
+        dims = boxes[:, 3:6]
+    elif order == "hwl":
+        dims = boxes[:, [5, 4, 3]]
+    else:
+        raise ValueError(f"unknown box order {order!r}")
+    corners = dims[:, None, :] * CORNER_TEMPLATE[None, :, :]
+    c = np.cos(boxes[:, 6])[:, None]
+    s = np.sin(boxes[:, 6])[:, None]
+    x, y, z = corners[..., 0], corners[..., 1], corners[..., 2]
+    corners = np.stack([x * c - y * s, x * s + y * c, z], axis=-1)
+    return corners + boxes[:, None, 0:3]
+
+
+def mask_boxes_outside_range_np(boxes, limit_range, order,
+                                min_num_corners: int = 8) -> np.ndarray:
+    """Keep boxes with >= min_num_corners corners inside the xy range."""
+    corners = boxes_to_corners_3d_np(boxes, order)
+    lo = np.asarray(limit_range[:2])[None, None]
+    hi = np.asarray(limit_range[3:5])[None, None]
+    inside = np.all((corners[:, :, :2] >= lo) & (corners[:, :, :2] <= hi),
+                    axis=-1)
+    return inside.sum(axis=1) >= min_num_corners
+
 
 def boxes_to_corners_3d(boxes, order: str = "hwl"):
     """(N, 7) center boxes -> (N, 8, 3) corners."""

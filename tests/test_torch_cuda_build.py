@@ -1,0 +1,94 @@
+"""The kernel build's bookkeeping, as far as a machine without nvcc can
+check it: the library's name is keyed by every ``.cu`` source AND every
+``.cuh`` header (an edited header must never load a stale library), the
+six kernels are registered with their C symbols, each source defines the
+symbols it is registered under, and no launcher takes a host tensor."""
+import re
+import shutil
+
+import pytest
+import torch
+
+from hmvit_tpu_torch.ops import cuda
+
+KERNELS = {
+    "pair_warp": ("hm_pair_warp", "pair_warp.cu"),
+    "pair_warp_resident": ("hm_pair_warp_resident", "pair_warp.cu"),
+    "stripe_window_attention": ("hm_stripe_window_attention",
+                                "window_attention.cu"),
+    "plain_window_attention": ("hm_plain_window_attention",
+                               "window_attention.cu"),
+    "typed_window_attention": ("hm_typed_window_attention",
+                               "window_attention.cu"),
+    "warp_window_attention": ("hm_warp_window_attention",
+                              "fused_warp_attention.cu"),
+}
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    """A scratch copy of csrc/ that ``cuda`` reads instead of the real
+    one."""
+    copy = tmp_path / "csrc"
+    shutil.copytree(cuda.CSRC_DIR, copy)
+    monkeypatch.setattr(cuda, "CSRC_DIR", copy)
+    return copy
+
+
+@pytest.mark.parametrize("pattern", ["*.cu", "*.cuh"])
+def test_library_name_follows_every_source_and_header(csrc_copy, pattern):
+    before = cuda.library_path()
+    assert cuda.library_path() == before  # a pure function of the files
+    for path in sorted(csrc_copy.glob(pattern)):
+        with open(path, "a") as f:
+            f.write("\n// edited\n")
+        after = cuda.library_path()
+        assert after != before, path.name
+        before = after
+    assert before.parent == cuda.BUILD_DIR
+
+
+def test_headers_are_shared_not_copied(csrc_copy):
+    """The tap routine and the attention body live in one header each,
+    included by every kernel that uses them."""
+    text = {p.name: p.read_text() for p in csrc_copy.iterdir()}
+    assert '#include "warp_taps.cuh"' in text["pair_warp.cu"]
+    assert '#include "warp_taps.cuh"' in text["fused_warp_attention.cu"]
+    assert '#include "attention_body.cuh"' in text["window_attention.cu"]
+    assert '#include "attention_body.cuh"' in text["fused_warp_attention.cu"]
+    for name, body in text.items():
+        defines = ("WarpTaps plan_taps(" in body, "void attend_head(" in body)
+        assert defines == (name == "warp_taps.cuh",
+                           name == "attention_body.cuh"), name
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_kernel_registered_with_its_symbol_and_source(name):
+    symbol, source = KERNELS[name]
+    kernel = cuda.KERNELS[name]
+    assert kernel.symbol == symbol
+    text = (cuda.CSRC_DIR / source).read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*{", text,
+                  re.S)
+    assert m, f"{source} does not define {symbol}"
+    params = [p.strip() for p in m.group(1).split(",")]
+    ptrs = [p for p in params if "*" in p]
+    ints = [p for p in params if p.startswith("int ")]
+    # the pointers, then the ints, then the stream: the launcher's order
+    assert params == ptrs[:-1] + ints + ptrs[-1:]
+    assert len(kernel.argtypes) == len(params)
+    assert params[-1] == "void* stream"
+
+
+def test_registry_is_exactly_the_six_kernels():
+    assert sorted(cuda.KERNELS) == sorted(KERNELS)
+    cuda.reset_launches()
+    assert set(cuda.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_no_launcher_takes_a_host_tensor(name):
+    before = cuda.launch_counts()
+    with pytest.raises(ValueError):
+        cuda.KERNELS[name].launch([torch.zeros(4, 8)], [])
+    assert cuda.launch_counts() == before

@@ -1,18 +1,31 @@
 """Port parity for the host side of the serving path: the torch anchor
-decode and box geometry against the JAX package's numpy functions, and
-the serving configuration, hints and device batch built from bench.py's
-production configuration."""
+decode and box geometry against the JAX package's numpy functions; the
+serving configuration, hints and device batch; and the port's own
+copies of the JAX package's numpy helpers (synthetic batches, anchor
+grid, pose math, constants, production configuration), each held equal
+to its original — the port imports none of them, which a subprocess
+checks."""
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 import bench
+import hmvit_tpu
+import hmvit_tpu_torch
 from hmvit_tpu.data import anchors as janchors
+from hmvit_tpu.data import synthetic as jsynthetic
 from hmvit_tpu.utils import boxes as jboxes
+from hmvit_tpu.utils import transforms as jtransforms
 from hmvit_tpu_torch import serving
-from hmvit_tpu_torch.data import anchors
-from hmvit_tpu_torch.utils import boxes
-from tiny_cfg import ANCHOR_ARGS
+from hmvit_tpu_torch.data import anchors, synthetic
+from hmvit_tpu_torch.utils import boxes, transforms
+from tiny_cfg import ANCHOR_ARGS, RANGE
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True)
@@ -59,8 +72,20 @@ def test_box_corners_match_jax_package(order):
 
 
 def test_production_config_equals_bench():
-    """The serving variants are bench.py's PROD_CFG with only the compute
-    dtypes set, and leave PROD_CFG itself alone."""
+    """The port's PROD_CFG is bench.py's; the serving variants are it
+    with only the compute dtypes (and the asked-for kernel routes) set,
+    and leave PROD_CFG itself alone."""
+    assert serving.PROD_CFG == bench.PROD_CFG
+    assert serving.PROD_RANGE == bench.PROD_RANGE
+    assert hmvit_tpu_torch.GT_RANGE == hmvit_tpu.GT_RANGE
+    ours = repr(serving.PROD_CFG)
+    routed = serving.serving_config(serving.PROD_CFG, bf16=True,
+                                    fused_wa=True, stripe=False)
+    blk = routed["hetero_fusion"]["hetero_fusion_block"]
+    assert blk.pop("use_fused_wa") is True
+    assert blk.pop("use_stripe") is False
+    assert routed == serving.serving_config(serving.PROD_CFG, bf16=True)
+    assert repr(serving.PROD_CFG) == ours
     before = repr(bench.PROD_CFG)
     bf16 = serving.serving_config(bench.PROD_CFG, bf16=True)
     assert bf16["lidar"].pop("compute_dtype") == "bfloat16"
@@ -86,3 +111,95 @@ def test_serving_hints_and_bf16_batch():
     assert tb["points"].dtype == torch.float32  # geometry stays float32
     assert tb["camera"].dtype == torch.bfloat16
     assert tb["mode"].dtype == torch.int32
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(seed=0, max_cav=5, num_agents=4, max_points=512, image_size=32,
+         num_cams=2, lidar_range=RANGE),
+    dict(seed=3, batch_size=2, max_cav=3, num_agents=2, max_points=256,
+         image_size=16, num_cams=1, ego_mode="camera"),
+    dict(seed=7, max_cav=4, num_agents=4, max_points=128, image_size=16,
+         num_cams=1, ego_mode="lidar", camera_ratio=0.2),
+])
+def test_synthetic_batch_copy_equals_original(kwargs):
+    """Same seed, same arguments -> the same batch, array for array."""
+    got, got_gt = synthetic.make_hetero_batch(**kwargs)
+    want, want_gt = jsynthetic.make_hetero_batch(**kwargs)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        assert np.array_equal(got[key], want[key]), key
+    assert len(got_gt) == len(want_gt)
+    for a, b in zip(got_gt, want_gt):
+        assert np.array_equal(a, b)
+
+
+def test_scene_with_min_separation_copy_equals_original():
+    a = synthetic.make_scene(np.random.default_rng(5), 3, 20, 30.0, 6.0)
+    b = jsynthetic.make_scene(np.random.default_rng(5), 3, 20, 30.0, 6.0)
+    assert np.array_equal(a[0], b[0]) and a[1] == b[1]
+
+
+def test_pose_math_copy_equals_original():
+    rng = np.random.default_rng(11)
+    poses = [list(rng.uniform(-50, 50, 3)) + list(rng.uniform(-180, 180, 3))
+             for _ in range(3)]
+    for pose in poses:
+        assert np.array_equal(transforms.pose_to_world(pose),
+                              jtransforms.pose_to_world(pose))
+    assert np.array_equal(transforms.pose_to_pose(poses[0], poses[1]),
+                          jtransforms.pose_to_pose(poses[0], poses[1]))
+    assert np.array_equal(transforms.pairwise_transforms(poses, 5),
+                          jtransforms.pairwise_transforms(poses, 5))
+    pts = rng.standard_normal((9, 3))
+    m = jtransforms.pose_to_world(poses[2])
+    assert np.array_equal(transforms.project_points(pts, m),
+                          jtransforms.project_points(pts, m))
+
+
+@pytest.mark.parametrize("order", ["hwl", "lwh"])
+def test_numpy_box_copies_equal_originals(order):
+    assert np.array_equal(boxes.CORNER_TEMPLATE, jboxes.CORNER_TEMPLATE)
+    rng = np.random.default_rng(4)
+    b = np.concatenate([rng.uniform(-30, 30, (12, 3)),
+                        rng.uniform(0.5, 6.0, (12, 3)),
+                        rng.uniform(-np.pi, np.pi, (12, 1))], 1)
+    assert np.array_equal(boxes.boxes_to_corners_3d_np(b, order),
+                          jboxes.boxes_to_corners_3d(b, order))
+    lim = [-20.0, -20.0, -3.0, 20.0, 20.0, 1.0]
+    for k in (1, 8):
+        assert np.array_equal(
+            boxes.mask_boxes_outside_range_np(b, lim, order, k),
+            jboxes.mask_boxes_outside_range(b, lim, order, k))
+
+
+@pytest.mark.parametrize("order", ["hwl", "lhw"])
+def test_anchor_grid_copy_equals_original(order):
+    prod = {"W": 512, "H": 512, "l": 3.9, "w": 1.6, "h": 1.56,
+            "r": [0, 90], "num": 2, "feature_stride": 4, "vw": 0.4,
+            "vh": 0.4, "cav_lidar_range": serving.PROD_RANGE}
+    for args in (ANCHOR_ARGS, prod):
+        got = anchors.generate_anchor_grid(args, order)
+        want = janchors.generate_anchor_grid(args, order)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    with pytest.raises(ValueError):
+        anchors.generate_anchor_grid(ANCHOR_ARGS, "xyz")
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """Importing every module of the port and chip_smoke.py leaves no
+    jax, flax, hmvit_tpu or bench module loaded."""
+    code = (
+        "import pkgutil, sys, importlib\n"
+        "import hmvit_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(hmvit_tpu_torch.__path__,"
+        " 'hmvit_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.startswith(('jax', 'flax')) or m == 'bench'\n"
+        "       or m == 'hmvit_tpu' or m.startswith('hmvit_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

@@ -6,6 +6,9 @@ CPU.  Float32; psm/rm within 1e-4 absolute (a 50-layer trunk and two
 fusion iterations of float32 sums); decoded boxes within 1e-3 m, kept
 box SETS equal (top-k and NMS may order equal scores differently).
 
+The ``use_fused_wa`` model is held to JAX at a 64^2 BEV map, the
+smallest the fused route's shape rule admits.
+
 Also: neither the port nor chip_smoke.py imports jax or flax, and
 chip_smoke.py refuses to run (and prints no result) without a CUDA
 device."""
@@ -79,6 +82,45 @@ def test_run_both_equals_serving_buckets(flagship):
     run_both = _port_forward(flagship, active_agents=4)
     for key in ("psm", "rm"):
         close(run_both[key], bucketed[key].numpy(), 1e-5)
+
+
+def test_hmvit_use_fused_wa_matches_jax(monkeypatch):
+    """The whole model with ``use_fused_wa: True`` on a 64^2 map (256^2
+    pillar grid, 64^2 BEVFormer): the port's local phases go through the
+    fused warp + attention wrapper (its plain twin here), the flax model
+    through its CPU route.  1e-4, as the test above."""
+    from hmvit_tpu_torch.models import hetero_fusion as phf
+
+    cfg = tiny_flagship_cfg()
+    cfg["lidar"]["voxel_size"] = [0.16, 0.16, 4.0]
+    cfg["lidar"]["point_pillar_scatter"]["grid_size"] = [256, 256, 1]
+    cfg["camera"]["bev_size"] = 64
+    blk = cfg["hetero_fusion"]["hetero_fusion_block"]
+    blk["spatial_transform"]["voxel_size"] = [0.16, 0.16, 4]
+    blk["use_fused_wa"] = True
+    batch, _ = tiny_batch(1)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    modes = tuple(int(m) for m in batch["mode"][0, :4])
+    hints = dict(camera_bucket=int(sum(m == 0 for m in modes)),
+                 active_agents=4, static_ego_modality=modes[0],
+                 static_modes=modes)
+    jm = JHMViT(cfg)
+    v = flax_variables(jm, jb, train=False)
+    ref = japply(jm, v, jb, train=False, **hints)
+    pm = bridged(HMViT(cfg), v)
+    fused_calls = []
+    fused = phf.fused_warp_window_attention
+    monkeypatch.setattr(
+        phf, "fused_warp_window_attention",
+        lambda *a, **k: fused_calls.append(a[0].shape) or fused(*a, **k))
+    with torch.no_grad():
+        out = pm({k: t(v_) for k, v_ in batch.items()}, **hints)
+    # the two local phases, each over all 4 receivers (a sequential
+    # block restricts only its grid phase to the ego)
+    assert fused_calls == [(4, 64, 64, 64)] * 2
+    for key, shape in (("psm", (1, 2, 64, 64)), ("rm", (1, 14, 64, 64))):
+        assert tuple(out[key].shape) == shape
+        close(out[key], ref[key], 1e-4)
 
 
 def _kept(corners, scores, valid):

@@ -1,0 +1,47 @@
+"""The port's stage-timing entry point, ``hmvit_tpu_torch.perf_lab``:
+its CPU rehearsal drives every stage through the kernels' plain twins at
+a tiny size (the stages' own bit-for-bit assertions hold there too), it
+refuses to run without a CUDA device unless ``--cpu`` is given, and an
+unknown stage raises.  No time printed here is a device time, and each
+line says so."""
+import pytest
+import torch
+
+from hmvit_tpu_torch import perf_lab
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("stage,lines", [
+    ("attn", 1), ("pairwarp", 2), ("pairwarp_res", 6), ("fused_wa", 3)])
+def test_cpu_rehearsal_runs_stage(stage, lines, capsys):
+    assert perf_lab.main(["--cpu", "--iters", "1", stage]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == lines
+    assert all(line.endswith("[cpu rehearsal, plain twins, not a device "
+                             "time]") and " ms" in line for line in out)
+
+
+def test_refuses_to_run_without_cuda(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the stages would run")
+    assert perf_lab.main(["attn"]) == 2
+    captured = capsys.readouterr()
+    assert captured.out == "" and "no CUDA device" in captured.err
+
+
+def test_unknown_stage_raises():
+    with pytest.raises(ValueError):
+        perf_lab.run_stages(["warp9"], "cpu", iters=1,
+                            shapes=perf_lab.TINY)
+
+
+def test_stages_cover_the_production_shapes():
+    """B = 1, 128^2 x 256 maps, 8 heads of 32, window 8."""
+    s = perf_lab.PROD
+    assert (s.hw, s.heads, s.dim_head, s.win, s.c) == (128, 8, 32, 8, 256)
+    assert sorted(perf_lab.STAGES) == ["attn", "fused_wa", "pairwarp",
+                                       "pairwarp_res"]

@@ -118,6 +118,63 @@ def test_pair_warp_twin_vs_pallas_and_oracle(case, receivers):
             close(got[0, i, i], src[0, mode[0, i], i], ATOL)
 
 
+@pytest.mark.parametrize("case", ["random", "near_90deg"])
+@pytest.mark.parametrize("receivers", [None, 1])
+def test_resident_variant_twin_vs_pallas_resident(case, receivers):
+    """variant="resident": the Pallas resident kernel (interpret mode)
+    against the port's wrapper on the CPU, which runs the one twin both
+    variants share.  1e-4, the bar of the pair-warp case above."""
+    src, pair, mode = _pair_case(**CASES[case])
+    got = pfw.fused_pair_warp(t(src), t(pair), t(mode), 1.0, 1.0, receivers,
+                              variant="resident").numpy()
+    pallas = np.asarray(jfw.pallas_pair_warp(
+        jnp.asarray(src), jnp.asarray(pair), jnp.asarray(mode), 1.0, 1.0,
+        interpret=True, num_receivers=receivers, variant="resident"))
+    assert got.shape == pallas.shape
+    close(got, pallas, WARP_ATOL)
+    tile = pfw.fused_pair_warp(t(src), t(pair), t(mode), 1.0, 1.0, receivers,
+                               variant="tile").numpy()
+    assert np.array_equal(got, tile)
+
+
+@pytest.mark.parametrize("variant,h,w,want", [
+    ("auto", 128, 128, "tile"), ("tile", 128, 128, "tile"),
+    ("resident", 128, 128, "resident"), ("resident", 64, 64, "resident"),
+    ("resident", 160, 160, "resident"),
+    ("resident", 192, 192, "tile"),    # does not fit a block's shared memory
+    ("resident", 48, 48, "tile"),      # below 64
+    ("resident", 72, 72, "tile"),      # not a multiple of 32
+    ("resident", 64, 128, "tile"),     # not square
+])
+def test_pair_warp_variant_routing(variant, h, w, want):
+    """The JAX rule: auto = tile; resident only on a square map with
+    h >= 64 and h % 32 == 0 that fits on chip, otherwise tile."""
+    assert pfw.resolve_variant(variant, h, w) == want
+
+
+def test_pair_warp_unknown_variant_raises():
+    src, pair, mode = _pair_case(0)
+    with pytest.raises(ValueError):
+        pfw.fused_pair_warp(t(src), t(pair), t(mode), 1.0, 1.0,
+                            variant="banded")
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+def test_warp_bev_nhwc_matches(mode):
+    """The gather warp, 1e-4: the frameworks round the affine chain
+    differently (see WARP_ATOL); nearest compares away from ties."""
+    rng = np.random.default_rng(5)
+    feats = rng.standard_normal((2, 3, 16, 16, 8)).astype(np.float32)
+    tf = rigid_pairwise(rng, 2, 3, max_t=6.0)[:, 0]
+    want = np.asarray(jw.warp_bev_nhwc(feats, tf, 0.4, 4, mode))
+    got = pw.warp_bev_nhwc(t(feats), t(tf), 0.4, 4, mode).numpy()
+    assert got.shape == want.shape == feats.shape
+    if mode == "nearest":
+        assert np.mean(got == want) > 0.99
+    else:
+        close(got, want, WARP_ATOL)
+
+
 def test_prep_affines_flags():
     """The kernel's coefficient rows: identity pairs flagged for copy,
     the conditioning swap set near 90 degrees, non-finite pairs zeroed."""
