@@ -22,26 +22,36 @@ Phases:
    additive bias + mask, keys concatenated over senders) — a yardstick
    only, the port never calls it — and works out each kernel's bound:
    the larger of its bytes over the card's memory rate and its
-   operations over the card's peak rate;
+   operations over the card's peak rate.  The three lidar kernels
+   (one-pass segmented max-scan, dense expansion v1 and v2) are held to
+   their plain versions bit for bit, in float32 and bfloat16, on the
+   pillar ids and PFN rows of the production batch and on a synthetic
+   40 000-row case; their library call is ``torch.zeros`` +
+   ``index_copy_`` (the scan has none);
 3. build the production forward: ``hmvit_tpu_torch.serving.PROD_CFG``
    (4-agent mixed fleet, 4 x 512^2 cameras per camera agent, 512^2
    pillar grid, 128^2 x 256 BEV, 2 H3GAT iterations) and its request
    batch, with the serving hints, weights drawn from a seeded
-   ``torch.Generator``, in two variants: the split server (pair warp,
-   then stripe attention) and the ``use_fused_wa`` server (local phases
-   in the fused kernel);
-4. run both in float32 with the kernels and with ``plain_ops()``, and
-   compare sigmoid(psm) and rm; the two variants' kernel forwards must
-   be equal;
+   ``torch.Generator``, in four variants: the split server (pair warp,
+   then stripe attention), the ``use_fused_wa`` server (local phases in
+   the fused kernel), and the ``expand_v1`` / ``expand_v2`` servers
+   (split, with the lidar encoder's dense grid built by an expansion
+   kernel);
+4. run each in float32 with the kernels and with ``plain_ops()``, and
+   compare sigmoid(psm) and rm; every variant's kernel forward must
+   equal the split server's bit for bit;
 5. answer 3 bfloat16 requests (batch seeds 0-2) through each server:
    forward, anchor decode and rotated NMS; every output must be finite
-   and the launch counts must show each server's kernels (the fused
-   server: 2 fused launches per request and no stripe launch); then time
-   20 more requests per server in alternating blocks of 10 and print
-   the median and spread of ms/frame of each;
-6. run the typed-attention and resident-warp stages of
-   ``hmvit_tpu_torch.perf_lab``, the entry point that reaches those two
-   kernels, and count their launches.
+   and the launch counts must show each server's kernels and none of
+   another's (the fused server: 2 fused launches per request and no
+   stripe launch; an expand server: 1 launch of its expansion kernel);
+   then time 20 more requests per server in blocks of 10, the servers
+   taking turns in mirrored order, and print the median and spread of
+   ms/frame of each;
+6. run the typed-attention, resident-warp, segmented-scan, expansion and
+   lidar stages of ``hmvit_tpu_torch.perf_lab`` — the entry point that
+   reaches the typed, resident and scan kernels — and count their
+   launches.
 
 The script imports torch, numpy, the standard library and
 ``hmvit_tpu_torch``: nothing of jax, of the JAX package ``hmvit_tpu`` or
@@ -94,6 +104,12 @@ KERNEL_META = {
                            "hmvit_tpu/ops/fused_warp.py:334"),
     "typed_window_attention": ("hmvit_tpu_torch/csrc/window_attention.cu",
                                "hmvit_tpu/ops/window_attention.py:26"),
+    "segmented_max_scan": ("hmvit_tpu_torch/csrc/segscan.cu",
+                           "hmvit_tpu/ops/segscan.py:28"),
+    "expand_rows": ("hmvit_tpu_torch/csrc/expand.cu",
+                    "hmvit_tpu/ops/expand.py:30"),
+    "expand_rows_v2": ("hmvit_tpu_torch/csrc/expand.cu",
+                       "hmvit_tpu/ops/expand.py:122"),
 }
 
 # the path whose launch count each kernel's record carries
@@ -101,7 +117,9 @@ KERNEL_PATH = {"pair_warp": "split", "stripe_window_attention": "split",
                "plain_window_attention": "split",
                "warp_window_attention": "fused_wa",
                "pair_warp_resident": "perf_lab",
-               "typed_window_attention": "perf_lab"}
+               "typed_window_attention": "perf_lab",
+               "segmented_max_scan": "perf_lab",
+               "expand_rows": "expand_v1", "expand_rows_v2": "expand_v2"}
 
 # published peaks of one H100 SXM (dense): device memory bytes/s, and
 # operations/s by input type (bf16 on the tensor cores, float32 outside)
@@ -159,6 +177,12 @@ def bound_ms(tensors, out, ops: float, dtype_name: str):
     — every tensor argument read once and the output written once at the
     memory rate, or ``ops`` at the peak rate of the input type."""
     nbytes = sum(t.numel() * t.element_size() for t in (*tensors, out))
+    return bound_of(nbytes, ops, dtype_name)
+
+
+def bound_of(nbytes: float, ops: float, dtype_name: str):
+    """The same bound from a count of bytes (where the bytes a function
+    must move depend on the data)."""
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else \
@@ -417,6 +441,213 @@ def check_kernels(dev, pairwise, agent_mask):
     return record
 
 
+def check_lidar_kernels(dev, points, points_mask):
+    """Phase 2, the lidar encoder's three kernels: bit for bit against
+    their plain versions on the production batch's pillar ids and PFN
+    rows (points (N, P, 4) of the lidar agents), on dense clouds of as
+    many points (every row valid, runs up to the point cap), on 40 000
+    synthetic rows, and on shapes outside the Pallas kernels' gates (a
+    704 x 200 grid, C = 12); bfloat16 times on the production case (the
+    one the record carries), the dense clouds and the synthetic rows."""
+    import torch
+
+    from hmvit_tpu_torch import perf_lab
+    from hmvit_tpu_torch.models.pillar_encoder import PillarFeatureNet
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.ops import plain_ops
+    from hmvit_tpu_torch.ops.expand import (
+        expand_rows_launch,
+        expand_rows_to_dense,
+        expand_rows_to_dense_plain,
+        expand_rows_to_dense_v2,
+    )
+    from hmvit_tpu_torch.ops.segscan import (
+        fused_segmented_max_scan,
+        segmented_max_scan_launch,
+    )
+    from hmvit_tpu_torch.ops.voxelize import compact_pillar_rows, scan_steps
+    from hmvit_tpu_torch.serving import PROD_CFG
+
+    lidar = PROD_CFG["lidar"]
+    grid = lidar["point_pillar_scatter"]["grid_size"][:2]
+    n_clouds = points.shape[0]
+    num_cells = n_clouds * grid[0] * grid[1]
+    record = {}
+
+    def must_equal(name, label, key, got, want, what):
+        err = float((got.float() - want.float()).abs().max()) \
+            if got.numel() else 0.0
+        print(f"  {name} [{label}, {key}]: max_abs_err {err:.1e} against "
+              f"{what} (must be equal bit for bit)")
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"{name} {label} {key}: differs from "
+                                 f"{what} (max|diff| {err})")
+        return err
+
+    def times(name, label, launch, wrapper, library, nbytes, ops, extra=""):
+        k_ms = time_ms(launch)
+        w_ms = time_ms(wrapper)
+        with plain_ops():
+            p_ms = time_ms(wrapper)
+        lib_ms = None if library is None else time_ms(library)
+        b_ms, b_by = bound_of(nbytes, ops, "bfloat16")
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"  {name} [{label}, bfloat16]: kernel {k_ms:.4f} ms, wrapper "
+              f"{w_ms:.4f} ms, plain version {p_ms:.4f} ms, library call "
+              f"{lib_txt}, bound {b_ms:.4f} ms ({b_by}){extra}")
+        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms}
+
+    def scan_case(label, key, feats, ids, steps, timed):
+        """The one-pass scan against the log-shift scan on rows whose id
+        is >= 0; returns the log-shift scan's output."""
+        valid = ids >= 0
+        got = fused_segmented_max_scan(feats, ids, steps)
+        with plain_ops():
+            want = fused_segmented_max_scan(feats, ids, steps)
+        torch.cuda.synchronize()
+        err = must_equal("segmented_max_scan", label, key, got[valid],
+                         want[valid], "the log-shift scan")
+        if not timed:
+            return want
+        p = feats.shape[0]
+        launch, out = segmented_max_scan_launch(feats, ids, steps)
+        # one maximum per channel and row a thread looks back over
+        idx = torch.arange(p, device=dev)
+        new = torch.cat([torch.ones_like(valid[:1]), ids[1:] != ids[:-1]])
+        start = torch.cummax(torch.where(new, idx, 0), dim=0).values
+        back = (idx - start) * valid
+        nbytes = 2 * feats.numel() * feats.element_size() + p * 4
+        rec = dict(
+            times("segmented_max_scan", label, launch,
+                  lambda: fused_segmented_max_scan(feats, ids, steps), None,
+                  nbytes, float(back.sum()) * feats.shape[1],
+                  f"; {int(valid.sum())} rows with id >= 0, the longest "
+                  f"look-back {int(back.max())} rows"),
+            max_abs_err=err)
+        if "segmented_max_scan" in record:  # production came first
+            record["segmented_max_scan"].update(
+                dense_ms=rec["ms"], dense_plain_ms=rec["plain_ms"],
+                dense_bound_ms=rec["bound_ms"])
+        else:
+            record["segmented_max_scan"] = rec
+        return want
+
+    def expand_case(label, key, comp, ids, timed, num_cells=num_cells):
+        """v1 and v2 against the plain version and against each other."""
+        want = expand_rows_to_dense_plain(comp, ids, num_cells)
+        outs = {"expand_rows": expand_rows_to_dense(comp, ids, num_cells),
+                "expand_rows_v2": expand_rows_to_dense_v2(comp, ids,
+                                                          num_cells)}
+        torch.cuda.synchronize()
+        errs = {name: must_equal(name, label, key, out, want,
+                                 "the plain version")
+                for name, out in outs.items()}
+        must_equal("expand_rows_v2", label, key, outs["expand_rows_v2"],
+                   outs["expand_rows"], "the v1 kernel")
+        if not timed:
+            return errs
+        real = ids < num_cells
+        rows = comp[real].contiguous()
+        where = ids[real].long()
+
+        def library():
+            out = torch.zeros((num_cells, comp.shape[1]), dtype=comp.dtype,
+                              device=dev)
+            return out.index_copy_(0, where, rows)
+
+        must_equal("library call", label, key, library(), want,
+                   "the plain version")
+        for name, fn, v2 in (("expand_rows", expand_rows_to_dense, False),
+                             ("expand_rows_v2", expand_rows_to_dense_v2,
+                              True)):
+            launch, out = expand_rows_launch(comp, ids, num_cells, v2)
+            tables = (-(-num_cells // (128 if v2 else 4096)) + 1) * 4
+            # the rows this run places, every id, the table, the output
+            nbytes = (rows.numel() * rows.element_size() + ids.numel() * 4
+                      + tables + out.numel() * out.element_size())
+            # the first timed case (production) is the one the record carries
+            rec = dict(
+                times(name, label, launch,
+                      lambda fn=fn: fn(comp, ids, num_cells), library,
+                      nbytes, 0.0,
+                      f"; {int(real.sum())} of {len(ids)} rows placed"),
+                max_abs_err=errs[name])
+            record.setdefault(name, rec)
+            del launch, out
+        return errs
+
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt).split(".")[-1]
+        bf16 = dt == torch.bfloat16
+        net = init_parameters(PillarFeatureNet(
+            lidar["pillar_vfe"]["num_filters"], lidar["voxel_size"],
+            lidar["lidar_range"], grid,
+            compute_dtype=key), seed=0).to(dev, dt).eval()
+        with torch.no_grad():
+            feats, info = net.point_features(points, points_mask)
+        if feats.dtype != dt:
+            raise AssertionError(f"PFN rows are {feats.dtype}, not {dt}")
+        keep, pillar_id = info["keep"], info["pillar_id"]
+        p = feats.shape[0]
+        steps = scan_steps(net.max_points_per_pillar, p)
+        ids = torch.where(keep, pillar_id, -1)
+        label = f"production P={p} C={feats.shape[1]}"
+
+        # -- the one-pass scan; the production case is timed first
+        want = scan_case(label, key, feats, ids, steps, timed=bf16)
+
+        # -- the two expansions, on the compacted rows of this scan
+        scanned = want * keep[:, None].to(want.dtype)
+        comp, comp_ids = compact_pillar_rows(scanned, pillar_id, ids, keep,
+                                             num_cells)
+        expand_case(label, key, comp, comp_ids, timed=bf16)
+        if bf16:
+            c_ms = time_ms(lambda: compact_pillar_rows(
+                scanned, pillar_id, ids, keep, num_cells))
+            print(f"  compaction around the expansion kernels (stable "
+                  f"argsort, static shape) [{label}, bfloat16]: "
+                  f"{c_ms:.4f} ms")
+
+        # -- 40 000 synthetic rows with fill rows behind them
+        rng = np.random.RandomState(0)
+        syn_ids = np.sort(rng.choice(num_cells, size=40000, replace=False))
+        syn_ids = np.concatenate([syn_ids, np.full(1000, num_cells)])
+        syn_ids = torch.as_tensor(syn_ids.astype(np.int32), device=dev)
+        syn = torch.randn(len(syn_ids), feats.shape[1], device=dev).to(dt)
+        expand_case("synthetic 40000 rows", key, syn, syn_ids, timed=bf16)
+
+        # -- dense clouds: every row valid, about 24 points to a pillar
+        gen = torch.Generator(device=dev).manual_seed(0)
+        with torch.no_grad():
+            d_feats, d_info = net.point_features(*perf_lab.dense_clouds(
+                gen, dev, n_clouds, points.shape[1], lidar["voxel_size"],
+                lidar["lidar_range"]))
+        d_ids = torch.where(d_info["keep"], d_info["pillar_id"], -1)
+        d_want = scan_case(f"dense clouds P={p} C={feats.shape[1]}", key,
+                           d_feats, d_ids, steps, timed=bf16)
+        d_comp = compact_pillar_rows(
+            d_want * d_info["keep"][:, None].to(d_want.dtype),
+            d_info["pillar_id"], d_ids, d_info["keep"], num_cells)
+        expand_case("dense clouds", key, *d_comp, timed=False)
+
+        # -- outside the Pallas kernels' gates: C % 8 != 0, cells % 4096 != 0
+        scan_case(f"production P={p} C=12", key,
+                  feats[:, :12].contiguous(), ids, steps, timed=False)
+        other = 704 * 200
+        o_ids = np.sort(rng.choice(other, size=9000, replace=False))
+        o_ids[-1] = other - 1  # the short last block's last cell
+        o_ids = np.concatenate([o_ids, np.full(100, other)])
+        o_ids = torch.as_tensor(o_ids.astype(np.int32), device=dev)
+        expand_case(f"704 x 200 = {other} cells", key,
+                    syn[:len(o_ids)].contiguous(), o_ids, timed=False,
+                    num_cells=other)
+        del net, feats, info, want, scanned, comp, comp_ids, syn
+        del d_feats, d_info, d_want, d_comp
+        torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -453,16 +684,21 @@ def main() -> int:
     geo = batch_to_device(batch0, dev, bf16=False)
     record = check_kernels(dev, geo["pairwise_t_matrix"][:, :4, :4],
                            geo["agent_mask"][:, :4])
+    is_lidar = torch.as_tensor(batch0["mode"][0, :NUM_AGENTS] == 1,
+                               device=dev)
+    record.update(check_lidar_kernels(
+        dev, geo["points"][0, :NUM_AGENTS][is_lidar],
+        geo["points_mask"][0, :NUM_AGENTS][is_lidar]))
     torch.cuda.empty_cache()
 
-    # -- 3. the production model, split and use_fused_wa ---------------------
+    # -- 3. the production model in its four serving variants ----------------
     hints = serving_hints(batch0["mode"][0], NUM_AGENTS)
-    variants = {"split": False, "fused_wa": True}
+    variants = {"split": {}, "fused_wa": {"fused_wa": True},
+                "expand_v1": {"expand": "v1"}, "expand_v2": {"expand": "v2"}}
 
-    def build(bf16: bool, fused_wa: bool):
+    def build(bf16: bool, knobs: dict):
         model = init_parameters(
-            HMViT(serving_config(PROD_CFG, bf16=bf16, fused_wa=fused_wa)),
-            seed=0)
+            HMViT(serving_config(PROD_CFG, bf16=bf16, **knobs)), seed=0)
         model = model.to(dev, torch.bfloat16) if bf16 else model.to(dev)
         return model.eval()
 
@@ -474,12 +710,17 @@ def main() -> int:
                               dtype=torch.float32, device=dev)
     eye = torch.eye(4, device=dev)
     # launches per request each server must show (0: must not launch)
+    split_counts = {"pair_warp": 4, "stripe_window_attention": 2,
+                    "plain_window_attention": 5, "warp_window_attention": 0,
+                    "pair_warp_resident": 0, "typed_window_attention": 0,
+                    "segmented_max_scan": 0, "expand_rows": 0,
+                    "expand_rows_v2": 0}
     per_request = {
-        "split": {"pair_warp": 4, "stripe_window_attention": 2,
-                  "plain_window_attention": 5, "warp_window_attention": 0},
-        "fused_wa": {"pair_warp": 2, "stripe_window_attention": 0,
-                     "plain_window_attention": 5,
-                     "warp_window_attention": 2},
+        "split": split_counts,
+        "fused_wa": dict(split_counts, pair_warp=2, stripe_window_attention=0,
+                         warp_window_attention=2),
+        "expand_v1": dict(split_counts, expand_rows=1),
+        "expand_v2": dict(split_counts, expand_rows_v2=1),
     }
 
     def check_counts(what, name, counts, requests):
@@ -489,10 +730,10 @@ def main() -> int:
                     f"{what} ({name}): {kernel} launched {counts[kernel]} "
                     f"times, expected {n * requests}")
 
-    # -- 4. float32 forward: kernels vs plain twins, fused vs split -----------
+    # -- 4. float32 forward: kernels vs plain twins, variants vs split --------
     outs32 = {}
-    for name, fused_wa in variants.items():
-        model32 = build(False, fused_wa)
+    for name, knobs in variants.items():
+        model32 = build(False, knobs)
         cuda.reset_launches()
         with torch.no_grad(), strict_fp32():
             out_k = model32(geo, **hints)
@@ -527,19 +768,20 @@ def main() -> int:
         outs32[name] = out_k
         del model32, out_p
         torch.cuda.empty_cache()
-    for key in ("psm", "rm"):
-        diff = float((outs32["split"][key] - outs32["fused_wa"][key])
-                     .abs().max())
-        print(f"forward fp32 {key}: use_fused_wa vs split max|diff| "
-              f"{diff:.1e}")
-        if not torch.equal(outs32["split"][key], outs32["fused_wa"][key]):
-            raise AssertionError(f"fp32 forward {key}: the use_fused_wa "
-                                 f"forward differs from the split forward")
+    for name in list(variants)[1:]:
+        for key in ("psm", "rm"):
+            diff = float((outs32["split"][key] - outs32[name][key])
+                         .abs().max())
+            print(f"forward fp32 {key}: {name} vs split max|diff| "
+                  f"{diff:.1e}")
+            if not torch.equal(outs32["split"][key], outs32[name][key]):
+                raise AssertionError(f"fp32 forward {key}: the {name} "
+                                     f"forward differs from the split "
+                                     f"forward")
     del outs32
 
     # -- 5. bfloat16 requests through forward, decode, NMS -------------------
-    servers = {name: build(True, fused_wa)
-               for name, fused_wa in variants.items()}
+    servers = {name: build(True, knobs) for name, knobs in variants.items()}
     requests = [batch_to_device(prod_batch(s), dev, bf16=True)
                 for s in range(3)]
 
@@ -577,13 +819,13 @@ def main() -> int:
         path_counts[name] = cuda.launch_counts()
         print(f"launches during the 3 {name} requests: {path_counts[name]}")
         check_counts("bf16 serving", name, path_counts[name], len(requests))
-    # split, fused, fused, split: both servers see the card in the same
-    # states, TIMED_REQUESTS requests each
+    # every server in turn, then in the mirrored order: all see the card
+    # in the same states, TIMED_REQUESTS requests each
     stage_ms = {name: [] for name in servers}
     blocks = TIMED_REQUESTS // TIMED_BLOCK
     order = [n for i in range(blocks)
-             for n in (("split", "fused_wa") if i % 2 == 0
-                       else ("fused_wa", "split"))]
+             for n in (list(servers) if i % 2 == 0
+                       else list(servers)[::-1])]
     for name in order:
         done = len(stage_ms[name])
         stage_ms[name] += [
@@ -601,9 +843,10 @@ def main() -> int:
     del servers, requests
     torch.cuda.empty_cache()
 
-    # -- 6. the lab stages that reach the typed and resident kernels ---------
+    # -- 6. the lab stages: typed, resident and scan kernels, lidar paths ----
     cuda.reset_launches()
     perf_lab.run_stages(["attn", "pairwarp_res"], dev, iters=5)
+    perf_lab.run_stages(["segscan", "expand", "lidar"], dev, iters=20)
     path_counts["perf_lab"] = cuda.launch_counts()
     print(f"launches during the perf_lab stages: {path_counts['perf_lab']}")
 

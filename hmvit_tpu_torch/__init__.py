@@ -6,10 +6,11 @@ mirror it (``hmvit_tpu_torch/models/hetero_fusion.py::HeteroFusion`` is
 the counterpart of ``hmvit_tpu/models/hetero_fusion.py::HeteroFusion``),
 feature maps stay NHWC at every public function, and
 :mod:`hmvit_tpu_torch.bridge` loads a flax ``variables`` tree into a
-port module.  Six of the JAX package's Pallas kernels are CUDA kernels
-under ``csrc/`` (pair warp, tile and resident; stripe, plain and typed
-window attention; fused warp + attention), built with nvcc at first use
-(:mod:`hmvit_tpu_torch.ops.cuda`).  On CPU tensors every kernel wrapper
+port module.  All nine of the JAX package's Pallas kernels are CUDA
+kernels under ``csrc/`` (pair warp, tile and resident; stripe, plain and
+typed window attention; fused warp + attention; the lidar encoder's
+one-pass segmented max-scan and its two dense-grid expansions), built
+with nvcc at first use (:mod:`hmvit_tpu_torch.ops.cuda`).  On CPU tensors every kernel wrapper
 runs its plain PyTorch twin.
 
 The package imports ``torch``, ``numpy`` and the standard library:
@@ -23,7 +24,7 @@ no code — a fault in a shared helper would be invisible to every parity
 test — and the port runs where ``hmvit_tpu`` is absent.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 # ground-truth / evaluation range [x0, y0, z0, x1, y1, z1] in metres
 GT_RANGE = [-102.4, -102.4, -3.0, 102.4, 102.4, 1.0]

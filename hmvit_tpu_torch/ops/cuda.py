@@ -164,12 +164,18 @@ TYPED_WINDOW_ATTENTION = Kernel("hm_typed_window_attention",
                                 n_ptrs=8, n_ints=7)
 WARP_WINDOW_ATTENTION = Kernel("hm_warp_window_attention",
                                n_ptrs=7, n_ints=9)
+SEGMENTED_MAX_SCAN = Kernel("hm_segmented_max_scan", n_ptrs=3, n_ints=4)
+EXPAND_ROWS = Kernel("hm_expand_rows", n_ptrs=4, n_ints=2)
+EXPAND_ROWS_V2 = Kernel("hm_expand_rows_v2", n_ptrs=4, n_ints=2)
 KERNELS = {"pair_warp": PAIR_WARP,
            "stripe_window_attention": STRIPE_WINDOW_ATTENTION,
            "plain_window_attention": PLAIN_WINDOW_ATTENTION,
            "warp_window_attention": WARP_WINDOW_ATTENTION,
            "pair_warp_resident": PAIR_WARP_RESIDENT,
-           "typed_window_attention": TYPED_WINDOW_ATTENTION}
+           "typed_window_attention": TYPED_WINDOW_ATTENTION,
+           "segmented_max_scan": SEGMENTED_MAX_SCAN,
+           "expand_rows": EXPAND_ROWS,
+           "expand_rows_v2": EXPAND_ROWS_V2}
 
 
 def reset_launches():

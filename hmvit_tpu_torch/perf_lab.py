@@ -1,10 +1,11 @@
-"""Stage-level timing of the fusion-stage kernels on the card
-(counterpart of the fusion stages of the JAX package's ``perf_lab.py``).
+"""Stage-level timing of the kernels on the card (counterpart of the
+fusion, lidar and expansion stages of the JAX package's ``perf_lab.py``).
 
     python -m hmvit_tpu_torch.perf_lab [stage ...] [--iters N] [--cpu]
 
 Stages (default: all), at the production shapes B = 1, 128^2 x 256 maps,
-8 heads of 32, window 8, two type variants:
+8 heads of 32, window 8, two type variants; 2 lidar clouds of 30 000
+points on a 512^2 pillar grid, PFN width 64:
 
 * ``attn`` — the typed window-attention kernel, L = 5, float32;
 * ``pairwarp`` — the pair-warp tile kernel, L = 4 and 5, bfloat16;
@@ -13,7 +14,19 @@ Stages (default: all), at the production shapes B = 1, 128^2 x 256 maps,
   be equal bit for bit;
 * ``fused_wa`` — the fused warp + attention kernel beside the pair warp
   followed by the stripe attention kernel, L = 4, L = 4 with one
-  receiver, L = 5; equal bit for bit.
+  receiver, L = 5; equal bit for bit;
+* ``segscan`` — the one-pass segmented max-scan kernel beside the
+  log-shift scan, bfloat16, on the pillar ids of two synthetic scene
+  clouds (mostly padding and short runs) and of two dense clouds (every
+  point in range, about 24 to a pillar, runs up to the cap of 32); equal
+  bit for bit on every row whose id is >= 0;
+* ``expand`` — 40 000 sorted rows -> the 2 x 512^2 x 64 bfloat16 grid:
+  the plain version, the v1 and v2 expansion kernels and the one library
+  call (``torch.zeros`` + ``index_copy_``, a yardstick only); all equal
+  bit for bit;
+* ``lidar`` — ``PillarFeatureNet`` alone, bfloat16 features, on two
+  clouds of 30 000 in-range points: ``scatter_variant`` False, "v1",
+  "v2", and the default route with the scan kernel; equal bit for bit.
 
 Times are CUDA-event medians of ``--iters`` calls of the wrapper (inputs
 on the card, pose geometry included), each line with the card's name and
@@ -32,12 +45,25 @@ import time
 import numpy as np
 import torch
 
+from .data.synthetic import lidar_from_boxes, make_scene
+from .models.pillar_encoder import PillarFeatureNet
+from .nn import DTYPES, init_parameters
+from .ops import plain_ops
+from .ops.expand import (
+    expand_rows_to_dense,
+    expand_rows_to_dense_plain,
+    expand_rows_to_dense_v2,
+)
 from .ops.fused_warp import fused_pair_warp
 from .ops.fused_warp_attention import fused_warp_window_attention
+from .ops.segscan import fused_segmented_max_scan
+from .ops.voxelize import pillarize, scan_steps
 from .ops.window_attention import (
     fused_stripe_window_attention,
     fused_window_attention,
 )
+
+LIDAR_RANGE = (-102.4, -102.4, -3.0, 102.4, 102.4, 1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,14 +72,27 @@ class Shapes:
     heads: int = 8
     dim_head: int = 32
     win: int = 8
+    # the lidar encoder: pillar grid side, points per cloud, PFN width,
+    # clouds, and the expand stage's non-empty pillars
+    grid: int = 512
+    points: int = 30000
+    pfn: int = 64
+    clouds: int = 2
+    expand_rows: int = 40000
 
     @property
     def c(self) -> int:
         return self.heads * self.dim_head
 
+    @property
+    def voxel_size(self) -> tuple:
+        side = (LIDAR_RANGE[3] - LIDAR_RANGE[0]) / self.grid
+        return (side, side, LIDAR_RANGE[5] - LIDAR_RANGE[2])
+
 
 PROD = Shapes()
-TINY = Shapes(hw=64, heads=2, dim_head=8)
+TINY = Shapes(hw=64, heads=2, dim_head=8, grid=64, points=512, pfn=16,
+              expand_rows=300)
 
 
 class Lab:
@@ -200,6 +239,132 @@ def stage_fused_wa(lab: Lab, dtype=torch.bfloat16, l: int = 4,
                              f"split kernels at {tag}: max|diff| {diff}")
 
 
+def _all_equal(what: str, outs: dict):
+    """Every output equal to the first, bit for bit."""
+    (ref_name, ref), *rest = outs.items()
+    for name, out in rest:
+        if not torch.equal(out, ref):
+            diff = float((out.float() - ref.float()).abs().max())
+            raise AssertionError(f"{what}: {name} differs from {ref_name}, "
+                                 f"max|diff| {diff}")
+
+
+def dense_clouds(gen, device, clouds: int, points: int, voxel_size,
+                 lidar_range, per_pillar: int = 24):
+    """(points (clouds, P, 4), mask (clouds, P)): every point in range,
+    spread evenly over a square patch of pillars so that a pillar holds
+    about ``per_pillar`` of them - runs near the cap of 32 and a few over
+    it, where a scene cloud at this grid is mostly one-point pillars and
+    padding."""
+    side = max(1, round((points / per_pillar) ** 0.5))
+    lo = torch.tensor(lidar_range[:3], device=device)
+    span = torch.tensor([side * voxel_size[0], side * voxel_size[1],
+                         lidar_range[5] - lidar_range[2]], device=device)
+    u = torch.rand(clouds, points, 4, generator=gen, device=device)
+    pts = torch.cat([lo + u[..., :3] * span, u[..., 3:]], dim=-1)
+    return pts, torch.ones(clouds, points, device=device)
+
+
+def stage_segscan(lab: Lab, dtype=torch.bfloat16):
+    """The one-pass scan kernel beside the log-shift scan on the pillar
+    ids of two kinds of cloud: synthetic scene clouds (mostly padding and
+    short runs; vehicle walls give some long ones) and dense clouds (all
+    points in range, runs near the cap, the capped rows as interleaved -1
+    runs)."""
+    s = lab.shapes
+    rng = np.random.default_rng(0)
+    vehicles, poses = make_scene(rng, s.clouds)
+    scene = [lidar_from_boxes(rng, vehicles, pose, s.points)
+             for pose in poses]
+    cases = {
+        "scene": tuple(torch.as_tensor(np.stack([c[k] for c in scene]),
+                                       device=lab.dev) for k in (0, 1)),
+        "dense": dense_clouds(lab.gen, lab.dev, s.clouds, s.points,
+                              s.voxel_size, LIDAR_RANGE),
+    }
+    cap = 32
+    for name, (pts, mask) in cases.items():
+        info = pillarize(pts, mask, s.voxel_size, LIDAR_RANGE,
+                         (s.grid, s.grid), cap)
+        ids = torch.where(info["keep"], info["pillar_id"], -1)
+        p = ids.shape[0]
+        steps = scan_steps(cap, p)
+        vals = lab.randn(p, s.pfn, dtype=dtype)
+
+        def run():
+            return fused_segmented_max_scan(vals, ids, steps)
+
+        ms = lab.time_ms(run)
+        got = run()
+        with plain_ops():
+            ms_plain = lab.time_ms(run)
+            want = run()
+        valid = ids >= 0
+        runs = int((ids[1:] != ids[:-1]).sum()) + 1
+        lab.report(f"segscan [{name}] P={p} C={s.pfn} steps={steps} "
+                   f"{_name(dtype)} ({int(valid.sum())} rows with id >= 0 "
+                   f"in {runs} runs): one-pass {ms:.4f} ms, log-shift "
+                   f"{ms_plain:.4f} ms")
+        _all_equal(f"segscan [{name}] on rows with id >= 0",
+                   {"log-shift": want[valid], "one-pass": got[valid]})
+
+
+def stage_expand(lab: Lab, dtype=torch.bfloat16):
+    """Sorted compacted rows -> the dense grid: plain version, both
+    kernels, and the library call."""
+    s = lab.shapes
+    num_cells = s.clouds * s.grid * s.grid
+    ids = np.sort(np.random.RandomState(0).choice(
+        num_cells, size=s.expand_rows, replace=False)).astype(np.int32)
+    ids = torch.as_tensor(ids, device=lab.dev)
+    ids_long = ids.long()
+    comp = lab.randn(s.expand_rows, s.pfn, dtype=dtype)
+
+    def library():
+        out = torch.zeros((num_cells, s.pfn), dtype=dtype, device=lab.dev)
+        return out.index_copy_(0, ids_long, comp)
+
+    runs = {
+        "plain": lambda: expand_rows_to_dense_plain(comp, ids, num_cells),
+        "v1": lambda: expand_rows_to_dense(comp, ids, num_cells),
+        "v2": lambda: expand_rows_to_dense_v2(comp, ids, num_cells),
+        "library (zeros + index_copy_)": library,
+    }
+    outs = {}
+    for name, run in runs.items():
+        ms = lab.time_ms(run)
+        outs[name] = run()
+        lab.report(f"expand[{name}] {s.expand_rows} rows -> {num_cells}x"
+                   f"{s.pfn} {_name(dtype)}: {ms:.4f} ms")
+    _all_equal("expand", outs)
+
+
+def stage_lidar(lab: Lab, dtype_name: str = "bfloat16"):
+    """PillarFeatureNet alone on clouds of in-range points: the dense
+    grid by each route."""
+    s = lab.shapes
+    lo = torch.tensor(LIDAR_RANGE[:3], device=lab.dev)
+    hi = torch.tensor(LIDAR_RANGE[3:], device=lab.dev)
+    pts = torch.cat([lo + lab.rand(s.clouds, s.points, 3) * (hi - lo),
+                     lab.rand(s.clouds, s.points, 1)], dim=-1)
+    mask = torch.ones(s.clouds, s.points, device=lab.dev)
+    routes = {"scan + gather": {}, "expand v1": {"scatter_variant": "v1"},
+              "expand v2": {"scatter_variant": "v2"},
+              "scan kernel + gather": {"use_scan_kernel": True}}
+    outs = {}
+    for name, kwargs in routes.items():
+        net = init_parameters(PillarFeatureNet(
+            [s.pfn], s.voxel_size, LIDAR_RANGE, (s.grid, s.grid),
+            compute_dtype=dtype_name, **kwargs), seed=0)
+        net = net.to(lab.dev, DTYPES[dtype_name]).eval()
+        ms = lab.time_ms(lambda: net(pts, mask))
+        outs[name] = net(pts, mask)
+        lab.report(f"pillar_pfn_scatter [{name}] {s.clouds}x{s.points} "
+                   f"points -> {s.clouds}x{s.grid}^2x{s.pfn} {dtype_name}: "
+                   f"{ms:.4f} ms")
+    _all_equal("pillar_pfn_scatter", outs)
+
+
 STAGES = {
     "attn": lambda lab: stage_attn_typed(lab, torch.float32),
     "pairwarp": lambda lab: [stage_pairwarp(lab, torch.bfloat16, l)
@@ -208,6 +373,9 @@ STAGES = {
                                  for l, r in ((4, None), (5, None), (4, 1))],
     "fused_wa": lambda lab: [stage_fused_wa(lab, torch.bfloat16, l, r)
                              for l, r in ((4, None), (4, 1), (5, None))],
+    "segscan": stage_segscan,
+    "expand": stage_expand,
+    "lidar": stage_lidar,
 }
 
 

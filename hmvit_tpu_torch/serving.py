@@ -67,14 +67,19 @@ GEOMETRY_KEYS = frozenset({"pairwise_t_matrix", "transformation_matrix",
 
 
 def serving_config(cfg: dict, bf16: bool, fused_wa: bool = False,
-                   stripe: bool = True) -> dict:
+                   stripe: bool = True, expand: str | None = None) -> dict:
     """A deep copy of ``cfg`` (e.g. :data:`PROD_CFG`), which stays as it
     is.  ``bf16=True`` also casts the lidar features and the decoder to
     bfloat16, as the bfloat16 server does; ``bf16=False`` runs the
     fusion kernels in float32.  ``fused_wa=True`` sends the local fusion
     phases through the fused warp + attention kernel
     (``use_fused_wa``); ``stripe=False`` sends them through the window
-    split and the plain attention kernel (``use_stripe``)."""
+    split and the plain attention kernel (``use_stripe``).
+    ``expand="v1"`` or ``"v2"`` builds the lidar encoder's dense grid with
+    that expansion kernel (``lidar.scatter_variant``) instead of the scan
+    + row gather."""
+    if expand not in (None, "v1", "v2"):
+        raise ValueError(f"expand must be None, 'v1' or 'v2', got {expand!r}")
     cfg = copy.deepcopy(cfg)
     blk = cfg["hetero_fusion"]["hetero_fusion_block"]
     if bf16:
@@ -86,6 +91,8 @@ def serving_config(cfg: dict, bf16: bool, fused_wa: bool = False,
         blk["use_fused_wa"] = True
     if not stripe:
         blk["use_stripe"] = False
+    if expand:
+        cfg["lidar"]["scatter_variant"] = expand
     return cfg
 
 

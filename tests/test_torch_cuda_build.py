@@ -1,7 +1,7 @@
 """The kernel build's bookkeeping, as far as a machine without nvcc can
 check it: the library's name is keyed by every ``.cu`` source AND every
 ``.cuh`` header (an edited header must never load a stale library), the
-six kernels are registered with their C symbols, each source defines the
+nine kernels are registered with their C symbols, each source defines the
 symbols it is registered under, and no launcher takes a host tensor."""
 import re
 import shutil
@@ -22,6 +22,9 @@ KERNELS = {
                                "window_attention.cu"),
     "warp_window_attention": ("hm_warp_window_attention",
                               "fused_warp_attention.cu"),
+    "segmented_max_scan": ("hm_segmented_max_scan", "segscan.cu"),
+    "expand_rows": ("hm_expand_rows", "expand.cu"),
+    "expand_rows_v2": ("hm_expand_rows_v2", "expand.cu"),
 }
 
 
@@ -80,8 +83,10 @@ def test_kernel_registered_with_its_symbol_and_source(name):
     assert params[-1] == "void* stream"
 
 
-def test_registry_is_exactly_the_six_kernels():
-    assert sorted(cuda.KERNELS) == sorted(KERNELS)
+def test_registry_is_exactly_the_nine_kernels():
+    assert sorted(cuda.KERNELS) == sorted(KERNELS) and len(KERNELS) == 9
+    assert {src for _, src in KERNELS.values()} == {
+        p.name for p in cuda.CSRC_DIR.glob("*.cu")}
     cuda.reset_launches()
     assert set(cuda.launch_counts().values()) == {0}
 

@@ -11,6 +11,11 @@ import pytest
 import torch
 
 from hmvit_tpu_torch.ops import cuda, plain_ops
+from hmvit_tpu_torch.ops.expand import (
+    expand_rows_to_dense,
+    expand_rows_to_dense_plain,
+    expand_rows_to_dense_v2,
+)
 from hmvit_tpu_torch.ops.fused_warp import (
     fused_pair_warp,
     pair_warp_coefficients,
@@ -18,6 +23,8 @@ from hmvit_tpu_torch.ops.fused_warp import (
 from hmvit_tpu_torch.ops.fused_warp_attention import (
     fused_warp_window_attention,
 )
+from hmvit_tpu_torch.ops.segscan import fused_segmented_max_scan
+from hmvit_tpu_torch.ops.voxelize import scatter_max_to_bev
 from hmvit_tpu_torch.ops.window_attention import (
     fused_plain_window_attention,
     fused_stripe_window_attention,
@@ -266,3 +273,204 @@ def test_kernel_backward_matches_plain_backward(dev):
             grads.append([x.grad for x in leaves])
         for g_kernel, g_plain in zip(*grads):
             assert float((g_kernel - g_plain).abs().max()) <= 1e-4, kind
+
+
+def _runs(rng, p, max_run, dropped=0.2):
+    """Ids of consecutive runs of 1..max_run rows, some of them -1."""
+    seg, cur = [], 0
+    while len(seg) < p:
+        run = int(rng.integers(1, max_run + 1))
+        seg.extend([-1 if rng.random() < dropped else cur] * run)
+        cur += int(rng.integers(1, 3))
+    return np.asarray(seg[:p], np.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,c,steps", [(1024, 8, 5), (60001, 64, 5),
+                                       (777, 24, 3), (300, 64, 0),
+                                       (777, 12, 5), (1021, 3, 4),
+                                       (515, 1, 2)])
+def test_segmented_max_scan_kernel(dev, dtype, p, c, steps):
+    """Bit for bit against the log-shift scan on every row whose id is
+    >= 0; P is no multiple of any block, C of 8 or not (one channel per
+    thread then), runs reach 2**steps, -1 runs lie between."""
+    rng = np.random.default_rng(p)
+    seg = torch.as_tensor(_runs(rng, p, 1 << steps), device=dev)
+    vals = torch.randn(p, c, device=dev).to(dtype)
+    before = cuda.SEGMENTED_MAX_SCAN.launches
+    got = fused_segmented_max_scan(vals, seg, steps)
+    assert cuda.SEGMENTED_MAX_SCAN.launches == before + 1
+    with plain_ops():
+        want = fused_segmented_max_scan(vals, seg, steps)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype
+    valid = seg >= 0
+    assert torch.equal(got[valid], want[valid])
+
+
+def test_segmented_max_scan_giant_dropped_run_and_gradient(dev):
+    """Only the -1 id may exceed 2**steps rows; its neighbours stay exact.
+    The gradient is the plain version's."""
+    p, c = 512, 8
+    seg = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    seg[:16], seg[-8:] = 3, 7
+    vals = torch.randn(p, c, device=dev)
+    got = fused_segmented_max_scan(vals, seg, 5)
+    assert torch.equal(got[15], vals[:16].max(dim=0).values)
+    assert torch.equal(got[-1], vals[-8:].max(dim=0).values)
+    last = torch.tensor([15, p - 1], device=dev)
+    grads = []
+    for plain in (False, True):
+        v = vals.clone().requires_grad_()
+        if plain:
+            with plain_ops():
+                out = fused_segmented_max_scan(v, seg, 5)
+        else:
+            out = fused_segmented_max_scan(v, seg, 5)
+        out[last].square().sum().backward()
+        grads.append(v.grad)
+    assert torch.equal(*grads)
+    # a view that is not contiguous and of C % 8 != 0 still launches
+    before = cuda.SEGMENTED_MAX_SCAN.launches
+    narrow = fused_segmented_max_scan(vals[:, :6], seg, 5)
+    assert cuda.SEGMENTED_MAX_SCAN.launches == before + 1
+    assert torch.equal(narrow[15], got[15, :6])
+
+
+def _expand_ids(rng, block=4096):
+    return np.unique(np.concatenate([
+        rng.integers(0, block, 60),
+        np.arange(block, 2 * block),                # a fully dense block
+        np.arange(3 * block - 70, 3 * block + 70),  # across a boundary
+    ])).astype(np.int32)                            # block 3's tail: empty
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 64, 3, 1])
+def test_expand_kernels_equal_plain(dev, dtype, c):
+    """Both kernels place rows exactly as the plain version does: empty
+    and full blocks, a run across a block boundary, fill rows, and row
+    widths that move as 16-, 8-, 4- and 2-byte words."""
+    rng = np.random.default_rng(13)
+    num_cells = 4 * 4096
+    ids = _expand_ids(rng)
+    fill = np.full(37, num_cells, np.int32)
+    ids = torch.as_tensor(np.concatenate([ids, fill]), device=dev)
+    comp = torch.randn(len(ids), c, device=dev).to(dtype)
+    want = expand_rows_to_dense_plain(comp, ids, num_cells)
+    for fn, kernel in ((expand_rows_to_dense, cuda.EXPAND_ROWS),
+                       (expand_rows_to_dense_v2, cuda.EXPAND_ROWS_V2)):
+        before = kernel.launches
+        got = fn(comp, ids, num_cells)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert got.dtype == dtype and torch.equal(got, want)
+    real = ids[ids < num_cells].long()
+    assert torch.equal(want[real], comp[:len(real)])
+    assert int((want != 0).any(dim=1).sum()) <= len(real)
+
+
+def test_expand_kernels_without_rows(dev):
+    """M = 0 gives zeros from the kernels."""
+    comp = torch.zeros(0, 64, device=dev)
+    ids = torch.zeros(0, dtype=torch.int32, device=dev)
+    for fn in (expand_rows_to_dense, expand_rows_to_dense_v2):
+        before = dict(cuda.launch_counts())
+        out = fn(comp, ids, 8192)
+        assert cuda.launch_counts() != before
+        assert out.shape == (8192, 64) and not out.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_cells", [5000, 704 * 200, 100, 4096 + 128 + 1])
+def test_expand_kernels_take_any_grid(dev, dtype, num_cells):
+    """Grids that are no multiple of 4096 or 128 cells launch the kernels
+    like any other: the short last block and sub-block end at num_cells,
+    the last cell is placed, fill rows and the memory behind the grid are
+    left alone."""
+    rng = np.random.default_rng(num_cells)
+    ids = np.sort(rng.choice(num_cells, size=min(num_cells, 3000) // 2,
+                             replace=False))
+    ids[-1] = num_cells - 1
+    ids = np.concatenate([ids, np.full(9, num_cells)]).astype(np.int32)
+    ids = torch.as_tensor(ids, device=dev)
+    comp = torch.randn(len(ids), 24, device=dev).to(dtype)
+    want = expand_rows_to_dense_plain(comp, ids, num_cells)
+    for fn, kernel in ((expand_rows_to_dense, cuda.EXPAND_ROWS),
+                       (expand_rows_to_dense_v2, cuda.EXPAND_ROWS_V2)):
+        before = kernel.launches
+        got = fn(comp, ids, num_cells)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert got.shape == want.shape and torch.equal(got, want)
+    assert torch.equal(want[-1], comp[len(ids) - 10])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_routes_give_one_grid(dev, dtype):
+    """scatter_max_to_bev by every sorted route, kernels against the
+    plain versions and against each other, bit for bit."""
+    from hmvit_tpu_torch.ops.voxelize import pillarize
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    pts = torch.rand(2, 3000, 4, generator=g, device=dev) * 12.6 - 6.3
+    pts[..., 2] = pts[..., 2] * 0.1
+    mask = (torch.rand(2, 3000, generator=g, device=dev) > 0.1).float()
+    info = pillarize(pts, mask, (0.2, 0.2, 4.0),
+                     (-6.4, -6.4, -3.0, 6.4, 6.4, 1.0), (64, 64), 4)
+    feats = torch.randn(6000, 64, generator=g, device=dev).to(dtype)
+    outs = []
+    for kwargs in ({}, {"use_scan_kernel": True}, {"use_expand_kernel": True},
+                   {"use_expand_kernel": "v2", "use_scan_kernel": True}):
+        for plain in (False, True):
+            before = dict(cuda.launch_counts())
+            if plain:
+                with plain_ops():
+                    out = scatter_max_to_bev(
+                        feats, info["pillar_id"], info["keep"], (64, 64), 2,
+                        max_run=4, **kwargs)
+            else:
+                out = scatter_max_to_bev(
+                    feats, info["pillar_id"], info["keep"], (64, 64), 2,
+                    max_run=4, **kwargs)
+            launched = cuda.launch_counts() != before
+            assert launched == (bool(kwargs) and not plain)
+            outs.append(out)
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+def test_cap_free_path_on_the_card(dev):
+    """``enforce_cap=False`` sums with ``index_add_``, whose float atomics
+    add in no fixed order on the card: the statistics and the PFN's grid
+    are held to the CPU's at 1e-5, not to equality; the bfloat16 grid is
+    finite and fills no other cells."""
+    from hmvit_tpu_torch.models.pillar_encoder import PillarFeatureNet
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.ops.voxelize import pillarize
+
+    g = torch.Generator().manual_seed(0)
+    pts = torch.rand(2, 3000, 4, generator=g) * 12.6 - 6.3
+    pts[..., 2] = pts[..., 2] * 0.1
+    mask = (torch.rand(2, 3000, generator=g) > 0.1).float()
+    args = ((0.2, 0.2, 4.0), (-6.4, -6.4, -3.0, 6.4, 6.4, 1.0), (64, 64))
+    want = pillarize(pts, mask, *args, enforce_cap=False)
+    got = pillarize(pts.to(dev), mask.to(dev), *args, enforce_cap=False)
+    for key in ("pillar_id", "keep"):
+        assert torch.equal(got[key].cpu(), want[key])
+    for key in ("mean_xyz", "center_offset", "count_per_point"):
+        assert float((got[key].cpu() - want[key]).abs().max()) <= 1e-5, key
+    net = init_parameters(PillarFeatureNet([16, 32], *args,
+                                           enforce_cap=False), seed=0).eval()
+    with torch.no_grad(), strict_fp32():
+        grid_cpu = net(pts, mask)
+        grid_dev = net.to(dev)(pts.to(dev), mask.to(dev))
+        net16 = init_parameters(PillarFeatureNet(
+            [16, 32], *args, enforce_cap=False, compute_dtype="bfloat16"),
+            seed=0).to(dev, torch.bfloat16).eval()
+        grid_bf16 = net16(pts.to(dev), mask.to(dev))
+    assert float((grid_dev.cpu() - grid_cpu).abs().max()) <= 1e-5
+    assert grid_bf16.dtype == torch.bfloat16
+    assert torch.isfinite(grid_bf16.float()).all()
+    filled = (grid_cpu != 0).any(dim=-1)
+    assert not ((grid_bf16 != 0).any(dim=-1).cpu() & ~filled).any()

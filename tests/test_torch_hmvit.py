@@ -77,6 +77,53 @@ def test_hmvit_serving_hints_match_jax(flagship):
         close(out[key], flagship["ref"][key], 1e-4)
 
 
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+def test_hmvit_scatter_variant_matches_jax(flagship, variant):
+    """``lidar.scatter_variant``: the lidar encoder's dense grid through
+    compaction + an expansion function (its plain version here; the flax
+    model takes its oracle off a TPU).  1e-4 against JAX as above, and
+    bit for bit against the port's default route: the grid is the same
+    tensor."""
+    import copy
+
+    from hmvit_tpu_torch.ops import expand as pexpand
+    from hmvit_tpu_torch.serving import serving_config
+
+    cfg = copy.deepcopy(flagship["cfg"])
+    cfg["lidar"]["scatter_variant"] = variant
+    served = serving_config(flagship["cfg"], bf16=False, expand=variant)
+    assert served["lidar"]["scatter_variant"] == variant
+    assert "scatter_variant" not in flagship["cfg"]["lidar"]
+    jb = {k: jnp.asarray(v) for k, v in flagship["batch"].items()}
+    ref = japply(JHMViT(cfg), flagship["variables"], jb, train=False,
+                 **flagship["hints"])
+    pm = bridged(HMViT(cfg), flagship["variables"])
+    calls = []
+    name = ("expand_rows_to_dense_v2" if variant == "v2"
+            else "expand_rows_to_dense")
+    fn = getattr(pexpand, name)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pexpand, name,
+                   lambda *a: calls.append(a[2]) or fn(*a))
+        with torch.no_grad():
+            out = pm({k: t(v) for k, v in flagship["batch"].items()},
+                     **flagship["hints"])
+    assert calls == [2 * 64 * 64]  # one grid for the two lidar agents
+    default = _port_forward(flagship, **flagship["hints"])
+    for key in ("psm", "rm"):
+        close(out[key], ref[key], 1e-4)
+        assert torch.equal(out[key], default[key])
+
+
+def test_serving_config_rejects_unknown_expand():
+    from hmvit_tpu_torch.serving import PROD_CFG, serving_config
+
+    with pytest.raises(ValueError):
+        serving_config(PROD_CFG, bf16=True, expand="v3")
+    assert "scatter_variant" not in serving_config(
+        PROD_CFG, bf16=True)["lidar"]
+
+
 def test_run_both_equals_serving_buckets(flagship):
     bucketed = _port_forward(flagship, **flagship["hints"])
     run_both = _port_forward(flagship, active_agents=4)

@@ -1,6 +1,7 @@
 """The port's stage-timing entry point, ``hmvit_tpu_torch.perf_lab``:
-its CPU rehearsal drives every stage through the kernels' plain twins at
-a tiny size (the stages' own bit-for-bit assertions hold there too), it
+its CPU rehearsal drives every stage (fusion, segmented scan, expansion,
+lidar) through the kernels' plain twins at a tiny size (the stages' own
+bit-for-bit assertions hold there too), it
 refuses to run without a CUDA device unless ``--cpu`` is given, and an
 unknown stage raises.  No time printed here is a device time, and each
 line says so."""
@@ -16,7 +17,8 @@ def _one_thread():
 
 
 @pytest.mark.parametrize("stage,lines", [
-    ("attn", 1), ("pairwarp", 2), ("pairwarp_res", 6), ("fused_wa", 3)])
+    ("attn", 1), ("pairwarp", 2), ("pairwarp_res", 6), ("fused_wa", 3),
+    ("segscan", 2), ("expand", 4), ("lidar", 4)])
 def test_cpu_rehearsal_runs_stage(stage, lines, capsys):
     assert perf_lab.main(["--cpu", "--iters", "1", stage]) == 0
     out = capsys.readouterr().out.strip().splitlines()
@@ -43,5 +45,29 @@ def test_stages_cover_the_production_shapes():
     """B = 1, 128^2 x 256 maps, 8 heads of 32, window 8."""
     s = perf_lab.PROD
     assert (s.hw, s.heads, s.dim_head, s.win, s.c) == (128, 8, 32, 8, 256)
-    assert sorted(perf_lab.STAGES) == ["attn", "fused_wa", "pairwarp",
-                                       "pairwarp_res"]
+    assert (s.grid, s.points, s.pfn, s.clouds, s.expand_rows) == (
+        512, 30000, 64, 2, 40000)
+    assert s.voxel_size == pytest.approx((0.4, 0.4, 4.0))
+    assert sorted(perf_lab.STAGES) == ["attn", "expand", "fused_wa", "lidar",
+                                       "pairwarp", "pairwarp_res", "segscan"]
+
+
+def test_dense_clouds_fill_runs_up_to_the_cap():
+    """The scan stage's dense case at the production size: every point
+    in range, most rows kept, and runs that reach the cap of 32 rows -
+    the look-back the scene clouds' one-point pillars never ask for."""
+    from hmvit_tpu_torch.ops.voxelize import pillarize
+
+    s = perf_lab.PROD
+    gen = torch.Generator().manual_seed(0)
+    pts, mask = perf_lab.dense_clouds(gen, "cpu", s.clouds, s.points,
+                                      s.voxel_size, perf_lab.LIDAR_RANGE)
+    assert pts.shape == (s.clouds, s.points, 4) and bool(mask.all())
+    info = pillarize(pts, mask, s.voxel_size, perf_lab.LIDAR_RANGE,
+                     (s.grid, s.grid), 32)
+    num_cells = s.clouds * s.grid * s.grid
+    assert int(info["pillar_id"].max()) < num_cells  # none out of range
+    kept = info["pillar_id"][info["keep"]]
+    assert len(kept) > 0.9 * s.clouds * s.points
+    runs = torch.unique_consecutive(kept, return_counts=True)[1]
+    assert int(runs.max()) == 32 and float(runs.float().mean()) > 16
