@@ -14,9 +14,15 @@ Phases:
    production shapes, in float32 (tight) and bfloat16 (stated
    tolerance); the resident pair warp must also equal the tile pair
    warp, and the fused warp + attention kernel the pair warp followed
-   by the stripe attention kernel, bit for bit.  In bfloat16 it times
+   by the stripe attention kernel, bit for bit.  The plain and typed
+   attention kernels must run their tensor-core body in bfloat16 and
+   their fp32 CUDA-core body in float32 (counted inside the library).
+   In bfloat16 it times
    the kernel launch alone, the whole wrapper and the twin (CUDA events,
-   median of 20 after warm-up) and, for the attention kernels, the one
+   median of 20 after warm-up), for the plain and typed attention
+   kernels also their previous fp32 body on the same operands through
+   its timing-only entry, in turns (previous, new, new, previous:
+   ``previous_ms``), and, for the attention kernels, the one
    library call that computes the same attention
    (``scaled_dot_product_attention`` over window-split heads with the
    additive bias + mask, keys concatenated over senders) — a yardstick
@@ -41,17 +47,21 @@ Phases:
    compare sigmoid(psm) and rm; every variant's kernel forward must
    equal the split server's bit for bit;
 5. answer 3 bfloat16 requests (batch seeds 0-2) through each server:
-   forward, anchor decode and rotated NMS; every output must be finite
+   forward, anchor decode and rotated NMS; every output must be finite,
+   the split server's sigmoid(psm) and rm must agree with the same
+   server under ``plain_ops()`` (``BF16_FORWARD_ATOL``), every plain
+   attention launch must have run on the tensor cores,
    and the launch counts must show each server's kernels and none of
    another's (the fused server: 2 fused launches per request and no
    stripe launch; an expand server: 1 launch of its expansion kernel);
    then time 20 more requests per server in blocks of 10, the servers
    taking turns in mirrored order, and print the median and spread of
    ms/frame of each;
-6. run the typed-attention, resident-warp, segmented-scan, expansion and
-   lidar stages of ``hmvit_tpu_torch.perf_lab`` — the entry point that
-   reaches the typed, resident and scan kernels — and count their
-   launches.
+6. run the typed-attention (float32 and bfloat16), resident-warp,
+   segmented-scan, expansion and lidar stages of
+   ``hmvit_tpu_torch.perf_lab`` — the entry point that reaches the typed,
+   resident and scan kernels — and count their launches, those of the
+   typed kernel's tensor-core body apart.
 
 The script imports torch, numpy, the standard library and
 ``hmvit_tpu_torch``: nothing of jax, of the JAX package ``hmvit_tpu`` or
@@ -90,20 +100,28 @@ BF16_ATOL = {"pair_warp": 0.0625, "pair_warp_resident": 0.0625,
 # full float32 forward, kernels vs plain twins: kernel rounding noise
 # (~1e-6 relative) carried through the decoder
 FORWARD_ATOL = 2e-3
+# full bfloat16 forward of the split server, kernels vs plain twins, on
+# sigmoid(psm) and on rm over max(1, max|rm|): the kernels differ from
+# their twins by output ulps (the bounds above), and two H3GAT iterations
+# and the decoder carry those through bf16 layers (measured 3e-4 and
+# 1e-3 on an H100)
+BF16_FORWARD_ATOL = 0.01
 
 KERNEL_META = {
     "pair_warp": ("hmvit_tpu_torch/csrc/pair_warp.cu",
                   "hmvit_tpu/ops/fused_warp.py:215"),
     "stripe_window_attention": ("hmvit_tpu_torch/csrc/window_attention.cu",
                                 "hmvit_tpu/ops/window_attention.py:342"),
-    "plain_window_attention": ("hmvit_tpu_torch/csrc/window_attention.cu",
-                               "hmvit_tpu/ops/window_attention.py:157"),
+    "plain_window_attention": (
+        "hmvit_tpu_torch/csrc/window_attention_mma.cu",
+        "hmvit_tpu/ops/window_attention.py:157"),
     "warp_window_attention": ("hmvit_tpu_torch/csrc/fused_warp_attention.cu",
                               "hmvit_tpu/ops/fused_warp_attention.py:47"),
     "pair_warp_resident": ("hmvit_tpu_torch/csrc/pair_warp.cu",
                            "hmvit_tpu/ops/fused_warp.py:334"),
-    "typed_window_attention": ("hmvit_tpu_torch/csrc/window_attention.cu",
-                               "hmvit_tpu/ops/window_attention.py:26"),
+    "typed_window_attention": (
+        "hmvit_tpu_torch/csrc/window_attention_mma.cu",
+        "hmvit_tpu/ops/window_attention.py:26"),
     "segmented_max_scan": ("hmvit_tpu_torch/csrc/segscan.cu",
                            "hmvit_tpu/ops/segscan.py:28"),
     "expand_rows": ("hmvit_tpu_torch/csrc/expand.cu",
@@ -111,6 +129,11 @@ KERNEL_META = {
     "expand_rows_v2": ("hmvit_tpu_torch/csrc/expand.cu",
                        "hmvit_tpu/ops/expand.py:122"),
 }
+
+# kernels whose bfloat16 launches run on the tensor cores (their float32
+# launches, and the shapes the tensor-core body does not take, stay in
+# hmvit_tpu_torch/csrc/window_attention.cu)
+TENSOR_CORE_KERNELS = ("plain_window_attention", "typed_window_attention")
 
 # the path whose launch count each kernel's record carries
 KERNEL_PATH = {"pair_warp": "split", "stripe_window_attention": "split",
@@ -198,7 +221,7 @@ def check_kernels(dev, pairwise, agent_mask):
         _window_split,
         pairwise_roi_mask,
     )
-    from hmvit_tpu_torch.ops import plain_ops
+    from hmvit_tpu_torch.ops import cuda, plain_ops
     from hmvit_tpu_torch.ops.fused_warp import (
         fused_pair_warp,
         pair_warp_launch,
@@ -295,7 +318,7 @@ def check_kernels(dev, pairwise, agent_mask):
         q_, kv_, b_, m_ = args[:4]
         return dict(
             args=args, tensors=args[:4], fn=fused_plain_window_attention,
-            prep=plain_window_attention_launch, exact=None,
+            prep=plain_window_attention_launch, exact=None, previous=True,
             library=lambda: sdpa(q_, kv_[..., :c], kv_[..., c:], b_, m_),
             ops=attention_ops(n, j))
 
@@ -321,8 +344,8 @@ def check_kernels(dev, pairwise, agent_mask):
 
         return dict(
             args=args, tensors=args[:7], fn=fused_window_attention,
-            prep=typed_window_attention_launch, exact=None, library=library,
-            ops=attention_ops(l, l, typed=True))
+            prep=typed_window_attention_launch, exact=None, previous=True,
+            library=library, ops=attention_ops(l, l, typed=True))
 
     def fused(dt, ty, mode_, receivers):
         r = l if receivers is None else receivers
@@ -358,6 +381,7 @@ def check_kernels(dev, pairwise, agent_mask):
         "stripe_window_attention": [("local J=4", stripe)],
         "plain_window_attention": [
             ("grid J=4", lambda dt: plain(dt, l, l, grid_mask)),
+            ("grid ego N=1 J=4", lambda dt: plain(dt, 1, l, grid_mask[:1])),
             ("camera J=1", lambda dt: plain(
                 dt, 2, 1, torch.ones(2, 1, nwin, t, device=dev))),
         ],
@@ -383,12 +407,22 @@ def check_kernels(dev, pairwise, agent_mask):
                 case = make(dt)
                 args, fn = case["args"], case["fn"]
                 key = str(dt).split(".")[-1]
+                bodies = cuda.attention_body_launches().get(name)
                 with strict_fp32():
                     got = fn(*args)
+                    ran = cuda.attention_body_launches().get(name)
                     with plain_ops():
                         want = fn(*args)
                     same = case["exact"]() if case["exact"] else None
                 torch.cuda.synchronize()
+                if case.get("previous"):
+                    # bfloat16 on the tensor cores, float32 on the fp32 body
+                    body = "mma" if dt == torch.bfloat16 else "simt"
+                    ran = {b: ran[b] - bodies[b] for b in ran}
+                    if ran != {b: int(b == body) for b in ran}:
+                        raise AssertionError(
+                            f"{name} {label} {key}: ran {ran}, expected one "
+                            f"launch of the {body} body")
                 if got.shape != want.shape or got.dtype != want.dtype:
                     raise AssertionError(f"{name} {label}: {got.shape} "
                                          f"{got.dtype} vs {want.shape}")
@@ -413,7 +447,28 @@ def check_kernels(dev, pairwise, agent_mask):
                     # wrapper (geometry prep, layout, launch), the twin,
                     # and the library call where there is one
                     launch, out = case["prep"](*args)
-                    k_ms = time_ms(launch)
+                    prev_ms = None
+                    if case.get("previous"):
+                        # the fp32 CUDA-core body on the same operands, in
+                        # turns with the tensor-core body
+                        old, old_out = case["prep"](*args, simt=True)
+                        turns = [time_ms(f) for f in (old, launch, launch,
+                                                      old)]
+                        prev_ms = (turns[0] + turns[3]) / 2
+                        k_ms = (turns[1] + turns[2]) / 2
+                        diff = float((old_out.float() - want.float())
+                                     .abs().max())
+                        print(f"  {name} [{label}, bfloat16]: previous body "
+                              f"{turns[0]:.4f} / {turns[3]:.4f} ms "
+                              f"(max_abs_err {diff:.3e}), tensor-core body "
+                              f"{turns[1]:.4f} / {turns[2]:.4f} ms")
+                        if not diff <= tol:
+                            raise AssertionError(
+                                f"{name} {label}: the previous body "
+                                f"disagrees with the twin: {diff}")
+                        del old, old_out
+                    else:
+                        k_ms = time_ms(launch)
                     w_ms = time_ms(lambda: fn(*args))
                     with plain_ops():
                         p_ms = time_ms(lambda: fn(*args))
@@ -430,10 +485,14 @@ def check_kernels(dev, pairwise, agent_mask):
                           f"ms, wrapper {w_ms:.4f} ms, plain twin "
                           f"{p_ms:.4f} ms, library call {lib_txt}, bound "
                           f"{b_ms:.4f} ms ({b_by})")
+                    timed = {"ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": lib_ms}
+                    if prev_ms is not None:
+                        timed["previous_ms"] = prev_ms
                     if rec is None:
-                        rec = {"ms": k_ms, "plain_ms": p_ms,
-                               "bound_ms": b_ms, "bound_by": b_by,
-                               "library_ms": lib_ms}
+                        rec = dict(timed, cases={})
+                    rec["cases"][label] = dict(timed, max_abs_err=err)
                     del launch, out
                 del case, args, got, want, same
                 torch.cuda.empty_cache()
@@ -799,7 +858,7 @@ def main() -> int:
         t2 = time.perf_counter()
         return out, det, ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
 
-    path_counts = {}
+    path_counts, path_bodies = {}, {}
     for name, model in servers.items():
         serve(model, requests[0])  # warm-up (cuDNN autotune, allocator)
         cuda.reset_launches()
@@ -817,8 +876,31 @@ def main() -> int:
                   f"{stages[0]:.2f}, decode + NMS {stages[1]:.2f}), "
                   f"{int(valid.sum())} boxes kept")
         path_counts[name] = cuda.launch_counts()
-        print(f"launches during the 3 {name} requests: {path_counts[name]}")
+        path_bodies[name] = cuda.attention_body_launches()
+        print(f"launches during the 3 {name} requests: {path_counts[name]}; "
+              f"attention launches by body: {path_bodies[name]}")
         check_counts("bf16 serving", name, path_counts[name], len(requests))
+        plain_bodies = path_bodies[name]["plain_window_attention"]
+        if plain_bodies != {"simt": 0, "mma": 5 * len(requests)}:
+            raise AssertionError(
+                f"bf16 serving ({name}): the plain attention kernel ran "
+                f"{plain_bodies}, expected every launch on the tensor cores")
+    # the split server against itself on the plain twins, one request
+    with torch.no_grad():
+        out_k = servers["split"](requests[0], **hints)
+        with plain_ops():
+            out_p = servers["split"](requests[0], **hints)
+    torch.cuda.synchronize()
+    for key, fn in (("psm", torch.sigmoid), ("rm", lambda z: z)):
+        a, b = fn(out_k[key].float()), fn(out_p[key].float())
+        scale = max(1.0, float(b.abs().max()))
+        err = float((a - b).abs().max()) / scale
+        print(f"forward bf16 (split) {key} {tuple(a.shape)}: kernels vs "
+              f"plain max_abs_err/scale {err:.3e} (tol {BF16_FORWARD_ATOL})")
+        if not (torch.isfinite(a).all() and err <= BF16_FORWARD_ATOL):
+            raise AssertionError(f"bf16 forward (split) {key} disagrees: "
+                                 f"{err}")
+    del out_k, out_p
     # every server in turn, then in the mirrored order: all see the card
     # in the same states, TIMED_REQUESTS requests each
     stage_ms = {name: [] for name in servers}
@@ -848,7 +930,9 @@ def main() -> int:
     perf_lab.run_stages(["attn", "pairwarp_res"], dev, iters=5)
     perf_lab.run_stages(["segscan", "expand", "lidar"], dev, iters=20)
     path_counts["perf_lab"] = cuda.launch_counts()
-    print(f"launches during the perf_lab stages: {path_counts['perf_lab']}")
+    path_bodies["perf_lab"] = cuda.attention_body_launches()
+    print(f"launches during the perf_lab stages: {path_counts['perf_lab']}; "
+          f"attention launches by body: {path_bodies['perf_lab']}")
 
     kernels = []
     for name, rec in record.items():
@@ -856,6 +940,12 @@ def main() -> int:
         if launches <= 0:
             raise AssertionError(f"{name} never launched on its path "
                                  f"({KERNEL_PATH[name]})")
+        if name in TENSOR_CORE_KERNELS:
+            # of those launches, the ones the tensor-core body ran
+            rec["mma_launches"] = path_bodies[KERNEL_PATH[name]][name]["mma"]
+            if rec["mma_launches"] <= 0:
+                raise AssertionError(f"{name}: the tensor-core body never "
+                                     f"ran on its path ({KERNEL_PATH[name]})")
         kernels.append({"name": name, "route": "cuda",
                         "source": KERNEL_META[name][0],
                         "replaces": KERNEL_META[name][1],

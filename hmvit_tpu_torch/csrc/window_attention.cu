@@ -1,5 +1,17 @@
-// Multi-sender window attention: the untyped kernel with two index maps,
-// and the typed kernel, over one attention body (attention_body.cuh).
+// Multi-sender window attention: the C entry points of the stripe, plain
+// and typed kernels, and their fp32 CUDA-core form over one attention
+// body (attention_body.cuh).
+//
+// hm_plain_window_attention and hm_typed_window_attention choose inside,
+// by type and shape: bfloat16 operands with T % 16 == 0, T <= 128,
+// d % 16 == 0, d <= 64, J*T <= 320 and 16-byte aligned pointers (the
+// serving path) go to the tensor-core kernels of
+// window_attention_mma.cu, whose header says what bounds them (bytes)
+// and how they are laid out; float32 — the
+// check lane, held to the twins at 1e-4 — and every other shape within
+// J*T <= 320, d <= 64, d % 4 == 0, T % 4 == 0 run the kernels below.
+// Nothing falls from one to the other on a failure.  The *_simt entry
+// points always run the kernels below (for timing the two side by side).
 //
 // window_attention_kernel replaces two Pallas kernels of
 // hmvit_tpu/ops/window_attention.py:
@@ -13,32 +25,34 @@
 // J*T keys, a row whose max is <= -5e8 outputs 0, out = attn . v.  All
 // math in fp32, whatever the storage type.
 //
-// What bounds it on the H100: at the serving shapes (T = 64, d = 32,
-// J = 4, 8 heads) the work is 2 * 64 * 256 * 32 multiply-adds per
-// window and head — small matrices the TPU ran on the MXU.  This first
-// version runs them on the fp32 CUDA cores, so it is bound by
-// shared-memory bandwidth and fp32 issue rate, not by device memory
-// (each q/k/v element is read once).  The design: one block per
-// (n, window), looping over heads; q_h, K_h, V_h of all J senders are
-// staged in fp32 shared memory (K rows padded to d+1 floats so the 32
-// lanes of a warp read 32 different banks); the body then gives each
-// warp 4 query rows at a time.  No intermediate leaves the block.
-// Tensor cores (mma.sync / wgmma) are the next step.
+// What bounds this form on the H100: the products (2 * 64 * 256 * 32
+// multiply-adds per window and head at T = 64, d = 32, J = 4) run on
+// the fp32 CUDA cores out of fp32 shared memory, so it is bound by
+// shared-memory bandwidth and fp32 instruction rate, 7-28 times over the
+// bytes it moves.  One block per (n, window), looping over heads; q_h,
+// K_h, V_h of all J senders are staged in fp32 shared memory (K rows
+// padded to d+1 floats so the 32 lanes of a warp read 32 different
+// banks); the body then gives each warp 4 query rows at a time.  No
+// intermediate leaves the block.  It is exact fp32 arithmetic in a fixed
+// order, which is what the stripe kernel and the fused warp + attention
+// kernel are held to each other by, bit for bit.
 //
 // typed_window_attention_kernel replaces the Pallas kernel
 // hmvit_tpu/ops/window_attention.py::_kernel (hetero_window_attention):
 // per pair (n, j) and head, sim = (q_h W_att[n, j, h]) k_j^T + bias,
 // the same mask, softmax over the J*T keys and zero rows, and
 // out = sum_j attn_j (v_j W_msg[n, j, h]^T), on pre-split windows with
-// K and V as separate tensors.  The same bound and the same block
-// shape; per head the block also stages the J pairs of d x d relation
-// matrices (rows padded to d + 1 floats) and computes, in fp32 shared
-// memory, the J relation-transformed query blocks q_h W_att[j] and the
-// transformed values v W_msg[j]^T before it enters the body — the raw
-// values' buffer is reused for the transformed queries.  At J = 5,
-// T = 64, d = 32 that is 194 KB of the 227 KB a block may use: one
-// block per SM.
+// K and V as separate tensors.  Per head the block also stages the J
+// pairs of d x d relation matrices (rows padded to d + 1 floats) and
+// computes, in fp32 shared memory, the J relation-transformed query
+// blocks q_h W_att[j] and the transformed values v W_msg[j]^T before it
+// enters the body — the raw values' buffer is reused for the
+// transformed queries.  At J = 5, T = 64, d = 32 that is 194 KB of the
+// 227 KB a block may use: one block per SM.
+#include <stdint.h>
+
 #include "attention_body.cuh"
+#include "window_attention_mma.cuh"
 
 namespace {
 
@@ -269,41 +283,10 @@ int launch_typed(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-// q/out (N, H, W, C), kv (N, J, H, W, 2C), mask (N, J, H, W) f32,
-// bias (heads, T, T) f32; windows win x win, nwin = (H/win) * (W/win),
-// wcols = W / win.  dtype 0 = f32, 1 = bf16.
-extern "C" int hm_stripe_window_attention(const void* q, const void* kv,
-                                          const void* bias, const void* mask,
-                                          void* out, int dtype, int n, int nj,
-                                          int nwin, int t, int win, int wcols,
-                                          int heads, int d, void* stream) {
-  if (win * win != t) return (int)cudaErrorInvalidValue;
-  return dispatch<true>(q, kv, bias, mask, out, dtype, n, nj, nwin, t, win,
-                        wcols, heads, d, stream);
-}
-
-// q/out (N, Wn, T, C), kv (N, J, Wn, T, 2C), mask (N, J, Wn, T) f32,
-// bias (heads, T, T) f32.  win and wcols are unused.
-extern "C" int hm_plain_window_attention(const void* q, const void* kv,
-                                         const void* bias, const void* mask,
-                                         void* out, int dtype, int n, int nj,
-                                         int nwin, int t, int win, int wcols,
-                                         int heads, int d, void* stream) {
-  return dispatch<false>(q, kv, bias, mask, out, dtype, n, nj, nwin, t, win,
-                         wcols, heads, d, stream);
-}
-
-// q/out (N, Wn, T, C); k, v (N, J, Wn, T, C); w_att, w_msg (N, J, heads,
-// d, d); bias (heads, T, T) f32; mask (N, J, Wn, T) f32.
-extern "C" int hm_typed_window_attention(const void* q, const void* k,
-                                         const void* v, const void* w_att,
-                                         const void* w_msg, const void* bias,
-                                         const void* mask, void* out,
-                                         int dtype, int n, int nj, int nwin,
-                                         int t, int heads, int d,
-                                         void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+int dispatch_typed(const void* q, const void* k, const void* v,
+                   const void* w_att, const void* w_msg, const void* bias,
+                   const void* mask, void* out, int dtype, int n, int nj,
+                   int nwin, int t, int heads, int d, cudaStream_t s) {
   if (dtype == 0) {
     return launch_typed<float>(q, k, v, w_att, w_msg, bias, mask, out, n, nj,
                                nwin, t, heads, d, s);
@@ -313,4 +296,113 @@ extern "C" int hm_typed_window_attention(const void* q, const void* k,
                                        n, nj, nwin, t, heads, d, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// launches per kernel (0 stripe, 1 plain, 2 typed) and body (0 fp32
+// CUDA cores, 1 tensor cores), counted where the choice is made; plain
+// ints: launches come from one host thread at a time
+int g_launches[3][2];
+
+int counted(int kernel, int body, int rc) {
+  if (rc == 0) ++g_launches[kernel][body];
+  return rc;
+}
+
+template <typename... P>
+bool aligned16(P... ptrs) {
+  return ((reinterpret_cast<uintptr_t>(ptrs) | ...) & 15) == 0;
+}
+
+}  // namespace
+
+// 1 when bfloat16 (dtype 1) operands of this shape, 16-byte aligned, go
+// to the tensor-core body, 0 when to the fp32 body, -1 when no kernel
+// takes them
+extern "C" int hm_attention_body_rule(int dtype, int nj, int t, int d) {
+  if (dtype == 1 && hm::shape_takes_mma(nj, t, d)) return 1;
+  return (dtype != 0 && dtype != 1) || bad_shape(nj, t, d) ? -1 : 0;
+}
+
+extern "C" int hm_attention_body_launches(int kernel, int body) {
+  if (kernel < 0 || kernel > 2 || body < 0 || body > 1) return -1;
+  return g_launches[kernel][body];
+}
+
+extern "C" void hm_attention_body_reset() {
+  for (auto& row : g_launches) row[0] = row[1] = 0;
+}
+
+// q/out (N, H, W, C), kv (N, J, H, W, 2C), mask (N, J, H, W) f32,
+// bias (heads, T, T) f32; windows win x win, nwin = (H/win) * (W/win),
+// wcols = W / win.  dtype 0 = f32, 1 = bf16.
+extern "C" int hm_stripe_window_attention(const void* q, const void* kv,
+                                          const void* bias, const void* mask,
+                                          void* out, int dtype, int n, int nj,
+                                          int nwin, int t, int win, int wcols,
+                                          int heads, int d, void* stream) {
+  if (win * win != t) return (int)cudaErrorInvalidValue;
+  return counted(0, 0, dispatch<true>(q, kv, bias, mask, out, dtype, n, nj,
+                                      nwin, t, win, wcols, heads, d, stream));
+}
+
+// q/out (N, Wn, T, C), kv (N, J, Wn, T, 2C), mask (N, J, Wn, T) f32,
+// bias (heads, T, T) f32.  win and wcols are unused.  Always the fp32
+// body.
+extern "C" int hm_plain_window_attention_simt(
+    const void* q, const void* kv, const void* bias, const void* mask,
+    void* out, int dtype, int n, int nj, int nwin, int t, int win, int wcols,
+    int heads, int d, void* stream) {
+  return counted(1, 0, dispatch<false>(q, kv, bias, mask, out, dtype, n, nj,
+                                       nwin, t, win, wcols, heads, d, stream));
+}
+
+// The same operands; the body by type and shape.
+extern "C" int hm_plain_window_attention(const void* q, const void* kv,
+                                         const void* bias, const void* mask,
+                                         void* out, int dtype, int n, int nj,
+                                         int nwin, int t, int win, int wcols,
+                                         int heads, int d, void* stream) {
+  if (hm_attention_body_rule(dtype, nj, t, d) == 1 &&
+      aligned16(q, kv, bias, mask, out)) {
+    const long long c = (long long)heads * d;
+    return counted(1, 1, hm::launch_window_attention_mma(
+        q, kv, static_cast<const __nv_bfloat16*>(kv) + c, 2 * c, nullptr,
+        nullptr, bias, mask, out, n, nj, nwin, t, heads, d,
+        reinterpret_cast<cudaStream_t>(stream)));
+  }
+  return hm_plain_window_attention_simt(q, kv, bias, mask, out, dtype, n, nj,
+                                        nwin, t, win, wcols, heads, d,
+                                        stream);
+}
+
+// q/out (N, Wn, T, C); k, v (N, J, Wn, T, C); w_att, w_msg (N, J, heads,
+// d, d); bias (heads, T, T) f32; mask (N, J, Wn, T) f32.  Always the
+// fp32 body.
+extern "C" int hm_typed_window_attention_simt(
+    const void* q, const void* k, const void* v, const void* w_att,
+    const void* w_msg, const void* bias, const void* mask, void* out,
+    int dtype, int n, int nj, int nwin, int t, int heads, int d,
+    void* stream) {
+  return counted(2, 0, dispatch_typed(
+      q, k, v, w_att, w_msg, bias, mask, out, dtype, n, nj, nwin, t, heads, d,
+      reinterpret_cast<cudaStream_t>(stream)));
+}
+
+// The same operands; the body by type and shape.
+extern "C" int hm_typed_window_attention(const void* q, const void* k,
+                                         const void* v, const void* w_att,
+                                         const void* w_msg, const void* bias,
+                                         const void* mask, void* out,
+                                         int dtype, int n, int nj, int nwin,
+                                         int t, int heads, int d,
+                                         void* stream) {
+  if (hm_attention_body_rule(dtype, nj, t, d) == 1 &&
+      aligned16(q, k, v, w_att, w_msg, bias, mask, out)) {
+    return counted(2, 1, hm::launch_window_attention_mma(
+        q, k, v, (long long)heads * d, w_att, w_msg, bias, mask, out, n, nj,
+        nwin, t, heads, d, reinterpret_cast<cudaStream_t>(stream)));
+  }
+  return hm_typed_window_attention_simt(q, k, v, w_att, w_msg, bias, mask,
+                                        out, dtype, n, nj, nwin, t, heads, d,
+                                        stream);
 }

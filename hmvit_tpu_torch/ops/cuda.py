@@ -167,6 +167,13 @@ WARP_WINDOW_ATTENTION = Kernel("hm_warp_window_attention",
 SEGMENTED_MAX_SCAN = Kernel("hm_segmented_max_scan", n_ptrs=3, n_ints=4)
 EXPAND_ROWS = Kernel("hm_expand_rows", n_ptrs=4, n_ints=2)
 EXPAND_ROWS_V2 = Kernel("hm_expand_rows_v2", n_ptrs=4, n_ints=2)
+# The fp32 CUDA-core form of the plain and typed kernels for bfloat16
+# operands that the entry points above send to the tensor cores: for
+# timing the two side by side, never on the serving path.
+PLAIN_WINDOW_ATTENTION_SIMT = Kernel("hm_plain_window_attention_simt",
+                                     n_ptrs=5, n_ints=9)
+TYPED_WINDOW_ATTENTION_SIMT = Kernel("hm_typed_window_attention_simt",
+                                     n_ptrs=8, n_ints=7)
 KERNELS = {"pair_warp": PAIR_WARP,
            "stripe_window_attention": STRIPE_WINDOW_ATTENTION,
            "plain_window_attention": PLAIN_WINDOW_ATTENTION,
@@ -178,9 +185,28 @@ KERNELS = {"pair_warp": PAIR_WARP,
            "expand_rows_v2": EXPAND_ROWS_V2}
 
 
+ATTENTION_KERNELS = ("stripe_window_attention", "plain_window_attention",
+                     "typed_window_attention")
+ATTENTION_BODIES = ("simt", "mma")
+
+
 def reset_launches():
     for k in KERNELS.values():
         k.launches = 0
+    if _lib is not None:
+        _lib.hm_attention_body_reset()
+
+
+def attention_body_launches() -> dict[str, dict[str, int]]:
+    """Launches of each window-attention kernel by the body that ran
+    them, counted inside the library where the choice is made: "simt" is
+    the fp32 CUDA-core body, "mma" the bfloat16 tensor-core body."""
+    if _lib is None:
+        return {name: dict.fromkeys(ATTENTION_BODIES, 0)
+                for name in ATTENTION_KERNELS}
+    return {name: {body: _lib.hm_attention_body_launches(k, b)
+                   for b, body in enumerate(ATTENTION_BODIES)}
+            for k, name in enumerate(ATTENTION_KERNELS)}
 
 
 def launch_counts() -> dict[str, int]:

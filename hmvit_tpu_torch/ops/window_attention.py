@@ -1,7 +1,11 @@
 """Multi-sender window attention (port of
 ``hmvit_tpu/ops/window_attention.py``).
 
-Three kernel wrappers, all over ``csrc/window_attention.cu``:
+Three kernel wrappers over the C entry points of
+``csrc/window_attention.cu``.  The plain and the typed entry point run
+bfloat16 operands on the tensor cores (``csrc/window_attention_mma.cu``)
+and float32 ones on the fp32 CUDA cores; :func:`attention_body` says
+which shapes go where.
 
 * :func:`fused_stripe_window_attention` — local windows read straight
   from unsplit (N, H, W, C) maps (replaces the Pallas
@@ -106,11 +110,40 @@ def stripe_window_attention_xla(q, kv, bias, mask, win: int, heads: int,
     return _merge_local(out, win, h, w)
 
 
+def attention_body(dtype, j: int, t: int, dim_head: int) -> str:
+    """Which body of ``csrc/`` a plain or typed launch of this type and
+    shape runs — the rule of the C entry points
+    (``hm_attention_body_rule``), mirrored here for the error text and
+    the tests.  "mma": bfloat16 on the tensor cores
+    (``attention_mma.cuh``), for T a multiple of 16 up to 128, dim_head a
+    multiple of 16 up to 64 and J*T <= 320.  "simt": the fp32 CUDA-core
+    body (``attention_body.cuh``), for float32 and every other shape with
+    J*T <= 320, dim_head <= 64 and both T and dim_head multiples of 4;
+    the stripe kernel always, and operands that are not 16-byte aligned
+    (no contiguous tensor of these shapes is).  Raises for what no
+    kernel takes."""
+    if dtype not in cuda.DTYPE_CODES:
+        raise TypeError(f"window attention: unsupported dtype {dtype}")
+    if j <= 0 or t <= 0 or dim_head <= 0 or j * t > 320 or dim_head > 64:
+        body = None
+    elif (dtype == torch.bfloat16 and t % 16 == 0 and t <= 128
+          and dim_head % 16 == 0):
+        body = "mma"
+    else:
+        body = None if dim_head % 4 or t % 4 else "simt"
+    if body is None:
+        raise ValueError(
+            f"window attention kernel takes J*T <= 320, dim_head <= 64 and "
+            f"both T and dim_head multiples of 4 (bfloat16 with T % 16 == 0, "
+            f"T <= 128 and dim_head % 16 == 0 runs on the tensor cores), got "
+            f"J*T={j * t}, T={t}, d={dim_head}")
+    return body
+
+
 def _check_kernel_limits(j, t, dim_head):
-    if j * t > 320 or dim_head > 64 or dim_head % 4 or t % 4:
-        raise ValueError(f"window attention kernel takes J*T <= 320, "
-                         f"dim_head <= 64 and both T and dim_head multiples "
-                         f"of 4, got J*T={j * t}, T={t}, d={dim_head}")
+    """The limits of the fp32 body alone (the stripe and the fused warp +
+    attention kernels)."""
+    attention_body(torch.float32, j, t, dim_head)
 
 
 def _attention_launch(kernel, q, kv, bias, mask, heads, dim_head, nwin, t,
@@ -127,7 +160,7 @@ def _attention_launch(kernel, q, kv, bias, mask, heads, dim_head, nwin, t,
                          f"{tuple(q.shape)}, kv {tuple(kv.shape)}, mask "
                          f"{tuple(mask.shape)}, bias {tuple(bias.shape)} for "
                          f"{heads} heads of {dim_head}")
-    _check_kernel_limits(j, t, dim_head)
+    attention_body(q.dtype, j, t, dim_head)
     tensors = [q.contiguous(), kv.contiguous(),
                bias.to(torch.float32).contiguous(),
                mask.to(torch.float32).contiguous(), torch.empty_like(q)]
@@ -147,18 +180,22 @@ def stripe_window_attention_launch(q, kv, bias, mask, win, heads, dim_head):
                              win * win, win, w // win)
 
 
-def plain_window_attention_launch(q, kv, bias, mask, heads, dim_head):
+def plain_window_attention_launch(q, kv, bias, mask, heads, dim_head,
+                                  simt: bool = False):
     """Validate and lay out one plain-kernel launch: returns
-    (launch, out)."""
+    (launch, out).  ``simt`` forces the fp32 CUDA-core body where the
+    entry point would choose the tensor cores (for timing only)."""
     nwin, t = q.shape[1:3]
-    return _attention_launch(cuda.PLAIN_WINDOW_ATTENTION, q, kv, bias, mask,
-                             heads, dim_head, nwin, t, 0, 0)
+    kernel = (cuda.PLAIN_WINDOW_ATTENTION_SIMT if simt
+              else cuda.PLAIN_WINDOW_ATTENTION)
+    return _attention_launch(kernel, q, kv, bias, mask, heads, dim_head,
+                             nwin, t, 0, 0)
 
 
 def typed_window_attention_launch(q, k, v, w_att, w_msg, bias, mask, heads,
-                                  dim_head):
+                                  dim_head, simt: bool = False):
     """Validate and lay out one typed-kernel launch: returns
-    (launch, out)."""
+    (launch, out).  ``simt`` as for the plain kernel."""
     if q.dtype not in cuda.DTYPE_CODES or any(
             x.dtype != q.dtype for x in (k, v, w_att, w_msg)):
         raise TypeError(f"typed window attention: unsupported dtypes "
@@ -177,14 +214,15 @@ def typed_window_attention_launch(q, k, v, w_att, w_msg, bias, mask, heads,
             f"w_att {tuple(w_att.shape)}, w_msg {tuple(w_msg.shape)}, mask "
             f"{tuple(mask.shape)}, bias {tuple(bias.shape)} for {heads} "
             f"heads of {dim_head}")
-    _check_kernel_limits(j, t, dim_head)
+    attention_body(q.dtype, j, t, dim_head)
     tensors = [q.contiguous(), k.contiguous(), v.contiguous(),
                w_att.contiguous(), w_msg.contiguous(),
                bias.to(torch.float32).contiguous(),
                mask.to(torch.float32).contiguous(), torch.empty_like(q)]
     ints = [cuda.DTYPE_CODES[q.dtype], n, j, nwin, t, heads, dim_head]
-    return (lambda: cuda.TYPED_WINDOW_ATTENTION.launch(tensors, ints),
-            tensors[-1])
+    kernel = (cuda.TYPED_WINDOW_ATTENTION_SIMT if simt
+              else cuda.TYPED_WINDOW_ATTENTION)
+    return lambda: kernel.launch(tensors, ints), tensors[-1]
 
 
 def _run(prepared):

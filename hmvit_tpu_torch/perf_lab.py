@@ -7,7 +7,8 @@ Stages (default: all), at the production shapes B = 1, 128^2 x 256 maps,
 8 heads of 32, window 8, two type variants; 2 lidar clouds of 30 000
 points on a 512^2 pillar grid, PFN width 64:
 
-* ``attn`` — the typed window-attention kernel, L = 5, float32;
+* ``attn`` — the typed window-attention kernel, L = 5, in float32 (the
+  fp32 CUDA-core body) and bfloat16 (the tensor-core body);
 * ``pairwarp`` — the pair-warp tile kernel, L = 4 and 5, bfloat16;
 * ``pairwarp_res`` — the resident pair-warp kernel beside the tile
   kernel, (L, receivers) = (4, all), (5, all), (4, 1); the outputs must
@@ -366,7 +367,8 @@ def stage_lidar(lab: Lab, dtype_name: str = "bfloat16"):
 
 
 STAGES = {
-    "attn": lambda lab: stage_attn_typed(lab, torch.float32),
+    "attn": lambda lab: [stage_attn_typed(lab, dtype)
+                         for dtype in (torch.float32, torch.bfloat16)],
     "pairwarp": lambda lab: [stage_pairwarp(lab, torch.bfloat16, l)
                              for l in (4, 5)],
     "pairwarp_res": lambda lab: [stage_pairwarp_res(lab, l, r)

@@ -2,7 +2,10 @@
 check it: the library's name is keyed by every ``.cu`` source AND every
 ``.cuh`` header (an edited header must never load a stale library), the
 nine kernels are registered with their C symbols, each source defines the
-symbols it is registered under, and no launcher takes a host tensor."""
+symbols it is registered under, and no launcher takes a host tensor.
+A source without an entry point of its own (the tensor-core kernels of
+the plain and typed window attention) must be reached from the source
+that holds the entry points."""
 import re
 import shutil
 
@@ -26,6 +29,18 @@ KERNELS = {
     "expand_rows": ("hm_expand_rows", "expand.cu"),
     "expand_rows_v2": ("hm_expand_rows_v2", "expand.cu"),
 }
+
+# sources launched through another source's C entry points: source ->
+# (the source with the entry points, the host function it calls)
+INNER_SOURCES = {"window_attention_mma.cu": (
+    "window_attention.cu", "hm::launch_window_attention_mma(")}
+# C entry points beside the registered ones: the previous (fp32
+# CUDA-core) body for timing, and the count of launches by body
+EXTRA_SYMBOLS = {"hm_plain_window_attention_simt": "window_attention.cu",
+                 "hm_typed_window_attention_simt": "window_attention.cu",
+                 "hm_attention_body_rule": "window_attention.cu",
+                 "hm_attention_body_launches": "window_attention.cu",
+                 "hm_attention_body_reset": "window_attention.cu"}
 
 
 @pytest.fixture
@@ -85,7 +100,7 @@ def test_kernel_registered_with_its_symbol_and_source(name):
 
 def test_registry_is_exactly_the_nine_kernels():
     assert sorted(cuda.KERNELS) == sorted(KERNELS) and len(KERNELS) == 9
-    assert {src for _, src in KERNELS.values()} == {
+    assert {src for _, src in KERNELS.values()} | set(INNER_SOURCES) == {
         p.name for p in cuda.CSRC_DIR.glob("*.cu")}
     cuda.reset_launches()
     assert set(cuda.launch_counts().values()) == {0}
@@ -97,3 +112,25 @@ def test_no_launcher_takes_a_host_tensor(name):
     with pytest.raises(ValueError):
         cuda.KERNELS[name].launch([torch.zeros(4, 8)], [])
     assert cuda.launch_counts() == before
+
+
+@pytest.mark.parametrize("source", sorted(INNER_SOURCES))
+def test_inner_source_is_reached_from_the_entry_points(source):
+    outer, call = INNER_SOURCES[source]
+    inner_text = (cuda.CSRC_DIR / source).read_text()
+    assert 'extern "C"' not in inner_text
+    assert "int " + call.split("::")[-1] in inner_text
+    outer_text = (cuda.CSRC_DIR / outer).read_text()
+    assert outer_text.count(call) == 2  # the plain and the typed entry
+
+
+@pytest.mark.parametrize("symbol", sorted(EXTRA_SYMBOLS))
+def test_extra_entry_points_are_defined(symbol):
+    text = (cuda.CSRC_DIR / EXTRA_SYMBOLS[symbol]).read_text()
+    assert re.search(r'extern "C" (int|void) ' + symbol + r"\(", text)
+    if symbol.endswith("_simt"):
+        # same arguments as the entry point that chooses a body
+        kernels = {k.symbol: k for k in (cuda.PLAIN_WINDOW_ATTENTION_SIMT,
+                                         cuda.TYPED_WINDOW_ATTENTION_SIMT)}
+        chooser = {k.symbol: k for k in cuda.KERNELS.values()}[symbol[:-5]]
+        assert kernels[symbol].argtypes == chooser.argtypes

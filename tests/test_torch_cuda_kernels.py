@@ -26,15 +26,22 @@ from hmvit_tpu_torch.ops.fused_warp_attention import (
 from hmvit_tpu_torch.ops.segscan import fused_segmented_max_scan
 from hmvit_tpu_torch.ops.voxelize import scatter_max_to_bev
 from hmvit_tpu_torch.ops.window_attention import (
+    attention_body,
     fused_plain_window_attention,
     fused_stripe_window_attention,
     fused_window_attention,
+    plain_window_attention_launch,
+    typed_window_attention_launch,
 )
 from hmvit_tpu_torch.utils.precision import strict_fp32
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 0.0625}
+# the plain and typed attention kernels in bfloat16 (tensor-core body, or
+# the fp32 body on the shapes it keeps): one output ulp at |x| in [2, 4)
+# and a half, as the on-card smoke run holds them
+ATTN_BF16_TOL = 0.0313
 
 
 def rigid_pairwise(rng, b, l, max_t, angles=None):
@@ -174,6 +181,123 @@ def test_typed_window_attention_kernel(dev, dtype, j, d, t):
     out = _compare(lambda *a: fused_window_attention(*a, heads, d),
                    (q, k, v, w_att, w_msg, bias, mask), dtype)
     assert torch.all(out[0, 0] == 0)
+
+
+def _body_case(dev, kind, dtype, n, j, nwin, t, heads, d, seed=0):
+    """Operands of one plain or typed launch: the first sender fully
+    masked in window 1, every key of map 0's window 0 masked."""
+    c = heads * d
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    q = randn(n, nwin, t, c).to(dtype)
+    bias = (randn(heads, t, t) * 0.5).to(dtype)
+    mask = (torch.rand(n, j, nwin, t, generator=g, device=dev) > 0.3).to(dtype)
+    mask[:, 0, 1] = 0
+    mask[0, :, 0] = 0
+    if kind == "plain":
+        return (q, randn(n, j, nwin, t, 2 * c).to(dtype), bias, mask, heads,
+                d), fused_plain_window_attention, "plain_window_attention"
+    return (q, randn(n, j, nwin, t, c).to(dtype),
+            randn(n, j, nwin, t, c).to(dtype),
+            (randn(n, j, heads, d, d) * d ** -0.5).to(dtype),
+            (randn(n, j, heads, d, d) * d ** -0.5).to(dtype), bias, mask,
+            heads, d), fused_window_attention, "typed_window_attention"
+
+
+@pytest.mark.parametrize("kind", ["plain", "typed"])
+@pytest.mark.parametrize("dtype,j,t,heads,d,body", [
+    (torch.bfloat16, 5, 64, 4, 32, "mma"),   # 320 keys, a masked sender
+    (torch.bfloat16, 4, 64, 8, 32, "mma"),   # the serving head layout
+    (torch.bfloat16, 3, 16, 2, 16, "mma"),   # the smallest tile
+    (torch.bfloat16, 2, 64, 3, 32, "mma"),   # an odd head count: no pairs
+    (torch.bfloat16, 2, 128, 2, 64, "mma"),  # the widest
+    (torch.bfloat16, 2, 48, 2, 48, "mma"),   # 16-key units, 3 k-steps
+    (torch.bfloat16, 3, 64, 4, 8, "simt"),   # d = 8: the fp32 body
+    (torch.bfloat16, 3, 24, 2, 32, "simt"),  # T % 16 != 0: the fp32 body
+    (torch.float32, 5, 64, 4, 32, "simt"),
+])
+def test_attention_bodies_by_type_and_shape(dev, kind, dtype, j, t, heads, d,
+                                            body):
+    """Each shape runs the body the rule names (counted inside the
+    library), against the twin; fully masked rows give zeros; a fully
+    masked first sender leaves no trace."""
+    args, fn, name = _body_case(dev, kind, dtype, 2, j, 11, t, heads, d)
+    assert attention_body(dtype, j, t, d) == body
+    lib = cuda.load_library()
+    assert lib.hm_attention_body_rule(cuda.DTYPE_CODES[dtype], j, t, d) == \
+        cuda.ATTENTION_BODIES.index(body)
+    before = cuda.attention_body_launches()[name]
+    with strict_fp32():
+        got = fn(*args)
+        with plain_ops():
+            want = fn(*args)
+    torch.cuda.synchronize()
+    after = cuda.attention_body_launches()[name]
+    assert {b: after[b] - before[b] for b in after} == {
+        b: int(b == body) for b in after}
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= (1e-4 if dtype == torch.float32 else ATTN_BF16_TOL), err
+    assert torch.all(got[0, 0] == 0) and torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("kind", ["plain", "typed"])
+def test_previous_body_entry_agrees_with_the_new_one(dev, kind):
+    """The timing-only entry runs the fp32 body on bfloat16 operands the
+    chooser sends to the tensor cores; both stay within the tolerance of
+    the twin, and the chooser's count does not move."""
+    args, fn, name = _body_case(dev, kind, torch.bfloat16, 2, 4, 9, 64, 8, 32)
+    prep = (plain_window_attention_launch if kind == "plain"
+            else typed_window_attention_launch)
+    with plain_ops():
+        want = fn(*args).float()
+    outs = {}
+    for simt in (False, True):
+        before = (cuda.KERNELS[name].launches,
+                  cuda.attention_body_launches()[name])
+        launch, out = prep(*args, simt=simt)
+        launch()
+        torch.cuda.synchronize()
+        after = cuda.attention_body_launches()[name]
+        body = "simt" if simt else "mma"
+        assert after[body] == before[1][body] + 1
+        assert cuda.KERNELS[name].launches == before[0] + int(not simt)
+        outs[body] = out.float()
+        assert float((outs[body] - want).abs().max()) <= ATTN_BF16_TOL
+    assert float((outs["mma"] - outs["simt"]).abs().max()) <= ATTN_BF16_TOL
+
+
+@pytest.mark.parametrize("kind", ["plain", "typed"])
+@pytest.mark.parametrize("n,nwin", [(2, 301), (1, 2051)])
+def test_blocks_walk_runs_of_windows(dev, kind, n, nwin):
+    """With windows enough a block walks 2 (301 windows) or 8 (2051) of
+    them; the last run is short."""
+    args, fn, _ = _body_case(dev, kind, torch.bfloat16, n, 2, nwin, 64, 8, 32)
+    with strict_fp32():
+        got = fn(*args)
+        with plain_ops():
+            want = fn(*args)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_BF16_TOL, err
+    assert torch.all(got[0, 0] == 0) and torch.isfinite(got.float()).all()
+
+
+def test_body_rule_in_the_library_equals_its_mirror(dev):
+    lib = cuda.load_library()
+    for dtype, code in cuda.DTYPE_CODES.items():
+        for j in (1, 2, 5, 6):
+            for t in (4, 16, 24, 64, 128, 144, 320):
+                for d in (4, 8, 16, 24, 32, 64, 80):
+                    try:
+                        want = cuda.ATTENTION_BODIES.index(
+                            attention_body(dtype, j, t, d))
+                    except ValueError:
+                        want = -1
+                    assert lib.hm_attention_body_rule(code, j, t, d) == want, \
+                        (dtype, j, t, d)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

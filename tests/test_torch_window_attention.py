@@ -6,7 +6,17 @@ and J in {1, 3}.  Float32, 2e-5 absolute (1e-5 for the typed kernel):
 softmax-attention of unit-normal inputs in another summation order.
 Gradients of the typed wrapper are held to jax.grad of the oracle
 (1e-4).  The camera branch's WindowSelfAttention (the plain kernel with
-J = 1) is held against its flax module too."""
+J = 1) is held against its flax module too.
+
+The bfloat16 tensor-core body of the plain and typed kernels
+(``csrc/attention_mma.cuh``) cannot run without a card, so its NUMERICS
+are emulated here in plain PyTorch — per-sender online softmax, bf16
+rounding exactly where the kernel rounds — and held, at the kernel
+checks' bfloat16 tolerance of 0.0313, to the twins, the JAX oracles and
+the Pallas kernels in interpret mode; and the rule that sends a launch
+to one body or the other is held to its mirror in the wrapper."""
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -213,3 +223,230 @@ def test_typed_launch_rejects_malformed_inputs(bad):
     with pytest.raises(error):
         pwa.typed_window_attention_launch(q, k, v, w_att, w_msg, bias, mask,
                                           heads, D)
+
+
+# ---- the tensor-core body: numerics emulated, body rule mirrored --------
+
+BF16_ATOL = 0.0313  # the bfloat16 tolerance of the kernel checks on the card
+MMA_HEADS, MMA_D, MMA_T, MMA_NWIN = 2, 32, 64, 8
+
+
+def _bf16_parts(x, parts):
+    """x as the sum of ``parts`` bf16 values, each held in float32."""
+    hi = x.to(torch.bfloat16).float()
+    return [hi] if parts == 1 else [hi, (x - hi).to(torch.bfloat16).float()]
+
+
+def mma_body_emulation(q, k, v, bias, mask, heads, d, w_att=None, w_msg=None,
+                       qw_parts=2):
+    """What ``attention_mma.cuh`` computes, rounding where it rounds: the
+    keys one sender at a time with a running max and sum in float32; the
+    untyped form rounds P to bf16 once; the typed form carries q W_att, P
+    and P . V as hi + lo bf16 parts and applies W_msg^T to the sender's
+    P . V; the row sum adds the float32 P; a row whose max is <= -5e8
+    emits zeros; one rounding to bf16 at the end.  bf16 x bf16 products
+    summed in float32 are exact up to the summation order."""
+    typed = w_att is not None
+    n, nwin, t, c = q.shape
+    j = k.shape[1]
+    qh = q.float().reshape(n, nwin, t, heads, d).permute(0, 1, 3, 2, 4)
+    kh = k.float().reshape(n, j, nwin, t, heads, d).permute(0, 1, 2, 4, 3, 5)
+    vh = v.float().reshape(n, j, nwin, t, heads, d).permute(0, 1, 2, 4, 3, 5)
+    m = torch.full((n, nwin, heads, t), -float("inf"))
+    l = torch.zeros_like(m)
+    o = torch.zeros(n, nwin, heads, t, d)
+    for jj in range(j):
+        if typed:
+            qw = torch.einsum("nwhtd,nhde->nwhte", qh, w_att[:, jj].float())
+            s = sum(torch.einsum("nwhte,nwhse->nwhts", part, kh[:, jj])
+                    for part in _bf16_parts(qw, qw_parts))
+        else:
+            s = torch.einsum("nwhtd,nwhsd->nwhts", qh, kh[:, jj])
+        s = torch.where(mask[:, jj, :, None, None, :] > 0,
+                        s + bias.float()[None, None], torch.tensor(-1e9))
+        m_new = torch.maximum(m, s.amax(-1))
+        scale = torch.exp(m - m_new)
+        m = m_new
+        p = torch.exp(s - m[..., None])
+        l = l * scale + p.sum(-1)
+        pv = sum(torch.einsum("nwhts,nwhsd->nwhtd", part, vh[:, jj])
+                 for part in _bf16_parts(p, 2 if typed else 1))
+        if typed:
+            pv = sum(torch.einsum("nwhte,nhde->nwhtd", part,
+                                  w_msg[:, jj].float())
+                     for part in _bf16_parts(pv, 2))
+        o = o * scale[..., None] + pv
+    out = torch.where((m <= -5e8)[..., None], torch.zeros(()),
+                      o / l[..., None])
+    return out.permute(0, 1, 3, 2, 4).reshape(n, nwin, t, c).to(q.dtype)
+
+
+def _mma_inputs(j, seed):
+    """Unit-normal bfloat16 operands as the on-card check draws them (q
+    unscaled, bias at 0.5, relation matrices at d ** -0.5), the first
+    sender fully masked in window 1 and every key of receiver 0's
+    window 0 masked."""
+    rng = np.random.default_rng(seed)
+    n, c = 2, MMA_HEADS * MMA_D
+
+    def normal(*shape, scale=1.0):
+        x = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(x).to(torch.bfloat16)
+
+    q = normal(n, MMA_NWIN, MMA_T, c)
+    k = normal(n, j, MMA_NWIN, MMA_T, c)
+    v = normal(n, j, MMA_NWIN, MMA_T, c)
+    w_att = normal(n, j, MMA_HEADS, MMA_D, MMA_D, scale=MMA_D ** -0.5)
+    w_msg = normal(n, j, MMA_HEADS, MMA_D, MMA_D, scale=MMA_D ** -0.5)
+    bias = normal(MMA_HEADS, MMA_T, MMA_T, scale=0.5)
+    mask = (rng.uniform(size=(n, j, MMA_NWIN, MMA_T)) > 0.3).astype(
+        np.float32)
+    mask[:, 0, 1] = 0.0
+    mask[0, :, 0] = 0.0
+    return q, k, v, w_att, w_msg, bias, torch.from_numpy(mask).to(
+        torch.bfloat16)
+
+
+def _jbf16(x):
+    return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+
+
+def _as_f32(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32)) \
+        if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+def _held(name, got, refs):
+    errs = {what: float(np.abs(_as_f32(got) - _as_f32(ref)).max())
+            for what, ref in refs.items()}
+    print(f"{name}: max abs error " + ", ".join(
+        f"{what} {e:.4f} (margin {BF16_ATOL - e:.4f})"
+        for what, e in errs.items()))
+    for what, e in errs.items():
+        assert e <= BF16_ATOL, (name, what, e)
+
+
+@pytest.mark.parametrize("j", [1, 4, 5])
+def test_mma_body_emulation_plain(j):
+    q, k, v, _, _, bias, mask = _mma_inputs(j, 100 + j)
+    got = mma_body_emulation(q, k, v, bias, mask, MMA_HEADS, MMA_D)
+    kv = torch.cat([k, v], dim=-1)
+    jargs = tuple(map(_jbf16, (q, k, v, bias, mask)))
+    _held(f"untyped J={j}", got, {
+        "twin": pwa.plain_window_attention_xla(q, k, v, bias, mask,
+                                               MMA_HEADS, MMA_D),
+        "JAX oracle": jwa.plain_window_attention_xla(
+            *jargs, heads=MMA_HEADS, dim_head=MMA_D),
+        "Pallas (interpret)": jwa.plain_window_attention(
+            jargs[0], _jbf16(kv), *jargs[3:], heads=MMA_HEADS,
+            dim_head=MMA_D, interpret=True, w_block=MMA_NWIN)})
+    assert got.dtype == torch.bfloat16
+    assert torch.all(got[0, 0] == 0)  # every key masked: zeros
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("j", [1, 4, 5])
+def test_mma_body_emulation_typed(j):
+    args = _mma_inputs(j, 200 + j)
+    q, k, v, w_att, w_msg, bias, mask = args
+    got = mma_body_emulation(q, k, v, bias, mask, MMA_HEADS, MMA_D, w_att,
+                             w_msg)
+    jargs = tuple(map(_jbf16, args))
+    _held(f"typed J={j}", got, {
+        "twin": pwa.hetero_window_attention_xla(*args, MMA_HEADS, MMA_D),
+        # the typed oracle computes in its inputs' type: it gets the
+        # same bf16 values as float32
+        "JAX oracle": jwa.hetero_window_attention_xla(
+            *(a.astype(jnp.float32) for a in jargs), heads=MMA_HEADS,
+            dim_head=MMA_D),
+        "Pallas (interpret)": jwa.hetero_window_attention(
+            *jargs, heads=MMA_HEADS, dim_head=MMA_D, interpret=True)})
+    assert torch.all(got[0, 0] == 0)
+    assert torch.isfinite(got.float()).all()
+
+
+def test_one_bf16_rounding_of_typed_queries_breaks_the_tolerance():
+    """Why q W_att travels as two parts: rounded to bf16 once, the same
+    inputs leave the tolerance the kernel is held to."""
+    args = _mma_inputs(4, 204)
+    q, k, v, w_att, w_msg, bias, mask = args
+    want = pwa.hetero_window_attention_xla(*args, MMA_HEADS, MMA_D).float()
+    got = mma_body_emulation(q, k, v, bias, mask, MMA_HEADS, MMA_D, w_att,
+                             w_msg, qw_parts=1).float()
+    err = float((got - want).abs().max())
+    print(f"typed queries rounded to bf16 once: max abs error {err:.4f}")
+    assert err > BF16_ATOL
+
+
+def _rule_constants():
+    """The limits of the tensor-core body as the C sources state them."""
+    from hmvit_tpu_torch.ops import cuda
+
+    text = (cuda.CSRC_DIR / "attention_mma.cuh").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                text).group(1))
+            for name in ("kMaxT", "kMaxKeys")}
+
+
+@pytest.mark.parametrize("dtype,j,t,d,body", [
+    (torch.bfloat16, 4, 64, 32, "mma"),    # serving: grid, ego
+    (torch.bfloat16, 1, 64, 32, "mma"),    # serving: camera
+    (torch.bfloat16, 5, 64, 32, "mma"),    # 320 keys: the most
+    (torch.bfloat16, 3, 16, 16, "mma"),    # the smallest tile
+    (torch.bfloat16, 2, 128, 64, "mma"),   # the widest
+    (torch.bfloat16, 2, 144, 32, "simt"),  # T over 128
+    (torch.bfloat16, 3, 64, 8, "simt"),    # d no multiple of 16
+    (torch.bfloat16, 3, 24, 32, "simt"),   # T no multiple of 16
+    (torch.bfloat16, 3, 64, 24, "simt"),
+    (torch.float32, 4, 64, 32, "simt"),    # float32: always the fp32 body
+    (torch.float32, 3, 16, 16, "simt"),
+])
+def test_attention_body_rule(dtype, j, t, d, body):
+    assert pwa.attention_body(dtype, j, t, d) == body
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("j,t,d", [(6, 64, 32), (1, 336, 32), (2, 64, 80),
+                                   (2, 64, 6), (2, 18, 32), (0, 64, 32)])
+def test_attention_body_rule_rejects(dtype, j, t, d):
+    """What neither body takes raises, whatever the type: no shape sends
+    a launch to a plain version."""
+    with pytest.raises(ValueError, match="window attention kernel takes"):
+        pwa.attention_body(dtype, j, t, d)
+
+
+def test_attention_body_rule_mirrors_the_c_sources():
+    """The wrapper's mirror and the C entry points read the same limits,
+    and the C rule is where the choice is made."""
+    from hmvit_tpu_torch.ops import cuda
+
+    assert _rule_constants() == {"kMaxT": 128, "kMaxKeys": 320}
+    assert pwa.attention_body(torch.bfloat16, 2, 128, 64) == "mma"
+    assert pwa.attention_body(torch.bfloat16, 1, 144, 64) == "simt"
+    entry = (cuda.CSRC_DIR / "window_attention.cu").read_text()
+    body = (cuda.CSRC_DIR / "window_attention_mma.cu").read_text()
+    assert "hm::shape_takes_mma(nj, t, d)" in entry
+    assert re.search(r"t % 16 == 0 && t <= mma::kMaxT && d > 0 &&\s+"
+                     r"d % 16 == 0 && d <= 64 && nj \* t <= mma::kMaxKeys",
+                     body)
+    with pytest.raises(TypeError):
+        pwa.attention_body(torch.float16, 2, 64, 32)
+
+
+def test_tensor_core_instructions_are_written_in_the_sources():
+    """The products of the bfloat16 lane are mma.sync instructions fed by
+    ldmatrix and staged by 16-byte cp.async, in the repository's own
+    source; the previous body stays reachable for timing only."""
+    from hmvit_tpu_torch.ops import cuda
+
+    text = (cuda.CSRC_DIR / "attention_mma.cuh").read_text()
+    for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                   "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+                   "cp.async.cg.shared.global [%0], [%1], 16;"):
+        assert needle in text, needle
+    assert cuda.PLAIN_WINDOW_ATTENTION_SIMT.symbol.endswith("_simt")
+    assert cuda.TYPED_WINDOW_ATTENTION_SIMT.symbol.endswith("_simt")
+    assert not any(k.symbol.endswith("_simt") for k in cuda.KERNELS.values())
+    counts = cuda.attention_body_launches()  # no library here: all zero
+    assert set(counts) == set(cuda.ATTENTION_KERNELS)
+    assert all(set(c) == {"simt", "mma"} for c in counts.values())
