@@ -14,14 +14,15 @@ Phases:
    production shapes, in float32 (tight) and bfloat16 (stated
    tolerance); the resident pair warp must also equal the tile pair
    warp, and the fused warp + attention kernel the pair warp followed
-   by the stripe attention kernel, bit for bit.  The plain and typed
-   attention kernels must run their tensor-core body in bfloat16 and
-   their fp32 CUDA-core body in float32 (counted inside the library).
-   In bfloat16 it times
+   by the stripe attention kernel, bit for bit, in both types (also
+   with 5 senders).  The four attention kernels (stripe, plain, typed,
+   fused warp + attention) must run their tensor-core body in bfloat16
+   and their fp32 CUDA-core body in float32 (counted inside the
+   library).  In bfloat16 it times
    the kernel launch alone, the whole wrapper and the twin (CUDA events,
-   median of 20 after warm-up), for the plain and typed attention
-   kernels also their previous fp32 body on the same operands through
-   its timing-only entry, in turns (previous, new, new, previous:
+   median of 20 after warm-up), for the four attention kernels also
+   their previous fp32 body on the same operands through its
+   timing-only entry, in turns (previous, new, new, previous:
    ``previous_ms``), and, for the attention kernels, the one
    library call that computes the same attention
    (``scaled_dot_product_attention`` over window-split heads with the
@@ -49,10 +50,11 @@ Phases:
 5. answer 3 bfloat16 requests (batch seeds 0-2) through each server:
    forward, anchor decode and rotated NMS; every output must be finite,
    the split server's sigmoid(psm) and rm must agree with the same
-   server under ``plain_ops()`` (``BF16_FORWARD_ATOL``), every plain
-   attention launch must have run on the tensor cores,
-   and the launch counts must show each server's kernels and none of
-   another's (the fused server: 2 fused launches per request and no
+   server under ``plain_ops()`` (``BF16_FORWARD_ATOL``), the
+   ``use_fused_wa`` server's psm and rm must equal the split server's
+   bit for bit, every attention launch must have run on the tensor
+   cores, and the launch counts must show each server's kernels and none
+   of another's (the fused server: 2 fused launches per request and no
    stripe launch; an expand server: 1 launch of its expansion kernel);
    then time 20 more requests per server in blocks of 10, the servers
    taking turns in mirrored order, and print the median and spread of
@@ -110,8 +112,9 @@ BF16_FORWARD_ATOL = 0.01
 KERNEL_META = {
     "pair_warp": ("hmvit_tpu_torch/csrc/pair_warp.cu",
                   "hmvit_tpu/ops/fused_warp.py:215"),
-    "stripe_window_attention": ("hmvit_tpu_torch/csrc/window_attention.cu",
-                                "hmvit_tpu/ops/window_attention.py:342"),
+    "stripe_window_attention": (
+        "hmvit_tpu_torch/csrc/window_attention_mma.cu",
+        "hmvit_tpu/ops/window_attention.py:342"),
     "plain_window_attention": (
         "hmvit_tpu_torch/csrc/window_attention_mma.cu",
         "hmvit_tpu/ops/window_attention.py:157"),
@@ -131,9 +134,10 @@ KERNEL_META = {
 }
 
 # kernels whose bfloat16 launches run on the tensor cores (their float32
-# launches, and the shapes the tensor-core body does not take, stay in
-# hmvit_tpu_torch/csrc/window_attention.cu)
-TENSOR_CORE_KERNELS = ("plain_window_attention", "typed_window_attention")
+# launches, and the shapes the tensor-core body does not take, run the
+# fp32 body of hmvit_tpu_torch/csrc/attention_body.cuh)
+TENSOR_CORE_KERNELS = ("stripe_window_attention", "plain_window_attention",
+                       "typed_window_attention", "warp_window_attention")
 
 # the path whose launch count each kernel's record carries
 KERNEL_PATH = {"pair_warp": "split", "stripe_window_attention": "split",
@@ -158,16 +162,9 @@ def prod_batch(seed: int):
     """The production request: 4 agents in 5 slots, alternating lidar /
     camera, 30 000 points per lidar agent, 4 x 512^2 images per camera
     agent."""
-    from hmvit_tpu_torch.data.synthetic import make_hetero_batch
-    from hmvit_tpu_torch.serving import PROD_RANGE
+    from hmvit_tpu_torch.serving import request_batch
 
-    batch, _ = make_hetero_batch(
-        seed=seed, max_cav=5, num_agents=NUM_AGENTS, max_points=30000,
-        image_size=512, num_cams=4, camera_ratio=0.5, ego_mode="mixed",
-        lidar_range=PROD_RANGE)
-    for i in range(NUM_AGENTS):
-        batch["mode"][:, i] = (i + 1) % 2
-    return batch
+    return request_batch(seed, num_agents=NUM_AGENTS)
 
 
 def card_line() -> str:
@@ -217,6 +214,7 @@ def check_kernels(dev, pairwise, agent_mask):
     import torch
     import torch.nn.functional as F
 
+    from hmvit_tpu_torch import perf_lab
     from hmvit_tpu_torch.models.hetero_fusion import (
         _window_split,
         pairwise_roi_mask,
@@ -253,6 +251,7 @@ def check_kernels(dev, pairwise, agent_mask):
     pair_mask = pairwise_roi_mask(pairwise, agent_mask, (hw, hw), 0.4, 4)
     mask_ij = pair_mask[0].movedim(-1, 1).contiguous()  # (I, J, H, W)
     mask_ij[0, :, :16, :16] = 0  # a fully masked patch: rows emit zeros
+    mask_ij[:, 0, 32:48] = 0  # the first sender masked in two window rows
     bias = randn(heads, t, t) * 0.5
 
     def attention_ops(n, j, typed=False):
@@ -298,18 +297,18 @@ def check_kernels(dev, pairwise, agent_mask):
             exact=exact, library=None,
             ops=12.0 * r * l * hw * hw * 2 * c)
 
-    def stripe(dt):
-        args = (randn(l, hw, hw, c).to(dt), randn(l, l, hw, hw, 2 * c).to(dt),
-                bias.to(dt), mask_ij.to(dt), win, heads, d)
+    def stripe(dt, n):
+        args = (randn(n, hw, hw, c).to(dt), randn(n, l, hw, hw, 2 * c).to(dt),
+                bias.to(dt), mask_ij[:n].to(dt), win, heads, d)
         q_, kv_, b_, m_ = args[:4]
         kvw = _split_local(kv_, win)
         return dict(
             args=args, tensors=args[:4], fn=fused_stripe_window_attention,
-            prep=stripe_window_attention_launch, exact=None,
+            prep=stripe_window_attention_launch, exact=None, previous=True,
             library=lambda: sdpa(_split_local(q_, win), kvw[..., :c],
                                  kvw[..., c:], b_,
                                  _split_local(m_[..., None], win)[..., 0]),
-            ops=attention_ops(l, l))
+            ops=attention_ops(n, l))
 
     def plain(dt, n, j, mask):
         args = (randn(n, nwin, t, c).to(dt),
@@ -347,38 +346,51 @@ def check_kernels(dev, pairwise, agent_mask):
             prep=typed_window_attention_launch, exact=None, previous=True,
             library=library, ops=attention_ops(l, l, typed=True))
 
-    def fused(dt, ty, mode_, receivers):
-        r = l if receivers is None else receivers
+    def fused(dt, ty, mode_, receivers, pair=pairwise, mask=mask_ij):
+        j = pair.shape[1]
+        r = j if receivers is None else receivers
         # q scaled as the module scales it: the scores keep unit variance
         args = ((randn(r, hw, hw, c) * d ** -0.5).to(dt),
-                randn(1, ty, l, hw, hw, 2 * c).to(dt), pairwise, mode_,
-                mask_ij[:r].to(dt), bias.to(dt), win, heads, d, 0.4, 4,
+                randn(1, ty, j, hw, hw, 2 * c).to(dt), pair, mode_,
+                mask[:r].to(dt), bias.to(dt), win, heads, d, 0.4, 4,
                 receivers)
         q_, src_, _, _, m_, b_ = args[:6]
 
         def exact():
-            kv_pair = fused_pair_warp(src_, pairwise, mode_, 0.4, 4,
-                                      receivers)
+            kv_pair = fused_pair_warp(src_, pair, mode_, 0.4, 4, receivers)
             return fused_stripe_window_attention(
-                q_, kv_pair.reshape(r, l, hw, hw, 2 * c), b_, m_, win, heads,
+                q_, kv_pair.reshape(r, j, hw, hw, 2 * c), b_, m_, win, heads,
                 d)
 
         return dict(
             args=args, tensors=(q_, src_, m_, b_),
             fn=fused_warp_window_attention,
             prep=warp_window_attention_launch, exact=exact, library=None,
-            ops=attention_ops(r, l) + 12.0 * r * l * hw * hw * 2 * c)
+            previous=True,
+            ops=attention_ops(r, j) + 12.0 * r * j * hw * hw * 2 * c)
 
     grid_mask = _window_split(mask_ij[..., None], win, "grid")[..., 0] \
         .reshape(l, l, nwin, t)
     ego_mode = torch.zeros_like(mode)
+    # a fleet of 5 (320 keys a window): seeded rigid poses within 20 m,
+    # every pair in view; sender 0 masked in two window rows, receiver 0's
+    # first patch for every sender
+    pair5 = perf_lab.Lab(dev, perf_lab.PROD, iters=1).rand_pairwise(5)
+    mode5 = torch.tensor([[1, 0, 1, 0, 1]], device=dev)
+    mask5 = pairwise_roi_mask(pair5, torch.ones(1, 5, device=dev), (hw, hw),
+                              0.4, 4)[0].movedim(-1, 1).contiguous()
+    mask5[0, :, :16, :16] = 0
+    mask5[:, 0, 32:48] = 0
     # the first variant of each kernel is the one its record carries
     cases = {
         "pair_warp": [
             ("local I=4 TY=2", lambda dt: warp(dt, 2, mode, None, "tile")),
             ("ego I=1 TY=1", lambda dt: warp(dt, 1, ego_mode, 1, "tile")),
         ],
-        "stripe_window_attention": [("local J=4", stripe)],
+        "stripe_window_attention": [
+            ("local N=4 J=4", lambda dt: stripe(dt, l)),
+            ("local ego N=1 J=4", lambda dt: stripe(dt, 1)),
+        ],
         "plain_window_attention": [
             ("grid J=4", lambda dt: plain(dt, l, l, grid_mask)),
             ("grid ego N=1 J=4", lambda dt: plain(dt, 1, l, grid_mask[:1])),
@@ -388,6 +400,8 @@ def check_kernels(dev, pairwise, agent_mask):
         "warp_window_attention": [
             ("local I=4 TY=2", lambda dt: fused(dt, 2, mode, None)),
             ("ego I=1 TY=1", lambda dt: fused(dt, 1, ego_mode, 1)),
+            ("fleet of 5, I=J=5 TY=2",
+             lambda dt: fused(dt, 2, mode5, None, pair5, mask5)),
         ],
         "pair_warp_resident": [
             ("local I=4 TY=2",
@@ -722,7 +736,7 @@ def main() -> int:
     from hmvit_tpu_torch.postprocess import decode_detections_device
     from hmvit_tpu_torch.serving import (
         PROD_CFG,
-        PROD_RANGE,
+        anchor_args,
         batch_to_device,
         serving_config,
         serving_hints,
@@ -762,11 +776,9 @@ def main() -> int:
         return model.eval()
 
     # the anchors of the 512^2 pillar grid at feature stride 4 (128^2)
-    anchor_args = {"W": 512, "H": 512, "l": 3.9, "w": 1.6, "h": 1.56,
-                   "r": [0, 90], "num": 2, "feature_stride": 4,
-                   "vw": 0.4, "vh": 0.4, "cav_lidar_range": PROD_RANGE}
-    anchors = torch.as_tensor(generate_anchor_grid(anchor_args, "hwl"),
-                              dtype=torch.float32, device=dev)
+    anchors = torch.as_tensor(
+        generate_anchor_grid(anchor_args(PROD_CFG), "hwl"),
+        dtype=torch.float32, device=dev)
     eye = torch.eye(4, device=dev)
     # launches per request each server must show (0: must not launch)
     split_counts = {"pair_warp": 4, "stripe_window_attention": 2,
@@ -782,12 +794,23 @@ def main() -> int:
         "expand_v2": dict(split_counts, expand_rows_v2=1),
     }
 
-    def check_counts(what, name, counts, requests):
+    def check_counts(what, name, counts, requests, body):
+        """Every kernel's launches, and every attention launch on
+        ``body`` (counted inside the library where the choice is made)."""
         for kernel, n in per_request[name].items():
             if counts[kernel] != n * requests:
                 raise AssertionError(
                     f"{what} ({name}): {kernel} launched {counts[kernel]} "
                     f"times, expected {n * requests}")
+        bodies = cuda.attention_body_launches()
+        for kernel, ran in bodies.items():
+            want = dict.fromkeys(ran, 0)
+            want[body] = per_request[name][kernel] * requests
+            if ran != want:
+                raise AssertionError(
+                    f"{what} ({name}): {kernel} ran {ran}, expected every "
+                    f"launch on the {body} body: {want}")
+        return bodies
 
     # -- 4. float32 forward: kernels vs plain twins, variants vs split --------
     outs32 = {}
@@ -798,7 +821,7 @@ def main() -> int:
             out_k = model32(geo, **hints)
             counts = cuda.launch_counts()
             print(f"fp32 forward ({name}) with kernels: launches {counts}")
-            check_counts("fp32 forward", name, counts, 1)
+            check_counts("fp32 forward", name, counts, 1, "simt")
             with plain_ops():
                 out_p = model32(geo, **hints)
         torch.cuda.synchronize()
@@ -858,7 +881,7 @@ def main() -> int:
         t2 = time.perf_counter()
         return out, det, ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
 
-    path_counts, path_bodies = {}, {}
+    path_counts, path_bodies, outs16 = {}, {}, {}
     for name, model in servers.items():
         serve(model, requests[0])  # warm-up (cuDNN autotune, allocator)
         cuda.reset_launches()
@@ -872,19 +895,29 @@ def main() -> int:
                                          f"{tuple(out[key].shape)}")
             if not torch.isfinite(corners).all():
                 raise AssertionError(f"{name} request {i}: non-finite boxes")
+            if name in ("split", "fused_wa"):
+                outs16.setdefault(name, []).append(out)
             print(f"{name} request {i}: {sum(stages):.2f} ms (forward "
                   f"{stages[0]:.2f}, decode + NMS {stages[1]:.2f}), "
                   f"{int(valid.sum())} boxes kept")
         path_counts[name] = cuda.launch_counts()
-        path_bodies[name] = cuda.attention_body_launches()
+        path_bodies[name] = check_counts("bf16 serving", name,
+                                         path_counts[name], len(requests),
+                                         "mma")
         print(f"launches during the 3 {name} requests: {path_counts[name]}; "
               f"attention launches by body: {path_bodies[name]}")
-        check_counts("bf16 serving", name, path_counts[name], len(requests))
-        plain_bodies = path_bodies[name]["plain_window_attention"]
-        if plain_bodies != {"simt": 0, "mma": 5 * len(requests)}:
-            raise AssertionError(
-                f"bf16 serving ({name}): the plain attention kernel ran "
-                f"{plain_bodies}, expected every launch on the tensor cores")
+    # the fused kernel computes the rows the pair warp would have written
+    # and attends with the stripe kernel's code: the same bits end to end
+    for i, (a, b) in enumerate(zip(outs16["split"], outs16["fused_wa"])):
+        for key in ("psm", "rm"):
+            diff = float((a[key].float() - b[key].float()).abs().max())
+            print(f"forward bf16 request {i} {key}: fused_wa vs split "
+                  f"max|diff| {diff:.1e}")
+            if not torch.equal(a[key], b[key]):
+                raise AssertionError(
+                    f"bf16 forward request {i} {key}: the fused_wa server "
+                    f"differs from the split server (max|diff| {diff})")
+    del outs16
     # the split server against itself on the plain twins, one request
     with torch.no_grad():
         out_k = servers["split"](requests[0], **hints)

@@ -1,8 +1,8 @@
 // Multi-sender window attention on the tensor cores: what one warp does
 // with 16 query rows of one window and head, on bf16 operands that a
 // block has staged in shared memory.  Beside attention_body.cuh (fp32
-// CUDA cores, any storage type), which the stripe kernel, the fused
-// warp + attention kernel and every float32 launch keep.
+// CUDA cores, any storage type), which every float32 launch and the
+// bfloat16 shapes outside this body's rule keep.
 //
 // sim = q . k over all J*T keys (q arrives scaled),
 // where(mask > 0, sim + bias[t, s mod T], -1e9), softmax over the J*T
@@ -407,13 +407,15 @@ __device__ __forceinline__ void attend_chunk(
 // and write the warp's 16 x D block.  It goes through the warp's own
 // query rows and channels in shared memory (q_rows, read by no other
 // warp) so that every token row leaves as whole 16-byte pieces;
-// out_rows points at channel h * D of the warp's first token, tokens c
-// elements apart.
-template <int D, int RB>
+// out_head points at channel h * D of the window's first token, and
+// row_at(r) gives the element offset of the warp's r-th token from there
+// (tokens lie in a line when the windows are split, in rows of the map
+// when they are not).
+template <int D, int RB, typename RowAt>
 __device__ __forceinline__ void end_head(RowTile<D>& rt,
                                          unsigned char* q_rows,
-                                         __nv_bfloat16* out_rows, int c,
-                                         int lane) {
+                                         __nv_bfloat16* out_head,
+                                         RowAt row_at, int lane) {
   const int g = lane >> 2, i2 = (lane & 3) * 2;
   float inv[2];
 #pragma unroll
@@ -437,7 +439,7 @@ __device__ __forceinline__ void end_head(RowTile<D>& rt,
 #pragma unroll
   for (int i = lane; i < 16 * kPieces; i += 32) {
     const int row = i / kPieces, ch = i - row * kPieces;
-    *reinterpret_cast<uint4*>(out_rows + (long long)row * c + ch * 8) =
+    *reinterpret_cast<uint4*>(out_head + row_at(row) + ch * 8) =
         *reinterpret_cast<const uint4*>(q_rows + row * RB + ch * 16);
   }
 }

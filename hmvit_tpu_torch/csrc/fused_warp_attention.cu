@@ -9,10 +9,41 @@
 // (N, J, H, W, 2C) — 268 MB in bf16 at the serving shapes — is never
 // written to device memory.
 //
-// What bounds it on the H100: the attention arithmetic on the fp32 CUDA
-// cores, as in the stripe kernel; the warp adds tap reads that L1/L2
-// serve (each source vector is read by up to 4 neighbouring keys).  The
-// design: one block per (receiver, window) as the stripe kernel has.
+// hm_warp_window_attention chooses inside, by the rule of the window
+// attention entry points (hm_attention_body_rule): bfloat16 operands with
+// T % 16 == 0, T <= 128, d % 16 == 0, d <= 64, J*T <= 320 and 16-byte
+// aligned pointers (the serving path) run on the tensor cores — the
+// kernel of window_attention_mma_kernel.cuh with kWarp as the source of
+// its rows; float32 and every other shape run the kernel below.  Nothing
+// falls from one to the other on a failure.  hm_warp_window_attention_simt
+// always runs the kernel below (for timing the two side by side).
+//
+// The tensor-core form.  What bounds it on the H100: by the count of
+// bytes it is bound as the stripe kernel is — it reads the typed maps (a
+// receiver's J sender maps once, 34 MB) instead of the warped tensor —
+// but the limit it meets first is its staging: a unit's 2 x 64 rows of
+// 128 bytes are not copied by cp.async but computed, 4 reads of 16 bytes
+// a vector from L1 / L2 (neighbouring keys share taps), 32 widenings, two
+// blends and two roundings, as much arithmetic as the pair-warp kernel
+// does for the same rows.  Measured alone, the staging takes most of the
+// kernel's time, arithmetic and reads about evenly, and it shares the
+// instruction slots with the softmax; asking for the next unit's lines ahead
+// (prefetch to L1 or L2) and 8 threads a key changed nothing.  The
+// design: the stripe kernel's block and unit — (receiver, 2 heads, run of
+// windows), (sender, 2 heads) — with 4 threads a key: each works the
+// key's tap plan out in registers (no table in shared memory, so nothing
+// grows with J) and computes every fourth of the key's 16 vectors with
+// the pair warp's own routine, all reads of a vector started before its
+// arithmetic, and stores the 16 bytes the pair warp would have written to
+// device memory into the shared-memory row the stripe kernel fills by
+// copy.  All 8 warps stage unit u + 1, then attend to unit u; the SM's
+// second block computes meanwhile.  From there on it is the stripe
+// kernel's code on the stripe kernel's bits.
+//
+// The fp32 form.  What bounds it: the attention arithmetic on the fp32
+// CUDA cores, as in the stripe kernel's fp32 form; the warp adds tap
+// reads that L1/L2 serve (each source vector is read by up to 4
+// neighbouring keys).  One block per (receiver, window).
 // Where that kernel copies K_h / V_h of the J senders from the warped
 // tensor into fp32 shared memory, this one computes each staged vector
 // of 8 channels with the pair warp's own tap routine (warp_taps.cuh)
@@ -25,6 +56,8 @@
 // (attention_body.cuh), so the two paths share every rounding step.
 #include "attention_body.cuh"
 #include "warp_taps.cuh"
+#include "window_attention_mma.cuh"
+#include "window_attention_mma_kernel.cuh"
 
 namespace {
 
@@ -143,12 +176,60 @@ int launch(const void* q, const void* src, const void* coef,
   return (int)cudaGetLastError();
 }
 
+// The tensor-core form: bfloat16 operands of a shape the body rule takes.
+int launch_mma(const void* q, const void* src, const void* coef,
+               const void* rtype, const void* bias, const void* mask,
+               void* out, int n, int nj, int ty_count, int n_recv, int size,
+               int win, int heads, int d, cudaStream_t stream) {
+  using hm::mma::bf16;
+  if (win <= 0 || size % win != 0 || heads <= 0 || n_recv <= 0 ||
+      n % n_recv != 0 || ty_count <= 0 ||
+      !hm::shape_takes_mma(nj, win * win, d)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0 || size == 0) return 0;
+  hm::mma::Operands a = {};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(src);
+  a.kv_stride = 2LL * heads * d;
+  a.bias = static_cast<const float*>(bias);
+  a.mask = static_cast<const float*>(mask);
+  a.out = static_cast<bf16*>(out);
+  a.n = n, a.nj = nj, a.t = win * win, a.heads = heads;
+  a.wcols = size / win;
+  a.nwin = a.wcols * a.wcols;
+  a.coef = static_cast<const float*>(coef);
+  a.rtype = static_cast<const int*>(rtype);
+  a.ty_count = ty_count, a.n_recv = n_recv;
+  return hm::mma::launch_any<false, hm::mma::kWarp>(d, a, stream);
+}
+
+constexpr int kFusedKernel = 3;  // its row in the count of launches by body
+
 }  // namespace
 
 // q/out (N, S, S, C) with C = heads * d; src (B, TY, J, S, S, 2C) =
 // typed [K | V]; coef (N, J, 8) f32 and rtype (N,) i32 as the pair warp
 // takes them; bias (heads, T, T) f32; mask (N, J, S, S) f32;
-// N = B * n_recv.  dtype 0 = f32, 1 = bf16.
+// N = B * n_recv.  dtype 0 = f32, 1 = bf16.  Always the fp32 body.
+extern "C" int hm_warp_window_attention_simt(
+    const void* q, const void* src, const void* coef, const void* rtype,
+    const void* bias, const void* mask, void* out, int dtype, int n, int nj,
+    int ty_count, int n_recv, int size, int win, int heads, int d,
+    void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  int rc = (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    rc = launch<float>(q, src, coef, rtype, bias, mask, out, n, nj, ty_count,
+                       n_recv, size, win, heads, d, s);
+  } else if (dtype == 1) {
+    rc = launch<__nv_bfloat16>(q, src, coef, rtype, bias, mask, out, n, nj,
+                               ty_count, n_recv, size, win, heads, d, s);
+  }
+  return hm::counted(kFusedKernel, 0, rc);
+}
+
+// The same operands; the body by type and shape.
 extern "C" int hm_warp_window_attention(const void* q, const void* src,
                                         const void* coef, const void* rtype,
                                         const void* bias, const void* mask,
@@ -156,14 +237,14 @@ extern "C" int hm_warp_window_attention(const void* q, const void* src,
                                         int ty_count, int n_recv, int size,
                                         int win, int heads, int d,
                                         void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch<float>(q, src, coef, rtype, bias, mask, out, n, nj,
-                         ty_count, n_recv, size, win, heads, d, s);
+  if (win > 0 && hm_attention_body_rule(dtype, nj, win * win, d) == 1 &&
+      hm::aligned16(q, src, bias, mask, out)) {
+    return hm::counted(kFusedKernel, 1,
+                       launch_mma(q, src, coef, rtype, bias, mask, out, n, nj,
+                                  ty_count, n_recv, size, win, heads, d,
+                                  reinterpret_cast<cudaStream_t>(stream)));
   }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, src, coef, rtype, bias, mask, out, n, nj,
-                                 ty_count, n_recv, size, win, heads, d, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return hm_warp_window_attention_simt(q, src, coef, rtype, bias, mask, out,
+                                       dtype, n, nj, ty_count, n_recv, size,
+                                       win, heads, d, stream);
 }

@@ -117,4 +117,65 @@ __device__ __forceinline__ void apply_taps(const WarpTaps& p, const T* base,
   }
 }
 
+// The 16 bytes the pair warp stores for 8 consecutive bfloat16 channels:
+// apply_taps<__nv_bfloat16, 8> and the rounding of its result, with the
+// up to four 16-byte reads started before any arithmetic, so that they
+// are in flight together.  The same operations in the same order as
+// apply_taps: the same bits.
+__device__ __forceinline__ uint4 warp_vector_bf16(const WarpTaps& p,
+                                                  const __nv_bfloat16* base,
+                                                  int pix_stride,
+                                                  int self_pix) {
+  typedef __nv_bfloat16 T;
+  uint4 raw[2][2];
+#pragma unroll
+  for (int dc = 0; dc < 2; ++dc) {
+#pragma unroll
+    for (int dr = 0; dr < 2; ++dr) {
+      // an identity pair reads the pixel's own vector through tap (0, 0)
+      const int pix = p.flag == 1 ? (dc + dr == 0 ? self_pix : -1)
+                                  : p.pix[dc][dr];
+      raw[dc][dr] = make_uint4(0u, 0u, 0u, 0u);
+      if (p.flag != 2 && pix >= 0) {
+        raw[dc][dr] = __ldg(reinterpret_cast<const uint4*>(
+            base + (long long)pix * pix_stride));
+      }
+    }
+  }
+  float acc[8];
+  if (p.flag != 0) {  // a copy, or zeros: widened and rounded as there
+    const T* e = reinterpret_cast<const T*>(&raw[0][0]);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = to_f(e[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+  }
+#pragma unroll
+  for (int dc = 0; dc < 2; ++dc) {
+    if (p.flag != 0 || p.w2[dc] == 0.f) continue;
+    float tmp[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) tmp[k] = 0.f;
+#pragma unroll
+    for (int dr = 0; dr < 2; ++dr) {
+      if (p.pix[dc][dr] < 0) continue;
+      const T* e = reinterpret_cast<const T*>(&raw[dc][dr]);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        tmp[k] = __fmaf_rn(p.w1[dc][dr], to_f(e[k]), tmp[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      acc[k] = __fmaf_rn(p.w2[dc], round_to<T>(tmp[k]), acc[k]);
+    }
+  }
+  uint4 packed;
+  T* e = reinterpret_cast<T*>(&packed);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) e[k] = from_f<T>(acc[k]);
+  return packed;
+}
+
 }  // namespace hm

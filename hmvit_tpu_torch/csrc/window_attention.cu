@@ -2,8 +2,10 @@
 // and typed kernels, and their fp32 CUDA-core form over one attention
 // body (attention_body.cuh).
 //
-// hm_plain_window_attention and hm_typed_window_attention choose inside,
-// by type and shape: bfloat16 operands with T % 16 == 0, T <= 128,
+// hm_stripe_window_attention, hm_plain_window_attention and
+// hm_typed_window_attention choose inside, by type and shape (as does
+// hm_warp_window_attention of fused_warp_attention.cu, by the same
+// rule): bfloat16 operands with T % 16 == 0, T <= 128,
 // d % 16 == 0, d <= 64, J*T <= 320 and 16-byte aligned pointers (the
 // serving path) go to the tensor-core kernels of
 // window_attention_mma.cu, whose header says what bounds them (bytes)
@@ -33,9 +35,9 @@
 // K_h, V_h of all J senders are staged in fp32 shared memory (K rows
 // padded to d+1 floats so the 32 lanes of a warp read 32 different
 // banks); the body then gives each warp 4 query rows at a time.  No
-// intermediate leaves the block.  It is exact fp32 arithmetic in a fixed
-// order, which is what the stripe kernel and the fused warp + attention
-// kernel are held to each other by, bit for bit.
+// intermediate leaves the block.  It is fp32 arithmetic in a fixed
+// order, shared with the fused warp + attention kernel's fp32 form, so
+// that the two agree bit for bit (as their tensor-core forms do).
 //
 // typed_window_attention_kernel replaces the Pallas kernel
 // hmvit_tpu/ops/window_attention.py::_kernel (hetero_window_attention):
@@ -298,22 +300,19 @@ int dispatch_typed(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// launches per kernel (0 stripe, 1 plain, 2 typed) and body (0 fp32
-// CUDA cores, 1 tensor cores), counted where the choice is made; plain
-// ints: launches come from one host thread at a time
-int g_launches[3][2];
+// launches per kernel (0 stripe, 1 plain, 2 typed, 3 fused warp +
+// attention) and body (0 fp32 CUDA cores, 1 tensor cores), counted where
+// the choice is made; plain ints: launches come from one host thread at
+// a time
+constexpr int kKernels = 4;
+int g_launches[kKernels][2];
 
-int counted(int kernel, int body, int rc) {
+}  // namespace
+
+int hm::counted(int kernel, int body, int rc) {
   if (rc == 0) ++g_launches[kernel][body];
   return rc;
 }
-
-template <typename... P>
-bool aligned16(P... ptrs) {
-  return ((reinterpret_cast<uintptr_t>(ptrs) | ...) & 15) == 0;
-}
-
-}  // namespace
 
 // 1 when bfloat16 (dtype 1) operands of this shape, 16-byte aligned, go
 // to the tensor-core body, 0 when to the fp32 body, -1 when no kernel
@@ -324,7 +323,7 @@ extern "C" int hm_attention_body_rule(int dtype, int nj, int t, int d) {
 }
 
 extern "C" int hm_attention_body_launches(int kernel, int body) {
-  if (kernel < 0 || kernel > 2 || body < 0 || body > 1) return -1;
+  if (kernel < 0 || kernel >= kKernels || body < 0 || body > 1) return -1;
   return g_launches[kernel][body];
 }
 
@@ -334,15 +333,37 @@ extern "C" void hm_attention_body_reset() {
 
 // q/out (N, H, W, C), kv (N, J, H, W, 2C), mask (N, J, H, W) f32,
 // bias (heads, T, T) f32; windows win x win, nwin = (H/win) * (W/win),
-// wcols = W / win.  dtype 0 = f32, 1 = bf16.
+// wcols = W / win.  dtype 0 = f32, 1 = bf16.  Always the fp32 body.
+extern "C" int hm_stripe_window_attention_simt(
+    const void* q, const void* kv, const void* bias, const void* mask,
+    void* out, int dtype, int n, int nj, int nwin, int t, int win, int wcols,
+    int heads, int d, void* stream) {
+  if (win <= 0 || win * win != t || wcols <= 0 || nwin % wcols != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return hm::counted(0, 0,
+                     dispatch<true>(q, kv, bias, mask, out, dtype, n, nj, nwin,
+                                    t, win, wcols, heads, d, stream));
+}
+
+// The same operands; the body by type and shape.
 extern "C" int hm_stripe_window_attention(const void* q, const void* kv,
                                           const void* bias, const void* mask,
                                           void* out, int dtype, int n, int nj,
                                           int nwin, int t, int win, int wcols,
                                           int heads, int d, void* stream) {
-  if (win * win != t) return (int)cudaErrorInvalidValue;
-  return counted(0, 0, dispatch<true>(q, kv, bias, mask, out, dtype, n, nj,
-                                      nwin, t, win, wcols, heads, d, stream));
+  if (win > 0 && win * win == t && wcols > 0 &&
+      hm_attention_body_rule(dtype, nj, t, d) == 1 &&
+      hm::aligned16(q, kv, bias, mask, out)) {
+    const long long c = (long long)heads * d;
+    return hm::counted(0, 1, hm::launch_window_attention_mma(
+        q, kv, static_cast<const __nv_bfloat16*>(kv) + c, 2 * c, nullptr,
+        nullptr, bias, mask, out, n, nj, nwin, t, wcols, heads, d,
+        reinterpret_cast<cudaStream_t>(stream)));
+  }
+  return hm_stripe_window_attention_simt(q, kv, bias, mask, out, dtype, n, nj,
+                                         nwin, t, win, wcols, heads, d,
+                                         stream);
 }
 
 // q/out (N, Wn, T, C), kv (N, J, Wn, T, 2C), mask (N, J, Wn, T) f32,
@@ -352,8 +373,9 @@ extern "C" int hm_plain_window_attention_simt(
     const void* q, const void* kv, const void* bias, const void* mask,
     void* out, int dtype, int n, int nj, int nwin, int t, int win, int wcols,
     int heads, int d, void* stream) {
-  return counted(1, 0, dispatch<false>(q, kv, bias, mask, out, dtype, n, nj,
-                                       nwin, t, win, wcols, heads, d, stream));
+  return hm::counted(1, 0,
+                     dispatch<false>(q, kv, bias, mask, out, dtype, n, nj,
+                                     nwin, t, win, wcols, heads, d, stream));
 }
 
 // The same operands; the body by type and shape.
@@ -363,11 +385,11 @@ extern "C" int hm_plain_window_attention(const void* q, const void* kv,
                                          int nwin, int t, int win, int wcols,
                                          int heads, int d, void* stream) {
   if (hm_attention_body_rule(dtype, nj, t, d) == 1 &&
-      aligned16(q, kv, bias, mask, out)) {
+      hm::aligned16(q, kv, bias, mask, out)) {
     const long long c = (long long)heads * d;
-    return counted(1, 1, hm::launch_window_attention_mma(
+    return hm::counted(1, 1, hm::launch_window_attention_mma(
         q, kv, static_cast<const __nv_bfloat16*>(kv) + c, 2 * c, nullptr,
-        nullptr, bias, mask, out, n, nj, nwin, t, heads, d,
+        nullptr, bias, mask, out, n, nj, nwin, t, 0, heads, d,
         reinterpret_cast<cudaStream_t>(stream)));
   }
   return hm_plain_window_attention_simt(q, kv, bias, mask, out, dtype, n, nj,
@@ -383,7 +405,7 @@ extern "C" int hm_typed_window_attention_simt(
     const void* w_msg, const void* bias, const void* mask, void* out,
     int dtype, int n, int nj, int nwin, int t, int heads, int d,
     void* stream) {
-  return counted(2, 0, dispatch_typed(
+  return hm::counted(2, 0, dispatch_typed(
       q, k, v, w_att, w_msg, bias, mask, out, dtype, n, nj, nwin, t, heads, d,
       reinterpret_cast<cudaStream_t>(stream)));
 }
@@ -397,10 +419,10 @@ extern "C" int hm_typed_window_attention(const void* q, const void* k,
                                          int t, int heads, int d,
                                          void* stream) {
   if (hm_attention_body_rule(dtype, nj, t, d) == 1 &&
-      aligned16(q, k, v, w_att, w_msg, bias, mask, out)) {
-    return counted(2, 1, hm::launch_window_attention_mma(
+      hm::aligned16(q, k, v, w_att, w_msg, bias, mask, out)) {
+    return hm::counted(2, 1, hm::launch_window_attention_mma(
         q, k, v, (long long)heads * d, w_att, w_msg, bias, mask, out, n, nj,
-        nwin, t, heads, d, reinterpret_cast<cudaStream_t>(stream)));
+        nwin, t, 0, heads, d, reinterpret_cast<cudaStream_t>(stream)));
   }
   return hm_typed_window_attention_simt(q, k, v, w_att, w_msg, bias, mask,
                                         out, dtype, n, nj, nwin, t, heads, d,

@@ -167,13 +167,19 @@ WARP_WINDOW_ATTENTION = Kernel("hm_warp_window_attention",
 SEGMENTED_MAX_SCAN = Kernel("hm_segmented_max_scan", n_ptrs=3, n_ints=4)
 EXPAND_ROWS = Kernel("hm_expand_rows", n_ptrs=4, n_ints=2)
 EXPAND_ROWS_V2 = Kernel("hm_expand_rows_v2", n_ptrs=4, n_ints=2)
-# The fp32 CUDA-core form of the plain and typed kernels for bfloat16
+# The fp32 CUDA-core form of the four attention kernels for bfloat16
 # operands that the entry points above send to the tensor cores: for
 # timing the two side by side, never on the serving path.
+STRIPE_WINDOW_ATTENTION_SIMT = Kernel("hm_stripe_window_attention_simt",
+                                      n_ptrs=5, n_ints=9)
 PLAIN_WINDOW_ATTENTION_SIMT = Kernel("hm_plain_window_attention_simt",
                                      n_ptrs=5, n_ints=9)
 TYPED_WINDOW_ATTENTION_SIMT = Kernel("hm_typed_window_attention_simt",
                                      n_ptrs=8, n_ints=7)
+WARP_WINDOW_ATTENTION_SIMT = Kernel("hm_warp_window_attention_simt",
+                                    n_ptrs=7, n_ints=9)
+SIMT_KERNELS = (STRIPE_WINDOW_ATTENTION_SIMT, PLAIN_WINDOW_ATTENTION_SIMT,
+                TYPED_WINDOW_ATTENTION_SIMT, WARP_WINDOW_ATTENTION_SIMT)
 KERNELS = {"pair_warp": PAIR_WARP,
            "stripe_window_attention": STRIPE_WINDOW_ATTENTION,
            "plain_window_attention": PLAIN_WINDOW_ATTENTION,
@@ -185,8 +191,9 @@ KERNELS = {"pair_warp": PAIR_WARP,
            "expand_rows_v2": EXPAND_ROWS_V2}
 
 
+# in the order the library counts them
 ATTENTION_KERNELS = ("stripe_window_attention", "plain_window_attention",
-                     "typed_window_attention")
+                     "typed_window_attention", "warp_window_attention")
 ATTENTION_BODIES = ("simt", "mma")
 
 

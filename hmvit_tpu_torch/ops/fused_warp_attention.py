@@ -5,9 +5,11 @@
 ``csrc/fused_warp_attention.cu`` for CUDA tensors (the replacement of
 the Pallas ``_fused_kernel``): the attention output comes straight from
 the typed sender maps, bit-identical to :func:`fused_pair_warp` followed
-by :func:`fused_stripe_window_attention`, and the warped (N, J, H, W,
-2C) tensor never reaches device memory.  For CPU tensors, or under
-:func:`hmvit_tpu_torch.ops.plain_ops`, it runs
+by :func:`fused_stripe_window_attention` — in bfloat16 on the tensor
+cores, in float32 on the fp32 CUDA cores, by the rule of
+:func:`hmvit_tpu_torch.ops.window_attention.attention_body` — and the
+warped (N, J, H, W, 2C) tensor never reaches device memory.  For CPU
+tensors, or under :func:`hmvit_tpu_torch.ops.plain_ops`, it runs
 :func:`warp_window_attention_xla` — pair-warp twin, window split, plain
 attention twin, merge: the JAX package's oracle.  The backward
 recomputes through the twin and gives gradients for q, src_typed and
@@ -20,8 +22,8 @@ import torch
 from . import cuda, use_kernel
 from .fused_warp import _prep_affines, pair_warp_xla
 from .window_attention import (
-    _check_kernel_limits,
     _recompute_grads,
+    attention_body,
     stripe_window_attention_xla,
 )
 
@@ -45,10 +47,13 @@ def warp_window_attention_xla(q, src_typed, pairwise, mode, mask, bias,
 def warp_window_attention_launch(q, src_typed, pairwise, mode, mask, bias,
                                  win, heads, dim_head, discrete_ratio,
                                  downsample_rate, num_receivers=None,
-                                 coef=None):
+                                 coef=None, simt: bool = False):
     """Validate and lay out one fused launch: returns (launch, out).
     ``coef`` is the frame's ``pair_warp_coefficients`` of ``pairwise``,
-    or None to compute them here."""
+    or None to compute them here.  The body follows the window attention
+    kernels' rule (:func:`attention_body`); ``simt`` forces the fp32
+    CUDA-core body where the entry point would choose the tensor cores
+    (for timing only)."""
     bsz, ty_count, l, h, w, ck2 = src_typed.shape
     r = l if num_receivers is None else num_receivers
     c, t = heads * dim_head, win * win
@@ -76,7 +81,7 @@ def warp_window_attention_launch(q, src_typed, pairwise, mode, mask, bias,
         raise ValueError(f"warp + attention: coefficients "
                          f"{tuple(coef.shape)} {coef.dtype}, want "
                          f"({bsz}, {l}, {l}, 8) float32")
-    _check_kernel_limits(l, t, dim_head)
+    attention_body(q.dtype, l, t, dim_head)
     coef, rtype = _prep_affines(pairwise, mode, (h, w), discrete_ratio,
                                 downsample_rate, r, coef)
     # the kernel reads src[b, rtype[n]]: an out-of-range variant raises
@@ -88,8 +93,9 @@ def warp_window_attention_launch(q, src_typed, pairwise, mode, mask, bias,
                mask.to(torch.float32).contiguous(), torch.empty_like(q)]
     ints = [cuda.DTYPE_CODES[q.dtype], bsz * r, l, ty_count, r, h, win,
             heads, dim_head]
-    return (lambda: cuda.WARP_WINDOW_ATTENTION.launch(tensors, ints),
-            tensors[-1])
+    kernel = (cuda.WARP_WINDOW_ATTENTION_SIMT if simt
+              else cuda.WARP_WINDOW_ATTENTION)
+    return lambda: kernel.launch(tensors, ints), tensors[-1]
 
 
 class _WarpWindowAttention(torch.autograd.Function):

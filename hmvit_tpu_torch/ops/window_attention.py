@@ -2,10 +2,10 @@
 ``hmvit_tpu/ops/window_attention.py``).
 
 Three kernel wrappers over the C entry points of
-``csrc/window_attention.cu``.  The plain and the typed entry point run
-bfloat16 operands on the tensor cores (``csrc/window_attention_mma.cu``)
-and float32 ones on the fp32 CUDA cores; :func:`attention_body` says
-which shapes go where.
+``csrc/window_attention.cu``.  Every entry point runs bfloat16 operands
+on the tensor cores (``csrc/window_attention_mma.cu``) and float32 ones
+on the fp32 CUDA cores; :func:`attention_body` says which shapes go
+where.
 
 * :func:`fused_stripe_window_attention` — local windows read straight
   from unsplit (N, H, W, C) maps (replaces the Pallas
@@ -111,17 +111,17 @@ def stripe_window_attention_xla(q, kv, bias, mask, win: int, heads: int,
 
 
 def attention_body(dtype, j: int, t: int, dim_head: int) -> str:
-    """Which body of ``csrc/`` a plain or typed launch of this type and
-    shape runs — the rule of the C entry points
-    (``hm_attention_body_rule``), mirrored here for the error text and
-    the tests.  "mma": bfloat16 on the tensor cores
+    """Which body of ``csrc/`` a stripe, plain, typed or fused warp +
+    attention launch of this type and shape runs — the rule of the C
+    entry points (``hm_attention_body_rule``), mirrored here for the
+    error text and the tests.  "mma": bfloat16 on the tensor cores
     (``attention_mma.cuh``), for T a multiple of 16 up to 128, dim_head a
     multiple of 16 up to 64 and J*T <= 320.  "simt": the fp32 CUDA-core
     body (``attention_body.cuh``), for float32 and every other shape with
-    J*T <= 320, dim_head <= 64 and both T and dim_head multiples of 4;
-    the stripe kernel always, and operands that are not 16-byte aligned
-    (no contiguous tensor of these shapes is).  Raises for what no
-    kernel takes."""
+    J*T <= 320, dim_head <= 64 and both T and dim_head multiples of 4
+    (the fused kernel: dim_head a multiple of 8), and operands that are
+    not 16-byte aligned (no contiguous tensor of these shapes is).
+    Raises for what no kernel takes."""
     if dtype not in cuda.DTYPE_CODES:
         raise TypeError(f"window attention: unsupported dtype {dtype}")
     if j <= 0 or t <= 0 or dim_head <= 0 or j * t > 320 or dim_head > 64:
@@ -138,12 +138,6 @@ def attention_body(dtype, j: int, t: int, dim_head: int) -> str:
             f"T <= 128 and dim_head % 16 == 0 runs on the tensor cores), got "
             f"J*T={j * t}, T={t}, d={dim_head}")
     return body
-
-
-def _check_kernel_limits(j, t, dim_head):
-    """The limits of the fp32 body alone (the stripe and the fused warp +
-    attention kernels)."""
-    attention_body(torch.float32, j, t, dim_head)
 
 
 def _attention_launch(kernel, q, kv, bias, mask, heads, dim_head, nwin, t,
@@ -169,22 +163,25 @@ def _attention_launch(kernel, q, kv, bias, mask, heads, dim_head, nwin, t,
     return lambda: kernel.launch(tensors, ints), tensors[-1]
 
 
-def stripe_window_attention_launch(q, kv, bias, mask, win, heads, dim_head):
+def stripe_window_attention_launch(q, kv, bias, mask, win, heads, dim_head,
+                                   simt: bool = False):
     """Validate and lay out one stripe-kernel launch: returns
-    (launch, out)."""
+    (launch, out).  ``simt`` forces the fp32 CUDA-core body where the
+    entry point would choose the tensor cores (for timing only)."""
     h, w = q.shape[1:3]
     if h % win or w % win:
         raise ValueError(f"map {(h, w)} not divisible by window {win}")
-    return _attention_launch(cuda.STRIPE_WINDOW_ATTENTION, q, kv, bias, mask,
-                             heads, dim_head, (h // win) * (w // win),
-                             win * win, win, w // win)
+    kernel = (cuda.STRIPE_WINDOW_ATTENTION_SIMT if simt
+              else cuda.STRIPE_WINDOW_ATTENTION)
+    return _attention_launch(kernel, q, kv, bias, mask, heads, dim_head,
+                             (h // win) * (w // win), win * win, win,
+                             w // win)
 
 
 def plain_window_attention_launch(q, kv, bias, mask, heads, dim_head,
                                   simt: bool = False):
     """Validate and lay out one plain-kernel launch: returns
-    (launch, out).  ``simt`` forces the fp32 CUDA-core body where the
-    entry point would choose the tensor cores (for timing only)."""
+    (launch, out).  ``simt`` as for the stripe kernel."""
     nwin, t = q.shape[1:3]
     kernel = (cuda.PLAIN_WINDOW_ATTENTION_SIMT if simt
               else cuda.PLAIN_WINDOW_ATTENTION)

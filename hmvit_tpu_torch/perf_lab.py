@@ -1,5 +1,6 @@
 """Stage-level timing of the kernels on the card (counterpart of the
-fusion, lidar and expansion stages of the JAX package's ``perf_lab.py``).
+fusion, lidar and expansion stages of the JAX package's ``perf_lab.py``)
+and a per-stage profile of the serving frame.
 
     python -m hmvit_tpu_torch.perf_lab [stage ...] [--iters N] [--cpu]
 
@@ -27,7 +28,15 @@ points on a 512^2 pillar grid, PFN width 64:
   bit for bit;
 * ``lidar`` — ``PillarFeatureNet`` alone, bfloat16 features, on two
   clouds of 30 000 in-range points: ``scatter_variant`` False, "v1",
-  "v2", and the default route with the scan kernel; equal bit for bit.
+  "v2", and the default route with the scan kernel; equal bit for bit;
+* ``profile`` — the production bfloat16 server, split and
+  ``use_fused_wa``: ms/frame of ``--iters`` requests (host clock, card
+  synchronised) and ms per stage (lidar encoder, camera encoder, fusion,
+  decoder, decode + NMS; CUDA events at the stage's ends), then one
+  ``torch.profiler`` pass over 3 requests giving the device-busy ms and
+  the device operations (kernels, copies, memsets) of each stage and of
+  the frame, and the device-busy share of the frame.  It hooks the
+  model's stages to mark them; it changes no path.
 
 Times are CUDA-event medians of ``--iters`` calls of the wrapper (inputs
 on the card, pose geometry included), each line with the card's name and
@@ -46,7 +55,9 @@ import time
 import numpy as np
 import torch
 
+from .data.anchors import generate_anchor_grid
 from .data.synthetic import lidar_from_boxes, make_scene
+from .models.hmvit import HMViT
 from .models.pillar_encoder import PillarFeatureNet
 from .nn import DTYPES, init_parameters
 from .ops import plain_ops
@@ -62,6 +73,15 @@ from .ops.voxelize import pillarize, scan_steps
 from .ops.window_attention import (
     fused_stripe_window_attention,
     fused_window_attention,
+)
+from .postprocess import decode_detections_device
+from .serving import (
+    PROD_CFG,
+    anchor_args,
+    batch_to_device,
+    request_batch,
+    serving_config,
+    serving_hints,
 )
 
 LIDAR_RANGE = (-102.4, -102.4, -3.0, 102.4, 102.4, 1.0)
@@ -366,6 +386,189 @@ def stage_lidar(lab: Lab, dtype_name: str = "bfloat16"):
     _all_equal("pillar_pfn_scatter", outs)
 
 
+def rehearsal_cfg() -> dict:
+    """The production model's structure at widths a CPU runs in seconds
+    (64^2 pillars, 16^2 x 64 BEV, window 4, 4 heads of 16, 2 cameras of
+    64^2): for the ``--cpu`` rehearsal of the profile stage."""
+    cfg = serving_config(PROD_CFG, bf16=False)
+    rng = [-20.48, -20.48, -3.0, 20.48, 20.48, 1.0]
+    lidar = cfg["lidar"]
+    lidar.update(voxel_size=[0.64, 0.64, 4.0], lidar_range=rng)
+    lidar["pillar_vfe"]["num_filters"] = [32]
+    lidar["point_pillar_scatter"].update(num_features=32,
+                                         grid_size=[64, 64, 1])
+    lidar["base_bev_backbone"].update(
+        layer_nums=[1, 1, 1], num_filters=[32, 32, 32],
+        num_upsample_filter=[32, 32, 32])
+    lidar["shrink_header"].update(dim=[64], input_dim=96)
+    cfg["camera"].update(fpn_channels=16, dim=32, bev_size=16, out_dim=64,
+                         num_layers=1, heads=2, window=4,
+                         num_points_in_pillar=2, bev_range=20.48, num_cams=2)
+    blk = cfg["hetero_fusion"]["hetero_fusion_block"]
+    blk.update(input_dim=64, mlp_dim=64, window_size=4, dim_head=16)
+    blk["spatial_transform"]["voxel_size"] = [0.64, 0.64, 4.0]
+    cfg["hetero_decoder"].update(input_dim=64, num_layer=1, num_ch_dec=[64])
+    return cfg
+
+
+# the stages of a frame: attribute of HMViT -> name in the report
+MODEL_STAGES = {"lidar_encoder": "lidar encoder",
+                "camera_encoder": "camera encoder", "fusion": "fusion",
+                "HeteroDecoder_0": "decoder"}
+PROFILED_FRAMES = 3
+
+
+def _subtree_kernels(event):
+    """(device us, device operations) launched from a host event and
+    everything below it."""
+    us = sum(k.duration for k in event.kernels)
+    count = len(event.kernels)
+    for child in event.cpu_children:
+        child_us, child_count = _subtree_kernels(child)
+        us, count = us + child_us, count + child_count
+    return us, count
+
+
+def _busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    busy, edge = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        busy += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+    return busy
+
+
+def stage_profile(lab: Lab):
+    """ms/frame and ms per stage without the profiler, then one profiler
+    pass per server: the device-busy time and the device operations of
+    each stage and of the frame."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    on_card = lab.dev.type == "cuda"
+    if on_card:
+        cfg, bf16, request = PROD_CFG, True, {}
+    else:
+        cfg, bf16 = rehearsal_cfg(), False
+        request = dict(max_points=512, image_size=64, num_cams=2,
+                       lidar_range=cfg["lidar"]["lidar_range"])
+    batches = [request_batch(seed, **request) for seed in range(3)]
+    hints = serving_hints(batches[0]["mode"][0], 4)
+    requests = [batch_to_device(b, lab.dev, bf16) for b in batches]
+    anchors = torch.as_tensor(generate_anchor_grid(anchor_args(cfg), "hwl"),
+                              dtype=torch.float32, device=lab.dev)
+    eye = torch.eye(4, device=lab.dev)
+    decode_name = "decode + NMS"
+    stage_names = (*MODEL_STAGES.values(), decode_name)
+
+    def now():
+        """A mark on the device's timeline (the host's without a card)."""
+        if not on_card:
+            return time.perf_counter()
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        return mark
+
+    def ms_between(a, b):
+        return a.elapsed_time(b) if on_card else (b - a) * 1e3
+
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities):  # the tracer's one-off set-up
+            torch.zeros(8, device=lab.dev).sum().item()
+    for server, knobs in (("split", {}), ("use_fused_wa", {"fused_wa": True})):
+        model = init_parameters(
+            HMViT(serving_config(cfg, bf16=bf16, **knobs)), seed=0)
+        model = (model.to(lab.dev, torch.bfloat16) if bf16
+                 else model.to(lab.dev)).eval()
+        marks, open_spans, hooks = [], [], []
+
+        def enter(stage):
+            open_spans.append((record_function("stage: " + stage), stage,
+                               now()))
+            open_spans[-1][0].__enter__()
+
+        def leave():
+            span, stage, start = open_spans.pop()
+            span.__exit__(None, None, None)
+            marks.append((stage, start, now()))
+
+        for attr, stage in MODEL_STAGES.items():
+            module = getattr(model, attr)
+            hooks += [
+                module.register_forward_pre_hook(
+                    lambda m, args, kwargs, stage=stage: enter(stage),
+                    with_kwargs=True),
+                module.register_forward_hook(lambda m, args, out: leave())]
+
+        def frame(i):
+            """One request; its ms on the host clock and per stage."""
+            marks.clear()
+            t0 = time.perf_counter()
+            out = model(requests[i % len(requests)], **hints)
+            enter(decode_name)
+            decode_detections_device(out["psm"], out["rm"], anchors, eye)
+            leave()
+            if on_card:
+                torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+            return total, {stage: ms_between(a, b) for stage, a, b in marks}
+
+        frames = [frame(i) for i in range(2 + lab.iters)][2:]  # 2 warm-ups
+        totals = [total for total, _ in frames]
+        median_ms = float(np.median(totals))
+        lab.report(f"profile [{server}] {lab.iters} requests, no profiler: "
+                   f"median {median_ms:.2f} ms/frame (min {min(totals):.2f}, "
+                   f"max {max(totals):.2f})")
+        t0 = time.perf_counter()
+        with profile(activities=activities) as prof:
+            for i in range(PROFILED_FRAMES):
+                frame(i)
+        window_ms = (time.perf_counter() - t0) * 1e3
+        for hook in hooks:
+            hook.remove()
+        events = prof.events()
+        # what ran on the card: kernels, copies and memsets, not the
+        # stage marks the tracer mirrors onto the device's timeline
+        device = [e for e in events if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
+        rows = {}
+        for e in events:
+            if e.device_type == DeviceType.CPU and \
+                    e.name.startswith("stage: "):
+                row = rows.setdefault(e.name[len("stage: "):], [0.0, 0])
+                dev_us, count = _subtree_kernels(e)
+                row[0] += dev_us / 1e3
+                row[1] += count
+        per = 1.0 / PROFILED_FRAMES
+        for stage in stage_names:
+            stage_ms = float(np.median([st[stage] for _, st in frames]))
+            dev_ms, count = rows.get(stage, (0.0, 0))
+            dev_txt = (f"device busy {dev_ms * per:.2f} ms in "
+                       f"{count * per:.0f} device operations a frame under "
+                       f"the profiler" if device
+                       else "device-busy time not measured")
+            lab.report(f"profile [{server}] {stage}: median {stage_ms:.2f} "
+                       f"ms/frame between its first and last operation, no "
+                       f"profiler; {dev_txt}")
+        if device:
+            busy_ms = per * _busy_us([(e.time_range.start, e.time_range.end)
+                                      for e in device]) / 1e3
+            busy_txt = (f"device busy {busy_ms:.2f} ms/frame in "
+                        f"{len(device) * per:.0f} device operations = "
+                        f"{100.0 * busy_ms / median_ms:.1f}% of the median "
+                        f"frame without the profiler")
+        else:
+            busy_txt = "device-busy share not measured"
+        lab.report(f"profile [{server}] {PROFILED_FRAMES} requests under "
+                   f"the profiler: {window_ms * per:.2f} ms/frame; "
+                   f"{busy_txt}")
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+
+
 STAGES = {
     "attn": lambda lab: [stage_attn_typed(lab, dtype)
                          for dtype in (torch.float32, torch.bfloat16)],
@@ -378,6 +581,7 @@ STAGES = {
     "segscan": stage_segscan,
     "expand": stage_expand,
     "lidar": stage_lidar,
+    "profile": stage_profile,
 }
 
 

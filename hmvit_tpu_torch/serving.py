@@ -1,7 +1,8 @@
 """Serving helpers for :class:`HMViT`: the production configuration, its
 bfloat16 or float32 serving variants, the static hints a server passes
-to the forward for a known fleet, and a numpy request batch moved to
-the device with the bfloat16 server's casts."""
+to the forward for a known fleet, a synthetic request of that fleet with
+the anchor grid its boxes decode against, and a numpy request batch
+moved to the device with the bfloat16 server's casts."""
 from __future__ import annotations
 
 import copy
@@ -103,6 +104,35 @@ def serving_hints(mode_row, num_agents: int) -> dict:
     return dict(camera_bucket=sum(m == 0 for m in fleet),
                 active_agents=num_agents, static_ego_modality=fleet[0],
                 static_modes=fleet)
+
+
+def request_batch(seed: int, num_agents: int = 4, max_points: int = 30000,
+                  image_size: int = 512, num_cams: int = 4,
+                  lidar_range=PROD_RANGE):
+    """One synthetic request: ``num_agents`` agents in 5 slots,
+    alternating lidar / camera from a lidar ego; the defaults are the
+    production request (30 000 point slots per lidar agent, 4 x 512^2
+    images per camera agent)."""
+    from .data.synthetic import make_hetero_batch
+
+    batch, _ = make_hetero_batch(
+        seed=seed, max_cav=5, num_agents=num_agents, max_points=max_points,
+        image_size=image_size, num_cams=num_cams, camera_ratio=0.5,
+        ego_mode="mixed", lidar_range=lidar_range)
+    for i in range(num_agents):
+        batch["mode"][:, i] = (i + 1) % 2
+    return batch
+
+
+def anchor_args(cfg: dict) -> dict:
+    """The anchor grid of a model configuration's lidar geometry at
+    feature stride 4 (the production model: 512^2 pillars, 128^2 BEV)."""
+    lidar = cfg["lidar"]
+    grid = lidar["point_pillar_scatter"]["grid_size"]
+    return {"W": grid[0], "H": grid[1], "l": 3.9, "w": 1.6, "h": 1.56,
+            "r": [0, 90], "num": 2, "feature_stride": 4,
+            "vw": lidar["voxel_size"][0], "vh": lidar["voxel_size"][1],
+            "cav_lidar_range": lidar["lidar_range"]}
 
 
 def batch_to_device(batch, device, bf16: bool):

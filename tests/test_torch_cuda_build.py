@@ -4,8 +4,9 @@ check it: the library's name is keyed by every ``.cu`` source AND every
 nine kernels are registered with their C symbols, each source defines the
 symbols it is registered under, and no launcher takes a host tensor.
 A source without an entry point of its own (the tensor-core kernels of
-the plain and typed window attention) must be reached from the source
-that holds the entry points."""
+the stripe, plain and typed window attention) must be reached from the
+source that holds the entry points, and the one kernel template of the
+tensor-core route from both sources that instantiate it."""
 import re
 import shutil
 
@@ -36,7 +37,9 @@ INNER_SOURCES = {"window_attention_mma.cu": (
     "window_attention.cu", "hm::launch_window_attention_mma(")}
 # C entry points beside the registered ones: the previous (fp32
 # CUDA-core) body for timing, and the count of launches by body
-EXTRA_SYMBOLS = {"hm_plain_window_attention_simt": "window_attention.cu",
+EXTRA_SYMBOLS = {"hm_stripe_window_attention_simt": "window_attention.cu",
+                 "hm_warp_window_attention_simt": "fused_warp_attention.cu",
+                 "hm_plain_window_attention_simt": "window_attention.cu",
                  "hm_typed_window_attention_simt": "window_attention.cu",
                  "hm_attention_body_rule": "window_attention.cu",
                  "hm_attention_body_launches": "window_attention.cu",
@@ -121,7 +124,32 @@ def test_inner_source_is_reached_from_the_entry_points(source):
     assert 'extern "C"' not in inner_text
     assert "int " + call.split("::")[-1] in inner_text
     outer_text = (cuda.CSRC_DIR / outer).read_text()
-    assert outer_text.count(call) == 2  # the plain and the typed entry
+    # the stripe, the plain and the typed entry
+    assert outer_text.count(call) == 3
+
+
+def test_tensor_core_kernel_template_is_shared_not_copied():
+    """One kernel template (``window_attention_mma_kernel.cuh``) for the
+    three sources of a unit's rows: split and stripe windows are
+    instantiated beside the window-attention entry points' inner source,
+    the warped rows beside the fused kernel's entry points, which stage
+    them with the pair warp's own tap routine."""
+    text = {p.name: p.read_text() for p in cuda.CSRC_DIR.iterdir()}
+    header = "window_attention_mma_kernel.cuh"
+    includers = {name for name, body in text.items()
+                 if f'#include "{header}"' in body}
+    assert includers == {"window_attention_mma.cu", "fused_warp_attention.cu"}
+    assert [name for name, body in text.items()
+            if "window_attention_mma_kernel(const bf16* __restrict__ q,"
+            in body] == [header]
+    assert '#include "warp_taps.cuh"' in text[header]
+    assert "warp_vector_bf16(plan," in text[header]
+    assert "uint4 warp_vector_bf16(" in text["warp_taps.cuh"]
+    inner = text["window_attention_mma.cu"]
+    fused = text["fused_warp_attention.cu"]
+    assert "mma::kStripe>(" in inner and "mma::kSplit>(" in inner
+    assert "kWarp" not in inner
+    assert "hm::mma::kWarp>(" in fused and "kStripe" not in fused
 
 
 @pytest.mark.parametrize("symbol", sorted(EXTRA_SYMBOLS))
@@ -130,7 +158,6 @@ def test_extra_entry_points_are_defined(symbol):
     assert re.search(r'extern "C" (int|void) ' + symbol + r"\(", text)
     if symbol.endswith("_simt"):
         # same arguments as the entry point that chooses a body
-        kernels = {k.symbol: k for k in (cuda.PLAIN_WINDOW_ATTENTION_SIMT,
-                                         cuda.TYPED_WINDOW_ATTENTION_SIMT)}
+        kernels = {k.symbol: k for k in cuda.SIMT_KERNELS}
         chooser = {k.symbol: k for k in cuda.KERNELS.values()}[symbol[:-5]]
         assert kernels[symbol].argtypes == chooser.argtypes

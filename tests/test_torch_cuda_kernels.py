@@ -22,6 +22,7 @@ from hmvit_tpu_torch.ops.fused_warp import (
 )
 from hmvit_tpu_torch.ops.fused_warp_attention import (
     fused_warp_window_attention,
+    warp_window_attention_launch,
 )
 from hmvit_tpu_torch.ops.segscan import fused_segmented_max_scan
 from hmvit_tpu_torch.ops.voxelize import scatter_max_to_bev
@@ -31,6 +32,7 @@ from hmvit_tpu_torch.ops.window_attention import (
     fused_stripe_window_attention,
     fused_window_attention,
     plain_window_attention_launch,
+    stripe_window_attention_launch,
     typed_window_attention_launch,
 )
 from hmvit_tpu_torch.utils.precision import strict_fp32
@@ -38,10 +40,12 @@ from hmvit_tpu_torch.utils.precision import strict_fp32
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 0.0625}
-# the plain and typed attention kernels in bfloat16 (tensor-core body, or
-# the fp32 body on the shapes it keeps): one output ulp at |x| in [2, 4)
-# and a half, as the on-card smoke run holds them
+# the stripe, plain and typed attention kernels in bfloat16 (tensor-core
+# body, or the fp32 body on the shapes it keeps): one output ulp at |x| in
+# [2, 4) and a half, as the on-card smoke run holds them; the fused warp +
+# attention kernel attends over warped K / V that carry the warp's ulps
 ATTN_BF16_TOL = 0.0313
+FUSED_BF16_TOL = 0.125
 
 
 def rigid_pairwise(rng, b, l, max_t, angles=None):
@@ -267,6 +271,141 @@ def test_previous_body_entry_agrees_with_the_new_one(dev, kind):
         outs[body] = out.float()
         assert float((outs[body] - want).abs().max()) <= ATTN_BF16_TOL
     assert float((outs["mma"] - outs["simt"]).abs().max()) <= ATTN_BF16_TOL
+
+
+def _map_case(dev, kind, dtype, n, j, hw, win, heads, d, seed=0):
+    """Operands of one stripe or fused warp + attention launch on
+    unsplit (h, w) maps: the first sender fully masked in window 1 (the
+    body's first unit leaves no trace), every key of map 0's window 0
+    masked (zero rows).  The fused case has n = j receivers, an identity
+    pair on the diagonal and, for j > 1, its last sender out of range
+    (rows staged as zeros)."""
+    h, w = hw
+    c, t = heads * d, win * win
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    bias = (randn(heads, t, t) * 0.5).to(dtype)
+    mask = (torch.rand(n, j, h, w, generator=g, device=dev) > 0.3).to(dtype)
+    mask[:, 0, :win, win:2 * win] = 0
+    mask[0, :, :win, :win] = 0
+    if kind == "stripe":
+        return (randn(n, h, w, c).to(dtype),
+                randn(n, j, h, w, 2 * c).to(dtype), bias, mask, win, heads,
+                d), fused_stripe_window_attention, "stripe_window_attention"
+    assert h == w and n == j
+    rng = np.random.default_rng(seed)
+    pair = _far_pair(rng, 1, j) if j > 1 else rigid_pairwise(rng, 1, j, 1.0)
+    mode = torch.as_tensor(rng.integers(0, 2, (1, j)), device=dev)
+    return ((randn(n, h, w, c) * d ** -0.5).to(dtype),
+            randn(1, 2, j, h, w, 2 * c).to(dtype),
+            torch.as_tensor(pair, device=dev), mode, mask, bias, win, heads, d,
+            0.4, 4, None), fused_warp_window_attention, \
+        "warp_window_attention"
+
+
+def _split_kernels(args):
+    """The pair-warp kernel followed by the stripe attention kernel on a
+    fused case's operands."""
+    q, src, pair, mode, mask, bias, win, heads, d, ratio, rate, recv = args
+    kv_pair = fused_pair_warp(src, pair, mode, ratio, rate, recv)
+    return fused_stripe_window_attention(
+        q, kv_pair.reshape(q.shape[0], *src.shape[2:]), bias, mask, win,
+        heads, d)
+
+
+@pytest.mark.parametrize("kind", ["stripe", "fused"])
+@pytest.mark.parametrize("dtype,j,win,heads,d,body", [
+    (torch.bfloat16, 5, 8, 4, 32, "mma"),   # 320 keys, a masked sender
+    (torch.bfloat16, 4, 8, 8, 32, "mma"),   # the serving head layout
+    (torch.bfloat16, 3, 4, 2, 16, "mma"),   # window 4: 16-key units
+    (torch.bfloat16, 2, 8, 3, 32, "mma"),   # an odd head count: no pairs
+    (torch.bfloat16, 2, 8, 2, 64, "mma"),   # the widest head
+    (torch.bfloat16, 2, 4, 2, 48, "mma"),   # window 4, 3 k-steps
+    (torch.bfloat16, 3, 8, 4, 8, "simt"),   # d = 8: the fp32 body
+    (torch.bfloat16, 3, 6, 2, 32, "simt"),  # T = 36: the fp32 body
+    (torch.float32, 5, 8, 4, 32, "simt"),
+])
+def test_map_attention_bodies_by_type_and_shape(dev, kind, dtype, j, win,
+                                                heads, d, body):
+    """The stripe and the fused kernel run the body the rule names
+    (counted inside the library), against their twins; fully masked rows
+    give zeros; the fused kernel equals pair warp -> stripe bit for bit on
+    either body."""
+    hw = (2 * win, 6 * win) if kind == "stripe" else (4 * win, 4 * win)
+    args, fn, name = _map_case(dev, kind, dtype, j if kind == "fused" else 2,
+                               j, hw, win, heads, d)
+    assert attention_body(dtype, j, win * win, d) == body
+    before = cuda.attention_body_launches()[name]
+    with strict_fp32():
+        got = fn(*args)
+        with plain_ops():
+            want = fn(*args)
+    torch.cuda.synchronize()
+    after = cuda.attention_body_launches()[name]
+    assert {b: after[b] - before[b] for b in after} == {
+        b: int(b == body) for b in after}
+    err = float((got.float() - want.float()).abs().max())
+    tol = ATTN_BF16_TOL if kind == "stripe" else FUSED_BF16_TOL
+    assert err <= (1e-4 if dtype == torch.float32 else tol), err
+    assert torch.all(got[0, :win, :win] == 0)
+    assert torch.isfinite(got.float()).all()
+    if kind == "fused":
+        before = cuda.attention_body_launches()["stripe_window_attention"]
+        assert torch.equal(got, _split_kernels(args))
+        after = cuda.attention_body_launches()["stripe_window_attention"]
+        assert after[body] == before[body] + 1  # the same body on both sides
+
+
+@pytest.mark.parametrize("kind", ["stripe", "fused"])
+def test_previous_body_entry_of_map_kernels(dev, kind):
+    """As for the plain and typed kernels: the timing-only entry runs the
+    fp32 body on bfloat16 operands, within the tolerance of the twin, and
+    moves neither the wrapper's count nor the tensor-core count."""
+    args, fn, name = _map_case(dev, kind, torch.bfloat16, 4, 4, (32, 32), 8,
+                               8, 32)
+    prep = (stripe_window_attention_launch if kind == "stripe"
+            else warp_window_attention_launch)
+    tol = ATTN_BF16_TOL if kind == "stripe" else FUSED_BF16_TOL
+    with plain_ops():
+        want = fn(*args).float()
+    outs = {}
+    for simt in (False, True):
+        before = (cuda.KERNELS[name].launches,
+                  cuda.attention_body_launches()[name])
+        launch, out = prep(*args, simt=simt)
+        launch()
+        torch.cuda.synchronize()
+        after = cuda.attention_body_launches()[name]
+        body = "simt" if simt else "mma"
+        assert after[body] == before[1][body] + 1
+        assert cuda.KERNELS[name].launches == before[0] + int(not simt)
+        outs[body] = out.float()
+        assert float((outs[body] - want).abs().max()) <= tol
+    assert float((outs["mma"] - outs["simt"]).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("kind,n,hw", [
+    ("stripe", 2, (56, 344)),    # 301 windows: runs of 2
+    ("stripe", 1, (56, 2344)),   # 2051 windows: runs of 8
+    ("fused", 4, (136, 136)),    # 4 x 289 windows: runs of 4, the last short
+])
+def test_map_kernel_blocks_walk_runs_of_windows(dev, kind, n, hw):
+    args, fn, _ = _map_case(dev, kind, torch.bfloat16, n,
+                            n if kind == "fused" else 2, hw, 8, 8, 32)
+    with strict_fp32():
+        got = fn(*args)
+        with plain_ops():
+            want = fn(*args)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= (ATTN_BF16_TOL if kind == "stripe" else FUSED_BF16_TOL), err
+    assert torch.all(got[0, :8, :8] == 0)
+    assert torch.isfinite(got.float()).all()
+    if kind == "fused":
+        assert torch.equal(got, _split_kernels(args))
 
 
 @pytest.mark.parametrize("kind", ["plain", "typed"])

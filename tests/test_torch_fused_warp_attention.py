@@ -8,7 +8,14 @@ attention over unit-normal maps whose warp coordinates the two
 frameworks round ~1e-5 px apart (the bar of the pair-warp cases in
 test_torch_warp.py; the scores here are kept at unit variance so the
 softmax does not amplify it).  The wrapper's backward is held against
-jax.grad of the oracle for q, src_typed and bias."""
+jax.grad of the oracle for q, src_typed and bias.
+
+The kernel's bfloat16 route runs on the tensor cores and cannot run
+without a card: its numerics are emulated here — the pair-warp twin in
+bfloat16 (pass 1 and the output rounded as the kernel rounds the rows it
+stages), then the stripe emulation of ``test_torch_window_attention`` —
+and held to the twin, the JAX oracle and the Pallas fused kernel in
+interpret mode at the on-card tolerance of 0.125."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +25,8 @@ import torch
 from hmvit_tpu.ops import fused_warp_attention as jfwa
 from hmvit_tpu_torch.ops import fused_warp_attention as pfwa
 from hmvit_tpu_torch.ops.fused_warp import pair_warp_coefficients
+from hmvit_tpu_torch.ops.fused_warp import pair_warp_xla
+from test_torch_window_attention import mma_stripe_emulation
 from torch_parity import close, rigid_pairwise, t
 
 B, L, H = 1, 3, 64
@@ -57,6 +66,68 @@ def test_twin_vs_pallas_fused_and_oracle(seed, max_t):
     close(got, oracle, ATOL)
     close(got, pallas, ATOL)
     assert np.all(got[0, :WIN, :WIN] == 0.0)
+
+
+BF16_ATOL = 0.125  # the fused kernel's bfloat16 tolerance on the card
+MMA_D = 32
+
+
+def mma_fused_emulation(q, src, pair, mode, mask, bias, win, heads, d,
+                        discrete_ratio, downsample_rate, num_receivers=None):
+    """The fused kernel's tensor-core route: the rows it stages are the
+    pair warp's bfloat16 output, and the rest is the stripe kernel."""
+    l, h, w, ck2 = src.shape[2:]
+    kv_pair = pair_warp_xla(src, pair, mode, discrete_ratio, downsample_rate,
+                            num_receivers)
+    assert kv_pair.dtype == torch.bfloat16
+    return mma_stripe_emulation(q, kv_pair.reshape(q.shape[0], l, h, w, ck2),
+                                bias, mask, win, heads, d)
+
+
+@pytest.mark.parametrize("j", [1, 4, 5])
+def test_mma_fused_emulation(j):
+    """T = 64, d = 32, two receivers of J senders on 64^2 maps: sender 0
+    masked in a whole stripe of windows, receiver 0's window 0 masked
+    for every sender."""
+    rng = np.random.default_rng(400 + j)
+    r, c = min(j, 2), HEADS * MMA_D
+    bf16 = torch.bfloat16
+    src = t(rng.standard_normal((B, 2, j, H, H, 2 * c)).astype(
+        np.float32)).to(bf16)
+    q = t((rng.standard_normal((B * r, H, H, c)) * MMA_D ** -0.5).astype(
+        np.float32)).to(bf16)
+    bias = t((rng.standard_normal((HEADS, T, T)) * 0.5).astype(
+        np.float32)).to(bf16)
+    pair = t(rigid_pairwise(rng, B, j, max_t=6.0))
+    mode = t(rng.integers(0, 2, (B, j)).astype(np.int32))
+    mask = (rng.uniform(size=(B * r, j, H, H)) > 0.2).astype(np.float32)
+    mask[:, 0, WIN:2 * WIN] = 0.0
+    mask[0, :, :WIN, :WIN] = 0.0
+    mask = t(mask).to(bf16)
+    args = (WIN, HEADS, MMA_D, 1.0, 1.0, r)
+    got = mma_fused_emulation(q, src, pair, mode, mask, bias, *args)
+
+    def jbf16(x):
+        return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+
+    jargs = (jbf16(q), jbf16(src), jnp.asarray(pair.numpy()),
+             jnp.asarray(mode.numpy()), jbf16(mask), jbf16(bias))
+    refs = {
+        "twin": pfwa.warp_window_attention_xla(q, src, pair, mode, mask,
+                                               bias, *args).float().numpy(),
+        "JAX oracle": np.asarray(jfwa.warp_window_attention_xla(
+            *jargs, *args).astype(jnp.float32)),
+        "Pallas (interpret)": np.asarray(jfwa.warp_window_attention(
+            *jargs, *args, interpret=True).astype(jnp.float32)),
+    }
+    assert got.dtype == bf16 and got.shape == q.shape
+    errs = {what: float(np.abs(got.float().numpy() - ref).max())
+            for what, ref in refs.items()}
+    print(f"fused J={j}: max abs error " + ", ".join(
+        f"{what} {e:.4f}" for what, e in errs.items()))
+    assert all(e <= BF16_ATOL for e in errs.values()), errs
+    assert torch.all(got[0, :WIN, :WIN] == 0)
+    assert torch.isfinite(got.float()).all()
 
 
 def test_receiver_subset_vs_pallas_fused():

@@ -1,6 +1,8 @@
 """The port's stage-timing entry point, ``hmvit_tpu_torch.perf_lab``:
 its CPU rehearsal drives every stage (fusion, segmented scan, expansion,
-lidar) through the kernels' plain twins at a tiny size (the stages' own
+lidar, and the per-stage profile of the serving frame on a model of the
+production structure at test widths) through the kernels' plain twins at
+a tiny size (the stages' own
 bit-for-bit assertions hold there too), it
 refuses to run without a CUDA device unless ``--cpu`` is given, and an
 unknown stage raises.  No time printed here is a device time, and each
@@ -18,7 +20,7 @@ def _one_thread():
 
 @pytest.mark.parametrize("stage,lines", [
     ("attn", 2), ("pairwarp", 2), ("pairwarp_res", 6), ("fused_wa", 3),
-    ("segscan", 2), ("expand", 4), ("lidar", 4)])
+    ("segscan", 2), ("expand", 4), ("lidar", 4), ("profile", 14)])
 def test_cpu_rehearsal_runs_stage(stage, lines, capsys):
     assert perf_lab.main(["--cpu", "--iters", "1", stage]) == 0
     out = capsys.readouterr().out.strip().splitlines()
@@ -49,7 +51,49 @@ def test_stages_cover_the_production_shapes():
         512, 30000, 64, 2, 40000)
     assert s.voxel_size == pytest.approx((0.4, 0.4, 4.0))
     assert sorted(perf_lab.STAGES) == ["attn", "expand", "fused_wa", "lidar",
-                                       "pairwarp", "pairwarp_res", "segscan"]
+                                       "pairwarp", "pairwarp_res", "profile",
+                                       "segscan"]
+
+
+def test_profile_stage_reports_every_stage_of_both_servers(capsys):
+    """ms/frame without the profiler, five stage lines and the frame's
+    summary, for the split and the ``use_fused_wa`` server; on the CPU no
+    device time is reported, and the lines say so."""
+    assert perf_lab.main(["--cpu", "--iters", "2", "profile"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    for server, lines in (("split", out[:7]), ("use_fused_wa", out[7:])):
+        assert all(line.startswith(f"profile [{server}] ") for line in lines)
+        assert "2 requests, no profiler: median " in lines[0]
+        stages = [line.split("] ", 1)[1].split(":")[0] for line in lines[1:6]]
+        assert stages == ["lidar encoder", "camera encoder", "fusion",
+                          "decoder", "decode + NMS"]
+        assert all(" ms/frame between its first and last operation" in line
+                   and "device-busy time not measured" in line
+                   for line in lines[1:6])
+        assert "3 requests under the profiler" in lines[6]
+        assert "device-busy share not measured" in lines[6]
+
+
+def test_profile_helpers():
+    """The union of device intervals counts an overlap once; the
+    rehearsal model keeps the production structure; the lab's request is
+    the smoke run's."""
+    import chip_smoke
+    from hmvit_tpu_torch.serving import PROD_CFG, anchor_args, request_batch
+
+    assert perf_lab._busy_us([(0, 10), (5, 12), (20, 21), (20.5, 20.6)]) == 13
+    assert perf_lab._busy_us([]) == 0
+    tiny = perf_lab.rehearsal_cfg()
+    assert set(tiny) == set(PROD_CFG)
+    assert tiny["hetero_fusion"]["num_iters"] == 2
+    assert tiny["camera"]["backbone"] == PROD_CFG["camera"]["backbone"]
+    assert PROD_CFG["lidar"]["point_pillar_scatter"]["grid_size"][0] == 512
+    args = anchor_args(PROD_CFG)
+    assert (args["W"], args["H"], args["vw"], args["feature_stride"]) == (
+        512, 512, 0.4, 4)
+    a, b = chip_smoke.prod_batch(1), request_batch(1)
+    assert sorted(a) == sorted(b)
+    assert all((a[k] == b[k]).all() for k in a)
 
 
 def test_dense_clouds_fill_runs_up_to_the_cap():

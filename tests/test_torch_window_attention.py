@@ -8,13 +8,14 @@ Gradients of the typed wrapper are held to jax.grad of the oracle
 (1e-4).  The camera branch's WindowSelfAttention (the plain kernel with
 J = 1) is held against its flax module too.
 
-The bfloat16 tensor-core body of the plain and typed kernels
+The bfloat16 tensor-core body of the stripe, plain and typed kernels
 (``csrc/attention_mma.cuh``) cannot run without a card, so its NUMERICS
 are emulated here in plain PyTorch — per-sender online softmax, bf16
 rounding exactly where the kernel rounds — and held, at the kernel
 checks' bfloat16 tolerance of 0.0313, to the twins, the JAX oracles and
-the Pallas kernels in interpret mode; and the rule that sends a launch
-to one body or the other is held to its mirror in the wrapper."""
+the Pallas kernels in interpret mode (the stripe kernel: window split,
+emulation, merge); and the rule that sends a launch to one body or the
+other is held to its mirror in the wrapper, for every entry point."""
 import re
 
 import jax
@@ -281,6 +282,19 @@ def mma_body_emulation(q, k, v, bias, mask, heads, d, w_att=None, w_msg=None,
     return out.permute(0, 1, 3, 2, 4).reshape(n, nwin, t, c).to(q.dtype)
 
 
+def mma_stripe_emulation(q, kv, bias, mask, win, heads, d):
+    """The stripe kernel on the tensor-core body: the same units in the
+    same order as the plain kernel, read through another address map, so
+    window split -> :func:`mma_body_emulation` -> merge.  q (N, H, W, C),
+    kv (N, J, H, W, 2C), mask (N, J, H, W)."""
+    h, w, c = q.shape[1:]
+    kvw = pwa._split_local(kv, win)
+    out = mma_body_emulation(
+        pwa._split_local(q, win), kvw[..., :c], kvw[..., c:], bias,
+        pwa._split_local(mask[..., None], win)[..., 0], heads, d)
+    return pwa._merge_local(out, win, h, w)
+
+
 def _mma_inputs(j, seed):
     """Unit-normal bfloat16 operands as the on-card check draws them (q
     unscaled, bias at 0.5, relation matrices at d ** -0.5), the first
@@ -346,6 +360,34 @@ def test_mma_body_emulation_plain(j):
 
 
 @pytest.mark.parametrize("j", [1, 4, 5])
+def test_mma_body_emulation_stripe(j):
+    """The stripe layout at T = 64, d = 32 on 16 x 32 maps (8 windows):
+    window 1's first sender and every key of map 0's window 0 masked."""
+    q, k, v, _, _, bias, mask = _mma_inputs(j, 300 + j)
+    win, h, w = 8, 16, 32
+    q, kv, mask = (pwa._merge_local(z, win, h, w) for z in (
+        q, torch.cat([k, v], dim=-1), mask[..., None]))
+    mask = mask[..., 0]
+    got = mma_stripe_emulation(q, kv, bias, mask, win, MMA_HEADS, MMA_D)
+    # the JAX oracle takes split windows: the test's own k, v and mask
+    oracle = jwa.plain_window_attention_xla(
+        _jbf16(pwa._split_local(q, win)), _jbf16(k), _jbf16(v), _jbf16(bias),
+        _jbf16(pwa._split_local(mask[..., None], win)[..., 0]),
+        heads=MMA_HEADS, dim_head=MMA_D)
+    _held(f"stripe J={j}", got, {
+        "twin": pwa.stripe_window_attention_xla(q, kv, bias, mask, win,
+                                                MMA_HEADS, MMA_D),
+        "JAX oracle": pwa._merge_local(torch.tensor(_as_f32(oracle)),
+                                       win, h, w),
+        "Pallas (interpret)": jwa.stripe_window_attention(
+            *map(_jbf16, (q, kv, bias, mask)), win=win, heads=MMA_HEADS,
+            dim_head=MMA_D, interpret=True)})
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.all(got[0, :win, :win] == 0)  # every key masked: zeros
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("j", [1, 4, 5])
 def test_mma_body_emulation_typed(j):
     args = _mma_inputs(j, 200 + j)
     q, k, v, w_att, w_msg, bias, mask = args
@@ -405,6 +447,62 @@ def test_attention_body_rule(dtype, j, t, d, body):
     assert pwa.attention_body(dtype, j, t, d) == body
 
 
+@pytest.mark.parametrize("dtype,j,win,d,body", [
+    (torch.bfloat16, 4, 8, 32, "mma"),    # serving: local phases
+    (torch.bfloat16, 5, 8, 32, "mma"),    # 320 keys
+    (torch.bfloat16, 3, 4, 16, "mma"),    # window 4: 16-key units
+    (torch.bfloat16, 3, 8, 8, "simt"),    # d no multiple of 16
+    (torch.bfloat16, 2, 6, 32, "simt"),   # T = 36: no multiple of 16
+    (torch.bfloat16, 2, 12, 32, "simt"),  # T = 144: over 128
+    (torch.float32, 4, 8, 32, "simt"),    # float32: always the fp32 body
+])
+@pytest.mark.parametrize("entry", ["stripe", "fused"])
+def test_attention_body_rule_stripe_and_fused_entries(dtype, j, win, d, body,
+                                                      entry, monkeypatch):
+    """The stripe and the fused warp + attention launches ask the same
+    rule with their own type and shape (no kernel is built here), and
+    their C entry points choose by it."""
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.ops import fused_warp_attention as pfwa
+
+    asked, rule_of = [], pwa.attention_body
+
+    def spy(*args):
+        asked.append((args, rule_of(*args)))
+        return asked[-1][1]
+
+    heads, size = 2, 2 * win
+    c = heads * d
+    q = torch.zeros(j, size, size, c, dtype=dtype)
+    bias = torch.zeros(heads, win * win, win * win, dtype=dtype)
+    mask = torch.ones(j, j, size, size, dtype=dtype)
+    if entry == "stripe":
+        monkeypatch.setattr(pwa, "attention_body", spy)
+        launch, out = pwa.stripe_window_attention_launch(
+            q, torch.zeros(j, j, size, size, 2 * c, dtype=dtype), bias, mask,
+            win, heads, d)
+        symbol, source = "hm_stripe_window_attention", "window_attention.cu"
+        rule = "hm_attention_body_rule(dtype, nj, t, d) == 1"
+    else:
+        monkeypatch.setattr(pfwa, "attention_body", spy)
+        launch, out = pfwa.warp_window_attention_launch(
+            q, torch.zeros(1, 2, j, size, size, 2 * c, dtype=dtype),
+            torch.eye(4).repeat(1, j, j, 1, 1),
+            torch.zeros(1, j, dtype=torch.long), mask, bias, win, heads, d,
+            0.4, 4)
+        symbol, source = ("hm_warp_window_attention",
+                          "fused_warp_attention.cu")
+        rule = "hm_attention_body_rule(dtype, nj, win * win, d) == 1"
+    assert asked == [((dtype, j, win * win, d), body)]
+    assert out.shape == q.shape and out.dtype == dtype
+    text = (cuda.CSRC_DIR / source).read_text()
+    entry_body = text[text.index(f'extern "C" int {symbol}('):]
+    assert rule in entry_body and "hm::aligned16(" in entry_body
+    # the tensor-core launch is counted as body 1, the other entry as 0
+    assert re.search(r"hm::counted\((0|kFusedKernel), 1,", entry_body)
+    assert f"return {symbol}_simt(" in entry_body
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("j,t,d", [(6, 64, 32), (1, 336, 32), (2, 64, 80),
                                    (2, 64, 6), (2, 18, 32), (0, 64, 32)])
@@ -426,6 +524,10 @@ def test_attention_body_rule_mirrors_the_c_sources():
     entry = (cuda.CSRC_DIR / "window_attention.cu").read_text()
     body = (cuda.CSRC_DIR / "window_attention_mma.cu").read_text()
     assert "hm::shape_takes_mma(nj, t, d)" in entry
+    # one rule for all four entry points
+    assert entry.count("hm_attention_body_rule(dtype, nj, t, d) == 1") == 3
+    fused = (cuda.CSRC_DIR / "fused_warp_attention.cu").read_text()
+    assert "hm_attention_body_rule(dtype, nj, win * win, d) == 1" in fused
     assert re.search(r"t % 16 == 0 && t <= mma::kMaxT && d > 0 &&\s+"
                      r"d % 16 == 0 && d <= 64 && nj \* t <= mma::kMaxKeys",
                      body)
@@ -444,8 +546,10 @@ def test_tensor_core_instructions_are_written_in_the_sources():
                    "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
                    "cp.async.cg.shared.global [%0], [%1], 16;"):
         assert needle in text, needle
-    assert cuda.PLAIN_WINDOW_ATTENTION_SIMT.symbol.endswith("_simt")
-    assert cuda.TYPED_WINDOW_ATTENTION_SIMT.symbol.endswith("_simt")
+    assert len(cuda.SIMT_KERNELS) == len(cuda.ATTENTION_KERNELS) == 4
+    for name, simt in zip(cuda.ATTENTION_KERNELS, cuda.SIMT_KERNELS):
+        assert simt.symbol == cuda.KERNELS[name].symbol + "_simt"
+        assert simt.argtypes == cuda.KERNELS[name].argtypes
     assert not any(k.symbol.endswith("_simt") for k in cuda.KERNELS.values())
     counts = cuda.attention_body_launches()  # no library here: all zero
     assert set(counts) == set(cuda.ATTENTION_KERNELS)
