@@ -8,41 +8,56 @@
 // for bit.
 //
 // What bounds them on the H100: bytes, nearly all of them the output
-// (67 MB at 2 x 512^2 cells x 64 bf16 against at most 7.7 MB of rows).
-// So both are driven by the output and write it exactly once, zeros
-// included, in whole words of consecutive addresses; there is no memset
-// pass and no product.
+// (67 MB at 2 x 512^2 cells x 64 bf16 against at most 7.7 MB of rows, of
+// which the serving scene fills about 1.4%).  They are pure data movement
+// with no arithmetic, so the tensor cores, TMA multicast and Triton have
+// nothing to add: the work is to keep the card's store path full.  Both
+// kernels are one template, expand_slice_kernel, that writes the output
+// exactly once, zeros included, in whole 128-byte lines per warp
+// instruction for 16-byte words, as streaming stores (st.global.cs: the
+// grid is more than the 50 MB L2 holds, and marking it evict-first made
+// both kernels 10-12% faster on an H100); there is no memset pass and no
+// product.  A block owns a slice of kSliceCells consecutive cells (2048
+// blocks at serving shapes, two resident waves on 132 SMs, so the second
+// wave's row location runs under the first wave's stores; slices of 512
+// or 1024 cells were 7% slower) and
+//   1. finds the slice's rows [first, last) - the one place where the two
+//      kernels differ, as the two Pallas kernels do;
+//   2. scatters them into a cell -> row map in shared memory, without
+//      atomics: ids are sorted, so a row is the first of its id exactly
+//      when i == first or ids[i - 1] != ids[i];
+//   3. writes the slice's tile in order, each word copied from its row or
+//      zero, in the widest word that divides a row.  An empty cell is a
+//      zero store that touches neither ids nor comp.  Words per row are a
+//      runtime value for every width: a compile-time width for the
+//      serving rows (no division, unrolled groups of loads) ran no faster
+//      on an H100, the division hiding under the stores.
 //
 // expand_rows_kernel replaces the Pallas kernel
 // hmvit_tpu/ops/expand.py::_expand_kernel (expand_rows_to_dense, v1).
 // The Pallas kernel fetches a fixed 2 x 4096-row slab per 4096-cell block
-// and places each 128 cells with a one-hot product on the matrix unit,
-// because a TPU gathers badly.  Here one block owns a 4096-cell block and
-// takes its row range from the r0 table (searchsorted of the block
-// starts, built by the wrapper); each thread (cell, word) finds the
-// cell's row by a binary search inside that range and writes the row's
-// word or zero.  The threads of one cell run the same search, so their
-// loads are broadcasts.
+// (row range from the prefetched r0 table) and places each 128 cells with
+// a one-hot product on the matrix unit, locating a sub-block's rows by
+// counting the slab ids below its start, because a TPU gathers badly.
+// Here a slice is a 16th of a 4096-cell block: its first and last rows
+// come from r0 at the block's ends, and inside the block one warp finds
+// them with a 32-way search of ids[r0[b], r0[b + 1]) (32 probes, one
+// ballot a round: 3 dependent rounds for 4096 rows), once per slice.
 //
 // expand_rows_v2_kernel replaces the Pallas kernel
 // hmvit_tpu/ops/expand.py::_expand_v2_kernel (expand_rows_to_dense_v2):
-// demand-sized reads and a per-128-cell table, no search in the kernel.
-// Rows [r0s[g], r0s[g + 1]) are exactly sub-block g's rows (at most 128
-// when ids are unique), so one warp owns a sub-block: it stages those
-// rows' ids into a 128-entry cell -> row map in shared memory and then
-// writes the sub-block's 128 x C tile in order, each word copied from its
-// row or zero.  The map takes the place of the Pallas kernel's staged
-// data tile: a row's words are consecutive in device memory already, so
-// the copy reads whole sectors without it.  The Pallas kernel's packed
-// (rows, 128) buffer with byte-split ids and its decode product answer a
-// rule of the TPU's DMA engine and have no counterpart here, and neither
-// has its C <= 125 limit.
+// demand-sized reads and a per-128-cell table.  A slice's rows are
+// exactly [r0s[g], r0s[g + kSubsPerSlice]) for its first sub-block g: two
+// table reads, no search.  The Pallas kernel's packed (rows, 128) buffer
+// with byte-split ids and its decode product answer a rule of the TPU's
+// DMA engine and have no counterpart here, and neither has its C <= 125
+// limit.
 //
-// Any grid runs: the last block (sub-block) may be short, both kernels
-// stop at num_cells, and the tables have one entry per started block
-// (sub-block) and one more.  The Pallas kernels' num_cells % 4096 == 0
-// came from their slab layout and is not needed here.
-#include <climits>
+// Any grid runs: the last slice (block, sub-block) may be short, both
+// kernels stop at num_cells, and the tables have one entry per started
+// block (sub-block) and one more.  The Pallas kernels' num_cells % 4096
+// == 0 came from their slab layout and is not needed here.  Offsets into
+// comp and out are 64-bit; both kernels run on the caller's stream.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -51,91 +66,98 @@ namespace {
 
 constexpr int kBlockCells = 4096;  // cells per block of the r0 table
 constexpr int kSubCells = 128;     // cells per sub-block of the r0s table
+constexpr int kSliceCells = 256;   // cells a thread block writes
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kSubsPerSlice = kSliceCells / kSubCells;
+static_assert(kBlockCells % kSliceCells == 0 && kSliceCells % kSubCells == 0,
+              "a slice lies inside one block and spans whole sub-blocks");
 
-// comp, out as words of type W, ``words`` of them per row; grid = blocks
-// of kBlockCells cells, the last one maybe short; r0 has one entry per
-// block and one more.
-template <typename W>
+// The lower bound of target in ids[lo, hi), by one whole warp: each round
+// probes 32 evenly spaced rows and keeps the gap the ballot points at.
+__device__ int warp_lower_bound(const int* __restrict__ ids, int lo, int hi,
+                                int target) {
+  const int lane = threadIdx.x & 31;
+  while (lo < hi) {
+    const int step = (hi - lo + 31) >> 5;
+    const int idx = lo + lane * step;
+    const bool below = idx < hi && ids[idx] < target;
+    const int n = __popc(__ballot_sync(0xffffffffu, below));
+    if (n == 0) return lo;
+    hi = min(hi, lo + n * step);
+    lo += (n - 1) * step + 1;
+  }
+  return lo;
+}
+
+// grid = slices of kSliceCells cells, the last one maybe short.  kV2:
+// table = r0s, one entry per 128-cell sub-block and one more; else table
+// = r0, one entry per 4096-cell block and one more.
+template <bool kV2, typename W>
 __global__ void __launch_bounds__(kThreads)
-expand_rows_kernel(const W* __restrict__ comp, const int* __restrict__ ids,
-                   const int* __restrict__ r0, W* __restrict__ out,
-                   int words, int num_cells) {
-  const int first = r0[blockIdx.x], last = r0[blockIdx.x + 1];
-  const long long cell0 = (long long)blockIdx.x * kBlockCells;
-  const int cells = min(kBlockCells, num_cells - (int)cell0);
-  for (int t = threadIdx.x; t < cells * words; t += kThreads) {
-    const int cell = t / words, w = t - cell * words;
-    const int target = (int)cell0 + cell;
-    int lo = first, hi = last;  // lower bound of target in ids[first, last)
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (ids[mid] < target) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
+expand_slice_kernel(const W* __restrict__ comp, const int* __restrict__ ids,
+                    const int* __restrict__ table, W* __restrict__ out,
+                    int words, int num_cells) {
+  __shared__ int row_of[kSliceCells];
+  __shared__ int range[2];
+  const int cell0 = blockIdx.x * kSliceCells;
+  const int cells = min(kSliceCells, num_cells - cell0);
+  for (int i = threadIdx.x; i < kSliceCells; i += kThreads) row_of[i] = -1;
+
+  // 1. the slice's rows [first, last)
+  const int warp = threadIdx.x >> 5;
+  if constexpr (kV2) {
+    if (threadIdx.x < 2) {
+      const int subs = (num_cells + kSubCells - 1) / kSubCells;
+      const int g = blockIdx.x * kSubsPerSlice + threadIdx.x * kSubsPerSlice;
+      range[threadIdx.x] = table[min(g, subs)];
     }
-    W v{};
-    if (lo < last && ids[lo] == target) v = comp[(long long)lo * words + w];
-    out[(cell0 + cell) * words + w] = v;
+  } else if (warp < 2) {
+    // warp 0 the first row, warp 1 the end; a block's ends are in r0
+    constexpr int kSlices = kBlockCells / kSliceCells;
+    const int b = blockIdx.x / kSlices, k = blockIdx.x % kSlices + warp;
+    const int lo = table[b], hi = table[b + 1];
+    const int r = k == 0         ? lo
+                  : k == kSlices ? hi
+                                 : warp_lower_bound(ids, lo, hi,
+                                                    cell0 + warp * kSliceCells);
+    if ((threadIdx.x & 31) == 0) range[warp] = r;
+  }
+  __syncthreads();
+
+  // 2. the cell -> row map: the first row of each id
+  const int first = range[0], last = range[1];
+  for (int i = first + threadIdx.x; i < last; i += kThreads) {
+    const int id = ids[i];
+    const unsigned cell = (unsigned)(id - cell0);
+    if (cell < (unsigned)cells && (i == first || ids[i - 1] != id)) {
+      row_of[cell] = i;
+    }
+  }
+  __syncthreads();
+
+  // 3. the tile: cells x words words of W, each from its row or zero
+  W* __restrict__ tile = out + (long long)cell0 * words;
+  for (int f = threadIdx.x; f < cells * words; f += kThreads) {
+    const int cell = f / words;
+    const int row = row_of[cell];
+    const W v =
+        row >= 0 ? comp[(long long)row * words + (f - cell * words)] : W{};
+    __stcs(tile + f, v);
   }
 }
 
-// grid = groups of kWarps sub-blocks, one warp per sub-block, the last
-// sub-block maybe short; r0s has one entry per sub-block and one more.
-template <typename W>
-__global__ void __launch_bounds__(kThreads)
-expand_rows_v2_kernel(const W* __restrict__ comp, const int* __restrict__ ids,
-                      const int* __restrict__ r0s, W* __restrict__ out,
-                      int words, int num_cells) {
-  __shared__ int row_of[kWarps][kSubCells];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = blockIdx.x * kWarps + warp;
-  const int cell0 = g * kSubCells;
-  if (cell0 >= num_cells) return;  // whole warps only; no block barrier
-  const int cells = min(kSubCells, num_cells - cell0);
-  int* map = row_of[warp];
-  for (int i = lane; i < kSubCells; i += 32) map[i] = INT_MAX;
-  __syncwarp();
-  const int first = r0s[g], last = r0s[g + 1];
-  for (int i = first + lane; i < last; i += 32) {
-    const unsigned cell = (unsigned)(ids[i] - cell0);
-    // the first row of a repeated id
-    if (cell < (unsigned)cells) atomicMin(&map[cell], i);
-  }
-  __syncwarp();
-  W* tile = out + (long long)cell0 * words;
-  for (int t = lane; t < cells * words; t += 32) {
-    const int cell = t / words, w = t - cell * words;
-    const int row = map[cell];
-    W v{};
-    if (row != INT_MAX) v = comp[(long long)row * words + w];
-    tile[t] = v;
-  }
-}
-
-template <typename W, bool kV2>
+template <bool kV2, typename W>
 int launch(const void* comp, const void* ids, const void* table, void* out,
            int words, int num_cells, cudaStream_t s) {
-  constexpr int kPerBlock = kV2 ? kSubCells * kWarps : kBlockCells;
-  const int blocks = (num_cells + kPerBlock - 1) / kPerBlock;
-  if constexpr (kV2) {
-    expand_rows_v2_kernel<W><<<blocks, kThreads, 0, s>>>(
-        static_cast<const W*>(comp), static_cast<const int*>(ids),
-        static_cast<const int*>(table), static_cast<W*>(out), words,
-        num_cells);
-  } else {
-    expand_rows_kernel<W><<<blocks, kThreads, 0, s>>>(
-        static_cast<const W*>(comp), static_cast<const int*>(ids),
-        static_cast<const int*>(table), static_cast<W*>(out), words,
-        num_cells);
-  }
+  const int blocks = (num_cells + kSliceCells - 1) / kSliceCells;
+  expand_slice_kernel<kV2, W><<<blocks, kThreads, 0, s>>>(
+      static_cast<const W*>(comp), static_cast<const int*>(ids),
+      static_cast<const int*>(table), static_cast<W*>(out), words,
+      num_cells);
   return (int)cudaGetLastError();
 }
 
-// the widest word that divides a row
+// Rows in the widest word that divides them.
 template <bool kV2>
 int dispatch(const void* comp, const void* ids, const void* table, void* out,
              int row_bytes, int num_cells, void* stream) {
@@ -145,18 +167,18 @@ int dispatch(const void* comp, const void* ids, const void* table, void* out,
   if (num_cells == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (row_bytes % 16 == 0) {
-    return launch<uint4, kV2>(comp, ids, table, out, row_bytes / 16,
+    return launch<kV2, uint4>(comp, ids, table, out, row_bytes / 16,
                               num_cells, s);
   }
   if (row_bytes % 8 == 0) {
-    return launch<uint2, kV2>(comp, ids, table, out, row_bytes / 8,
+    return launch<kV2, uint2>(comp, ids, table, out, row_bytes / 8,
                               num_cells, s);
   }
   if (row_bytes % 4 == 0) {
-    return launch<uint32_t, kV2>(comp, ids, table, out, row_bytes / 4,
+    return launch<kV2, uint32_t>(comp, ids, table, out, row_bytes / 4,
                                  num_cells, s);
   }
-  return launch<uint16_t, kV2>(comp, ids, table, out, row_bytes / 2,
+  return launch<kV2, uint16_t>(comp, ids, table, out, row_bytes / 2,
                                num_cells, s);
 }
 

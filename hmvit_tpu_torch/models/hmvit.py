@@ -71,6 +71,18 @@ class HMViT(nn.Module):
         self.HeteroDecoder_0 = HeteroDecoder(
             dec["input_dim"], dec["num_layer"], tuple(dec["num_ch_dec"]),
             dec["anchor_number"], bn_eps=dec.get("bn_eps", 1e-3))
+        super().train(False)
+
+    def train(self, mode: bool = True):
+        """Eval only: the port computes with running BatchNorm statistics
+        and no dropout whatever ``self.training`` says, so train mode is
+        refused rather than silently ignored (ROADMAP.md, Queue 1 item 2:
+        train mode of the ported modules)."""
+        if mode:
+            raise NotImplementedError(
+                "HMViT.train(True): train mode is not ported (batch "
+                "statistics, dropout, remat); see ROADMAP.md Queue 1 item 2")
+        return super().train(False)
 
     def forward(self, batch: dict, camera_bucket: int | None = None,
                 active_agents: int | None = None,
@@ -81,7 +93,10 @@ class HMViT(nn.Module):
         - ``active_agents`` slices the agent axis to the first A slots;
         - ``camera_bucket`` runs the camera encoder on exactly that many
           slots (camera-first stable order) and the lidar encoder on the
-          rest; it must equal the batch's true camera count;
+          rest; it must equal the batch's true camera count, which
+          ``debug_checks: true`` in the config enforces with one read of
+          ``mode`` (``static_modes``, when given, is held against the same
+          read); without it the branch reads nothing back;
         - ``static_modes`` is the fleet's per-agent modality layout (after
           slicing) and must equal the batch's ``mode`` row;
         - ``static_ego_modality`` runs only the ego's decoder branch.
@@ -117,6 +132,22 @@ class HMViT(nn.Module):
             nc = camera_bucket
             order = torch.argsort(mode.reshape(-1), stable=True)
             cam_idx, lid_idx = order[:nc], order[nc:]
+            if self.config.get("debug_checks", False):
+                # the one host read of the branch, under debug_checks only
+                rows = mode.cpu().tolist()
+                if static_modes is not None and any(
+                        row != [int(m) for m in static_modes]
+                        for row in rows):
+                    raise ValueError(
+                        f"static_modes={tuple(static_modes)} differs from "
+                        f"the batch's mode {rows}")
+                cameras = sum(row.count(0) for row in rows)
+                if cameras < nc:
+                    raise ValueError(
+                        f"camera_bucket={nc} exceeds the batch's true camera "
+                        f"count {cameras}: the first {nc} mode-sorted slots "
+                        "include lidar agents, which would silently receive "
+                        "camera-encoded features")
             cam_bev = self.camera_encoder(cams[cam_idx], intr[cam_idx],
                                           extr[cam_idx])
             lidar_bev = self.lidar_encoder(points[lid_idx], pmask[lid_idx])

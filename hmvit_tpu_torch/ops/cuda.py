@@ -134,20 +134,25 @@ class Kernel:
         return self._fn
 
     def launch(self, tensors, ints):
-        """Launch on the current stream of the tensors' device."""
+        """Launch on the current stream of the tensors' device.  The host
+        work is kept to what the launch needs (the raw stream handle, the
+        arguments as plain ints that ctypes converts by ``argtypes``, the
+        device switched only when it is not the current one): for the
+        smaller kernels it is most of the time of one call."""
         dev = tensors[0].device
         if dev.type != "cuda" or any(
                 t.device != dev or not t.is_contiguous() for t in tensors):
             layout = [(str(t.device), t.is_contiguous()) for t in tensors]
             raise ValueError(f"{self.symbol}: tensors must be contiguous and "
                              f"on one CUDA device, got {layout}")
-        fn = self._bind()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            args = ([ctypes.c_void_p(t.data_ptr()) for t in tensors]
-                    + [ctypes.c_int(int(i)) for i in ints]
-                    + [ctypes.c_void_p(stream)])
-            rc = fn(*args)
+        fn = self._fn or self._bind()
+        index = dev.index
+        args = [t.data_ptr() for t in tensors] + [int(i) for i in ints]
+        if index == torch.cuda.current_device():
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(dev):
+                rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         if rc != 0:
             raise RuntimeError(f"CUDA kernel {self.symbol} failed to launch: "
                                f"cudaError {rc}")

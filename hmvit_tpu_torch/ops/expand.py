@@ -6,7 +6,8 @@ by cell id; the dense (cells, C) BEV grid is those rows placed at their
 cells and zeros elsewhere.  :func:`expand_rows_to_dense` (v1) and
 :func:`expand_rows_to_dense_v2` launch the two CUDA kernels of
 ``csrc/expand.cu`` (the replacements of the Pallas ``_expand_kernel`` and
-``_expand_v2_kernel``) for CUDA tensors and run
+``_expand_v2_kernel``; one slice template, the two differ only in how a
+thread block finds its rows) for CUDA tensors and run
 :func:`expand_rows_to_dense_plain` — searchsorted + gather, the JAX
 package's oracle — for CPU tensors or under
 :func:`hmvit_tpu_torch.ops.plain_ops`.  All three are pure placement and
@@ -90,12 +91,14 @@ def _expand(comp, comp_ids, num_cells: int, v2: bool):
 
 
 def expand_rows_to_dense(comp, comp_ids, num_cells: int):
-    """v1: one block per 4096-cell block, its row range from the ``r0``
-    table, a binary search per cell inside that range."""
+    """v1: a thread block per 256-cell slice of a 4096-cell block finds
+    the slice's rows inside the block's ``r0`` range with one warp's
+    search, then writes the slice through a cell -> row map."""
     return _expand(comp, comp_ids, num_cells, False)
 
 
 def expand_rows_to_dense_v2(comp, comp_ids, num_cells: int):
-    """v2: same contract; one warp per 128-cell sub-block reads exactly
-    that sub-block's rows through the ``r0s`` table, no search."""
+    """v2: same contract and the same slice template; a slice's rows come
+    straight from the ``r0s`` table of its 128-cell sub-blocks, no
+    search."""
     return _expand(comp, comp_ids, num_cells, True)

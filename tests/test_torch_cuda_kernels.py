@@ -669,6 +669,51 @@ def test_expand_kernels_take_any_grid(dev, dtype, num_cells):
     assert torch.equal(want[-1], comp[len(ids) - 10])
 
 
+def _slice_ids(rng, num_cells, repeats):
+    """Sorted ids: a fully occupied 4096-cell block (16 slices of 256
+    cells), a run across a slice boundary inside a sparse block, a few
+    scattered cells, the last cell; with ``repeats`` each id 1-4 times
+    (the first row must be placed); 13 fill rows behind them."""
+    cells = np.unique(np.concatenate([
+        np.arange(4096, 8192),                       # every cell occupied
+        np.arange(3 * 256 - 40, 3 * 256 + 40),       # a slice boundary
+        rng.integers(0, num_cells, 300), [num_cells - 1]]))
+    ids = np.repeat(cells, rng.integers(1, 5, len(cells)) if repeats else 1)
+    return np.concatenate([ids, np.full(13, num_cells)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("repeats", [False, True])
+@pytest.mark.parametrize("num_cells", [4 * 4096, 704 * 200])
+@pytest.mark.parametrize("dtype,c", [
+    (torch.bfloat16, 64),   # 128-byte rows: 8 words of 16 B (serving)
+    (torch.float32, 64),    # 256-byte rows: 16 words of 16 B
+    (torch.bfloat16, 12),   # 24-byte rows: 3 words of 8 B
+    (torch.float32, 12),    # 48-byte rows: 3 words of 16 B
+])
+def test_expand_kernels_slices_and_repeated_ids(dev, dtype, c, num_cells,
+                                                repeats):
+    """Both kernels against the plain version bit for bit on a fully
+    occupied block, a run across a slice boundary and repeated ids (each
+    id's first row placed, as the plain version's searchsorted places
+    it), at the serving row widths and two others."""
+    rng = np.random.default_rng(c + num_cells + repeats)
+    ids_np = _slice_ids(rng, num_cells, repeats)
+    ids = torch.as_tensor(ids_np, device=dev)
+    comp = torch.randn(len(ids), c, device=dev).to(dtype)
+    want = expand_rows_to_dense_plain(comp, ids, num_cells)
+    real = ids_np[ids_np < num_cells]
+    first = torch.as_tensor(np.searchsorted(ids_np, real), device=dev)
+    assert torch.equal(want[torch.as_tensor(real, device=dev).long()],
+                       comp[first])
+    for fn, kernel in ((expand_rows_to_dense, cuda.EXPAND_ROWS),
+                       (expand_rows_to_dense_v2, cuda.EXPAND_ROWS_V2)):
+        before = kernel.launches
+        got = fn(comp, ids, num_cells)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_routes_give_one_grid(dev, dtype):
     """scatter_max_to_bev by every sorted route, kernels against the

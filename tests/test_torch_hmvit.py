@@ -32,7 +32,7 @@ from hmvit_tpu_torch.postprocess import decode_detections_device
 from hmvit_tpu_torch.utils.precision import strict_fp32
 from tiny_cfg import ANCHOR_ARGS
 from torch_parity import bridged, close, flax_variables, japply, t, \
-    tiny_batch, tiny_flagship_cfg
+    tiny_batch, tiny_flagship_cfg, widened_bf16_einsum
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -248,3 +248,177 @@ def test_chip_smoke_fails_without_cuda():
         except ValueError:
             last = None
         assert not (isinstance(last, dict) and last.get("ok"))
+
+
+# The north star's bf16 bar: the port's bf16 output against the JAX
+# package's fp32 output, bounded by the JAX package's own bf16-vs-fp32
+# spread on the same model and batch (bench.py's bf16 casts: weights and
+# every float array but the geometry in bfloat16, bfloat16 compute in the
+# lidar features and the decoder, ``serving_config(..., bf16=True)``)
+# times BF16_SPREAD_FACTOR, plus BF16_FLOOR.  The two frameworks round at
+# other points, so the port's spread is of the same size as JAX's but not
+# equal to it.  The fusion computes in bfloat16 too, as the production
+# configuration's does.
+BF16_SPREAD_FACTOR = 2.0
+BF16_FLOOR = 1e-3
+
+
+def _bf16_cfg(cfg):
+    import copy
+
+    from hmvit_tpu_torch.serving import serving_config
+
+    cfg = copy.deepcopy(cfg)
+    cfg["hetero_fusion"]["hetero_fusion_block"]["compute_dtype"] = "bfloat16"
+    return serving_config(cfg, bf16=True)
+
+
+@pytest.fixture(scope="module")
+def bf16_runs(flagship):
+    """JAX fp32 (the flagship reference), JAX bf16 and the port's bf16
+    forward (plain twins, CPU) on the same weights and batch, as float32
+    numpy: {"psm": (sigmoid scores) , "rm": ...} each."""
+    from hmvit_tpu_torch.serving import GEOMETRY_KEYS, batch_to_device
+
+    torch.set_num_threads(1)
+    cfg = _bf16_cfg(flagship["cfg"])
+
+    def to_bf16(x):
+        return x.astype(jnp.bfloat16) if x.dtype == jnp.float32 else x
+
+    jb = {k: (v if k in GEOMETRY_KEYS else to_bf16(v))
+          for k, v in ((k, jnp.asarray(v))
+                       for k, v in flagship["batch"].items())}
+    with widened_bf16_einsum():
+        jout = japply(JHMViT(cfg), jax.tree_util.tree_map(
+            to_bf16, flagship["variables"]), jb, train=False,
+            **flagship["hints"])
+    pm = bridged(HMViT(cfg), flagship["variables"]).to(torch.bfloat16)
+    with torch.no_grad():
+        pout = pm(batch_to_device(flagship["batch"], "cpu", bf16=True),
+                  **flagship["hints"])
+    assert pout["psm"].dtype == torch.bfloat16
+
+    def host(x):
+        return np.asarray(jnp.asarray(x, jnp.float32)) \
+            if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+    runs = {}
+    for name, out in (("fp32", flagship["ref"]), ("jax_bf16", jout),
+                      ("port_bf16", pout)):
+        runs[name] = {"psm": 1.0 / (1.0 + np.exp(-host(out["psm"]))),
+                      "rm": host(out["rm"])}
+    return runs
+
+
+@pytest.mark.parametrize("key", ["psm", "rm"])
+def test_port_bf16_against_jax_fp32(bf16_runs, key):
+    """max |port bf16 - JAX fp32| on sigmoid(psm), and on rm over
+    max(1, max |rm|), within BF16_SPREAD_FACTOR x the JAX package's own
+    bf16-vs-fp32 spread + BF16_FLOOR; both spreads finite and the bf16
+    runs not bit-equal to fp32 (the casts took effect)."""
+    ref = bf16_runs["fp32"][key]
+    scale = max(1.0, float(np.abs(ref).max())) if key == "rm" else 1.0
+    spread = {name: float(np.abs(bf16_runs[name][key] - ref).max()) / scale
+              for name in ("jax_bf16", "port_bf16")}
+    assert all(np.isfinite(v) and v > 0 for v in spread.values()), spread
+    bar = BF16_SPREAD_FACTOR * spread["jax_bf16"] + BF16_FLOOR
+    print(f"{key}: spread against JAX fp32 {spread}, bar {bar}")
+    assert spread["port_bf16"] <= bar, (spread, bar)
+
+
+def _debug_model(flagship, debug: bool):
+    return bridged(HMViT(dict(flagship["cfg"], debug_checks=debug)),
+                   flagship["variables"])
+
+
+@pytest.mark.parametrize("static", [True, False])
+def test_serving_bucket_debug_guard(flagship, static):
+    """``debug_checks: true`` rejects a camera_bucket larger than the
+    batch's true camera count (lidar agents inside the bucket would
+    receive camera-encoded features), as the JAX model does
+    (tests/test_hetero_fusion.py::test_serving_bucket_debug_guard): the
+    exact bucket passes and gives the unguarded model's output, the
+    bucket + 1 raises, with the fleet's layout given on the host
+    (``static_modes``) or read from the batch."""
+    hints = dict(flagship["hints"])
+    if not static:
+        hints.pop("static_modes")
+    exact = hints["camera_bucket"]
+    tb = {k: t(v) for k, v in flagship["batch"].items()}
+    model = _debug_model(flagship, True)
+    with torch.no_grad():
+        out = model(tb, **hints)
+        want = _port_forward(flagship, **hints)
+        for key in ("psm", "rm"):
+            assert torch.equal(out[key], want[key])
+        with pytest.raises(ValueError, match="camera count"):
+            model(tb, **dict(hints, camera_bucket=exact + 1))
+
+
+def test_debug_guard_checks_static_modes(flagship):
+    """Under ``debug_checks`` a ``static_modes`` that differs from the
+    batch's ``mode`` raises, even where the exact bucket would pass and
+    where a wrong bucket agrees with the wrong layout: the guard reads the
+    batch, not the hint."""
+    hints = dict(flagship["hints"])
+    modes = tuple(hints["static_modes"])
+    wrong = tuple(1 - m for m in modes)
+    tb = {k: t(v) for k, v in flagship["batch"].items()}
+    model = _debug_model(flagship, True)
+    with torch.no_grad():
+        for bucket in (hints["camera_bucket"], wrong.count(0)):
+            with pytest.raises(ValueError, match="static_modes"):
+                model(tb, **dict(hints, static_modes=wrong,
+                                 camera_bucket=bucket))
+
+
+def _no_host_reads(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("host read of a tensor")
+
+    for name in ("item", "cpu", "tolist", "numpy", "__int__", "__bool__",
+                 "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+
+
+@pytest.mark.parametrize("debug,static,reads", [
+    (False, False, False), (False, True, False), (True, False, True),
+    (True, True, True)])
+def test_bucket_branch_host_reads(flagship, monkeypatch, debug, static,
+                                  reads):
+    """The bucket branch reads nothing back to the host unless
+    ``debug_checks`` is set: then it takes one read of ``mode``, with or
+    without the fleet's layout (shown here by a forward under a mock that
+    refuses every host read)."""
+    hints = dict(flagship["hints"])
+    if not static:
+        hints.pop("static_modes")
+    model = _debug_model(flagship, debug)
+    tb = {k: t(v) for k, v in flagship["batch"].items()}
+    _no_host_reads(monkeypatch)
+    with torch.no_grad():
+        if reads:
+            with pytest.raises(AssertionError, match="host read"):
+                model(tb, **hints)
+        else:
+            out = model(tb, **hints)
+            assert tuple(out["psm"].shape) == (1, 2, 16, 16)
+
+
+def test_train_mode_is_refused(flagship):
+    """The port is eval only (ROADMAP.md Queue 1 item 2): a new model is
+    in eval mode, ``train(True)`` raises instead of running eval
+    arithmetic under a training flag, and ``eval()`` / ``train(False)``
+    still work."""
+    from hmvit_tpu_torch.nn import init_parameters
+
+    model = HMViT(flagship["cfg"])
+    assert not any(m.training for m in model.modules())
+    for call in (model.train, lambda: model.train(True)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+            call()
+    assert not model.training
+    assert model.eval() is model and model.train(False) is model
+    assert init_parameters(model, seed=0) is model
+    assert not any(m.training for m in model.modules())

@@ -3,9 +3,11 @@ seeded numpy inputs and flax variables, the tiny mixed-fleet config, and
 the JAX -> port weight bridge."""
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -86,6 +88,34 @@ def bridged(port_module, variables):
     """Load flax variables into a port module (eval mode, CPU)."""
     load_flax(port_module, jax.tree_util.tree_map(np.asarray, variables))
     return port_module.eval()
+
+
+@contextlib.contextmanager
+def widened_bf16_einsum():
+    """While tracing a bfloat16 JAX model on the CPU: ``jnp.einsum`` on
+    bf16 operands with ``preferred_element_type=float32`` takes the
+    operands widened to float32.  XLA on the CPU has no bf16 x bf16 ->
+    fp32 product with more than one batch dimension (the camera encoder's
+    and the fusion's einsums).  The result is the same: a product of two
+    bf16 values is exact in float32, and the sum is float32 either way
+    (only its order is the library's)."""
+    einsum = jnp.einsum
+
+    def widened(subscripts, *operands, preferred_element_type=None,
+                **kwargs):
+        if preferred_element_type == jnp.float32:
+            operands = [o.astype(jnp.float32)
+                        if jnp.asarray(o).dtype == jnp.bfloat16 else o
+                        for o in operands]
+        return einsum(subscripts, *operands,
+                      preferred_element_type=preferred_element_type,
+                      **kwargs)
+
+    jnp.einsum = widened
+    try:
+        yield
+    finally:
+        jnp.einsum = einsum
 
 
 def t(x):
