@@ -12,10 +12,14 @@ Phases:
    source) and time it;
 2. check every kernel against its plain PyTorch twin on the card at the
    production shapes, in float32 (tight) and bfloat16 (stated
-   tolerance); the resident pair warp must also equal the tile pair
-   warp, and the fused warp + attention kernel the pair warp followed
-   by the stripe attention kernel, bit for bit, in both types (also
-   with 5 senders).  The four attention kernels (stripe, plain, typed,
+   tolerance); the tile pair warp must also equal its previous body, the
+   resident pair warp the tile pair warp, and the fused warp + attention
+   kernel the pair warp followed by the stripe attention kernel, bit for
+   bit, in both types (also with 5 senders), on the serving poses, the
+   ego launch, spread poses (agents within +-120 m, a quarter of the
+   tiles out of view: the ROI tile skip; the count is printed) and the
+   draw on which the Pallas kernels' skip is not conservative
+   (``draw_222``).  The four attention kernels (stripe, plain, typed,
    fused warp + attention) must run their tensor-core body in bfloat16
    and their fp32 CUDA-core body in float32 (counted inside the
    library).  In bfloat16 it times
@@ -23,7 +27,9 @@ Phases:
    median of 20 after warm-up), for the four attention kernels also
    their previous fp32 body on the same operands through its
    timing-only entry, in turns (previous, new, new, previous:
-   ``previous_ms``), and, for the attention kernels, the one
+   ``previous_ms``; for both pair warps the tile kernel's previous body,
+   with its ``device_ms`` beside theirs), and, for the attention
+   kernels, the one
    library call that computes the same attention
    (``scaled_dot_product_attention`` over window-split heads with the
    additive bias + mask, keys concatenated over senders) — a yardstick
@@ -256,6 +262,26 @@ def bound_of(nbytes: float, ops: float, dtype_name: str):
         "operations"
 
 
+def draw_222():
+    """(src (1, 1, 2, 64, 64, 8), pairwise (1, 2, 2, 4, 4)), float32: the
+    222nd draw of a loop over np.random.default_rng(0) that draws two
+    agents' angles (uniform +-pi), then their positions (uniform +-90
+    px), then a unit-normal source.  On it the Pallas tile kernel's ROI
+    skip zeroes a tile (receiver 1, sender 0, xt 0, yt 1) that the oracle
+    fills; the port's kernels must not."""
+    rng = np.random.default_rng(0)
+    for _ in range(222):
+        ang = rng.uniform(-np.pi, np.pi, (1, 2))
+        pos = rng.uniform(-90.0, 90.0, (1, 2, 2))
+        src = rng.normal(size=(1, 1, 2, 64, 64, 8))
+    m = np.tile(np.eye(4), (1, 2, 1, 1))
+    m[:, :, 0, 0], m[:, :, 0, 1] = np.cos(ang), -np.sin(ang)
+    m[:, :, 1, 0], m[:, :, 1, 1] = np.sin(ang), np.cos(ang)
+    m[:, :, :2, 3] = pos
+    pair = np.einsum("bixy,bjyz->bjixz", np.linalg.inv(m), m)
+    return src.astype(np.float32), pair.astype(np.float32)
+
+
 def check_kernels(dev, pairwise, agent_mask):
     """Phase 2: each kernel vs its plain twin at the production shapes."""
     import torch
@@ -269,7 +295,9 @@ def check_kernels(dev, pairwise, agent_mask):
     from hmvit_tpu_torch.ops import cuda, plain_ops
     from hmvit_tpu_torch.ops.fused_warp import (
         fused_pair_warp,
+        pair_warp_coefficients,
         pair_warp_launch,
+        roi_tile_valid,
     )
     from hmvit_tpu_torch.ops.fused_warp_attention import (
         fused_warp_window_attention,
@@ -330,19 +358,38 @@ def check_kernels(dev, pairwise, agent_mask):
         return lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=add, scale=1.0)
 
-    def warp(dt, ty, mode_, receivers, variant):
-        r = l if receivers is None else receivers
-        args = (randn(1, ty, l, hw, hw, 2 * c).to(dt), pairwise, mode_,
-                0.4, 4, receivers)
-        exact = None
+    def warp(dt, ty, mode_, receivers, variant, pair=pairwise, src=None,
+             geo=(0.4, 4)):
+        """A pair-warp case: new K1 held to its previous body, K5 to new
+        K1, bit for bit; both timed in turns with the previous body."""
+        j = pair.shape[1]
+        r = j if receivers is None else receivers
+        if src is None:
+            src = randn(1, ty, j, hw, hw, 2 * c)
+        args = (src.to(dt), pair, mode_, *geo, receivers)
+        size, ck = src.shape[3], src.shape[-1]
+        if dt == torch.float32 and variant == "tile":
+            coef = pair_warp_coefficients(pair, (size, size), *geo)[:, :r]
+            seen = roi_tile_valid(coef, size)
+            print(f"  pair warp poses [{r} x {j} pairs, {size}^2]: "
+                  f"{int((~seen).sum())} of {seen.numel()} (pair, 32 x 32 "
+                  f"tile)s out of view (roi_tile_valid)")
         if variant == "resident":
             exact = lambda: fused_pair_warp(*args, variant="tile")  # noqa: E731
+            what = "the tile kernel"
+        else:
+            def exact():
+                launch, out = pair_warp_launch(*args, previous=True)
+                launch()
+                return out
+            what = "the previous body"
         return dict(
             args=args, tensors=args[:1],
             fn=lambda *a: fused_pair_warp(*a, variant=variant),
-            prep=lambda *a: pair_warp_launch(*a, variant=variant),
-            exact=exact, library=None,
-            ops=12.0 * r * l * hw * hw * 2 * c)
+            prep=lambda *a, **kw: pair_warp_launch(*a, variant=variant, **kw),
+            exact=exact, exact_what=what, library=None, previous=True,
+            previous_kw={"previous": True}, device=True,
+            ops=12.0 * r * j * size * size * ck)
 
     def stripe(dt, n):
         args = (randn(n, hw, hw, c).to(dt), randn(n, l, hw, hw, 2 * c).to(dt),
@@ -393,28 +440,30 @@ def check_kernels(dev, pairwise, agent_mask):
             prep=typed_window_attention_launch, exact=None, previous=True,
             library=library, ops=attention_ops(l, l, typed=True))
 
-    def fused(dt, ty, mode_, receivers, pair=pairwise, mask=mask_ij):
+    def fused(dt, ty, mode_, receivers, pair=pairwise, mask=mask_ij,
+              size=hw, geo=(0.4, 4)):
         j = pair.shape[1]
         r = j if receivers is None else receivers
         # q scaled as the module scales it: the scores keep unit variance
-        args = ((randn(r, hw, hw, c) * d ** -0.5).to(dt),
-                randn(1, ty, j, hw, hw, 2 * c).to(dt), pair, mode_,
-                mask[:r].to(dt), bias.to(dt), win, heads, d, 0.4, 4,
+        args = ((randn(r, size, size, c) * d ** -0.5).to(dt),
+                randn(1, ty, j, size, size, 2 * c).to(dt), pair, mode_,
+                mask[:r].to(dt), bias.to(dt), win, heads, d, *geo,
                 receivers)
         q_, src_, _, _, m_, b_ = args[:6]
 
         def exact():
-            kv_pair = fused_pair_warp(src_, pair, mode_, 0.4, 4, receivers)
+            kv_pair = fused_pair_warp(src_, pair, mode_, *geo, receivers)
             return fused_stripe_window_attention(
-                q_, kv_pair.reshape(r, j, hw, hw, 2 * c), b_, m_, win, heads,
-                d)
+                q_, kv_pair.reshape(r, j, size, size, 2 * c), b_, m_, win,
+                heads, d)
 
         return dict(
             args=args, tensors=(q_, src_, m_, b_),
             fn=fused_warp_window_attention,
             prep=warp_window_attention_launch, exact=exact, library=None,
-            previous=True,
-            ops=attention_ops(r, j) + 12.0 * r * j * hw * hw * 2 * c)
+            previous=True, exact_what="the split kernels",
+            ops=(attention_ops(r, j) * (size / hw) ** 2
+                 + 12.0 * r * j * size * size * 2 * c))
 
     grid_mask = _window_split(mask_ij[..., None], win, "grid")[..., 0] \
         .reshape(l, l, nwin, t)
@@ -428,11 +477,28 @@ def check_kernels(dev, pairwise, agent_mask):
                               0.4, 4)[0].movedim(-1, 1).contiguous()
     mask5[0, :, :16, :16] = 0
     mask5[:, 0, 32:48] = 0
+    # spread poses: 4 agents within +-120 m on the 204.8 m map, so much of
+    # each pair lies out of view (the ROI tile skip)
+    pair_far = perf_lab.Lab(dev, perf_lab.PROD, iters=1).rand_pairwise(
+        4, spread=120.0)
+    mask_far = pairwise_roi_mask(pair_far, agent_mask, (hw, hw), 0.4, 4)[0] \
+        .movedim(-1, 1).contiguous()
+    # the draw on which the Pallas kernels' tile skip is not conservative
+    src222, pair222 = draw_222()
+    src222 = torch.as_tensor(src222, device=dev)
+    pair222 = torch.as_tensor(pair222, device=dev)
+    mode222 = torch.zeros(1, 2, dtype=torch.long, device=dev)
+    mask222 = torch.ones(2, 2, 64, 64, device=dev)
     # the first variant of each kernel is the one its record carries
     cases = {
         "pair_warp": [
             ("local I=4 TY=2", lambda dt: warp(dt, 2, mode, None, "tile")),
             ("ego I=1 TY=1", lambda dt: warp(dt, 1, ego_mode, 1, "tile")),
+            ("spread I=4 TY=2",
+             lambda dt: warp(dt, 2, mode, None, "tile", pair_far)),
+            ("draw 222, 64^2 C=8",
+             lambda dt: warp(dt, 1, mode222, None, "tile", pair222, src222,
+                             (1.0, 1.0))),
         ],
         "stripe_window_attention": [
             ("local N=4 J=4", lambda dt: stripe(dt, l)),
@@ -449,12 +515,22 @@ def check_kernels(dev, pairwise, agent_mask):
             ("ego I=1 TY=1", lambda dt: fused(dt, 1, ego_mode, 1)),
             ("fleet of 5, I=J=5 TY=2",
              lambda dt: fused(dt, 2, mode5, None, pair5, mask5)),
+            ("spread I=4 TY=2",
+             lambda dt: fused(dt, 2, mode, None, pair_far, mask_far)),
+            ("draw 222, 64^2 I=J=2",
+             lambda dt: fused(dt, 1, mode222, None, pair222, mask222, 64,
+                              (1.0, 1.0))),
         ],
         "pair_warp_resident": [
             ("local I=4 TY=2",
              lambda dt: warp(dt, 2, mode, None, "resident")),
             ("ego I=1 TY=1",
              lambda dt: warp(dt, 1, ego_mode, 1, "resident")),
+            ("spread I=4 TY=2",
+             lambda dt: warp(dt, 2, mode, None, "resident", pair_far)),
+            ("draw 222, 64^2 C=8",
+             lambda dt: warp(dt, 1, mode222, None, "resident", pair222,
+                             src222, (1.0, 1.0))),
         ],
         "typed_window_attention": [("N=J=4", typed)],
     }
@@ -476,7 +552,7 @@ def check_kernels(dev, pairwise, agent_mask):
                         want = fn(*args)
                     same = case["exact"]() if case["exact"] else None
                 torch.cuda.synchronize()
-                if case.get("previous"):
+                if name in TENSOR_CORE_KERNELS:
                     # bfloat16 on the tensor cores, float32 on the fp32 body
                     body = "mma" if dt == torch.bfloat16 else "simt"
                     ran = {b: ran[b] - bodies[b] for b in ran}
@@ -497,7 +573,7 @@ def check_kernels(dev, pairwise, agent_mask):
                 if same is not None:
                     diff = float((got.float() - same.float()).abs().max())
                     print(f"  {name} [{label}, {key}]: max|diff| against "
-                          f"the split kernels {diff:.1e}")
+                          f"{case['exact_what']} {diff:.1e}")
                     if not torch.equal(got, same):
                         raise AssertionError(
                             f"{name} {label} {key}: differs from the kernels "
@@ -509,10 +585,14 @@ def check_kernels(dev, pairwise, agent_mask):
                     # and the library call where there is one
                     launch, out = case["prep"](*args)
                     prev_ms = None
+                    extra = {}
                     if case.get("previous"):
-                        # the fp32 CUDA-core body on the same operands, in
-                        # turns with the tensor-core body
-                        old, old_out = case["prep"](*args, simt=True)
+                        # the previous body on the same operands, in turns
+                        # with the new one: the attention kernels' fp32
+                        # CUDA-core body, the pair warp's one thread per 8
+                        # channels of a pixel
+                        old, old_out = case["prep"](
+                            *args, **case.get("previous_kw", {"simt": True}))
                         turns = [time_ms(f) for f in (old, launch, launch,
                                                       old)]
                         prev_ms = (turns[0] + turns[3]) / 2
@@ -521,12 +601,21 @@ def check_kernels(dev, pairwise, agent_mask):
                                      .abs().max())
                         print(f"  {name} [{label}, bfloat16]: previous body "
                               f"{turns[0]:.4f} / {turns[3]:.4f} ms "
-                              f"(max_abs_err {diff:.3e}), tensor-core body "
+                              f"(max_abs_err {diff:.3e}), new body "
                               f"{turns[1]:.4f} / {turns[2]:.4f} ms")
                         if not diff <= tol:
                             raise AssertionError(
                                 f"{name} {label}: the previous body "
                                 f"disagrees with the twin: {diff}")
+                        if case.get("device"):
+                            # the device time alone, as for the lidar
+                            # kernels: 20 calls in a CUDA graph
+                            extra["device_ms"] = device_ms(launch)
+                            extra["previous_device_ms"] = device_ms(old)
+                            print(f"  {name} [{label}, bfloat16]: device "
+                                  f"time {extra['device_ms']:.4f} ms, "
+                                  f"previous body "
+                                  f"{extra['previous_device_ms']:.4f} ms")
                         del old, old_out
                     else:
                         k_ms = time_ms(launch)
@@ -551,6 +640,7 @@ def check_kernels(dev, pairwise, agent_mask):
                              "library_ms": lib_ms}
                     if prev_ms is not None:
                         timed["previous_ms"] = prev_ms
+                    timed.update(extra)
                     if rec is None:
                         rec = dict(timed, cases={})
                     rec["cases"][label] = dict(timed, max_abs_err=err)

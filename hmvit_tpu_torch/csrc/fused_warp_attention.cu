@@ -7,7 +7,10 @@
 // (pair_warp.cu) followed by the stripe window attention
 // (window_attention.cu), bit for bit, while the warped [K|V] tensor
 // (N, J, H, W, 2C) — 268 MB in bf16 at the serving shapes — is never
-// written to device memory.
+// written to device memory.  Both forms skip, as the Pallas kernel does,
+// the keys whose 32 x 32 tile is out of the sender's view
+// (hm::pixel_tile_in_view, conservative): they stage the zeros the taps
+// would give and read nothing.
 //
 // hm_warp_window_attention chooses inside, by the rule of the window
 // attention entry points (hm_attention_body_rule): bfloat16 operands with
@@ -114,8 +117,12 @@ warp_window_attention_kernel(const T* __restrict__ q,
     const int jj = i / t, tt = i - jj * t;
     const int pix = (int)token_index<true>(wi, tt, t, win, wcols);
     ms[i] = mask[((long long)n * nj + jj) * npix + pix];
-    taps[i] = hm::plan_taps<T>(coef + ((long long)n * nj + jj) * 8,
-                               pix % size, pix / size, size);
+    const float* cf = coef + ((long long)n * nj + jj) * 8;
+    const int x = pix % size, y = pix / size;
+    taps[i] = hm::plan_taps<T>(cf, x, y, size);
+    // the ROI tile skip: zeros, no reads, where the key's 32 x 32 tile is
+    // out of the sender's view
+    if (!hm::pixel_tile_in_view(cf, x, y, size)) taps[i].flag = 2;
   }
 
   const int vecs = d >> 3;  // 8-channel vectors per head of K (and of V)

@@ -1,5 +1,6 @@
 // Pair warp: every sender's typed K/V map resampled into every receiver's
-// BEV frame.  Two kernels with one contract and bit-identical outputs.
+// BEV frame.  Two kernels with one contract and bit-identical outputs,
+// and the previous form of the first, kept for timing.
 //
 // pair_warp_kernel replaces the Pallas kernel
 // hmvit_tpu/ops/fused_warp.py::_warp_kernel (pallas_pair_warp, tile
@@ -17,44 +18,153 @@
 // taps live in warp_taps.cuh).
 //
 // What bounds it on the H100: bytes.  At the serving shapes (16 pairs of
-// 128 x 128 x 512 bf16) the output alone is 134 MB and every output
-// vector needs 4 source vectors; there is no reuse a tensor core could
-// exploit (the Pallas kernel used the MXU only because a TPU gathers
-// slowly).  The design: one thread per (pair, y', x', 8 channels), so a
-// warp reads and writes 16-byte vectors of consecutive channels — fully
-// coalesced — and the 4 taps of neighbouring output pixels overlap in
-// L1/L2, so device memory sees each source map about once per pair.
-// No shared memory, no tiles: the TPU's 32 x 32 destination tiles and
-// 56 x 56 DMA windows existed to feed the MXU from VMEM.
+// 128 x 128 x 512 bf16) the output is 268 MB and the typed source maps
+// 134 MB, and every output vector needs 4 source vectors; there is no
+// reuse a tensor core could exploit (the Pallas kernel used the MXU only
+// because a TPU gathers slowly).  The design:
+//   * a block owns one (pair, strip of a 32 x 32 destination tile): 32
+//     pixels wide, kStripH = 2 rows, so that the serving launch has 4096
+//     blocks (several resident waves; taller strips measured slower);
+//   * the block plans each pixel's taps once, into shared memory (the
+//     previous body planned them once per 8 channels: 64 times per pixel
+//     at C = 512); then a warp walks pixels, its lanes over the pixel's
+//     16-byte vectors, two vectors a lane with all eight reads in flight
+//     before the arithmetic: 32 lanes x 16 B = 512 contiguous bytes read
+//     from each tap and stored a step (where a pixel has fewer than 32
+//     vectors, a warp takes several pixels at once);
+//   * 32-bit index math inside a map (the previous body did five 64-bit
+//     divisions a thread);
+//   * blocks ordered (b, sender, strip, receiver): the receivers that
+//     read the same typed map run side by side, so it leaves device
+//     memory about once, and the output is stored evict-first so that it
+//     does not push the maps out of L2;
+//   * the ROI tile skip: a strip out of the sender's view
+//     (hm::tile_in_view, conservative) reads nothing and stores zeros —
+//     the bits the taps would have given.
+//
+// pair_warp_previous_kernel is the previous body (one thread per
+// (pair, y', x', 8 channels), no skip), reached only through
+// hm_pair_warp_previous: the on-card bit anchor of both kernels here
+// and their timing yardstick.
 //
 // pair_warp_resident_kernel replaces the Pallas kernel
 // hmvit_tpu/ops/fused_warp.py::_warp_kernel_resident
 // (pallas_pair_warp(variant="resident")): each source map is fetched
-// once per (receiver, sender) pair and every destination pixel reads it
-// from on-chip memory.  On this card "on-chip" is the block's shared
-// memory: one block owns a (pair, channel slab) of 8 bytes per pixel (4
-// bf16 or 2 fp32 channels), stages that slab of the whole S x S source
-// map once (S = 128: 128 KB of the 227 KB a block may use), and produces
-// every destination pixel of the slab from it with the same taps.  Still
-// bound by bytes, and the narrow slab costs it: device-memory reads and
-// writes are 8-byte segments one pixel row of channels (C * itemsize
-// bytes) apart, a quarter of a 32-byte sector each, which L2 has to
-// absorb.  Identity and invalid pairs skip the staging.
+// once per (receiver, sender) pair and every destination pixel reads its
+// taps from on-chip memory.  On this card "on-chip" is the shared memory
+// of a thread-block cluster: 8 blocks own a (pair, channel slab), each
+// block stages a band of size / 8 source rows of the slab with one TMA
+// tensor load (an mbarrier per band), and the slab's destination pixels
+// are split among the blocks by where their taps lie (TapRow below), so
+// nearly every tap is read from the block's own shared memory and the
+// few across a band edge from the neighbour's (distributed shared
+// memory).  The slab is the widest of 64, 32 or 16 bytes a pixel whose
+// band fits 74 KB, so that several blocks share an SM and one block's
+// staging runs under another's arithmetic: 32 bytes (16 bf16 channels) at
+// 128 x 128.  The slab clusters of one pair are launched side by side
+// (grid x), so L2 sees each pixel's row of channels read and written by
+// neighbouring clusters.  Identity and invalid pairs, and pairs with no
+// 32 x 32 tile in view (the Pallas kernel's pvalid), skip the staging.
+// What bounds it: bytes, moved in slab-wide pieces (32 bytes a pixel, 1
+// KB apart), which device memory serves more slowly than the tile
+// kernel's 512-byte lines; the staging pass comes on top of the tile
+// kernel's traffic, so it stays slower than the tile kernel.
+#include <cooperative_groups.h>
+#include <cuda.h>
+
 #include "warp_taps.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using hm::WarpTaps;
+
+// ---- the tile kernel ------------------------------------------------------
+
+constexpr int kTileW = 32;  // destination tile width, pixels
+constexpr int kStripH = 2;  // rows of a block's strip
+constexpr int kStripPix = kTileW * kStripH;
+constexpr int kTileThreads = 256;
 
 // coef rows (n, j, 8): m00 m01 tx v0 v1 ty_adj swap flag, where flag is
 // 0 = warp, 1 = identity copy, 2 = invalid pair (zeros).
+// grid (B * J * strips * R); a map holds size * size * c < 2^31 elements.
 template <typename T>
-__global__ void pair_warp_kernel(const T* __restrict__ src,
-                                 const float* __restrict__ coef,
-                                 const int* __restrict__ rtype,
-                                 T* __restrict__ out, int n_pairs_recv,
-                                 int nj, int ty_count, int n_recv, int size,
-                                 int c) {
+__global__ void __launch_bounds__(kTileThreads)
+pair_warp_kernel(const T* __restrict__ src, const float* __restrict__ coef,
+                 const int* __restrict__ rtype, T* __restrict__ out, int nj,
+                 int ty_count, int n_recv, int size, int c) {
+  constexpr int V = 16 / (int)sizeof(T);  // channels a 16-byte vector
+  __shared__ WarpTaps plans[kStripPix];
+  __shared__ int dst_pix[kStripPix];
+  const int tiles_x = (size + kTileW - 1) / kTileW;
+  const int strips = tiles_x * ((size + kStripH - 1) / kStripH);
+  // block -> (b, j, strip, r), receivers fastest
+  int rest = blockIdx.x;
+  const int r = rest % n_recv;
+  rest /= n_recv;
+  const int s = rest % strips;
+  rest /= strips;
+  const int j = rest % nj;
+  const int b = rest / nj;
+  const int n = b * n_recv + r;
+  const int sy = s / tiles_x;
+  const int x0 = (s - sy * tiles_x) * kTileW, y0 = sy * kStripH;
+  const int w = min(kTileW, size - x0), h = min(kStripH, size - y0);
+  const int pair = n * nj + j;
+  const float* cf = coef + (long long)pair * 8;
+  const bool seen = hm::tile_in_view(cf, x0, y0, w, h, size);
+  for (int p = threadIdx.x; p < w * h; p += blockDim.x) {
+    const int py = p / w;
+    const int x = x0 + p - py * w, y = y0 + py;
+    WarpTaps plan = hm::plan_taps<T>(cf, x, y, size);
+    if (!seen) plan.flag = 2;  // out of view: zeros, no reads
+    plans[p] = plan;
+    dst_pix[p] = y * size + x;
+  }
+  __syncthreads();
+  const int npix = size * size;
+  const T* map =
+      src + ((long long)(b * ty_count + rtype[n]) * nj + j) * npix * c;
+  T* dst = out + (long long)pair * npix * c;
+  const int cvecs = c / V;
+  // lanes a pixel (all 32, or the pixel's vectors) and pixels a warp step
+  const int lpp = min(cvecs, 32), pps = 32 / lpp;
+  const int lane = threadIdx.x & 31, sub = lane / lpp;
+  const int nwarps = blockDim.x >> 5;
+  if (sub >= pps) return;
+  for (int p = (threadIdx.x >> 5) * pps + sub; p < w * h; p += nwarps * pps) {
+    const WarpTaps plan = plans[p];
+    const int self = dst_pix[p];
+    T* dp = dst + self * c;
+    for (int v = lane - sub * lpp; v < cvecs; v += 2 * lpp) {
+      const int v2 = v + lpp;
+      const hm::TapWords ta =
+          hm::fetch_taps(plan, hm::DeviceTaps<T>{map + v * V, c}, self);
+      if (v2 < cvecs) {
+        const hm::TapWords tb =
+            hm::fetch_taps(plan, hm::DeviceTaps<T>{map + v2 * V, c}, self);
+        __stcs(reinterpret_cast<uint4*>(dp + v * V),
+               hm::combine_taps<T>(plan, ta));
+        __stcs(reinterpret_cast<uint4*>(dp + v2 * V),
+               hm::combine_taps<T>(plan, tb));
+      } else {
+        __stcs(reinterpret_cast<uint4*>(dp + v * V),
+               hm::combine_taps<T>(plan, ta));
+      }
+    }
+  }
+}
+
+// The previous body: one thread per (pair, y', x', 8 channels).
+template <typename T>
+__global__ void pair_warp_previous_kernel(const T* __restrict__ src,
+                                          const float* __restrict__ coef,
+                                          const int* __restrict__ rtype,
+                                          T* __restrict__ out,
+                                          int n_pairs_recv, int nj,
+                                          int ty_count, int n_recv, int size,
+                                          int c) {
   const int cvecs = c >> 3;
   const long long total =
       (long long)n_pairs_recv * nj * size * size * cvecs;
@@ -82,74 +192,399 @@ __global__ void pair_warp_kernel(const T* __restrict__ src,
   hm::store_vec<T, 8>(out + idx * 8, acc);
 }
 
-constexpr int kResidentThreads = 512;
-constexpr int kSlabBytes = 8;  // per pixel: 4 bf16 or 2 fp32 channels
-constexpr int kMaxSharedBytes = 232448;  // 227 KB, a Hopper block's limit
+// ---- the resident kernel --------------------------------------------------
 
-// grid (pairs, C / slab channels); dynamic shared memory size * size * 8.
+constexpr int kResidentThreads = 256;
+constexpr int kCtas = 8;  // blocks of a cluster (the portable most)
+// a band's share of shared memory: three blocks an SM
+constexpr int kMaxStageBytes = 75776;
+constexpr int kAlign = 128;              // a TMA destination's alignment
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+  // make the initialised barrier visible to the TMA unit
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+// box (slab channels, size pixels, band rows, 1 map) at (c0, 0, row0,
+// map) -> dst, completion counted on bar
+__device__ __forceinline__ void tma_load_band(void* dst, const CUtensorMap* tm,
+                                              int c0, int row0, int map,
+                                              unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(tm)), "r"(c0), "r"(0),
+      "r"(row0), "r"(map), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// q / d for 0 <= q < 2^22 and d > 0: a float estimate, corrected once
+__device__ __forceinline__ int div_small(int q, int d, float inv_d) {
+  int k = __float2int_rz((float)q * inv_d);
+  k -= (k * d > q);
+  k += ((k + 1) * d <= q);
+  return k;
+}
+
+// Where a destination pixel's taps lie in the source map: about the
+// physical row tr.at(x', y'), affine in (x', y') — the row coordinate's
+// affine form, or under the conditioning swap (the source read
+// transposed, so a physical row is a column of the resample) the column
+// coordinate's.  A pixel whose row lies outside [-reach, size + reach)
+// reads nothing: its taps' rows lie within 1 + |v0| of it (see
+// hm::tile_in_view), and reach adds one more row and the fp32 slack.
+struct TapRow {
+  float a, b, c0, reach;
+  __device__ __forceinline__ float at(int x, int y) const {
+    return __fadd_rn(__fadd_rn(__fmul_rn(a, (float)x), __fmul_rn(b, (float)y)),
+                     c0);
+  }
+};
+
+__device__ __forceinline__ TapRow tap_row(const float* __restrict__ cf,
+                                          int size) {
+  const float m00 = cf[0], m01 = cf[1], tx = cf[2];
+  const float v0 = cf[3], v1 = cf[4], tya = cf[5];
+  TapRow t;
+  if (cf[6] > 0.5f) {
+    t.a = m00;
+    t.b = m01;
+    t.c0 = tx;
+  } else {
+    t.a = __fmul_rn(v0, m00);
+    t.b = __fadd_rn(__fmul_rn(v0, m01), v1);
+    t.c0 = __fadd_rn(tya, __fmul_rn(v0, tx));
+  }
+  const float mag =
+      (fabsf(m00) + fabsf(m01) + fabsf(v0) + fabsf(v1) + fabsf(t.a) +
+       fabsf(t.b)) * (float)(size + 1) +
+      fabsf(tx) + fabsf(tya) + fabsf(t.c0) + fabsf(v0 * tx);
+  t.reach = 2.f + fabsf(v0) + 1e-3f + 1e-5f * mag;
+  return t;
+}
+
+// grid (kCtas * slabs, pairs), clusters of kCtas blocks along x; dynamic
+// shared memory: a band of band * size pixels of slab_ch channels, the
+// band's mbarrier, alignment slack.  A staged pair's pixels are split by
+// where their taps lie: block `rank` computes the pixels whose taps' row
+// (TapRow) falls in its own band (rows off the map at either end go to
+// the first and last band), so nearly every tap is read from the block's
+// own shared memory and only those across a band edge from a neighbour's;
+// the pixels whose taps lie off the map are zeros, written by the block
+// whose destination band holds them.  Lanes walk the destination along
+// x' (along y' under the swap) so that neighbouring lanes read
+// neighbouring source pixels of one row, not one column (4 KB apart: the
+// same shared-memory banks).
 template <typename T>
-__global__ void __launch_bounds__(kResidentThreads)
-pair_warp_resident_kernel(const T* __restrict__ src,
+__global__ void __launch_bounds__(kResidentThreads, 2)
+pair_warp_resident_kernel(const __grid_constant__ CUtensorMap tmap,
+                          const T* __restrict__ src,
                           const float* __restrict__ coef,
                           const int* __restrict__ rtype, T* __restrict__ out,
-                          int nj, int ty_count, int n_recv, int size, int c) {
-  constexpr int kSlab = kSlabBytes / (int)sizeof(T);
-  extern __shared__ uint2 slab_words[];
-  const T* slab = reinterpret_cast<const T*>(slab_words);
-  const int pair = blockIdx.x;
-  const int n = pair / nj, j = pair - n * nj;
-  const int b = n / n_recv;
+                          int nj, int ty_count, int n_recv, int size, int c,
+                          int slab_ch) {
+  constexpr int V = 16 / (int)sizeof(T);
+  extern __shared__ uint4 smem_words[];
+  cg::cluster_group cluster = cg::this_cluster();
+  // the same offset in every block of the cluster
+  unsigned char* raw = reinterpret_cast<unsigned char*>(smem_words);
+  T* band_buf = reinterpret_cast<T*>(
+      raw + ((kAlign - (smem_u32(raw) & (kAlign - 1))) & (kAlign - 1)));
+  const int band = size / kCtas;
+  const int band_pix = band * size;
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(band_buf + band_pix * slab_ch);
+  const int rank = (int)cluster.block_rank();
+  const int slab = blockIdx.x / kCtas;
+  const int pair = blockIdx.y;
+  const int n = pair / nj, j = pair - n * nj, b = n / n_recv;
+  const int map = (b * ty_count + rtype[n]) * nj + j;
   const int npix = size * size;
   const float* cf = coef + (long long)pair * 8;
-  const T* map = src +
-                 (((long long)b * ty_count + rtype[n]) * nj + j) *
-                     (long long)npix * c +
-                 blockIdx.y * kSlab;
-  T* dst = out + (long long)pair * npix * c + blockIdx.y * kSlab;
-  // the flag is the pair's: uniform over the block
-  const bool staged = cf[7] <= 0.5f;
+  const float flag = cf[7];
+  // the Pallas kernel's pvalid: a warp pair with any 32 x 32 tile in view
+  const int tiles = size / hm::kRoiTile;
+  const int tile = threadIdx.x;
+  const bool staged = __syncthreads_or(
+      flag <= 0.5f && tile < tiles * tiles &&
+      hm::tile_in_view(cf, (tile % tiles) * hm::kRoiTile,
+                       (tile / tiles) * hm::kRoiTile, hm::kRoiTile,
+                       hm::kRoiTile, size));
   if (staged) {
-    for (int p = threadIdx.x; p < npix; p += blockDim.x) {
-      slab_words[p] =
-          *reinterpret_cast<const uint2*>(map + (long long)p * c);
-    }
+    if (threadIdx.x == 0) mbar_init(bar);
     __syncthreads();
-  }
-  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
-    const int y = p / size, x = p - y * size;
-    const WarpTaps taps = hm::plan_taps<T>(cf, x, y, size);
-    float acc[kSlab];
-    if (staged) {
-      hm::apply_taps<T, kSlab>(taps, slab, kSlab, p, acc);
-    } else {
-      hm::apply_taps<T, kSlab>(taps, map, c, p, acc);
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar, (unsigned)(band_pix * slab_ch * sizeof(T)));
+      tma_load_band(band_buf, &tmap, slab * slab_ch, rank * band, map, bar);
     }
-    hm::store_vec<T, kSlab>(dst + (long long)p * c, acc);
+    mbar_wait(bar, 0);
+    cluster.sync();  // every band of the slab is on chip
   }
+  const int svecs = slab_ch / V;  // lanes a pixel
+  const int ppw = 32 / svecs;     // pixels a warp step
+  const int lane = threadIdx.x & 31, sub = lane / svecs;
+  const int ch = (lane - sub * svecs) * V;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const float inv_size = 1.f / (float)size;
+  const float inv_band_pix = 1.f / (float)band_pix;
+  const float fsize = (float)size;
+  const T* gmap = src + (long long)map * npix * c + slab * slab_ch;
+  T* dst = out + (long long)pair * npix * c + slab * slab_ch;
+  const int y_lo = rank * band;
+  if (!staged) {
+    // an identity copy from device memory, or zeros: the destination band
+    for (int q = warp * ppw + sub; q < band_pix; q += nwarps * ppw) {
+      const int pix = y_lo * size + q;
+      const int y = div_small(pix, size, inv_size);
+      WarpTaps plan = hm::plan_taps<T>(cf, pix - y * size, y, size);
+      if (flag <= 0.5f) plan.flag = 2;  // no tile in view
+      *reinterpret_cast<uint4*>(dst + pix * c + ch) =
+          hm::warp_vec16<T>(plan, gmap + ch, c, pix);
+    }
+  } else {
+    const TapRow tr = tap_row(cf, size);
+    const float inv_band = 1.f / (float)band;
+    // the block that computes a pixel, -1 where its taps lie off the map
+    auto src_block = [&](int x, int y) -> int {
+      const float r = tr.at(x, y);
+      if (!(r >= -tr.reach && r < fsize + tr.reach)) return -1;
+      return min(max(__float2int_rd(__fmul_rn(r, inv_band)), 0), kCtas - 1);
+    };
+    auto load = [&](int sp) {
+      const int owner = div_small(sp, band_pix, inv_band_pix);
+      const T* rb =
+          owner == rank ? band_buf : cluster.map_shared_rank(band_buf, owner);
+      return *reinterpret_cast<const uint4*>(
+          rb + (sp - owner * band_pix) * slab_ch + ch);
+    };
+    const bool along_x = cf[6] <= 0.5f;
+    const float inner = along_x ? tr.a : tr.b;
+    // the rows this block takes, widened past the fp32 rounding
+    const float lo = (rank == 0 ? -tr.reach : (float)(rank * band)) - 0.01f;
+    const float hi =
+        (rank == kCtas - 1 ? fsize + tr.reach : (float)((rank + 1) * band)) +
+        0.01f;
+    for (int o = warp; o < size; o += nwarps) {  // a line of the walk
+      const float base =
+          __fadd_rn(__fmul_rn(along_x ? tr.b : tr.a, (float)o), tr.c0);
+      float fa = 0.f, fb = fsize - 1.f;
+      if (inner != 0.f) {
+        const float e1 = (lo - base) / inner, e2 = (hi - base) / inner;
+        fa = fmaxf(fa, floorf(fminf(e1, e2)) - 1.f);
+        fb = fminf(fb, ceilf(fmaxf(e1, e2)) + 1.f);
+      } else if (!(base >= lo && base < hi)) {
+        fb = -1.f;
+      }
+      const int ia = (int)fminf(fa, fsize), ib = (int)fmaxf(fb, -1.f);
+      for (int i = ia + sub; i <= ib; i += ppw) {
+        const int x = along_x ? i : o, y = along_x ? o : i;
+        if (src_block(x, y) != rank) continue;
+        const int pix = y * size + x;
+        const WarpTaps plan = hm::plan_taps<T>(cf, x, y, size);
+        *reinterpret_cast<uint4*>(dst + pix * c + ch) =
+            hm::warp_vec16<T>(plan, load, pix);
+      }
+    }
+    // the destination band's pixels whose taps lie off the map
+    for (int q = warp * ppw + sub; q < band_pix; q += nwarps * ppw) {
+      const int pix = y_lo * size + q;
+      const int y = div_small(pix, size, inv_size);
+      if (src_block(pix - y * size, y) < 0) {
+        *reinterpret_cast<uint4*>(dst + pix * c + ch) =
+            make_uint4(0u, 0u, 0u, 0u);  // +0: what the taps give
+      }
+    }
+  }
+  if (staged) cluster.sync();  // no block leaves while its band is read
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the runtime (no link against
+// libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// the widest slab of 64, 32 or 16 bytes that divides a pixel's channels
+// and whose band fits kMaxStageBytes, in channels
+template <typename T>
+int slab_channels(int c, int size) {
+  const int band_pix = size / kCtas * size;
+  for (int bytes = 64; bytes >= 16; bytes /= 2) {
+    const int ch = bytes / (int)sizeof(T);
+    if (c % ch == 0 && band_pix * bytes + 8 + kAlign <= kMaxStageBytes) {
+      return ch;
+    }
+  }
+  return 0;
 }
 
 template <typename T>
 int launch_resident(const void* src, const void* coef, const void* rtype,
                     void* out, int n_pairs_recv, int nj, int ty_count,
                     int n_recv, int size, int c, cudaStream_t s) {
-  constexpr int kSlab = kSlabBytes / (int)sizeof(T);
-  const size_t bytes = (size_t)size * size * kSlabBytes;
-  if (bytes > (size_t)kMaxSharedBytes || c / kSlab > 65535) {
+  const int slab_ch = slab_channels<T>(c, size);
+  const int band = size / kCtas;
+  const size_t staged = (size_t)band * size * slab_ch * sizeof(T);
+  const size_t bytes = staged + 8 + kAlign;
+  if (slab_ch == 0 || size % kCtas != 0 || size > 256 ||
+      (long long)size * size * c >= (1ll << 31) ||
+      c / slab_ch * kCtas > 65535 ||
+      n_pairs_recv * nj > 65535) {
     return (int)cudaErrorInvalidValue;
   }
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const int n_maps = n_pairs_recv / n_recv * ty_count * nj;
+  const cuuint64_t es = sizeof(T);
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)size,
+                              (cuuint64_t)size, (cuuint64_t)n_maps};
+  const cuuint64_t strides[3] = {c * es, (cuuint64_t)size * c * es,
+                                 (cuuint64_t)size * size * c * es};
+  const cuuint32_t box[4] = {(cuuint32_t)slab_ch, (cuuint32_t)size,
+                             (cuuint32_t)band, 1u};
+  const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
+  CUtensorMap tmap;
+  const CUresult enc = encode(
+      &tmap,
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(src), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (enc != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  auto kernel = pair_warp_resident_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      pair_warp_resident_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_pairs_recv * nj, c / kSlab);
-  pair_warp_resident_kernel<T><<<grid, kResidentThreads, bytes, s>>>(
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCtas * (c / slab_ch), n_pairs_recv * nj, 1);
+  cfg.blockDim = dim3(kResidentThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCtas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tmap, static_cast<const T*>(src),
+                           static_cast<const float*>(coef),
+                           static_cast<const int*>(rtype), static_cast<T*>(out),
+                           nj, ty_count, n_recv, size, c, slab_ch);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_tile(const void* src, const void* coef, const void* rtype,
+                void* out, int n_pairs_recv, int nj, int ty_count, int n_recv,
+                int size, int c, cudaStream_t s) {
+  const long long strips = (long long)((size + kTileW - 1) / kTileW) *
+                           ((size + kStripH - 1) / kStripH);
+  const long long blocks = strips * n_pairs_recv * nj;
+  if ((long long)size * size * c >= (1ll << 31) || blocks >= (1ll << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  pair_warp_kernel<T><<<(unsigned)blocks, kTileThreads, 0, s>>>(
       static_cast<const T*>(src), static_cast<const float*>(coef),
       static_cast<const int*>(rtype), static_cast<T*>(out), nj, ty_count,
       n_recv, size, c);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_previous(const void* src, const void* coef, const void* rtype,
+                    void* out, int n_pairs_recv, int nj, int ty_count,
+                    int n_recv, int size, int c, cudaStream_t s) {
+  const long long total =
+      (long long)n_pairs_recv * nj * size * size * (c >> 3);
+  const int threads = 256;
+  pair_warp_previous_kernel<T>
+      <<<(unsigned)((total + threads - 1) / threads), threads, 0, s>>>(
+          static_cast<const T*>(src), static_cast<const float*>(coef),
+          static_cast<const int*>(rtype), static_cast<T*>(out), n_pairs_recv,
+          nj, ty_count, n_recv, size, c);
+  return (int)cudaGetLastError();
+}
+
+typedef int (*Launch)(const void*, const void*, const void*, void*, int, int,
+                      int, int, int, int, cudaStream_t);
+
+int dispatch(Launch f32, Launch bf16, const void* src, const void* coef,
+             const void* rtype, void* out, int dtype, int n_pairs_recv,
+             int nj, int ty_count, int n_recv, int size, int size_w, int c,
+             void* stream) {
+  if (size != size_w || (c & 7) != 0 || n_recv <= 0 ||
+      n_pairs_recv % n_recv != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((long long)n_pairs_recv * nj * size * c == 0) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return f32(src, coef, rtype, out, n_pairs_recv, nj, ty_count, n_recv,
+               size, c, s);
+  }
+  if (dtype == 1) {
+    return bf16(src, coef, rtype, out, n_pairs_recv, nj, ty_count, n_recv,
+                size, c, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
+
 // src (B, TY, J, S, S, C); coef (N, J, 8) f32; rtype (N,) i32;
 // out (N, J, S, S, C) with N = B * n_recv.  dtype 0 = f32, 1 = bf16.
 extern "C" int hm_pair_warp(const void* src, const void* coef,
@@ -157,48 +592,34 @@ extern "C" int hm_pair_warp(const void* src, const void* coef,
                             int n_pairs_recv, int nj, int ty_count,
                             int n_recv, int size, int size_w, int c,
                             void* stream) {
-  if (size != size_w || (c & 7) != 0) return (int)cudaErrorInvalidValue;
-  const long long total =
-      (long long)n_pairs_recv * nj * size * size * (c >> 3);
-  if (total == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    pair_warp_kernel<float><<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(src), static_cast<const float*>(coef),
-        static_cast<const int*>(rtype), static_cast<float*>(out),
-        n_pairs_recv, nj, ty_count, n_recv, size, c);
-  } else if (dtype == 1) {
-    pair_warp_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(src),
-        static_cast<const float*>(coef), static_cast<const int*>(rtype),
-        static_cast<__nv_bfloat16*>(out), n_pairs_recv, nj, ty_count,
-        n_recv, size, c);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return dispatch(launch_tile<float>, launch_tile<__nv_bfloat16>, src, coef,
+                  rtype, out, dtype, n_pairs_recv, nj, ty_count, n_recv, size,
+                  size_w, c, stream);
+}
+
+// The previous body of hm_pair_warp, for timing: the same arguments and
+// the same output bits.
+extern "C" int hm_pair_warp_previous(const void* src, const void* coef,
+                                     const void* rtype, void* out, int dtype,
+                                     int n_pairs_recv, int nj, int ty_count,
+                                     int n_recv, int size, int size_w, int c,
+                                     void* stream) {
+  return dispatch(launch_previous<float>, launch_previous<__nv_bfloat16>, src,
+                  coef, rtype, out, dtype, n_pairs_recv, nj, ty_count, n_recv,
+                  size, size_w, c, stream);
 }
 
 // The resident variant: the same arguments and the same output bits.
-// size * size * 8 bytes of shared memory must fit a block (size <= 170).
+// size % 8 == 0, size <= 256, and a band of size / 8 rows of a slab of
+// at least 16 bytes a pixel (C % 8 == 0 in bf16, % 4 in fp32) fits
+// kMaxStageBytes: band * size * slab + 136 <= 75776 bytes (size <= 192
+// at 16 bytes).
 extern "C" int hm_pair_warp_resident(const void* src, const void* coef,
                                      const void* rtype, void* out, int dtype,
                                      int n_pairs_recv, int nj, int ty_count,
                                      int n_recv, int size, int size_w, int c,
                                      void* stream) {
-  if (size != size_w || (c & 7) != 0) return (int)cudaErrorInvalidValue;
-  if ((long long)n_pairs_recv * nj * size * c == 0) return 0;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_resident<float>(src, coef, rtype, out, n_pairs_recv, nj,
-                                  ty_count, n_recv, size, c, s);
-  }
-  if (dtype == 1) {
-    return launch_resident<__nv_bfloat16>(src, coef, rtype, out,
-                                          n_pairs_recv, nj, ty_count, n_recv,
-                                          size, c, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dispatch(launch_resident<float>, launch_resident<__nv_bfloat16>, src,
+                  coef, rtype, out, dtype, n_pairs_recv, nj, ty_count, n_recv,
+                  size, size_w, c, stream);
 }

@@ -142,6 +142,21 @@ window_attention_mma_kernel(const bf16* __restrict__ q,
     }
   };
 
+  // kWarp: whether the 32 x 32 tile of each (window of the block,
+  // sender) is in the sender's view, worked out once a block (a window
+  // lies in one tile: its edge divides 32)
+  __shared__ bool in_view[kMaxWindowsPerBlock * (kMaxKeys / 16)];
+  if constexpr (MODE == kWarp) {
+    const int nw = min(windows_per_block, nwin - w0);
+    for (int i = tid; i < nw * nj; i += blockDim.x) {
+      const int wl = i / nj, jj = i - wl * nj;
+      const int wy = (w0 + wl) / wcols, wx = (w0 + wl) - wy * wcols;
+      in_view[i] = pixel_tile_in_view(coef + ((long long)n * nj + jj) * 8,
+                                      wx * kWin, wy * kWin, map_w);
+    }
+    __syncthreads();
+  }
+
   // bring unit u (if there is one) into its stage and close its group of
   // copies
   auto stage_unit = [&](int u) {
@@ -173,13 +188,17 @@ window_attention_mma_kernel(const bf16* __restrict__ q,
         const int key = tid / per_key, part = tid - key * per_key;
         const int pix = (int)tok0 + token_offset(kc * KC + key);
         const int y = pix / map_w;
-        const WarpTaps plan = plan_taps<bf16>(cf, pix - y * map_w, y, map_w);
+        WarpTaps plan = plan_taps<bf16>(cf, pix - y * map_w, y, map_w);
+        // the ROI tile skip: a window whose 32 x 32 tile is out of view
+        // for this sender stages the zeros the taps would give, reading
+        // nothing
+        if (!in_view[wl * nj + jj]) plan.flag = 2;
         for (int vec = part; vec < 2 * kPieces; vec += per_key) {
           const bool is_v = vec >= kPieces;
           const int ch = is_v ? vec - kPieces : vec;
           *reinterpret_cast<uint4*>(rows + ((is_v ? KC : 0) + key) * kRow +
                                     ch * 16) =
-              warp_vector_bf16(plan, src + (is_v ? c : 0) + ch * 8,
+              warp_vec16<bf16>(plan, src + (is_v ? c : 0) + ch * 8,
                                (int)kv_stride, pix);
         }
       } else {

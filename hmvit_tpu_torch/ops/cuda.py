@@ -185,6 +185,11 @@ WARP_WINDOW_ATTENTION_SIMT = Kernel("hm_warp_window_attention_simt",
                                     n_ptrs=7, n_ints=9)
 SIMT_KERNELS = (STRIPE_WINDOW_ATTENTION_SIMT, PLAIN_WINDOW_ATTENTION_SIMT,
                 TYPED_WINDOW_ATTENTION_SIMT, WARP_WINDOW_ATTENTION_SIMT)
+# The previous body of the pair-warp kernel (one thread per 8 channels of
+# a pixel, no tile skip), with the same output bits: for timing the two
+# side by side and as the bit anchor of both pair-warp kernels on the
+# card, never on the serving path.
+PAIR_WARP_PREVIOUS = Kernel("hm_pair_warp_previous", n_ptrs=4, n_ints=8)
 KERNELS = {"pair_warp": PAIR_WARP,
            "stripe_window_attention": STRIPE_WINDOW_ATTENTION,
            "plain_window_attention": PLAIN_WINDOW_ATTENTION,

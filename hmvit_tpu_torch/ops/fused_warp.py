@@ -9,6 +9,12 @@ runs :func:`pair_warp_xla` — type gather + :func:`warp_bev_mxu`, the
 JAX package's oracle — for CPU tensors or under
 :func:`hmvit_tpu_torch.ops.plain_ops`.  Its backward recomputes through
 the plain twin.
+
+Both kernels, and the fused warp + attention kernel, skip what is out of
+a sender's view, as the Pallas kernels do, but by a conservative test
+(:func:`roi_tile_valid` here, ``tile_in_view`` in
+``csrc/warp_taps.cuh``): a skipped tile is one the taps would have
+filled with zeros, so the skip changes no bit and the twin needs none.
 """
 from __future__ import annotations
 
@@ -60,6 +66,71 @@ def _prep_affines(pairwise, mode, hw, discrete_ratio, downsample_rate,
             rtype.contiguous())
 
 
+def rect_in_view(coef, x0, y0, w, h, size: int):
+    """Whether any destination pixel of the rectangle [x0, x0 + w) x [y0,
+    y0 + h) of a pair reads a source pixel of the size x size map: the
+    predicate of ``tile_in_view`` in ``csrc/warp_taps.cuh``, in the same
+    float32 operations.  coef (..., 8) coefficient rows
+    (:func:`pair_warp_coefficients`); x0, y0, w, h broadcast against
+    coef[..., 0].  False for invalid pairs, True for identity pairs.
+
+    Conservative, where the Pallas kernels' test is not: a column tap
+    contributes only where the column coordinate lies in (-1, size), a
+    row tap only where the row coordinate does, and the row coordinate,
+    taken at the integer column tap c with |c - ccoord| < 1, lies within
+    |v0| of the affine row v0 m00 x' + (v0 m01 + v1) y' + ty_adj + v0 tx;
+    so its margin is 1 + |v0|, not 1.  The slack (1e-3 + 1e-5 of the
+    terms' magnitude, some 80 ulps) covers the fp32 rounding of the
+    kernels' coordinates and of this test."""
+    f32 = torch.float32
+    m00, m01, tx, v0, v1, tya = (coef[..., k] for k in range(6))
+    flag = coef[..., 7]
+    xa = torch.as_tensor(x0, dtype=f32, device=coef.device)
+    ya = torch.as_tensor(y0, dtype=f32, device=coef.device)
+    xb = xa + (torch.as_tensor(w, dtype=f32, device=coef.device) - 1.0)
+    yb = ya + (torch.as_tensor(h, dtype=f32, device=coef.device) - 1.0)
+
+    def span(cx, cy, c0):
+        p, q, u, v = cx * xa, cx * xb, cy * ya, cy * yb
+        return ((torch.minimum(p, q) + torch.minimum(u, v)) + c0,
+                (torch.maximum(p, q) + torch.maximum(u, v)) + c0)
+
+    rx = v0 * m00
+    ry = v0 * m01 + v1
+    r0 = tya + v0 * tx
+    col_lo, col_hi = span(m00, m01, tx)
+    row_lo, row_hi = span(rx, ry, r0)
+    av0 = v0.abs()
+    fsize = float(size)
+    mag = (((m00.abs() + m01.abs()) + (v1.abs()
+                                       + av0 * ((m00.abs() + m01.abs())
+                                                + 1.0)))
+           * (fsize + 1.0)
+           + ((tx.abs() + tya.abs()) + (v0 * tx).abs()))
+    slack = 1e-3 + 1e-5 * mag
+    seen = ((col_hi > -(1.0 + slack)) & (col_lo < fsize + slack)
+            & (row_hi > -((1.0 + av0) + slack))
+            & (row_lo < fsize + (av0 + slack)))
+    return torch.where(flag > 1.5, False, torch.where(flag > 0.5, True,
+                                                      seen))
+
+
+def roi_tile_valid(coef, size: int, tile: int = 32):
+    """(..., XT, YT) bool: which tile x tile destination tiles (clipped to
+    the map; XT = YT = ceil(size / tile)) of each pair are in view —
+    the Pallas kernels' ROI tile skip (``_prep_affines``' ``valid``, in
+    its (xt, yt) order), made conservative (:func:`rect_in_view`).  A
+    tile marked False is exactly zero in the kernels' output and in the
+    twin's."""
+    n_t = -(-size // tile)
+    starts = torch.arange(n_t, device=coef.device) * tile
+    x0 = starts[:, None]
+    y0 = starts[None, :]
+    w = torch.clamp(size - x0, max=tile)
+    h = torch.clamp(size - y0, max=tile)
+    return rect_in_view(coef[..., None, None, :], x0, y0, w, h, size)
+
+
 def pair_warp_xla(src_typed, pairwise, mode, discrete_ratio,
                   downsample_rate, num_receivers=None):
     """Plain twin: type gather + separable warp.
@@ -79,8 +150,11 @@ def pair_warp_xla(src_typed, pairwise, mode, discrete_ratio,
     ).reshape(bsz, r, l, h, w, ck)
 
 
-# the resident kernel stages 8 bytes per pixel of one whole source map
-# in a block's shared memory (227 KB on Hopper)
+# the resident variant's gate, the JAX package's rule on this card: a
+# whole map at 8 bytes a pixel fits a block's shared memory (227 KB on
+# Hopper).  The kernel stages a map's channel slab (16-64 bytes a pixel)
+# in the shared memory of a cluster of 8 blocks, a band of rows each, so
+# every map the gate admits fits.
 RESIDENT_SLAB_BYTES = 8
 MAX_SHARED_BYTES = 232448
 
@@ -100,21 +174,23 @@ def resolve_variant(variant: str, h: int, w: int) -> str:
 
 def pair_warp_launch(src_typed, pairwise, mode, discrete_ratio,
                      downsample_rate, num_receivers=None, coef=None,
-                     variant: str = "auto"):
+                     variant: str = "auto", previous: bool = False):
     """Validate and lay out one pair-warp launch: returns (launch, out)
     where ``launch()`` runs the kernel into ``out`` (B, I, J, H, W, C).
     ``coef`` is the frame's :func:`pair_warp_coefficients` of
-    ``pairwise``, or None to compute them here."""
+    ``pairwise``, or None to compute them here.  ``previous`` runs the
+    tile kernel's previous body whatever the variant: for timing only, it
+    gives the same bits."""
     bsz, ty_count, l, h, w, ck = src_typed.shape
-    kernel = (cuda.PAIR_WARP_RESIDENT
-              if resolve_variant(variant, h, w) == "resident"
-              else cuda.PAIR_WARP)
+    resident = resolve_variant(variant, h, w) == "resident" and not previous
+    kernel = (cuda.PAIR_WARP_PREVIOUS if previous
+              else cuda.PAIR_WARP_RESIDENT if resident else cuda.PAIR_WARP)
     r = l if num_receivers is None else num_receivers
     if src_typed.dtype not in cuda.DTYPE_CODES:
         raise TypeError(f"pair warp: unsupported dtype {src_typed.dtype}")
-    if h != w or ck % 8:
-        raise ValueError(f"pair warp needs square maps and C % 8 == 0, "
-                         f"got {(h, w, ck)}")
+    if h != w or ck % 8 or h * w * ck >= 2 ** 31:
+        raise ValueError(f"pair warp needs square maps of fewer than 2^31 "
+                         f"elements and C % 8 == 0, got {(h, w, ck)}")
     if (tuple(pairwise.shape) != (bsz, l, l, 4, 4)
             or tuple(mode.shape) != (bsz, l) or not 0 < r <= l):
         raise ValueError(f"pair warp: pairwise {tuple(pairwise.shape)}, "

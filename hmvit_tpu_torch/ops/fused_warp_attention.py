@@ -60,6 +60,9 @@ def warp_window_attention_launch(q, src_typed, pairwise, mode, mask, bias,
     if q.dtype not in cuda.DTYPE_CODES or src_typed.dtype != q.dtype:
         raise TypeError(f"warp + attention: unsupported dtypes {q.dtype}/"
                         f"{src_typed.dtype}")
+    if h * w * ck2 >= 2 ** 31:
+        raise ValueError(f"warp + attention: a map of {h * w * ck2} "
+                         f"elements, the kernel indexes maps in 32 bits")
     if h != w or h % win or dim_head % 8:
         raise ValueError(f"warp + attention needs square maps divisible by "
                          f"the window and dim_head % 8 == 0, got {(h, w)}, "

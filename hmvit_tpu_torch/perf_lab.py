@@ -139,11 +139,15 @@ class Lab:
     def rand(self, *shape):
         return torch.rand(*shape, generator=self.gen, device=self.dev)
 
-    def rand_pairwise(self, l: int):
+    def rand_pairwise(self, l: int, spread: float = 20.0):
         """Random rigid pairwise transforms (1, L, L, 4, 4);
-        pairwise[b, j, i] = inv(M_i) @ M_j maps j's frame into i's."""
+        pairwise[b, j, i] = inv(M_i) @ M_j maps j's frame into i's.
+        Positions uniform within +-``spread`` metres on each axis (20:
+        every pair shares most of its view; 120 on the 204.8 m map:
+        agents up to 240 m apart, about a quarter of the pairs' 32 x 32
+        tiles out of view)."""
         ang = (self.rand(1, l) * 2 - 1) * np.pi
-        pos = (self.rand(1, l, 2) * 2 - 1) * 20.0
+        pos = (self.rand(1, l, 2) * 2 - 1) * spread
         m = torch.eye(4, device=self.dev).repeat(1, l, 1, 1)
         m[:, :, 0, 0], m[:, :, 0, 1] = torch.cos(ang), -torch.sin(ang)
         m[:, :, 1, 0], m[:, :, 1, 1] = torch.sin(ang), torch.cos(ang)

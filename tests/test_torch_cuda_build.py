@@ -35,9 +35,11 @@ KERNELS = {
 # (the source with the entry points, the host function it calls)
 INNER_SOURCES = {"window_attention_mma.cu": (
     "window_attention.cu", "hm::launch_window_attention_mma(")}
-# C entry points beside the registered ones: the previous (fp32
-# CUDA-core) body for timing, and the count of launches by body
-EXTRA_SYMBOLS = {"hm_stripe_window_attention_simt": "window_attention.cu",
+# C entry points beside the registered ones: the previous body for
+# timing (the attention kernels' fp32 CUDA-core body, the pair warp's one
+# thread per 8 channels), and the count of launches by body
+EXTRA_SYMBOLS = {"hm_pair_warp_previous": "pair_warp.cu",
+                 "hm_stripe_window_attention_simt": "window_attention.cu",
                  "hm_warp_window_attention_simt": "fused_warp_attention.cu",
                  "hm_plain_window_attention_simt": "window_attention.cu",
                  "hm_typed_window_attention_simt": "window_attention.cu",
@@ -143,8 +145,13 @@ def test_tensor_core_kernel_template_is_shared_not_copied():
             if "window_attention_mma_kernel(const bf16* __restrict__ q,"
             in body] == [header]
     assert '#include "warp_taps.cuh"' in text[header]
-    assert "warp_vector_bf16(plan," in text[header]
-    assert "uint4 warp_vector_bf16(" in text["warp_taps.cuh"]
+    assert "warp_vec16<bf16>(plan," in text[header]
+    assert "uint4 warp_vec16(" in text["warp_taps.cuh"]
+    # the same routine, with the same ROI tile test, in both pair warps
+    assert "hm::combine_taps<T>(" in text["pair_warp.cu"]
+    assert "hm::warp_vec16<T>(" in text["pair_warp.cu"]
+    for name in ("pair_warp.cu", header, "fused_warp_attention.cu"):
+        assert "tile_in_view(" in text[name], name
     inner = text["window_attention_mma.cu"]
     fused = text["fused_warp_attention.cu"]
     assert "mma::kStripe>(" in inner and "mma::kSplit>(" in inner
@@ -161,3 +168,6 @@ def test_extra_entry_points_are_defined(symbol):
         kernels = {k.symbol: k for k in cuda.SIMT_KERNELS}
         chooser = {k.symbol: k for k in cuda.KERNELS.values()}[symbol[:-5]]
         assert kernels[symbol].argtypes == chooser.argtypes
+    if symbol == "hm_pair_warp_previous":
+        assert cuda.PAIR_WARP_PREVIOUS.symbol == symbol
+        assert cuda.PAIR_WARP_PREVIOUS.argtypes == cuda.PAIR_WARP.argtypes

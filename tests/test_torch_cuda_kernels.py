@@ -19,6 +19,8 @@ from hmvit_tpu_torch.ops.expand import (
 from hmvit_tpu_torch.ops.fused_warp import (
     fused_pair_warp,
     pair_warp_coefficients,
+    pair_warp_launch,
+    roi_tile_valid,
 )
 from hmvit_tpu_torch.ops.fused_warp_attention import (
     fused_warp_window_attention,
@@ -163,6 +165,101 @@ def test_resident_variant_falls_to_tile_on_small_maps(dev):
     after = cuda.launch_counts()
     assert after["pair_warp"] == before["pair_warp"] + 1
     assert after["pair_warp_resident"] == before["pair_warp_resident"]
+
+
+def _poses(kind):
+    """(pairwise (1, L, L, 4, 4) float32, (discrete_ratio,
+    downsample_rate)) of a pose set: five agents within 12 m
+    ("co-located"; agent 2 on agent 0's pose, so pairs (0, 2) and (2, 0)
+    are identities) or within 120 m ("spread", the 204.8 m map at
+    128^2), or the two agents of the 222nd draw of default_rng(0) (64 px
+    maps at one metre a pixel), on which the Pallas kernels' tile skip
+    is not conservative.  Sender 1 -> receiver 0 has non-finite
+    coefficients (zeros)."""
+    if kind == "draw222":
+        rng = np.random.default_rng(0)
+        for _ in range(222):
+            pair = rigid_pairwise(rng, 1, 2, 90.0)
+            rng.normal(size=(1, 1, 2, 64, 64, 8))
+        geo = (1.0, 1.0)
+    else:
+        rng = np.random.default_rng(11)
+        l, max_t = 5, 12.0 if kind == "co-located" else 120.0
+        ang = rng.uniform(-np.pi, np.pi, (1, l))
+        ang[0, 2] = ang[0, 0]
+        m = np.tile(np.eye(4), (1, l, 1, 1))
+        m[:, :, 0, 0], m[:, :, 0, 1] = np.cos(ang), -np.sin(ang)
+        m[:, :, 1, 0], m[:, :, 1, 1] = np.sin(ang), np.cos(ang)
+        m[:, :, :2, 3] = rng.uniform(-max_t, max_t, (1, l, 2))
+        m[0, 2, :2, 3] = m[0, 0, :2, 3]
+        pair = np.einsum("bixy,bjyz->bjixz", np.linalg.inv(m), m).astype(
+            np.float32)
+        geo = (0.4, 4)
+    pair[0, 1, 0] = np.nan
+    return pair, geo
+
+
+@pytest.mark.parametrize("c", [8, 64, 512])
+@pytest.mark.parametrize("size", [64, 96, 100, 128, 160])
+@pytest.mark.parametrize("poses", ["co-located", "spread", "draw222"])
+def test_new_pair_warp_kernels_equal_previous_body(dev, poses, size, c):
+    """The redesigned tile kernel equals its previous body, and the
+    resident kernel equals it, bit for bit, in both types, at every size
+    the resident gate admits (bands of 8, 12, 16 and 20 rows; 16-byte
+    slabs at 160) and at 100 x 100, where the resident variant runs the
+    tile kernel, for receivers I in {1, 4, 5} (I <= L) and type variants
+    TY in {1, 2}, with identity and non-finite pairs; the tile kernel
+    also against the twin once a case.  Tiles out of view are zeros."""
+    pair_np, geo = _poses(poses)
+    pair = torch.as_tensor(pair_np, device=dev)
+    l = pair.shape[1]
+    g = torch.Generator(device=dev).manual_seed(size + c)
+    coef = pair_warp_coefficients(pair, (size, size), *geo)
+    seen = roi_tile_valid(coef, size)  # (1, L, L, XT, YT)
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, ty in ((1, 2), (4, 1), (5, 2)):
+            r = min(i, l)
+            src = torch.randn(1, ty, l, size, size, c, generator=g,
+                              device=dev).to(dtype)
+            mode = torch.randint(0, ty, (1, l), generator=g, device=dev)
+            args = (src, pair, mode, *geo, r)
+            before = dict(cuda.launch_counts())
+            new = fused_pair_warp(*args)
+            launch, prev = pair_warp_launch(*args, previous=True)
+            launch()
+            res = fused_pair_warp(*args, variant="resident")
+            torch.cuda.synchronize()
+            after = cuda.launch_counts()
+            resident = size in (64, 96, 128, 160)
+            # at 100 x 100 the resident launch runs the tile kernel
+            assert after["pair_warp"] == \
+                before["pair_warp"] + (1 if resident else 2)
+            assert after["pair_warp_resident"] == \
+                before["pair_warp_resident"] + (1 if resident else 0)
+            assert torch.equal(new, prev), (dtype, i, ty)
+            assert torch.equal(res, new), (dtype, i, ty)
+            assert torch.all(new[0, 0, 1] == 0)  # the non-finite pair
+            n_t = -(-size // 32)
+            tiles = torch.zeros(1, r, l, n_t * 32, n_t * 32, c, dtype=dtype,
+                                device=dev)
+            tiles[..., :size, :size, :] = new
+            nz = (tiles != 0).reshape(1, r, l, n_t, 32, n_t, 32, c) \
+                .any(-1).any(-1).any(-2).transpose(-1, -2)
+            assert not bool((~seen[:, :r] & nz).any())
+            if i == 4:
+                with plain_ops():
+                    want = fused_pair_warp(*args)
+                want = torch.nan_to_num(want.float(), nan=0.0)
+                # identity pairs (flag 1) are copies of the sender's map:
+                # held to the map itself, since the twin warps them by
+                # coefficients one rounding off the identity (1.6e-4 off
+                # at 160 x 160)
+                ident = (coef[:, :r, :, 7] == 1)[..., None, None, None]
+                typed = src[0][mode[0, :r]][None]
+                assert torch.equal(torch.where(ident, typed, new), new)
+                want = torch.where(ident, typed.float(), want)
+                err = float((new.float() - want).abs().max())
+                assert err <= TOL[dtype], err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
