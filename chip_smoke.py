@@ -39,8 +39,13 @@ Phases:
    (one-pass segmented max-scan, dense expansion v1 and v2) are held to
    their plain versions bit for bit, in float32 and bfloat16, on the
    pillar ids and PFN rows of the production batch (also at C = 12), on
-   a synthetic 40 000-row case and on repeated ids; their library call is
-   ``torch.zeros`` + ``index_copy_`` (the scan has none), and each
+   a synthetic 40 000-row case and on repeated ids; the scan also on
+   dense clouds and on long runs (65 536 rows, runs up to 4096, steps
+   12: the kernel's second launch), and against its previous body, with
+   which it is timed in turns (``previous_ms``, ``previous_device_ms``;
+   the dense and long-run cases' times under ``dense_`` and
+   ``long_run_``); the expansions' library call is ``torch.zeros`` +
+   ``index_copy_`` (the scan has none), and each
    expansion kernel's time is printed over it as a ratio.  These
    kernels run for less time than their host launch takes, so for them
    and their library call the script also reads the device time alone
@@ -183,6 +188,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 NUM_AGENTS = 4
+# rows of the segmented scan's long-run case (runs up to 4096, steps 12)
+LONG_RUN_P = 65536
 TIMED_REQUESTS = 20
 TIMED_BLOCK = 10
 
@@ -657,8 +664,10 @@ def check_lidar_kernels(dev, points, points_mask):
     rows (points (N, P, 4) of the lidar agents), on dense clouds of as
     many points (every row valid, runs up to the point cap), on 40 000
     synthetic rows, and on shapes outside the Pallas kernels' gates (a
-    704 x 200 grid, C = 12); bfloat16 times on the production case (the
-    one the record carries), the dense clouds and the synthetic rows."""
+    704 x 200 grid, C = 12); the scan also on long runs and against its
+    previous body; bfloat16 times on the production case (the one the
+    record carries), the dense clouds, the long runs and the synthetic
+    rows."""
     import torch
 
     from hmvit_tpu_torch import perf_lab
@@ -673,6 +682,7 @@ def check_lidar_kernels(dev, points, points_mask):
     )
     from hmvit_tpu_torch.ops.segscan import (
         fused_segmented_max_scan,
+        scan_plan,
         segmented_max_scan_launch,
     )
     from hmvit_tpu_torch.ops.voxelize import compact_pillar_rows, scan_steps
@@ -694,11 +704,27 @@ def check_lidar_kernels(dev, points, points_mask):
                                  f"{what} (max|diff| {err})")
         return err
 
-    def times(name, label, launch, wrapper, library, nbytes, ops, extra=""):
+    def times(name, label, launch, wrapper, library, nbytes, ops, extra="",
+              previous=None):
         """Kernel and library call as one call each (``time_ms``, as
         every kernel is timed), and on the device alone (``device_ms``):
-        these kernels run for less time than their host launch takes."""
-        k_ms, k_dev = time_ms(launch), device_ms(launch)
+        these kernels run for less time than their host launch takes.
+        ``previous``: the kernel's previous body, timed in turns with it
+        (previous, new, new, previous), one call and on the device."""
+        prev = {}
+        if previous is None:
+            k_ms, k_dev = time_ms(launch), device_ms(launch)
+        else:
+            order = (previous, launch, launch, previous)
+            one = [time_ms(f) for f in order]
+            dev_t = [device_ms(f) for f in order]
+            k_ms, k_dev = (one[1] + one[2]) / 2, (dev_t[1] + dev_t[2]) / 2
+            prev = {"previous_ms": (one[0] + one[3]) / 2,
+                    "previous_device_ms": (dev_t[0] + dev_t[3]) / 2}
+            print(f"  {name} [{label}, bfloat16]: previous body "
+                  f"{one[0]:.4f} / {one[3]:.4f} ms (device {dev_t[0]:.4f} / "
+                  f"{dev_t[3]:.4f}), new body {one[1]:.4f} / {one[2]:.4f} ms "
+                  f"(device {dev_t[1]:.4f} / {dev_t[2]:.4f}), in turns")
         w_ms = time_ms(wrapper)
         with plain_ops():
             p_ms = time_ms(wrapper)
@@ -716,41 +742,51 @@ def check_lidar_kernels(dev, points, points_mask):
               f"({b_by}){extra}")
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": lib_ms, "device_ms": k_dev,
-                "library_device_ms": lib_dev}
+                "library_device_ms": lib_dev, **prev}
 
-    def scan_case(label, key, feats, ids, steps, timed):
-        """The one-pass scan against the log-shift scan on rows whose id
-        is >= 0; returns the log-shift scan's output."""
+    def scan_case(label, key, feats, ids, steps, timed, record_as=None):
+        """The one-pass scan against the log-shift scan and against its
+        previous body on rows whose id is >= 0; returns the log-shift
+        scan's output.  A timed case's numbers go into the record, the
+        production case's as the record's own keys, the others' under
+        ``record_as``."""
         valid = ids >= 0
         got = fused_segmented_max_scan(feats, ids, steps)
         with plain_ops():
             want = fused_segmented_max_scan(feats, ids, steps)
+        old, old_out = segmented_max_scan_launch(feats, ids, steps,
+                                                 previous=True)
+        old()
         torch.cuda.synchronize()
         err = must_equal("segmented_max_scan", label, key, got[valid],
                          want[valid], "the log-shift scan")
+        must_equal("segmented_max_scan", label, key, got[valid],
+                   old_out[valid], "its previous body")
         if not timed:
             return want
-        p = feats.shape[0]
+        p, c = feats.shape
         launch, out = segmented_max_scan_launch(feats, ids, steps)
-        # one maximum per channel and row a thread looks back over
-        idx = torch.arange(p, device=dev)
-        new = torch.cat([torch.ones_like(valid[:1]), ids[1:] != ids[:-1]])
-        start = torch.cummax(torch.where(new, idx, 0), dim=0).values
-        back = (idx - start) * valid
+        rows, two_pass = scan_plan(c, steps)
+        # the function's work: one maximum per channel for each row that
+        # continues a run, whatever computes it
+        cont = int(((ids[1:] == ids[:-1]) & valid[1:]).sum())
         nbytes = 2 * feats.numel() * feats.element_size() + p * 4
         rec = dict(
             times("segmented_max_scan", label, launch,
                   lambda: fused_segmented_max_scan(feats, ids, steps), None,
-                  nbytes, float(back.sum()) * feats.shape[1],
-                  f"; {int(valid.sum())} rows with id >= 0, the longest "
-                  f"look-back {int(back.max())} rows"),
+                  nbytes, float(cont * c),
+                  f"; {int(valid.sum())} rows with id >= 0, {cont} of them "
+                  f"continue a run; tiles of {rows} rows, "
+                  f"{'two launches' if two_pass else 'one launch'}",
+                  previous=old),
             max_abs_err=err)
-        if "segmented_max_scan" in record:  # production came first
-            record["segmented_max_scan"].update(
-                dense_ms=rec["ms"], dense_plain_ms=rec["plain_ms"],
-                dense_bound_ms=rec["bound_ms"])
-        else:
+        if record_as is None:
             record["segmented_max_scan"] = rec
+        else:
+            record["segmented_max_scan"].update(
+                {f"{record_as}_{k}": rec[k] for k in (
+                    "ms", "device_ms", "previous_ms", "previous_device_ms",
+                    "plain_ms", "bound_ms")})
         return want
 
     def expand_case(label, key, comp, ids, timed, num_cells=num_cells):
@@ -854,11 +890,27 @@ def check_lidar_kernels(dev, points, points_mask):
                 lidar["lidar_range"]))
         d_ids = torch.where(d_info["keep"], d_info["pillar_id"], -1)
         d_want = scan_case(f"dense clouds P={p} C={feats.shape[1]}", key,
-                           d_feats, d_ids, steps, timed=bf16)
+                           d_feats, d_ids, steps, timed=bf16,
+                           record_as="dense")
         d_comp = compact_pillar_rows(
             d_want * d_info["keep"][:, None].to(d_want.dtype),
             d_info["pillar_id"], d_ids, d_info["keep"], num_cells)
         expand_case("dense clouds", key, *d_comp, timed=False)
+
+        # -- long runs (the cap-free contract): runs of 1..4096 rows, a
+        # fifth of them -1, steps 12, so that the carry takes the second
+        # launch
+        l_rng, seg, cur = np.random.RandomState(1), [], 0
+        while len(seg) < LONG_RUN_P:
+            run = int(l_rng.randint(1, 4097))
+            seg.extend([-1 if l_rng.rand() < 0.2 else cur] * run)
+            cur += 1
+        l_ids = torch.as_tensor(np.asarray(seg[:LONG_RUN_P], np.int32),
+                                device=dev)
+        scan_case(f"long runs P={LONG_RUN_P} C={feats.shape[1]} steps 12",
+                  key, torch.randn(LONG_RUN_P, feats.shape[1],
+                                   device=dev).to(dt), l_ids, 12,
+                  timed=bf16, record_as="long_run")
 
         # -- outside the Pallas kernels' gates: C % 8 != 0, cells % 4096 != 0
         scan_case(f"production P={p} C=12", key,

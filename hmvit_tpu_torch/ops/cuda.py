@@ -190,6 +190,12 @@ SIMT_KERNELS = (STRIPE_WINDOW_ATTENTION_SIMT, PLAIN_WINDOW_ATTENTION_SIMT,
 # side by side and as the bit anchor of both pair-warp kernels on the
 # card, never on the serving path.
 PAIR_WARP_PREVIOUS = Kernel("hm_pair_warp_previous", n_ptrs=4, n_ints=8)
+# The previous body of the segmented max-scan (one thread per (row, 8
+# channels) looking back a row at a time), with the same output bits on
+# rows whose id is >= 0: for timing and as the on-card bit anchor, never
+# on the serving path.
+SEGMENTED_MAX_SCAN_PREVIOUS = Kernel("hm_segmented_max_scan_previous",
+                                     n_ptrs=3, n_ints=4)
 KERNELS = {"pair_warp": PAIR_WARP,
            "stripe_window_attention": STRIPE_WINDOW_ATTENTION,
            "plain_window_attention": PLAIN_WINDOW_ATTENTION,

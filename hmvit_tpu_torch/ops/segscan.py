@@ -18,7 +18,9 @@ unspecified on both sides and must not be compared or consumed.
 The JAX gate (``C % 8 == 0`` and a row-block divisor of P that is at
 least 512) answered the TPU's fast memory and is dropped: any P and any
 C run here.  With ``C % 8 == 0`` a thread moves 8 channels as whole
-words; any other C takes one channel per thread.
+words; any other C takes one channel per thread.  The kernel scans tiles
+of rows (:func:`scan_plan` mirrors their size), and runs longer than a
+tile take a second launch inside the same call.
 """
 from __future__ import annotations
 
@@ -28,14 +30,33 @@ from . import cuda, use_kernel
 from .voxelize import segmented_scan
 
 
+# csrc/segscan.cu: threads a block, rows a thread scans, channel vectors
+# a block
+THREADS, SLICE, MAX_GROUP = 256, 8, 32
+
+
+def scan_plan(c: int, steps: int) -> tuple[int, bool]:
+    """(rows a tile, whether the call takes the second launch) of the
+    kernel for C channels: a block of 256 threads, each over 8 rows of
+    one vector of 8 channels (one channel when C % 8 != 0), up to 32
+    vectors a block; the second launch carries runs longer than a tile
+    (2**steps - 1 > rows).  Mirrors ``hm_segmented_max_scan_plan``."""
+    cvecs = c // 8 if c % 8 == 0 else c
+    rows = THREADS // min(cvecs, MAX_GROUP) * SLICE
+    return rows, (1 << steps) - 1 > rows
+
+
 def segmented_max_scan_plain(vals, seg_id, steps: int = 5):
     """Plain version: ``steps`` log-shift passes over (P, C)."""
     return segmented_scan(vals, seg_id, steps, torch.maximum, float("-inf"))
 
 
-def segmented_max_scan_launch(vals, seg_id, steps: int = 5):
+def segmented_max_scan_launch(vals, seg_id, steps: int = 5,
+                              previous: bool = False):
     """Validate and lay out one launch: returns (launch, out) where
-    ``launch()`` runs the kernel into ``out`` (P, C)."""
+    ``launch()`` runs the kernel into ``out`` (P, C).  ``previous`` runs
+    the kernel's previous body (same bits on rows whose id is >= 0): for
+    timing and as the on-card anchor only."""
     if vals.dtype not in cuda.DTYPE_CODES:
         raise TypeError(f"segmented max-scan: unsupported dtype {vals.dtype}")
     if vals.ndim != 2 or tuple(seg_id.shape) != (vals.shape[0],):
@@ -50,8 +71,9 @@ def segmented_max_scan_launch(vals, seg_id, steps: int = 5):
     ids = seg_id.to(torch.int32).contiguous()
     out = torch.empty_like(vals)
     ints = [cuda.DTYPE_CODES[vals.dtype], p, c, steps]
-    return (lambda: cuda.SEGMENTED_MAX_SCAN.launch([vals, ids, out], ints),
-            out)
+    kernel = (cuda.SEGMENTED_MAX_SCAN_PREVIOUS if previous
+              else cuda.SEGMENTED_MAX_SCAN)
+    return lambda: kernel.launch([vals, ids, out], ints), out
 
 
 class _SegmentedMaxScan(torch.autograd.Function):

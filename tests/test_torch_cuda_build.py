@@ -36,9 +36,12 @@ KERNELS = {
 INNER_SOURCES = {"window_attention_mma.cu": (
     "window_attention.cu", "hm::launch_window_attention_mma(")}
 # C entry points beside the registered ones: the previous body for
-# timing (the attention kernels' fp32 CUDA-core body, the pair warp's one
-# thread per 8 channels), and the count of launches by body
+# timing (the attention kernels' fp32 CUDA-core body, the pair warp's and
+# the segmented scan's one thread per 8 channels), the count of launches
+# by body, and the scan's tiling (mirrored by ``segscan.scan_plan``)
 EXTRA_SYMBOLS = {"hm_pair_warp_previous": "pair_warp.cu",
+                 "hm_segmented_max_scan_previous": "segscan.cu",
+                 "hm_segmented_max_scan_plan": "segscan.cu",
                  "hm_stripe_window_attention_simt": "window_attention.cu",
                  "hm_warp_window_attention_simt": "fused_warp_attention.cu",
                  "hm_plain_window_attention_simt": "window_attention.cu",
@@ -171,3 +174,7 @@ def test_extra_entry_points_are_defined(symbol):
     if symbol == "hm_pair_warp_previous":
         assert cuda.PAIR_WARP_PREVIOUS.symbol == symbol
         assert cuda.PAIR_WARP_PREVIOUS.argtypes == cuda.PAIR_WARP.argtypes
+    if symbol == "hm_segmented_max_scan_previous":
+        assert cuda.SEGMENTED_MAX_SCAN_PREVIOUS.symbol == symbol
+        assert (cuda.SEGMENTED_MAX_SCAN_PREVIOUS.argtypes
+                == cuda.SEGMENTED_MAX_SCAN.argtypes)

@@ -26,7 +26,11 @@ from hmvit_tpu_torch.ops.fused_warp_attention import (
     fused_warp_window_attention,
     warp_window_attention_launch,
 )
-from hmvit_tpu_torch.ops.segscan import fused_segmented_max_scan
+from hmvit_tpu_torch.ops.segscan import (
+    fused_segmented_max_scan,
+    scan_plan,
+    segmented_max_scan_launch,
+)
 from hmvit_tpu_torch.ops.voxelize import scatter_max_to_bev
 from hmvit_tpu_torch.ops.window_attention import (
     attention_body,
@@ -645,11 +649,15 @@ def _runs(rng, p, max_run, dropped=0.2):
     return np.asarray(seg[:p], np.int32)
 
 
+# P, C, steps: P no multiple of any tile, C of 8 or not (one channel a
+# thread then), runs up to 2**steps; the last is the long-run case (runs
+# up to 4096 rows over up to 17 tiles: the second launch)
+SCAN_SHAPES = [(1024, 8, 5), (60001, 64, 5), (777, 24, 3), (300, 64, 0),
+               (777, 12, 5), (1021, 3, 4), (515, 1, 2), (65536, 64, 12)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("p,c,steps", [(1024, 8, 5), (60001, 64, 5),
-                                       (777, 24, 3), (300, 64, 0),
-                                       (777, 12, 5), (1021, 3, 4),
-                                       (515, 1, 2)])
+@pytest.mark.parametrize("p,c,steps", SCAN_SHAPES)
 def test_segmented_max_scan_kernel(dev, dtype, p, c, steps):
     """Bit for bit against the log-shift scan on every row whose id is
     >= 0; P is no multiple of any block, C of 8 or not (one channel per
@@ -666,6 +674,35 @@ def test_segmented_max_scan_kernel(dev, dtype, p, c, steps):
     assert got.dtype == want.dtype == dtype
     valid = seg >= 0
     assert torch.equal(got[valid], want[valid])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,c,steps", SCAN_SHAPES)
+def test_segmented_max_scan_equals_previous_body(dev, dtype, p, c, steps):
+    """The tiled kernel equals its previous body (a thread per row and 8
+    channels, looking back a row at a time) bit for bit on every row
+    whose id is >= 0; only the kernel's own counter moves for it."""
+    rng = np.random.default_rng(p + 1)
+    seg = torch.as_tensor(_runs(rng, p, 1 << steps), device=dev)
+    vals = torch.randn(p, c, device=dev).to(dtype)
+    outs = []
+    for previous in (False, True):
+        launch, out = segmented_max_scan_launch(vals, seg, steps, previous)
+        before = cuda.launch_counts()
+        launch()
+        assert (cuda.launch_counts() != before) == (not previous)
+        outs.append(out)
+    torch.cuda.synchronize()
+    valid = seg >= 0
+    assert torch.equal(outs[0][valid], outs[1][valid])
+
+
+def test_segmented_max_scan_plan_equals_its_mirror(dev):
+    fn = cuda.load_library().hm_segmented_max_scan_plan
+    for c in (1, 3, 8, 12, 24, 64, 256, 512, 520):
+        for steps in (0, 5, 8, 9, 12, 30):
+            rows, two_pass = scan_plan(c, steps)
+            assert fn(c, steps) == (-rows if two_pass else rows), (c, steps)
 
 
 def test_segmented_max_scan_giant_dropped_run_and_gradient(dev):
