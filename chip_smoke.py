@@ -79,7 +79,20 @@ Phases:
    then time 20 more requests per server in blocks of 10, the servers
    taking turns in mirrored order, and print the median and spread of
    ms/frame of each;
-6. run the typed-attention (float32 and bfloat16), resident-warp,
+6. capture each server's forward and decode + NMS in CUDA graphs
+   (``hmvit_tpu_torch.graph_server.CompiledServer``), replay requests
+   0-2 and hold psm, rm and the decoded boxes bit for bit to phase 5's
+   eager outputs; the launches counted at capture and, under
+   ``torch.profiler``, the hand-written kernels of one replay (by their
+   ``csrc`` names) must be each server's per-request counts; time 20
+   graph frames per server in turns with 20 eager ones (eager, graph,
+   graph, eager, in blocks of 10) and print median, min and max
+   ms/frame beside phase 5's; then run ``python -m
+   hmvit_tpu_torch.bench`` (split, ``--fused_wa``, ``--expand v1``,
+   ``--expand v2``), print its JSON line, and roll the split and
+   ``--fused_wa`` runs' traces up by class
+   (``hmvit_tpu_torch.tools.profile``);
+7. run the typed-attention (float32 and bfloat16), resident-warp,
    segmented-scan, expansion and lidar stages of
    ``hmvit_tpu_torch.perf_lab`` — the entry point that reaches the typed,
    resident and scan kernels — and count their launches, those of the
@@ -299,7 +312,7 @@ def check_kernels(dev, pairwise, agent_mask):
         _window_split,
         pairwise_roi_mask,
     )
-    from hmvit_tpu_torch.ops import cuda, plain_ops
+    from hmvit_tpu_torch.ops import cuda, opcount, plain_ops
     from hmvit_tpu_torch.ops.fused_warp import (
         fused_pair_warp,
         pair_warp_coefficients,
@@ -337,12 +350,9 @@ def check_kernels(dev, pairwise, agent_mask):
     bias = randn(heads, t, t) * 0.5
 
     def attention_ops(n, j, typed=False):
-        """Multiply-adds counted as 2: q k^T and p v over J*T keys per
-        (map, window, head); typed adds q W_att and v W_msg^T."""
-        per_head = 4 * t * j * t * d
-        if typed:
-            per_head += 2 * t * d * d * j + 2 * j * t * d * d
-        return float(n * nwin * heads * per_head)
+        """Multiply-adds counted as 2 (``opcount.attention_ops``, the
+        FLOP count of ``hmvit_tpu_torch.bench`` too)."""
+        return opcount.attention_ops(n, nwin, t, j, heads, d, typed)
 
     def sdpa(qw, kw, vw, bias_, mw):
         """The library call on pre-split windows: qw (N, Wn, T, C); kw,
@@ -396,7 +406,7 @@ def check_kernels(dev, pairwise, agent_mask):
             prep=lambda *a, **kw: pair_warp_launch(*a, variant=variant, **kw),
             exact=exact, exact_what=what, library=None, previous=True,
             previous_kw={"previous": True}, device=True,
-            ops=12.0 * r * j * size * size * ck)
+            ops=opcount.pair_warp_ops(r, j, size, size, ck))
 
     def stripe(dt, n):
         args = (randn(n, hw, hw, c).to(dt), randn(n, l, hw, hw, 2 * c).to(dt),
@@ -469,8 +479,8 @@ def check_kernels(dev, pairwise, agent_mask):
             fn=fused_warp_window_attention,
             prep=warp_window_attention_launch, exact=exact, library=None,
             previous=True, exact_what="the split kernels",
-            ops=(attention_ops(r, j) * (size / hw) ** 2
-                 + 12.0 * r * j * size * size * 2 * c))
+            ops=(opcount.attention_ops(r, (size // win) ** 2, t, j, heads, d)
+                 + opcount.pair_warp_ops(r, j, size, size, 2 * c)))
 
     grid_mask = _window_split(mask_ij[..., None], win, "grid")[..., 0] \
         .reshape(l, l, nwin, t)
@@ -931,6 +941,171 @@ def check_lidar_kernels(dev, points, points_mask):
     return record
 
 
+def frame_line(rows) -> str:
+    """Median, min and max ms/frame of (forward ms, decode + NMS ms)
+    rows, and the medians of the two parts."""
+    rows = np.asarray(rows)
+    frame_ms = rows.sum(axis=1)
+    fwd_ms, dec_ms = np.median(rows, axis=0)
+    return (f"{len(rows)} requests: median {float(np.median(frame_ms)):.2f} "
+            f"ms/frame (min {float(frame_ms.min()):.2f}, max "
+            f"{float(frame_ms.max()):.2f}; forward + decode + NMS, batch 1; "
+            f"medians forward {fwd_ms:.2f} ms, decode + NMS {dec_ms:.2f} ms)")
+
+
+def graph_phase(servers, requests, eager, eager_ms, hints, anchors, eye,
+                per_request, card):
+    """Phase 6: each server captured (forward, then decode + NMS) by
+    ``CompiledServer``; requests 0-2 replayed and held bit for bit to
+    phase 5's eager outputs; one replay under ``torch.profiler`` must
+    launch each hand-written kernel as often as ``per_request`` says;
+    then TIMED_REQUESTS graph frames per server timed in turns with as
+    many eager ones (eager, graph, graph, eager, in blocks)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hmvit_tpu_torch.graph_server import CompiledServer
+    from hmvit_tpu_torch.tools.profile import hand_written_kernel
+
+    for name, model in servers.items():
+        t0 = time.perf_counter()
+        server = CompiledServer(model, hints, requests[0], anchors, eye)
+        (bucket,) = server.buckets.values()
+        capture_s = time.perf_counter() - t0
+        print(f"graph ({name}): warm-up + capture {capture_s:.2f} s; "
+              f"hand-written launches captured: {bucket.launches}; "
+              f"attention launches by body: {bucket.bodies}")
+        if bucket.launches != per_request[name]:
+            raise AssertionError(f"graph ({name}): captured "
+                                 f"{bucket.launches}, expected "
+                                 f"{per_request[name]}")
+        for kernel, ran in bucket.bodies.items():
+            if ran != {"simt": 0, "mma": per_request[name][kernel]}:
+                raise AssertionError(f"graph ({name}): {kernel} captured "
+                                     f"{ran}, expected every launch on the "
+                                     "tensor cores")
+        for i, b in enumerate(requests):
+            out, (det,) = server(b)
+            torch.cuda.synchronize()
+            want_out, want_det = eager[name][i]
+            for key, got, want in (
+                    ("psm", out["psm"], want_out["psm"]),
+                    ("rm", out["rm"], want_out["rm"]),
+                    *((f"det[{j}]", g, w)
+                      for j, (g, w) in enumerate(zip(det, want_det)))):
+                if not torch.equal(got, want):
+                    diff = float((got.float() - want.float()).abs().max())
+                    raise AssertionError(
+                        f"graph ({name}) request {i} {key}: the replay "
+                        f"differs from the eager forward (max|diff| {diff})")
+            print(f"graph ({name}) request {i}: psm, rm and the decoded "
+                  f"boxes ({int(det[2].sum())} kept) equal to the eager "
+                  "outputs bit for bit")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            server(requests[0])
+            torch.cuda.synchronize()
+        seen = dict.fromkeys(per_request[name], 0)
+        device_ops = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                device_ops += 1
+                kernel = hand_written_kernel(e.name)
+                if kernel is not None:
+                    seen[kernel] = seen.get(kernel, 0) + 1
+        print(f"graph ({name}): one replay under the profiler, "
+              f"{device_ops} device operations; hand-written kernels by "
+              f"name: {seen}")
+        if seen != per_request[name]:
+            raise AssertionError(f"graph ({name}): the replay launched "
+                                 f"{seen}, expected {per_request[name]}")
+
+        def graph_frame(b):
+            t0 = time.perf_counter()
+            bucket = server.load(b)
+            server.replay_forward(bucket)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bucket.detect_graph.replay()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+        rows = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            for i in range(TIMED_REQUESTS // 2):
+                b = requests[i % len(requests)]
+                if kind == "graph":
+                    rows[kind].append(graph_frame(b))
+                else:
+                    rows[kind].append(eager_frame(model, b, hints, anchors,
+                                                  eye))
+        print(f"bf16 serving ({name}), CUDA graph: {frame_line(rows['graph'])}"
+              f"; {server.replays} forward replays")
+        print(f"bf16 serving ({name}), eager in turns with it: "
+              f"{frame_line(rows['eager'])}; phase 5: "
+              f"{frame_line(eager_ms[name])} on {card}")
+        del server
+        torch.cuda.empty_cache()
+
+
+def eager_frame(model, b, hints, anchors, eye):
+    """One eager request: host-clock ms of the forward and of decode +
+    NMS, the card synchronised after each."""
+    import torch
+
+    from hmvit_tpu_torch.postprocess import decode_detections_device
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = model(b, **hints)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode_detections_device(out["psm"], out["rm"], anchors, eye)
+        torch.cuda.synchronize()
+    return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+
+# the benchmark entry's runs: flags, and whether to trace (BENCH_TRACE_DIR)
+BENCH_RUNS = ((), ("--fused_wa",), ("--expand", "v1"), ("--expand", "v2"))
+TRACED_BENCH_RUNS = ((), ("--fused_wa",))
+
+
+def run_bench(card):
+    """``python -m hmvit_tpu_torch.bench`` on each of BENCH_RUNS; its JSON
+    line printed; the split and ``--fused_wa`` runs traced and their
+    traces rolled up by ``hmvit_tpu_torch.tools.profile``."""
+    import os
+    import tempfile
+
+    for flags in BENCH_RUNS:
+        with tempfile.TemporaryDirectory() as trace_dir:
+            env = dict(os.environ)
+            if flags in TRACED_BENCH_RUNS:
+                env["BENCH_TRACE_DIR"] = trace_dir
+            res = subprocess.run(
+                [sys.executable, "-m", "hmvit_tpu_torch.bench", *flags],
+                capture_output=True, text=True, env=env, timeout=600)
+            if res.returncode != 0:
+                raise AssertionError(f"bench {' '.join(flags)} failed "
+                                     f"({res.returncode}):\n{res.stderr}")
+            record = json.loads(res.stdout.strip().splitlines()[-1])
+            print(f"bench {' '.join(flags) or '(split)'}: "
+                  f"{json.dumps(record)}")
+            if record.get("mfu") is None or not record["value"] > 0:
+                raise AssertionError(f"bench {' '.join(flags)}: no mfu or "
+                                     f"no rate on {card}: {record}")
+            if flags in TRACED_BENCH_RUNS:
+                from hmvit_tpu_torch.bench import TRACED_REPLAYS
+                from hmvit_tpu_torch.tools.profile import summarize
+
+                print(f"bench {' '.join(flags) or '(split)'}: device time "
+                      f"of {TRACED_REPLAYS} traced replays by class "
+                      f"(hmvit_tpu_torch.tools.profile):")
+                summarize(trace_dir, top=15, frames=TRACED_REPLAYS)
+
+
 def main() -> int:
     import torch
 
@@ -1092,12 +1267,13 @@ def main() -> int:
         t2 = time.perf_counter()
         return out, det, ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
 
-    path_counts, path_bodies, outs16 = {}, {}, {}
+    path_counts, path_bodies, eager = {}, {}, {}
     for name, model in servers.items():
         serve(model, requests[0])  # warm-up (cuDNN autotune, allocator)
         cuda.reset_launches()
         for i, b in enumerate(requests):
-            out, (corners, scores, valid), stages = serve(model, b)
+            out, det, stages = serve(model, b)
+            corners, scores, valid = det
             for key, shape in (("psm", (1, 2, 128, 128)),
                                ("rm", (1, 14, 128, 128))):
                 if tuple(out[key].shape) != shape or \
@@ -1106,8 +1282,7 @@ def main() -> int:
                                          f"{tuple(out[key].shape)}")
             if not torch.isfinite(corners).all():
                 raise AssertionError(f"{name} request {i}: non-finite boxes")
-            if name in ("split", "fused_wa"):
-                outs16.setdefault(name, []).append(out)
+            eager.setdefault(name, []).append((out, det))
             print(f"{name} request {i}: {sum(stages):.2f} ms (forward "
                   f"{stages[0]:.2f}, decode + NMS {stages[1]:.2f}), "
                   f"{int(valid.sum())} boxes kept")
@@ -1119,7 +1294,8 @@ def main() -> int:
               f"attention launches by body: {path_bodies[name]}")
     # the fused kernel computes the rows the pair warp would have written
     # and attends with the stripe kernel's code: the same bits end to end
-    for i, (a, b) in enumerate(zip(outs16["split"], outs16["fused_wa"])):
+    for i, ((a, _), (b, _)) in enumerate(zip(eager["split"],
+                                             eager["fused_wa"])):
         for key in ("psm", "rm"):
             diff = float((a[key].float() - b[key].float()).abs().max())
             print(f"forward bf16 request {i} {key}: fused_wa vs split "
@@ -1128,7 +1304,6 @@ def main() -> int:
                 raise AssertionError(
                     f"bf16 forward request {i} {key}: the fused_wa server "
                     f"differs from the split server (max|diff| {diff})")
-    del outs16
     # the split server against itself on the plain twins, one request
     with torch.no_grad():
         out_k = servers["split"](requests[0], **hints)
@@ -1179,18 +1354,16 @@ def main() -> int:
             serve(servers[name], requests[(done + i) % len(requests)])[2]
             for i in range(TIMED_BLOCK)]
     for name, rows in stage_ms.items():
-        rows = np.asarray(rows)
-        frame_ms = rows.sum(axis=1)
-        fwd_ms, dec_ms = np.median(rows, axis=0)
-        print(f"bf16 serving ({name}), {len(rows)} requests: median "
-              f"{float(np.median(frame_ms)):.2f} ms/frame (min "
-              f"{float(frame_ms.min()):.2f}, max {float(frame_ms.max()):.2f}"
-              f"; forward + decode + NMS, batch 1; medians forward "
-              f"{fwd_ms:.2f} ms, decode + NMS {dec_ms:.2f} ms) on {card}")
-    del servers, requests
-    torch.cuda.empty_cache()
+        print(f"bf16 serving ({name}), eager: {frame_line(rows)} on {card}")
 
-    # -- 6. the lab stages: typed, resident and scan kernels, lidar paths ----
+    # -- 6. the same servers as captured CUDA graphs --------------------------
+    graph_phase(servers, requests, eager, stage_ms, hints, anchors, eye,
+                per_request, card)
+    del servers, requests, eager
+    torch.cuda.empty_cache()
+    run_bench(card)
+
+    # -- 7. the lab stages: typed, resident and scan kernels, lidar paths ----
     cuda.reset_launches()
     perf_lab.run_stages(["attn", "pairwarp_res"], dev, iters=5)
     perf_lab.run_stages(["segscan", "expand", "lidar"], dev, iters=20)

@@ -21,6 +21,7 @@ from ..ops.projective_warp import (
 from .cvt import make_image_backbone
 from .fusion.v2xvit import WindowSelfAttention
 from .resnet import FPN
+from ..utils.constants import device_constant
 
 # CARLA/UE4 agent frame (x fwd, y right, z up) -> OpenCV camera axes
 _UE4_TO_CV = ((0.0, 1.0, 0.0), (0.0, 0.0, -1.0), (1.0, 0.0, 0.0))
@@ -28,8 +29,10 @@ _UE4_TO_CV = ((0.0, 1.0, 0.0), (0.0, 0.0, -1.0), (1.0, 0.0, 0.0))
 
 def lidar2img(intrinsics, cam_to_lidar):
     """(..., 3, 3), (..., 4, 4 cam->agent) -> (..., 3, 4) projection."""
-    rt = torch.linalg.inv(cam_to_lidar.to(torch.float32))  # agent -> cam
-    ue = torch.tensor(_UE4_TO_CV, dtype=torch.float32, device=rt.device)
+    # inv_ex: the same inverse without inv's read-back of its error
+    # status, which synchronises a CUDA device with the host
+    rt = torch.linalg.inv_ex(cam_to_lidar.to(torch.float32))[0]  # agent -> cam
+    ue = device_constant(_UE4_TO_CV, torch.float32, rt.device)
     rt_cv = torch.einsum("ij,...jk->...ik", ue, rt[..., :3, :])
     return torch.einsum("...ij,...jk->...ik",
                         intrinsics.to(torch.float32), rt_cv)
@@ -60,8 +63,8 @@ def planar_lift_prepare(cam_feats, proj, bev_range, z_values, img_hw,
     h_img = torch.stack([col_x[:, :, None].expand(const_k.shape),
                          col_y[:, :, None].expand(const_k.shape),
                          const_k], dim=-1)  # (N, M, Z, 3, 3)
-    scale = torch.diag(torch.tensor([fw / img_w, fh / img_h, 1.0],
-                                    dtype=f32, device=dev))
+    scale = torch.diag(device_constant((fw / img_w, fh / img_h, 1.0), f32,
+                                       dev))
     h_feat = torch.einsum("ij,nmkjl->nmkil", scale, h_img)
 
     ys = torch.arange(hb, dtype=f32, device=dev)[None, :, None]

@@ -40,6 +40,7 @@ from ..ops.window_attention import (
     fused_stripe_window_attention,
     plain_window_attention_xla,
 )
+from ..utils.constants import device_constant
 from .layers import HeteroDense, HeteroFeedForward, HeteroLayerNorm
 
 
@@ -154,9 +155,9 @@ class HeteroWindowAttention(nn.Module):
             # level and emit the [K|V] variants with one contraction
             wk, bk = self.to_k(x, mode, return_params=True)
             wv, bv = self.to_v(x, mode, return_params=True)
-            tsel = list(taus_used)
-            ra = self.relation_att.reshape(ty_n, ty_n, heads, d, d)[tsel]
-            rm = self.relation_msg.reshape(ty_n, ty_n, heads, d, d)[tsel]
+            ra, rm = (torch.stack([r.reshape(ty_n, ty_n, heads, d, d)[t]
+                                   for t in taus_used])
+                      for r in (self.relation_att, self.relation_msg))
             ck = torch.einsum("yche,tyhDe->tychD",
                               wk.reshape(ty_n, c, heads, d), ra)
             cv = torch.einsum("yche,tyhDe->tychD",
@@ -169,9 +170,12 @@ class HeteroWindowAttention(nn.Module):
                                bv.reshape(ty_n, heads, d), rm)
             bkv = torch.cat([cbk.reshape(ntau, ty_n, c),
                              cbv.reshape(ntau, ty_n, c)], dim=-1)
-            sm_idx = list(static_modes)
-            wsel = wkv[:, sm_idx].to(cdt)   # (ntau, L, C, 2C)
-            bsel = bkv[:, sm_idx].to(cdt)   # (ntau, L, 2C)
+            # stacked slices, not a list index (which copies the index to
+            # the device on every call)
+            wsel = torch.stack([wkv[:, int(m)] for m in static_modes],
+                               dim=1).to(cdt)   # (ntau, L, C, 2C)
+            bsel = torch.stack([bkv[:, int(m)] for m in static_modes],
+                               dim=1).to(cdt)   # (ntau, L, 2C)
             # bias joins in fp32 before the compute-dtype rounding
             kv2 = (torch.einsum("bjxyc,tjcf->btjxyf", x.to(f32),
                                 wsel.to(f32))
@@ -179,7 +183,7 @@ class HeteroWindowAttention(nn.Module):
             return kv2.to(cdt)
         k = self.to_k(x, mode)
         v = self.to_v(x, mode)
-        taus = torch.as_tensor(taus_used, device=x.device)
+        taus = device_constant(tuple(taus_used), torch.long, x.device)
         idx = taus[:, None, None] * ty_n + mode.long()[None]
         rel = torch.stack([self.relation_att, self.relation_msg], dim=1)
         w_t = rel.to(cdt)[idx]  # (TAU, B, J, 2, heads, d, d)
@@ -204,10 +208,10 @@ class HeteroWindowAttention(nn.Module):
             # fold only the receiver types present (one variant for the
             # ego-only last phase)
             taus_used = tuple(sorted({int(m) for m in sm_r}))
-            recv_variant = torch.as_tensor(
-                [taus_used.index(int(m)) if int(m) in taus_used else 0
-                 for m in static_modes], device=x.device)[None].expand(
-                    mode.shape)
+            recv_variant = device_constant(
+                tuple(taus_used.index(int(m)) if int(m) in taus_used else 0
+                      for m in static_modes), torch.long,
+                x.device)[None].expand(mode.shape)
         else:
             taus_used = tuple(range(self.num_types))
             recv_variant = mode

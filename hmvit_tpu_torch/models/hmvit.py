@@ -46,6 +46,11 @@ class HeteroDecoder(nn.Module):
                 torch.where(is_lidar, lid_rm, cam_rm))
 
 
+def _capturing(t) -> bool:
+    """Whether a CUDA-graph capture is running on ``t``'s stream."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 _SLICED = ("mode", "agent_mask", "points", "points_mask", "camera",
            "intrinsics", "extrinsics", "prior_encoding")
 
@@ -93,10 +98,11 @@ class HMViT(nn.Module):
         - ``active_agents`` slices the agent axis to the first A slots;
         - ``camera_bucket`` runs the camera encoder on exactly that many
           slots (camera-first stable order) and the lidar encoder on the
-          rest; it must equal the batch's true camera count, which
-          ``debug_checks: true`` in the config enforces with one read of
-          ``mode`` (``static_modes``, when given, is held against the same
-          read); without it the branch reads nothing back;
+          rest; it must equal the true camera count of the whole batch,
+          which ``debug_checks: true`` in the config enforces with one
+          read of ``mode`` (``static_modes``, when given, is held against
+          the same read; under a CUDA-graph capture the check raises);
+          without it the branch reads nothing back;
         - ``static_modes`` is the fleet's per-agent modality layout (after
           slicing) and must equal the batch's ``mode`` row;
         - ``static_ego_modality`` runs only the ego's decoder branch.
@@ -126,7 +132,10 @@ class HMViT(nn.Module):
             x = torch.where(is_lidar, lidar_bev, cam_bev)
         elif camera_bucket == 0:
             x = self.lidar_encoder(points, pmask)
-        elif camera_bucket >= l:
+        elif camera_bucket >= b * l:
+            # every slot of the batch is a camera (the JAX model compares
+            # with l, the slots of ONE row, which at batch > 1 sends the
+            # lidar agents of a mixed batch through the camera encoder)
             x = self.camera_encoder(cams, intr, extr)
         else:
             nc = camera_bucket
@@ -134,6 +143,12 @@ class HMViT(nn.Module):
             cam_idx, lid_idx = order[:nc], order[nc:]
             if self.config.get("debug_checks", False):
                 # the one host read of the branch, under debug_checks only
+                if _capturing(mode):
+                    raise RuntimeError(
+                        "debug_checks: the camera_bucket / static_modes check "
+                        "reads the batch's mode back to the host, which a "
+                        "CUDA-graph capture cannot do; capture a model "
+                        "without debug_checks")
                 rows = mode.cpu().tolist()
                 if static_modes is not None and any(
                         row != [int(m) for m in static_modes]

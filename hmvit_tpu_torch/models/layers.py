@@ -180,7 +180,8 @@ class HeteroDense(nn.Module):
             y = torch.stack([x[:, i] @ kt[int(m)]
                              for i, m in enumerate(static_modes)], dim=1)
             if self.bias is not None:
-                b = self.bias[list(static_modes)].to(x.dtype)
+                b = torch.stack([self.bias[int(m)] for m in static_modes]
+                                ).to(x.dtype)
                 y = y + b.reshape(1, len(static_modes),
                                   *(1,) * (x.ndim - 3), feats)
             return y

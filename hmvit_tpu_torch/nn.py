@@ -61,11 +61,17 @@ def resize_nearest(x, hw: tuple[int, int]):
     source index floor((i + 0.5) * in / out) per axis."""
     n, h, w, c = x.shape
     oh, ow = hw
-    iy = np.floor((np.arange(oh) + 0.5) * h / oh).astype(np.int64)
-    ix = np.floor((np.arange(ow) + 0.5) * w / ow).astype(np.int64)
-    iy = torch.as_tensor(np.minimum(iy, h - 1), device=x.device)
-    ix = torch.as_tensor(np.minimum(ix, w - 1), device=x.device)
-    return x.index_select(1, iy).index_select(2, ix)
+    return x.index_select(1, _nearest_index(h, oh, x.device)).index_select(
+        2, _nearest_index(w, ow, x.device))
+
+
+def _nearest_index(size: int, out: int, device):
+    """min(floor((i + 0.5) * size / out), size - 1) for i < out, made on
+    the device: the integer form (2 i + 1) size // (2 out) of the same
+    floor, exact since the quotient lies at least 1 / (2 out) from any
+    integer it is not equal to."""
+    i = torch.arange(out, device=device)
+    return torch.clamp((2 * i + 1) * size // (2 * out), max=size - 1)
 
 
 def max_pool_same(x, k: int, s: int):

@@ -13,6 +13,16 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 :class:`Kernel` raises on a non-zero code and counts successful
 launches, which is how a run proves the serving path went through the
 kernels.
+
+Under a CUDA-graph capture a launch goes to the capturing stream (the
+current stream, which :meth:`Kernel.launch` reads at each call) and is
+recorded into the graph.  The counts, here and inside the library
+(:func:`attention_body_launches`), grow when the host issues a launch:
+at capture, once per kernel node, and never at a replay.  A graph's
+replays are counted by its owner
+(:class:`hmvit_tpu_torch.graph_server.CompiledServer`).  Call
+:func:`load_library` before any capture: the build runs nvcc processes
+and loads a shared library, neither of which a capture allows.
 """
 from __future__ import annotations
 
@@ -116,7 +126,9 @@ class Kernel:
     """One C entry point of the library plus its launch count.
 
     ``n_ptrs`` leading pointer arguments, then ``n_ints`` int arguments,
-    then the stream; the C function returns a cudaError_t."""
+    then the stream; the C function returns a cudaError_t.
+    ``launches`` counts the launches the host issued: a CUDA-graph
+    capture adds one per captured launch, a replay adds none."""
 
     def __init__(self, symbol: str, n_ptrs: int, n_ints: int):
         self.symbol = symbol
@@ -223,7 +235,8 @@ def reset_launches():
 def attention_body_launches() -> dict[str, dict[str, int]]:
     """Launches of each window-attention kernel by the body that ran
     them, counted inside the library where the choice is made: "simt" is
-    the fp32 CUDA-core body, "mma" the bfloat16 tensor-core body."""
+    the fp32 CUDA-core body, "mma" the bfloat16 tensor-core body.  As
+    :attr:`Kernel.launches`, counted at capture, not at replay."""
     if _lib is None:
         return {name: dict.fromkeys(ATTENTION_BODIES, 0)
                 for name in ATTENTION_KERNELS}

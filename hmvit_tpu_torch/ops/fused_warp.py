@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda, use_kernel
+from . import cuda, opcount, use_kernel
 from .shear_warp import _affine_coefficients, _pixel_affine, warp_bev_mxu
 from .warp import centered_affine, discretize_transform
 
@@ -242,9 +242,15 @@ def fused_pair_warp(src_typed, pairwise, mode, discrete_ratio,
     geometry; the plain twin derives its own from ``pairwise``.
     ``variant`` picks the kernel (:func:`resolve_variant`); both give
     the same bits, and the twin is the same for both."""
-    resolve_variant(variant, *src_typed.shape[3:5])
+    kind = resolve_variant(variant, *src_typed.shape[3:5])
+    b, _, j, h, w, c = src_typed.shape
+    opcount.note("pair_warp_resident" if kind == "resident"
+                 else "pair_warp", opcount.pair_warp_ops(
+                     b * (j if num_receivers is None else num_receivers), j,
+                     h, w, c))
     if use_kernel(src_typed):
         return _PairWarp.apply(src_typed, pairwise, mode, discrete_ratio,
                                downsample_rate, num_receivers, coef, variant)
-    return pair_warp_xla(src_typed, pairwise, mode, discrete_ratio,
-                         downsample_rate, num_receivers)
+    with opcount.hidden():
+        return pair_warp_xla(src_typed, pairwise, mode, discrete_ratio,
+                             downsample_rate, num_receivers)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda, use_kernel
+from . import cuda, opcount, use_kernel
 from .fused_warp import _prep_affines, pair_warp_xla
 from .window_attention import (
     _recompute_grads,
@@ -131,8 +131,14 @@ def fused_warp_window_attention(q, src_typed, pairwise, mode, mask, bias,
     ``pair_warp_coefficients``, spares the kernel path its geometry."""
     args = (win, heads, dim_head, discrete_ratio, downsample_rate,
             num_receivers)
+    n, h, w = q.shape[:3]
+    j = src_typed.shape[2]
+    opcount.note("warp_window_attention", opcount.attention_ops(
+        n, (h // win) * (w // win), win * win, j, heads, dim_head)
+        + opcount.pair_warp_ops(n, j, h, w, src_typed.shape[-1]))
     if use_kernel(q):
         return _WarpWindowAttention.apply(q, src_typed, bias, pairwise, mode,
                                           mask, coef, args)
-    return warp_window_attention_xla(q, src_typed, pairwise, mode, mask,
-                                     bias, *args)
+    with opcount.hidden():
+        return warp_window_attention_xla(q, src_typed, pairwise, mode, mask,
+                                         bias, *args)

@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from ..utils.constants import device_constant
+
 
 def _shifted(x, s: int, fill):
     """x shifted DOWN by s (x[i] -> x[i-s]), front-filled with ``fill``."""
@@ -77,8 +79,8 @@ def pillarize(points, points_mask, voxel_size, pc_range, grid_size,
     points = points.reshape(-1, points.shape[-1])
     points_mask = points_mask.reshape(-1)
     num_pillars = n_clouds * nx * ny * nz
-    vsize = torch.tensor(voxel_size, dtype=torch.float32, device=dev)
-    prange = torch.tensor(pc_range, dtype=torch.float32, device=dev)
+    vsize = device_constant(tuple(voxel_size), torch.float32, dev)
+    prange = device_constant(tuple(pc_range), torch.float32, dev)
 
     def grid_index(xyz):
         return torch.floor((xyz - prange[:3]) / vsize).to(torch.int64)

@@ -11,11 +11,14 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.constants import device_constant
+
 
 def discretize_transform(matrix, discrete_ratio: float,
                          downsample_rate: float):
     """(..., 4, 4) frame transform -> (..., 2, 3) BEV-pixel affine."""
-    m = matrix[..., :2, :][..., [0, 1, 3]]
+    m = matrix[..., :2, :]
+    m = torch.cat([m[..., :2], m[..., 3:]], dim=-1)  # columns 0, 1, 3
     scale = discrete_ratio * downsample_rate
     # true division by a tensor, as XLA does (a scalar divisor would be
     # turned into a reciprocal multiply)
@@ -34,9 +37,9 @@ def _normal_transform_pixel(h: int, w: int, dtype, device):
     """Pixel -> [-1, 1] normalization matrix (align_corners=True)."""
     wd = 1.0 if w == 1 else w - 1.0
     hd = 1.0 if h == 1 else h - 1.0
-    return torch.tensor(
-        [[2.0 / wd, 0.0, -1.0], [0.0, 2.0 / hd, -1.0], [0.0, 0.0, 1.0]],
-        dtype=dtype, device=device)
+    return device_constant(
+        ((2.0 / wd, 0.0, -1.0), (0.0, 2.0 / hd, -1.0), (0.0, 0.0, 1.0)),
+        dtype, device)
 
 
 def _inv_affine3(m):
@@ -61,7 +64,7 @@ def centered_affine(m, dsize):
     h, w = dsize
     n = m.shape[0]
     eye = torch.eye(3, dtype=m.dtype, device=m.device).expand(n, 3, 3)
-    center = torch.tensor([w / 2.0, h / 2.0], dtype=m.dtype, device=m.device)
+    center = device_constant((w / 2.0, h / 2.0), m.dtype, m.device)
     shift = eye.clone()
     shift[:, :2, 2] = center
     shift_inv = eye.clone()

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda, use_kernel
+from . import cuda, opcount, use_kernel
 
 
 def plain_window_attention_xla(q, k, v, bias, mask, heads: int,
@@ -300,11 +300,15 @@ def fused_window_attention(q, k, v, w_att, w_msg, bias, mask, heads: int,
     k, v (N, J, Wn, T, C); w_att, w_msg (N, J, heads, d, d) relation
     matrices of each (receiver, sender) pair; bias (heads, T, T); mask
     (N, J, Wn, T).  Returns (N, Wn, T, C)."""
+    n, windows, t = q.shape[:3]
+    opcount.note("typed_window_attention", opcount.attention_ops(
+        n, windows, t, k.shape[1], heads, dim_head, typed=True))
     if use_kernel(q):
         return _TypedAttention.apply(q, k, v, w_att, w_msg, bias, mask,
                                      heads, dim_head)
-    return hetero_window_attention_xla(q, k, v, w_att, w_msg, bias, mask,
-                                       heads, dim_head)
+    with opcount.hidden():
+        return hetero_window_attention_xla(q, k, v, w_att, w_msg, bias,
+                                           mask, heads, dim_head)
 
 
 def fused_stripe_window_attention(q, kv, bias, mask, win: int, heads: int,
@@ -312,11 +316,15 @@ def fused_stripe_window_attention(q, kv, bias, mask, win: int, heads: int,
     """LOCAL window attention over unsplit maps: q (N, H, W, C), kv
     (N, J, H, W, 2C) = [K | V], bias (heads, T, T), mask (N, J, H, W).
     Returns (N, H, W, C)."""
+    n, h, w = q.shape[:3]
+    opcount.note("stripe_window_attention", opcount.attention_ops(
+        n, (h // win) * (w // win), win * win, kv.shape[1], heads, dim_head))
     if use_kernel(q):
         return _StripeAttention.apply(q, kv, bias, mask, win, heads,
                                       dim_head)
-    return stripe_window_attention_xla(q, kv, bias, mask, win, heads,
-                                       dim_head)
+    with opcount.hidden():
+        return stripe_window_attention_xla(q, kv, bias, mask, win, heads,
+                                           dim_head)
 
 
 def fused_plain_window_attention(q, kv, bias, mask, heads: int,
@@ -324,6 +332,10 @@ def fused_plain_window_attention(q, kv, bias, mask, heads: int,
     """Window attention over pre-split windows: q (N, Wn, T, C), kv
     (N, J, Wn, T, 2C) = [K | V], bias (heads, T, T), mask (N, J, Wn, T).
     Returns (N, Wn, T, C)."""
+    n, windows, t = q.shape[:3]
+    opcount.note("plain_window_attention", opcount.attention_ops(
+        n, windows, t, kv.shape[1], heads, dim_head))
     if use_kernel(q):
         return _PlainAttention.apply(q, kv, bias, mask, heads, dim_head)
-    return _plain_twin(q, kv, bias, mask, heads, dim_head)
+    with opcount.hidden():
+        return _plain_twin(q, kv, bias, mask, heads, dim_head)

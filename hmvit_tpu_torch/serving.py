@@ -97,26 +97,29 @@ def serving_config(cfg: dict, bf16: bool, fused_wa: bool = False,
     return cfg
 
 
-def serving_hints(mode_row, num_agents: int) -> dict:
-    """Static hints of :meth:`HMViT.forward` for a fleet whose first
-    ``num_agents`` slots have the modalities ``mode_row``."""
+def serving_hints(mode_row, num_agents: int, batch_size: int = 1) -> dict:
+    """Static hints of :meth:`HMViT.forward` for a batch of
+    ``batch_size`` fleets whose first ``num_agents`` slots have the
+    modalities ``mode_row`` (the camera bucket counts the cameras of the
+    whole batch, as ``bench.py``'s does)."""
     fleet = tuple(int(m) for m in mode_row[:num_agents])
-    return dict(camera_bucket=sum(m == 0 for m in fleet),
+    return dict(camera_bucket=batch_size * sum(m == 0 for m in fleet),
                 active_agents=num_agents, static_ego_modality=fleet[0],
                 static_modes=fleet)
 
 
 def request_batch(seed: int, num_agents: int = 4, max_points: int = 30000,
                   image_size: int = 512, num_cams: int = 4,
-                  lidar_range=PROD_RANGE):
-    """One synthetic request: ``num_agents`` agents in 5 slots,
-    alternating lidar / camera from a lidar ego; the defaults are the
-    production request (30 000 point slots per lidar agent, 4 x 512^2
-    images per camera agent)."""
+                  lidar_range=PROD_RANGE, batch_size: int = 1):
+    """One synthetic request of ``batch_size`` fleets: ``num_agents``
+    agents in 5 slots, alternating lidar / camera from a lidar ego; the
+    defaults are the production request (30 000 point slots per lidar
+    agent, 4 x 512^2 images per camera agent)."""
     from .data.synthetic import make_hetero_batch
 
     batch, _ = make_hetero_batch(
-        seed=seed, max_cav=5, num_agents=num_agents, max_points=max_points,
+        seed=seed, batch_size=batch_size, max_cav=5, num_agents=num_agents,
+        max_points=max_points,
         image_size=image_size, num_cams=num_cams, camera_ratio=0.5,
         ego_mode="mixed", lidar_range=lidar_range)
     for i in range(num_agents):

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .constants import device_constant
+
 # (8, 3) half-extent multipliers of the corner numbering above
 CORNER_TEMPLATE = np.array(
     [
@@ -21,6 +23,7 @@ CORNER_TEMPLATE = np.array(
     ],
     dtype=np.float64,
 ) / 2.0
+_CORNER_TEMPLATE = tuple(map(tuple, CORNER_TEMPLATE.tolist()))
 
 
 def boxes_to_corners_3d_np(boxes, order: str = "lwh") -> np.ndarray:
@@ -54,13 +57,12 @@ def mask_boxes_outside_range_np(boxes, limit_range, order,
 def boxes_to_corners_3d(boxes, order: str = "hwl"):
     """(N, 7) center boxes -> (N, 8, 3) corners."""
     if order == "hwl":
-        dims = boxes[:, [5, 4, 3]]
+        dims = boxes[:, 3:6].flip(-1)  # columns 5, 4, 3
     elif order == "lwh":
         dims = boxes[:, 3:6]
     else:
         raise ValueError(f"unknown box order {order!r}")
-    tmpl = torch.as_tensor(CORNER_TEMPLATE, dtype=boxes.dtype,
-                           device=boxes.device)
+    tmpl = device_constant(_CORNER_TEMPLATE, boxes.dtype, boxes.device)
     corners = dims[:, None, :] * tmpl[None]
     c = torch.cos(boxes[:, 6])[:, None]
     s = torch.sin(boxes[:, 6])[:, None]
@@ -91,10 +93,10 @@ def sane_z_mask(corners, z_min: float = -3.0, z_max: float = 1.0):
 
 def mask_corners_in_range(corners, limit_range):
     """True where every corner's xy lies inside the range."""
-    lo = torch.as_tensor(limit_range[:2], dtype=corners.dtype,
-                         device=corners.device)
-    hi = torch.as_tensor(limit_range[3:5], dtype=corners.dtype,
-                         device=corners.device)
+    lo = device_constant(tuple(limit_range[:2]), corners.dtype,
+                         corners.device)
+    hi = device_constant(tuple(limit_range[3:5]), corners.dtype,
+                         corners.device)
     ok = ((corners[:, :, :2] >= lo).all(-1)
           & (corners[:, :, :2] <= hi).all(-1))
     return ok.all(-1)

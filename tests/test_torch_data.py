@@ -71,6 +71,25 @@ def test_box_corners_match_jax_package(order):
         jboxes.mask_corners_in_range(cw, rng_lim))
 
 
+def test_bench_entry_constants_equal_bench():
+    """The port's benchmark entry keeps its own copies of bench.py's
+    assumed reference rate and metric name, and a peak table of the same
+    shape ((device-name prefix, dense bf16 FLOP/s) pairs, looked up by
+    prefix)."""
+    from hmvit_tpu_torch import bench as pbench
+
+    assert pbench.ASSUMED_REFERENCE_FPS == bench.ASSUMED_REFERENCE_FPS
+    assert pbench.METRIC == ("frames/sec/chip 4-agent mixed-modality BEV "
+                             "inference")
+    assert bench.main.__code__.co_consts.count(pbench.METRIC) == 1
+    for table in (pbench.PEAK_BF16_FLOPS, bench.PEAK_BF16_FLOPS):
+        assert isinstance(table, tuple) and all(
+            isinstance(name, str) and isinstance(peak, float)
+            for name, peak in table)
+    for name, peak in pbench.PEAK_BF16_FLOPS:
+        assert pbench.peak_bf16_flops(name + " (any suffix)") == peak
+
+
 def test_production_config_equals_bench():
     """The port's PROD_CFG is bench.py's; the serving variants are it
     with only the compute dtypes (and the asked-for kernel routes) set,

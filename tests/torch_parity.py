@@ -151,3 +151,54 @@ def japply(module, variables, *arrays, **static):
     dispatch); keyword arguments are static."""
     return jax.jit(lambda v, *a: module.apply(v, *a, **static))(
         variables, *arrays)
+
+
+# Tensor methods that read a tensor back to the host: each waits for the
+# device, and none of them can run inside a CUDA-graph capture
+HOST_READS = frozenset({
+    torch.Tensor.item, torch.Tensor.tolist, torch.Tensor.numpy,
+    torch.Tensor.cpu, torch.Tensor.__int__, torch.Tensor.__bool__,
+    torch.Tensor.__float__, torch.Tensor.__index__})
+
+
+def _host_index(index) -> bool:
+    """Whether an index holds host data that indexing copies to the
+    device (a list, or a numpy array), rather than ints, slices and
+    tensors."""
+    parts = index if isinstance(index, tuple) else (index,)
+    return any(isinstance(p, (list, np.ndarray)) for p in parts)
+
+
+class NoHostReads(torch.overrides.TorchFunctionMode):
+    """Raises AssertionError on a host read of a tensor (:data:`HOST_READS`)
+    and on indexing with host data (a list or numpy array index, which is
+    copied to the device at every call)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in HOST_READS:
+            raise AssertionError(f"host read: Tensor.{func.__name__}")
+        if func in (torch.Tensor.__getitem__, torch.Tensor.__setitem__) \
+                and _host_index(args[1]):
+            raise AssertionError(f"indexing with host data: {args[1]!r}")
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def no_host_copies(monkeypatch):
+    """Raises AssertionError on ``torch.tensor`` / ``torch.as_tensor`` with
+    a ``device`` (a blocking host-to-device copy; PyTorch's function
+    modes do not see these two, so they are patched)."""
+    def guarded(fn):
+        def call(*args, **kwargs):
+            if kwargs.get("device") is not None:
+                raise AssertionError(f"host-to-device copy: torch."
+                                     f"{fn.__name__}(..., device="
+                                     f"{kwargs['device']!r})")
+            return fn(*args, **kwargs)
+        return call
+
+    with monkeypatch.context() as m:
+        m.setattr(torch, "tensor", guarded(torch.tensor))
+        m.setattr(torch, "as_tensor", guarded(torch.as_tensor))
+        yield
