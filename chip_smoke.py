@@ -19,7 +19,11 @@ Phases:
    ego launch, spread poses (agents within +-120 m, a quarter of the
    tiles out of view: the ROI tile skip; the count is printed) and the
    draw on which the Pallas kernels' skip is not conservative
-   (``draw_222``).  The four attention kernels (stripe, plain, typed,
+   (``draw_222``); the pair warp, stripe and plain attention also at the
+   shapes of phase 8's run-both training step (a fleet of 5 slots: every
+   pair, the ego launch, and the camera self-attention over 5 slots), so
+   that their tensor-core bodies are held at the shapes the bfloat16 train
+   step launches them with.  The four attention kernels (stripe, plain, typed,
    fused warp + attention) must run their tensor-core body in bfloat16
    and their fp32 CUDA-core body in float32 (counted inside the
    library).  In bfloat16 it times
@@ -96,7 +100,32 @@ Phases:
    segmented-scan, expansion and lidar stages of
    ``hmvit_tpu_torch.perf_lab`` — the entry point that reaches the typed,
    resident and scan kernels — and count their launches, those of the
-   typed kernel's tensor-core body apart.
+   typed kernel's tensor-core body apart;
+8. train on the card: the training configuration of ``bench.py
+   --train`` (``dict(PROD_CFG, remat=True)``: the same fleet and widths,
+   the run-both trace, ``drop_out`` 0) on request 0 with its anchor
+   labels, through ``hmvit_tpu_torch.train.trainer.make_train_step``, each
+   run from one cloned state: (a) one float32 step (``half=False``, the
+   fusion's ``compute_dtype`` float32 too, as phase 4's float32 forward
+   has it) with the kernels and one under ``plain_ops()`` (TF32 off):
+   loss within ``TRAIN_TOL`` relative, each parameter's gradient within
+   ``TRAIN_TOL`` of its largest |value|; then the production step in
+   bfloat16 (``half=True``, the fusion in bfloat16): its loss within
+   ``TRAIN_BF16_LOSS_TOL`` of the plain bf16 step's, and its loss and
+   every gradient against the float32 plain step within
+   ``BF16_GRAD_SPREAD`` times the plain bf16 step's own distance from it
+   plus ``BF16_GRAD_FLOOR`` of scale; every attention launch on the
+   CUDA-core body in float32 and on the tensor-core body in bfloat16;
+   (b) the pair warp, stripe and plain attention launches of one step
+   equal to ``train_launches`` (forward launches times one plus the
+   remat recompute), each > 0; (c) remat off vs on (float32):
+   within (a)'s tolerance, ``max_memory_allocated`` of both printed; (d)
+   five bfloat16 AdamW steps on the one batch: the loss finite and
+   falling; (e) ``python -m hmvit_tpu_torch.bench --train``, ``--train
+   --no_remat`` and ``--train --bucketed``, each JSON line printed with
+   the card's name and power limit, the first traced and rolled up by
+   ``hmvit_tpu_torch.tools.profile`` (by class, and the plain twins'
+   backward by kernel: ``--ranges twin_backward:``).
 
 The script imports torch, numpy, the standard library and
 ``hmvit_tpu_torch``: nothing of jax, of the JAX package ``hmvit_tpu`` or
@@ -109,6 +138,7 @@ Any failure raises (non-zero exit, no result line).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -155,6 +185,34 @@ BF16_FORWARD_ATOL = 0.01
 # star's 1.8e-4, which the reading meets by a hair and the check does not
 # hold) and 2.4x on rm.
 BF16_VS_FP32_ATOL = {"psm": 2.5e-4, "logit": 2.5e-2, "rm": 3e-3}
+
+# phase 8, a float32 train step with the kernels vs under plain_ops():
+# the loss (relative) and each parameter's gradient (over its largest
+# |value|), the scale of the forward check above (the kernels round
+# differently from their twins; the camera trunk's forward is the same
+# library code in both runs, so nothing upstream of the fusion differs)
+TRAIN_TOL = 2e-3
+# the production step in bfloat16 (half=True), with the kernels against
+# the float32 plain step of the same weights, per parameter:
+#   max|g_kern16 - g_plain32| <= BF16_GRAD_SPREAD * max|g_plain16 -
+#   g_plain32| + BF16_GRAD_FLOOR * max|g_plain32|,
+# and the same for the loss.  A kernel differs from its twin by at most
+# an output ulp (both compute in float32 from the same bf16 operands and
+# round once, BF16_ATOL above); the bf16 plain step rounds every
+# activation, those outputs included, so the kernels' deviation is a part
+# of bf16's own and the triangle inequality gives the factor 2.  The floor
+# covers a parameter whose bf16 spread happens to be near zero.  A wrong
+# kernel moves the gradients by their own scale and fails.  The kernels'
+# loss is held to the bf16 plain step's too, relative (reading on an H100
+# 80GB HBM3: 3.501e-4).  At this width the bar is loose: the train-mode
+# trunk is ill-conditioned (ROADMAP Queue 3), and the plain bf16 step's
+# gradients lie a median 1.35 of their scale from the float32 step's (the
+# same reading); so the tensor-core bodies the bf16 step launches are
+# also held to their twins directly at its shapes in phase 2.
+TRAIN_BF16_LOSS_TOL = 1e-3
+BF16_GRAD_SPREAD = 2.0
+BF16_GRAD_FLOOR = 1e-2
+TRAIN_STEPS = 5
 
 KERNEL_META = {
     "pair_warp": ("hmvit_tpu_torch/csrc/pair_warp.cu",
@@ -334,10 +392,22 @@ def check_kernels(dev, pairwise, agent_mask):
     )
     from hmvit_tpu_torch.utils.precision import strict_fp32
 
-    gen = torch.Generator(device=dev).manual_seed(0)
+    # the cases at phase 8's training shapes draw from a generator of
+    # their own: the other cases keep the inputs they had without them
+    gens = [torch.Generator(device=dev).manual_seed(0)]
+    train_gen = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev)
+        return torch.randn(*shape, generator=gens[-1], device=dev)
+
+    def train(make):
+        def case(dt):
+            gens.append(train_gen)
+            try:
+                return make(dt)
+            finally:
+                gens.pop()
+        return case
 
     l, hw, c, heads, d, win = 4, 128, 256, 8, 32, 8
     t = win * win
@@ -408,9 +478,9 @@ def check_kernels(dev, pairwise, agent_mask):
             previous_kw={"previous": True}, device=True,
             ops=opcount.pair_warp_ops(r, j, size, size, ck))
 
-    def stripe(dt, n):
-        args = (randn(n, hw, hw, c).to(dt), randn(n, l, hw, hw, 2 * c).to(dt),
-                bias.to(dt), mask_ij[:n].to(dt), win, heads, d)
+    def stripe(dt, n, j=l, mask=mask_ij):
+        args = (randn(n, hw, hw, c).to(dt), randn(n, j, hw, hw, 2 * c).to(dt),
+                bias.to(dt), mask[:n].to(dt), win, heads, d)
         q_, kv_, b_, m_ = args[:4]
         kvw = _split_local(kv_, win)
         return dict(
@@ -419,7 +489,7 @@ def check_kernels(dev, pairwise, agent_mask):
             library=lambda: sdpa(_split_local(q_, win), kvw[..., :c],
                                  kvw[..., c:], b_,
                                  _split_local(m_[..., None], win)[..., 0]),
-            ops=attention_ops(n, l))
+            ops=attention_ops(n, j))
 
     def plain(dt, n, j, mask):
         args = (randn(n, nwin, t, c).to(dt),
@@ -494,6 +564,8 @@ def check_kernels(dev, pairwise, agent_mask):
                               0.4, 4)[0].movedim(-1, 1).contiguous()
     mask5[0, :, :16, :16] = 0
     mask5[:, 0, 32:48] = 0
+    grid_mask5 = _window_split(mask5[..., None], win, "grid")[..., 0] \
+        .reshape(5, 5, nwin, t)
     # spread poses: 4 agents within +-120 m on the 204.8 m map, so much of
     # each pair lies out of view (the ROI tile skip)
     pair_far = perf_lab.Lab(dev, perf_lab.PROD, iters=1).rand_pairwise(
@@ -516,16 +588,28 @@ def check_kernels(dev, pairwise, agent_mask):
             ("draw 222, 64^2 C=8",
              lambda dt: warp(dt, 1, mode222, None, "tile", pair222, src222,
                              (1.0, 1.0))),
+            ("train: fleet of 5, I=J=5 TY=2",
+             train(lambda dt: warp(dt, 2, mode5, None, "tile", pair5))),
+            ("train: fleet of 5, ego I=1 TY=2",
+             train(lambda dt: warp(dt, 2, mode5, 1, "tile", pair5))),
         ],
         "stripe_window_attention": [
             ("local N=4 J=4", lambda dt: stripe(dt, l)),
             ("local ego N=1 J=4", lambda dt: stripe(dt, 1)),
+            ("train: fleet of 5, N=J=5",
+             train(lambda dt: stripe(dt, 5, 5, mask5))),
         ],
         "plain_window_attention": [
             ("grid J=4", lambda dt: plain(dt, l, l, grid_mask)),
             ("grid ego N=1 J=4", lambda dt: plain(dt, 1, l, grid_mask[:1])),
             ("camera J=1", lambda dt: plain(
                 dt, 2, 1, torch.ones(2, 1, nwin, t, device=dev))),
+            ("train: grid fleet of 5, N=J=5",
+             train(lambda dt: plain(dt, 5, 5, grid_mask5))),
+            ("train: grid ego, fleet of 5, N=1 J=5",
+             train(lambda dt: plain(dt, 1, 5, grid_mask5[:1]))),
+            ("train: camera J=1 over 5 slots", train(lambda dt: plain(
+                dt, 5, 1, torch.ones(5, 1, nwin, t, device=dev)))),
         ],
         "warp_window_attention": [
             ("local I=4 TY=2", lambda dt: fused(dt, 2, mode, None)),
@@ -1106,6 +1190,248 @@ def run_bench(card):
                 summarize(trace_dir, top=15, frames=TRACED_REPLAYS)
 
 
+TRAIN_BENCH_RUNS = (("--train",), ("--train", "--no_remat"),
+                    ("--train", "--bucketed"))
+TRAIN_KERNELS = ("pair_warp", "stripe_window_attention",
+                 "plain_window_attention")
+
+
+def train_launches(cfg: dict) -> dict:
+    """The kernels one run-both train step of ``cfg`` launches on the
+    split route: each fusion iteration warps twice (the local phase and
+    the ego grid phase) and attends once locally (stripe) and once on the
+    grid (plain), each camera layer's BEV self-attention is one plain
+    launch; a stage under remat launches its kernels again in the
+    recompute, and the backward is the plain twins' (no launch)."""
+    from hmvit_tpu_torch.models.hmvit import remat_stages
+
+    stages = remat_stages(cfg.get("remat"))
+    iters = cfg["hetero_fusion"]["num_iters"]
+    fusion = 2 if "fusion" in stages else 1
+    camera = 2 if "camera" in stages else 1
+    return {"pair_warp": 2 * iters * fusion,
+            "stripe_window_attention": iters * fusion,
+            "plain_window_attention": (iters * fusion + camera
+                                       * cfg["camera"]["num_layers"])}
+
+
+def train_phase(dev, card) -> dict:
+    """Phase 8 (see the module's docstring); returns the launches of one
+    bfloat16 train step, every kernel's."""
+    import copy
+    import os
+    import tempfile
+
+    import torch
+
+    from hmvit_tpu_torch import bench
+    from hmvit_tpu_torch.data.anchors import generate_anchor_grid
+    from hmvit_tpu_torch.models.hmvit import HMViT
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.ops import cuda, plain_ops
+    from hmvit_tpu_torch.postprocess import AnchorPostprocessor
+    from hmvit_tpu_torch.serving import PROD_CFG, anchor_args, \
+        batch_to_device
+    from hmvit_tpu_torch.train.trainer import (
+        create_train_state,
+        labels_for_batch,
+        make_train_step,
+    )
+    from hmvit_tpu_torch.utils.precision import strict_fp32
+
+    cfg = dict(copy.deepcopy(PROD_CFG), remat=True)
+    cfg32 = copy.deepcopy(cfg)
+    cfg32["hetero_fusion"]["hetero_fusion_block"]["compute_dtype"] = \
+        "float32"
+    batch = prod_batch(0)
+    pp = AnchorPostprocessor({"anchor_args": anchor_args(cfg),
+                              "target_args": bench.TARGET_ARGS,
+                              "order": "hwl"})
+    labels = labels_for_batch(pp, generate_anchor_grid(anchor_args(cfg)),
+                              batch, dev)
+    print(f"train: {int(labels['pos_equal_one'].sum())} positive anchors "
+          f"in request 0")
+    tb = batch_to_device(batch, dev, bf16=False)
+    # the same weights (one seed) in the bf16-fusion production model and
+    # its float32 twin
+    base = {True: init_parameters(HMViT(cfg), seed=0),
+            False: init_parameters(HMViT(cfg32), seed=0)}
+
+    def grads_of(half: bool, plain: bool, remat=True):
+        """One step from a clone of the weights: (loss, grads on the card,
+        launches, peak GB, seconds, attention launches by body)."""
+        model = copy.deepcopy(base[half]).to(dev)
+        model.config = dict(model.config, remat=remat)
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+        step = make_train_step(model, opt, half=half)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        with (plain_ops() if plain else contextlib.nullcontext()), \
+                (contextlib.nullcontext() if half else strict_fp32()):
+            _, parts = step(create_train_state(model, opt), tb, labels,
+                            bench.TRAIN_SEED)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        out = (float(parts["total_loss"]),
+               {n: p.grad for n, p in model.named_parameters()},
+               cuda.launch_counts(),
+               torch.cuda.max_memory_allocated() / 2 ** 30, seconds,
+               cuda.attention_body_launches())
+        del model, opt, step
+        torch.cuda.empty_cache()
+        return out
+
+    def compare(what, a, b, tol_loss, tol_grad=None):
+        """a against b: the loss relative, each gradient over its largest
+        |value| (held where ``tol_grad`` is given)."""
+        loss_err = abs(a[0] - b[0]) / abs(b[0])
+        errs = sorted((float((a[1][n] - g).abs().max())
+                       / max(float(g.abs().max()), 1e-30), n)
+                      for n, g in b[1].items())
+        worst, median = errs[-1], errs[len(errs) // 2][0]
+        held = "printed only" if tol_grad is None else f"tol {tol_grad}"
+        print(f"train {what}: loss {a[0]:.6f} vs {b[0]:.6f} (rel "
+              f"{loss_err:.3e}, tol {tol_loss}); worst gradient error / "
+              f"scale {worst[0]:.3e} at {worst[1]} ({held}), median "
+              f"over the {len(errs)} parameters {median:.3e}")
+        if not (np.isfinite(a[0]) and loss_err <= tol_loss
+                and (tol_grad is None or worst[0] <= tol_grad)):
+            raise AssertionError(f"train {what} disagrees: loss {loss_err}, "
+                                 f"gradient {worst}")
+
+    def against_fp32(kern16, plain16, plain32):
+        """The bf16 step with the kernels against the float32 plain step,
+        within BF16_GRAD_SPREAD x the bf16 plain step's own distance from
+        it + BF16_GRAD_FLOOR of scale: the loss and every gradient."""
+        loss_bar = (BF16_GRAD_SPREAD * abs(plain16[0] - plain32[0])
+                    + BF16_GRAD_FLOOR * abs(plain32[0]))
+        loss_err = abs(kern16[0] - plain32[0])
+        rows = []
+        for n, g32 in plain32[1].items():
+            scale = max(float(g32.abs().max()), 1e-30)
+            e_k = float((kern16[1][n] - g32).abs().max()) / scale
+            e_p = float((plain16[1][n] - g32).abs().max()) / scale
+            bar = BF16_GRAD_SPREAD * e_p + BF16_GRAD_FLOOR
+            rows.append((e_k / bar, e_k, e_p, bar, n))
+        rows.sort()
+        worst = rows[-1]
+
+        def median(values):
+            return sorted(values)[len(rows) // 2]
+
+        tight = sum(r[3] <= 0.1 for r in rows)
+        print(f"train bf16 vs fp32 plain: loss |kernels - fp32| "
+              f"{loss_err:.4e}, |plain bf16 - fp32| "
+              f"{abs(plain16[0] - plain32[0]):.4e} (bar {loss_bar:.4e}); "
+              f"gradient error / scale, median over the {len(rows)} "
+              f"parameters: kernels bf16 {median(r[1] for r in rows):.3e}, "
+              f"plain bf16 {median(r[2] for r in rows):.3e}, bar "
+              f"{median(r[3] for r in rows):.3e}; {tight} bars at 0.1 or "
+              f"under; ratio kernels / plain bf16 median "
+              f"{median(r[1] / max(r[2], 1e-30) for r in rows):.3f}; most "
+              f"of its bar used: {worst[4]} {worst[1]:.3e} of bar "
+              f"{worst[3]:.3e} ({worst[0]:.3f})")
+        if not (np.isfinite(kern16[0]) and loss_err <= loss_bar
+                and worst[0] <= 1):
+            raise AssertionError(f"train bf16 kernels vs fp32 plain: loss "
+                                 f"{loss_err} (bar {loss_bar}), gradient "
+                                 f"{worst}")
+
+    # (a) kernels vs plain twins, float32 then bfloat16; (b) launches
+    want = train_launches(cfg)
+    runs = {}
+    for half in (False, True):
+        kern = grads_of(half, plain=False)
+        plain = grads_of(half, plain=True)
+        name = "bf16" if half else "fp32"
+        print(f"train step {name} (remat on): kernels {kern[4]:.2f} s, "
+              f"peak {kern[3]:.2f} GB; plain twins {plain[4]:.2f} s; "
+              f"launches {kern[2]}, attention launches by body {kern[5]} "
+              f"on {card}")
+        if half:
+            compare("bf16 kernels vs plain", kern, plain,
+                    TRAIN_BF16_LOSS_TOL)
+            against_fp32(kern, plain, runs["fp32_plain"])
+        else:
+            compare("fp32 kernels vs plain", kern, plain, TRAIN_TOL,
+                    TRAIN_TOL)
+            runs["fp32_plain"] = plain
+        got = {k: kern[2][k] for k in want}
+        if got != want or not all(n > 0 for n in got.values()):
+            raise AssertionError(f"train step {name}: launches {got}, "
+                                 f"expected {want}")
+        body = "mma" if half else "simt"
+        for kernel, ran in kern[5].items():
+            expect = dict.fromkeys(ran, 0)
+            expect[body] = kern[2][kernel]
+            if ran != expect:
+                raise AssertionError(f"train step {name}: {kernel} ran "
+                                     f"{ran}, expected every launch on the "
+                                     f"{body} body: {expect}")
+        if any(plain[2].values()):
+            raise AssertionError(f"train step {name} under plain_ops "
+                                 f"launched {plain[2]}")
+        runs[name] = kern
+        del plain
+    counts = runs["bf16"][2]
+    # (c) remat off vs on, float32
+    off = grads_of(False, plain=False, remat=False)
+    print(f"train step fp32: max_memory_allocated remat on "
+          f"{runs['fp32'][3]:.2f} GB, off {off[3]:.2f} GB; "
+          f"{runs['fp32'][4]:.2f} vs {off[4]:.2f} s on {card}")
+    compare("fp32 remat off vs on", off, runs["fp32"], TRAIN_TOL, TRAIN_TOL)
+    if any(off[2][k] * 2 != runs["fp32"][2][k] for k in TRAIN_KERNELS):
+        raise AssertionError(f"remat off launched {off[2]}")
+    del runs, off
+    torch.cuda.empty_cache()
+    # (d) five bf16 AdamW steps on the one batch
+    model = copy.deepcopy(base[True]).to(dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=bench.TRAIN_LR,
+                            weight_decay=bench.TRAIN_WEIGHT_DECAY,
+                            eps=bench.TRAIN_EPS)
+    step = make_train_step(model, opt, half=True)
+    state = create_train_state(model, opt)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, parts = step(state, tb, labels, bench.TRAIN_SEED)
+        losses.append(float(parts["total_loss"]))
+    print(f"train: {TRAIN_STEPS} bf16 AdamW steps on request 0: loss "
+          f"{[round(v, 5) for v in losses]}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train: the loss does not fall: {losses}")
+    del model, opt, step, state, base
+    torch.cuda.empty_cache()
+    # (e) the training bench
+    for flags in TRAIN_BENCH_RUNS:
+        with tempfile.TemporaryDirectory() as trace_dir:
+            env = dict(os.environ)
+            traced = flags == TRAIN_BENCH_RUNS[0]
+            if traced:
+                env["BENCH_TRACE_DIR"] = trace_dir
+            res = subprocess.run(
+                [sys.executable, "-m", "hmvit_tpu_torch.bench", *flags],
+                capture_output=True, text=True, env=env, timeout=600)
+            if res.returncode != 0:
+                raise AssertionError(f"bench {' '.join(flags)} failed "
+                                     f"({res.returncode}):\n{res.stderr}")
+            record = json.loads(res.stdout.strip().splitlines()[-1])
+            print(f"bench {' '.join(flags)}: {json.dumps(record)} on {card}")
+            if record.get("train_mfu") is None or not record["value"] > 0 \
+                    or not record.get("hbm_peak_gb"):
+                raise AssertionError(f"bench {' '.join(flags)}: no rate, "
+                                     f"MFU or peak memory: {record}")
+            if traced:
+                from hmvit_tpu_torch.ops import TWIN_BACKWARD
+                from hmvit_tpu_torch.tools.profile import summarize
+
+                print("bench --train: device time of one traced step by "
+                      "class (hmvit_tpu_torch.tools.profile, ms/step):")
+                summarize(trace_dir, top=15, frames=1, ranges=TWIN_BACKWARD)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1371,6 +1697,10 @@ def main() -> int:
     path_bodies["perf_lab"] = cuda.attention_body_launches()
     print(f"launches during the perf_lab stages: {path_counts['perf_lab']}; "
           f"attention launches by body: {path_bodies['perf_lab']}")
+    torch.cuda.empty_cache()
+
+    # -- 8. training on the card ----------------------------------------------
+    train_counts = train_phase(dev, card)
 
     kernels = []
     for name, rec in record.items():
@@ -1387,7 +1717,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": KERNEL_META[name][0],
                         "replaces": KERNEL_META[name][1],
-                        "launches": launches, **rec})
+                        "launches": launches,
+                        "train_launches": train_counts[name], **rec})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn import DTYPES, Dense, LayerNorm, normal_, xavier_uniform_
+from ..nn import DTYPES, Dense, Dropout, LayerNorm, normal_, xavier_uniform_
 from ..ops import use_kernel
 from ..ops.fused_warp import fused_pair_warp, pair_warp_coefficients
 from ..ops.fused_warp_attention import fused_warp_window_attention
@@ -109,7 +109,7 @@ class HeteroWindowAttention(nn.Module):
                  exclude_self: bool = False,
                  compute_dtype: str = "float32", use_pallas: bool = True,
                  use_stripe: bool = True, use_fused_wa: bool = False,
-                 use_mxu_warp: bool = True):
+                 use_mxu_warp: bool = True, dropout: float = 0.0):
         super().__init__()
         self.dim, self.dim_head, self.window = dim, dim_head, window
         self.style, self.num_types = style, num_types
@@ -124,6 +124,7 @@ class HeteroWindowAttention(nn.Module):
         self.to_k = HeteroDense(dim, dim, num_types)
         self.to_v = HeteroDense(dim, dim, num_types)
         self.to_out = HeteroDense(dim, dim, num_types)
+        self.Dropout_0 = Dropout(dropout)
         num_rel = num_types ** 2
         self.relation_att = nn.Parameter(
             torch.empty(num_rel, heads, dim_head, dim_head))
@@ -238,7 +239,8 @@ class HeteroWindowAttention(nn.Module):
                 mask_ij.reshape(b * r, l, h, w).to(cdt), bias_h, win, heads,
                 d, self.discrete_ratio, self.downsample_rate, receivers,
                 warp_coef).reshape(b, r, h, w, c)
-            return self.to_out(out, mode[:, :r], sm_r).to(torch.float32)
+            return self.Dropout_0(
+                self.to_out(out, mode[:, :r], sm_r).to(torch.float32))
 
         # sender j's [K|V] in receiver i's variant, warped into i's frame
         if self.use_pallas:
@@ -280,7 +282,7 @@ class HeteroWindowAttention(nn.Module):
             out = _window_merge(out.reshape(b, r, nx, ny, t_tok, c), win,
                                 self.style, h, w)
         out = self.to_out(out, mode[:, :r], sm_r)
-        return out.to(torch.float32)
+        return self.Dropout_0(out.to(torch.float32))
 
 
 class SplitAttn(nn.Module):
@@ -312,10 +314,12 @@ class HeteroFusionBlock(nn.Module):
     """One H3GAT iteration: local-window then global-grid hetero
     attention, each followed by a hetero feed-forward (sequential mode),
     or both on the same input, mixed by :class:`SplitAttn` (parallel
-    mode)."""
+    mode).  ``dropout`` applies to each attention's message and inside
+    each feed-forward in train mode."""
 
     def __init__(self, input_dim: int, mlp_dim: int, window_size: int = 8,
-                 dim_head: int = 32, architect_mode: str = "sequential",
+                 dim_head: int = 32, dropout: float = 0.0,
+                 architect_mode: str = "sequential",
                  discrete_ratio: float = 0.4, downsample_rate: float = 4.0,
                  compute_dtype: str = "float32", use_pallas: bool = True,
                  use_stripe: bool = True, use_fused_wa: bool = False):
@@ -333,10 +337,11 @@ class HeteroFusionBlock(nn.Module):
                 discrete_ratio=discrete_ratio,
                 downsample_rate=downsample_rate,
                 compute_dtype=compute_dtype, use_pallas=use_pallas,
-                use_stripe=use_stripe, use_fused_wa=use_fused_wa))
+                use_stripe=use_stripe, use_fused_wa=use_fused_wa,
+                dropout=dropout))
             self.add_module(f"{name}_ffn_norm", HeteroLayerNorm(input_dim))
-            self.add_module(f"{name}_ffn",
-                            HeteroFeedForward(input_dim, mlp_dim))
+            self.add_module(f"{name}_ffn", HeteroFeedForward(
+                input_dim, mlp_dim, dropout=dropout))
         if architect_mode == "parallel":
             self.SplitAttn_0 = SplitAttn(input_dim)
 
@@ -397,6 +402,7 @@ class HeteroFusion(nn.Module):
         self.HeteroFusionBlock_0 = HeteroFusionBlock(
             input_dim=blk["input_dim"], mlp_dim=blk["mlp_dim"],
             window_size=blk["window_size"], dim_head=blk["dim_head"],
+            dropout=blk.get("drop_out", 0.0),
             architect_mode=blk.get("architect_mode", "sequential"),
             discrete_ratio=self.discrete_ratio,
             downsample_rate=self.downsample_rate,

@@ -1,6 +1,8 @@
 """HM-ViT flagship: hetero-modal multi-agent cooperative detector (port
-of ``hmvit_tpu/models/hmvit.py`` for inference, BEVFormer planar camera
-branch).  mode convention: 0 = camera, 1 = lidar.
+of ``hmvit_tpu/models/hmvit.py``, BEVFormer planar camera branch).
+mode convention: 0 = camera, 1 = lidar.  ``train()`` is the JAX model's
+``train=True``: batch statistics, dropout, and remat over the stages
+``cfg["remat"]`` names.
 """
 from __future__ import annotations
 
@@ -8,7 +10,7 @@ import torch
 from torch import nn
 
 from .bevformer import BEVFormerEncoder
-from ..nn import DTYPES
+from ..nn import DTYPES, remat
 from .hetero_fusion import HeteroFusion
 from .layers import DetectionHead, NaiveDecoder
 from .pillar_encoder import PointPillarEncoder
@@ -34,10 +36,12 @@ class HeteroDecoder(nn.Module):
 
     def forward(self, x, ego_mode, static_ego_modality: int | None = None):
         """x (B, H, W, C); ego_mode (B,).  A static ego modality (serving
-        hint) runs only that branch."""
-        if static_ego_modality == 0:
+        hint) runs only that branch, in eval mode (in train mode both
+        branches run, as in the JAX model, and each branch's BatchNorm
+        sees every row)."""
+        if static_ego_modality == 0 and not self.training:
             return self._branch("camera", x)
-        if static_ego_modality == 1:
+        if static_ego_modality == 1 and not self.training:
             return self._branch("lidar", x)
         cam_psm, cam_rm = self._branch("camera", x)
         lid_psm, lid_rm = self._branch("lidar", x)
@@ -51,13 +55,25 @@ def _capturing(t) -> bool:
     return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
+# the stages ``remat: true`` checkpoints
+REMAT_STAGES = ("camera", "lidar", "fusion")
+
+
+def remat_stages(remat) -> frozenset:
+    """The stages a config's ``remat`` checkpoints in train mode: all
+    three for True, the listed ones for a list, none when unset."""
+    if not remat:
+        return frozenset()
+    return frozenset(REMAT_STAGES if remat is True else remat)
+
 _SLICED = ("mode", "agent_mask", "points", "points_mask", "camera",
            "intrinsics", "extrinsics", "prior_encoding")
 
 
 class HMViT(nn.Module):
     """Hetero-modal cooperative detector: lidar PointPillars + camera
-    BEVFormer encoders, H3GAT fusion, per-modality decoder."""
+    BEVFormer encoders, H3GAT fusion, per-modality decoder.  A new model
+    is in eval mode."""
 
     def __init__(self, config: dict):
         super().__init__()
@@ -76,18 +92,7 @@ class HMViT(nn.Module):
         self.HeteroDecoder_0 = HeteroDecoder(
             dec["input_dim"], dec["num_layer"], tuple(dec["num_ch_dec"]),
             dec["anchor_number"], bn_eps=dec.get("bn_eps", 1e-3))
-        super().train(False)
-
-    def train(self, mode: bool = True):
-        """Eval only: the port computes with running BatchNorm statistics
-        and no dropout whatever ``self.training`` says, so train mode is
-        refused rather than silently ignored (ROADMAP.md, Queue 1 item 2:
-        train mode of the ported modules)."""
-        if mode:
-            raise NotImplementedError(
-                "HMViT.train(True): train mode is not ported (batch "
-                "statistics, dropout, remat); see ROADMAP.md Queue 1 item 2")
-        return super().train(False)
+        self.eval()
 
     def forward(self, batch: dict, camera_bucket: int | None = None,
                 active_agents: int | None = None,
@@ -106,7 +111,9 @@ class HMViT(nn.Module):
         - ``static_modes`` is the fleet's per-agent modality layout (after
           slicing) and must equal the batch's ``mode`` row;
         - ``static_ego_modality`` runs only the ego's decoder branch.
-        None of them: both encoders on every slot, selected by mode.
+        None of them: both encoders on every slot, selected by mode (the
+        training trace: each encoder's BatchNorm then sees every slot,
+        the other modality's dummy rows included, as in the JAX model).
         Returns {"psm": (B, A, H, W), "rm": (B, 7A, H, W)}."""
         if active_agents is not None:
             batch = {k: (v[:, :active_agents] if k in _SLICED else v)
@@ -125,18 +132,32 @@ class HMViT(nn.Module):
         points, pmask = flat("points"), flat("points_mask")
         cams, intr, extr = flat("camera"), flat("intrinsics"), \
             flat("extrinsics")
+        stages = (remat_stages(self.config.get("remat")) if self.training
+                  else frozenset())
+
+        def stage(name, module, *args, **kwargs):
+            if name in stages:
+                return remat(module, *args, **kwargs)
+            return module(*args, **kwargs)
+
+        def run_lidar(p, m):
+            return stage("lidar", self.lidar_encoder, p, m)
+
+        def run_camera(c, i, e):
+            return stage("camera", self.camera_encoder, c, i, e)
+
         if camera_bucket is None:
-            lidar_bev = self.lidar_encoder(points, pmask)
-            cam_bev = self.camera_encoder(cams, intr, extr)
+            lidar_bev = run_lidar(points, pmask)
+            cam_bev = run_camera(cams, intr, extr)
             is_lidar = (mode.reshape(-1) == 1)[:, None, None, None]
             x = torch.where(is_lidar, lidar_bev, cam_bev)
         elif camera_bucket == 0:
-            x = self.lidar_encoder(points, pmask)
+            x = run_lidar(points, pmask)
         elif camera_bucket >= b * l:
             # every slot of the batch is a camera (the JAX model compares
             # with l, the slots of ONE row, which at batch > 1 sends the
             # lidar agents of a mixed batch through the camera encoder)
-            x = self.camera_encoder(cams, intr, extr)
+            x = run_camera(cams, intr, extr)
         else:
             nc = camera_bucket
             order = torch.argsort(mode.reshape(-1), stable=True)
@@ -163,9 +184,8 @@ class HMViT(nn.Module):
                         f"count {cameras}: the first {nc} mode-sorted slots "
                         "include lidar agents, which would silently receive "
                         "camera-encoded features")
-            cam_bev = self.camera_encoder(cams[cam_idx], intr[cam_idx],
-                                          extr[cam_idx])
-            lidar_bev = self.lidar_encoder(points[lid_idx], pmask[lid_idx])
+            cam_bev = run_camera(cams[cam_idx], intr[cam_idx], extr[cam_idx])
+            lidar_bev = run_lidar(points[lid_idx], pmask[lid_idx])
             x = torch.zeros((b * l, *cam_bev.shape[1:]),
                             dtype=torch.promote_types(cam_bev.dtype,
                                                       lidar_bev.dtype),
@@ -175,8 +195,8 @@ class HMViT(nn.Module):
 
         h, w, c = x.shape[1:]
         x = x.reshape(b, l, h, w, c) * agent_mask[:, :, None, None, None]
-        ego = self.fusion(x, mode, pairwise, agent_mask,
-                          static_modes=static_modes)
+        ego = stage("fusion", self.fusion, x, mode, pairwise, agent_mask,
+                    static_modes=static_modes)
         dec = self.config["hetero_decoder"]
         if dec.get("compute_dtype"):
             ego = ego.to(DTYPES[dec["compute_dtype"]])

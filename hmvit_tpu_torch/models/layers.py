@@ -15,11 +15,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn import BatchNorm, Conv, gelu, resize_nearest, uniform_
+from ..nn import (
+    BatchNorm,
+    Conv,
+    Dropout,
+    gelu,
+    resize_nearest,
+    uniform_,
+    update_running_stats,
+)
 
 
 class ConvBNReLU(nn.Module):
-    """Conv (symmetric k//2 padding) + BatchNorm (eps 1e-3) + ReLU."""
+    """Conv (symmetric k//2 padding) + BatchNorm (eps 1e-3, momentum
+    0.99) + ReLU."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, use_bias: bool = False,
@@ -110,16 +119,21 @@ class DetectionHead(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Point-axis BatchNorm in inference: running statistics, eps 1e-3,
-    ``(x - mean) * rsqrt(var + eps) * scale + bias``."""
+    """Point-axis BatchNorm, eps 1e-3:
+    ``(x - mean) * rsqrt(var + eps) * scale + bias``.  In eval mode mean
+    and var are the running statistics; in train mode those of the rows
+    ``mask`` marks, in ``x``'s type (bfloat16 under half precision), the
+    variance in two passes, and the running statistics move by flax's
+    rule with momentum 0.99."""
     flax_leaves = {"weight": ("params", "scale", "copy"),
                    "bias": ("params", "bias", "copy"),
                    "running_mean": ("batch_stats", "mean", "copy"),
                    "running_var": ("batch_stats", "var", "copy")}
 
-    def __init__(self, c: int, epsilon: float = 1e-3):
+    def __init__(self, c: int, epsilon: float = 1e-3,
+                 momentum: float = 0.99):
         super().__init__()
-        self.epsilon = epsilon
+        self.epsilon, self.momentum = epsilon, momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -131,9 +145,19 @@ class MaskedBatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x):
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var
-                                                  + self.epsilon)
+    def forward(self, x, mask=None):
+        """x (..., C); mask broadcastable to x[..., 0], read in train
+        mode only."""
+        if self.training:
+            m = mask[..., None].to(x.dtype)
+            denom = torch.clamp(m.sum(), min=1.0)
+            axes = tuple(range(x.ndim - 1))
+            mean = (x * m).sum(axes) / denom
+            var = (((x - mean) ** 2) * m).sum(axes) / denom
+            update_running_stats(self, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return y * self.weight + self.bias
 
 
@@ -226,15 +250,18 @@ class HeteroLayerNorm(nn.Module):
 
 
 class HeteroFeedForward(nn.Module):
-    """Dense - GELU (tanh) - Dense with per-modality weights."""
+    """Dense - GELU (tanh) - Dense with per-modality weights, each Dense
+    followed by dropout at ``dropout`` in train mode."""
 
     def __init__(self, din: int, hidden_dim: int, out_dim: int | None = None,
-                 num_types: int = 2):
+                 num_types: int = 2, dropout: float = 0.0):
         super().__init__()
         self.HeteroDense_0 = HeteroDense(din, hidden_dim, num_types)
         self.HeteroDense_1 = HeteroDense(
             hidden_dim, din if out_dim is None else out_dim, num_types)
+        self.Dropout_0 = Dropout(dropout)
+        self.Dropout_1 = Dropout(dropout)
 
     def forward(self, x, mode, static_modes: tuple | None = None):
-        h = gelu(self.HeteroDense_0(x, mode, static_modes))
-        return self.HeteroDense_1(h, mode, static_modes)
+        h = self.Dropout_0(gelu(self.HeteroDense_0(x, mode, static_modes)))
+        return self.Dropout_1(self.HeteroDense_1(h, mode, static_modes))

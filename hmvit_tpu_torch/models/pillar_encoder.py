@@ -82,7 +82,7 @@ class PillarFeatureNet(nn.Module):
             feats = feats.to(self.compute_dtype)
         keep = info["keep"]
         for i, (dense, bn) in enumerate(self.layers):
-            feats = F.relu(bn(dense(feats)))
+            feats = F.relu(bn(dense(feats), keep))
             feats = feats * keep[:, None].to(feats.dtype)
             if i < len(self.layers) - 1:
                 # concat each pillar's max back onto its points

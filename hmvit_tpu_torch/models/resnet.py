@@ -1,7 +1,7 @@
 """ResNet-50 image backbone and FPN on NHWC (port of
 ``hmvit_tpu/models/resnet.py``, XLA 'SAME' padding: stride-2 convs pad
 (0, 1) at even sizes, the 7x7 stem and the max-pool pad the XLA way, and
-BatchNorm keeps flax's default eps 1e-5)."""
+BatchNorm keeps flax's default eps 1e-5, with momentum 0.9)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -12,6 +12,7 @@ from torch import nn
 from ..nn import BatchNorm, Conv, max_pool_same, resize_nearest
 
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.9
 
 
 class Bottleneck(nn.Module):
@@ -21,15 +22,15 @@ class Bottleneck(nn.Module):
         super().__init__()
         cout = features * 4
         self.Conv_0 = Conv(cin, features, 1, use_bias=False)
-        self.BatchNorm_0 = BatchNorm(features, _BN_EPS)
+        self.BatchNorm_0 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
         self.Conv_1 = Conv(features, features, 3, stride, use_bias=False)
-        self.BatchNorm_1 = BatchNorm(features, _BN_EPS)
+        self.BatchNorm_1 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
         self.Conv_2 = Conv(features, cout, 1, use_bias=False)
-        self.BatchNorm_2 = BatchNorm(cout, _BN_EPS)
+        self.BatchNorm_2 = BatchNorm(cout, _BN_EPS, _BN_MOMENTUM)
         self.project = cin != cout or stride != 1
         if self.project:
             self.Conv_3 = Conv(cin, cout, 1, stride, use_bias=False)
-            self.BatchNorm_3 = BatchNorm(cout, _BN_EPS)
+            self.BatchNorm_3 = BatchNorm(cout, _BN_EPS, _BN_MOMENTUM)
 
     def forward(self, x):
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -54,7 +55,7 @@ class ResNetEncoder(nn.Module):
         block, layout = _ARCH[arch]
         self.id_pick = tuple(id_pick)
         self.Conv_0 = Conv(3, 64, 7, 2, use_bias=False)
-        self.BatchNorm_0 = BatchNorm(64, _BN_EPS)
+        self.BatchNorm_0 = BatchNorm(64, _BN_EPS, _BN_MOMENTUM)
         self.stages = []
         cin, features, k = 64, 64, 0
         for stage, n_blocks in enumerate(layout):

@@ -14,14 +14,25 @@ their PyTorch counterparts with the same numerics:
   at the end, an int pads symmetrically;
 * ``reset_parameters(gen)`` draws the flax default initializer's
   distribution from an explicit ``torch.Generator``.
+
+Train mode is ``nn.Module.train()``, as flax's ``train=True`` /
+``deterministic=False``: :class:`BatchNorm` normalises with the batch's
+statistics and updates its running ones by flax's rule, and
+:class:`Dropout` draws its masks from the generator that
+:func:`dropout_rng` installs.  :func:`remat` is flax's ``nn.remat``:
+``torch.utils.checkpoint`` whose recompute replays the first pass (the
+same dropout masks, no second running-statistics update).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 _SQRT2 = math.sqrt(2.0)
@@ -212,16 +223,22 @@ class ConvTranspose(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` in inference (running statistics):
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    """flax ``nn.BatchNorm`` on the last axis:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.  In eval mode
+    mean and var are the running statistics; in train mode the batch's,
+    over every axis but the channel, as flax computes them
+    (``use_fast_variance``: float32 ``E[x^2] - E[x]^2`` clamped at 0,
+    biased), and the running statistics move by flax's rule
+    ``ra = momentum * ra + (1 - momentum) * stat`` (PyTorch's
+    ``momentum`` is the complement, and its running variance unbiased)."""
     flax_leaves = {"weight": ("params", "scale", "copy"),
                    "bias": ("params", "bias", "copy"),
                    "running_mean": ("batch_stats", "mean", "copy"),
                    "running_var": ("batch_stats", "var", "copy")}
 
-    def __init__(self, c: int, eps: float):
+    def __init__(self, c: int, eps: float, momentum: float = 0.99):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -234,8 +251,16 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x):
-        y = x - self.running_mean
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        if self.training:
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            axes = tuple(range(x.ndim - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            update_running_stats(self, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = x - mean
+        mul = torch.rsqrt(var + self.eps) * self.weight
         return (y * mul + self.bias).to(promote(x, self.weight, self.bias))
 
 
@@ -263,3 +288,97 @@ class LayerNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean) * mul + self.bias
         return y.to(promote(x, self.weight, self.bias))
+
+
+# -- train mode: running statistics, dropout, remat ----------------------
+
+# set inside a remat recompute (see :func:`remat`)
+_RECOMPUTING = contextvars.ContextVar("hmvit_tpu_torch_recomputing",
+                                      default=False)
+# the dropout masks' generator (see :func:`dropout_rng`)
+_DROPOUT_RNG = contextvars.ContextVar("hmvit_tpu_torch_dropout_rng",
+                                      default=None)
+
+
+def update_running_stats(module, mean, var):
+    """flax's running-statistics update of a BatchNorm ``module`` in
+    train mode: ``ra = momentum * ra + (1 - momentum) * stat`` in the
+    buffers' type; skipped in a remat recompute, whose first pass made
+    it (flax's ``nn.remat`` returns the updates of one pass)."""
+    if _RECOMPUTING.get():
+        return
+    m = module.momentum
+    with torch.no_grad():
+        for ra, stat in ((module.running_mean, mean),
+                         (module.running_var, var)):
+            ra.copy_(m * ra + (1 - m) * stat.detach())
+
+
+@contextlib.contextmanager
+def dropout_rng(generator: torch.Generator | None):
+    """Run the block with ``generator`` drawing every :class:`Dropout`
+    mask (the counterpart of flax's ``rngs={"dropout": key}``)."""
+    token = _DROPOUT_RNG.set(generator)
+    try:
+        yield generator
+    finally:
+        _DROPOUT_RNG.reset(token)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, the mask
+    drawn from the generator of :func:`dropout_rng`; the identity in eval
+    mode and at rate 0 (which draws nothing)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        gen = _DROPOUT_RNG.get()
+        if gen is None:
+            raise RuntimeError(
+                "Dropout in train mode draws its mask from an explicit "
+                "generator: run the forward under "
+                "hmvit_tpu_torch.nn.dropout_rng(generator)")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def remat(module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` under ``torch.utils.checkpoint``
+    (non-reentrant, no early stop): its activations are recomputed in
+    the backward pass instead of kept.  The recompute replays the first
+    pass: it runs in the context variables of the forward (``plain_ops``,
+    the kernel-operation recorder) with the module's parameters as the
+    forward saw them (the bf16 copies of a ``functional_call``), draws
+    the same dropout masks from a copy of the generator's state at the
+    forward, and leaves the running statistics alone."""
+    context = contextvars.copy_context()
+    params = dict(module.named_parameters())
+    gen = _DROPOUT_RNG.get()
+    rng = None if gen is None else (gen.device, gen.get_state())
+    calls = []
+
+    def replay(*a):
+        _RECOMPUTING.set(True)
+        if rng is not None:
+            again = torch.Generator(device=rng[0])
+            again.set_state(rng[1])
+            _DROPOUT_RNG.set(again)
+        return torch.func.functional_call(module, params, a, kwargs)
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1:
+            return module(*a, **kwargs)
+        return context.copy().run(replay, *a)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             early_stop=False)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda, opcount, use_kernel
+from . import cuda, opcount, twin_backward, use_kernel
 from .shear_warp import _affine_coefficients, _pixel_affine, warp_bev_mxu
 from .warp import centered_affine, discretize_transform
 
@@ -226,7 +226,7 @@ class _PairWarp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         src, pairwise, mode = ctx.saved_tensors
-        with torch.enable_grad():
+        with twin_backward("pair_warp"), torch.enable_grad():
             s = src.detach().requires_grad_()
             out = pair_warp_xla(s, pairwise, mode, *ctx.args)
             (gs,) = torch.autograd.grad(out, s, g)

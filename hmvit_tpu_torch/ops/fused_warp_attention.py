@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda, opcount, use_kernel
+from . import cuda, opcount, twin_backward, use_kernel
 from .fused_warp import _prep_affines, pair_warp_xla
 from .window_attention import (
     _recompute_grads,
@@ -114,10 +114,11 @@ class _WarpWindowAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, src, bias, pairwise, mode, mask = ctx.saved_tensors
-        grads = _recompute_grads(
-            lambda q_, s_, b_: warp_window_attention_xla(
-                q_, s_, pairwise, mode, mask, b_, *ctx.args),
-            (q, src, bias), g)
+        with twin_backward("warp_window_attention"):
+            grads = _recompute_grads(
+                lambda q_, s_, b_: warp_window_attention_xla(
+                    q_, s_, pairwise, mode, mask, b_, *ctx.args),
+                (q, src, bias), g)
         return (*grads, None, None, None, None, None)
 
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda, use_kernel
+from . import cuda, twin_backward, use_kernel
 from .voxelize import segmented_scan
 
 
@@ -88,7 +88,7 @@ class _SegmentedMaxScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         vals, seg_id = ctx.saved_tensors
-        with torch.enable_grad():
+        with twin_backward("segmented_max_scan"), torch.enable_grad():
             v = vals.detach().requires_grad_()
             out = segmented_max_scan_plain(v, seg_id, ctx.steps)
             (gv,) = torch.autograd.grad(out, v, g)

@@ -239,7 +239,11 @@ def scatter_max_to_bev(point_features, pillar_id, keep, grid_size,
             last_kept = last_kept.scatter_reduce(
                 0, pillar_id, torch.where(keep, iota, 0),
                 reduce="amax")[:-1]
-            feat = scanned[torch.clamp(last_kept - 1, min=0)]
+            # index_select, not scanned[...]: the same rows, but its
+            # backward is an index_add; an indexing backward sorts the
+            # indices and sums each run serially, and every empty cell
+            # points at row 0 (907 ms of a 1434 ms train step on an H100)
+            feat = scanned.index_select(0, torch.clamp(last_kept - 1, min=0))
             dense = torch.where((last_kept > 0)[:, None], feat, zero)
 
     if nz > 1:

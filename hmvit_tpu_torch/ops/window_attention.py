@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda, opcount, use_kernel
+from . import cuda, opcount, twin_backward, use_kernel
 
 
 def plain_window_attention_xla(q, k, v, bias, mask, heads: int,
@@ -255,9 +255,10 @@ class _StripeAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         win, heads, d = ctx.args
-        grads = _recompute_grads(
-            lambda *a: stripe_window_attention_xla(*a, win, heads, d),
-            ctx.saved_tensors, g)
+        with twin_backward("stripe_window_attention"):
+            grads = _recompute_grads(
+                lambda *a: stripe_window_attention_xla(*a, win, heads, d),
+                ctx.saved_tensors, g)
         return (*grads, None, None, None)
 
 
@@ -272,8 +273,9 @@ class _PlainAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         heads, d = ctx.args
-        grads = _recompute_grads(
-            lambda *a: _plain_twin(*a, heads, d), ctx.saved_tensors, g)
+        with twin_backward("plain_window_attention"):
+            grads = _recompute_grads(
+                lambda *a: _plain_twin(*a, heads, d), ctx.saved_tensors, g)
         return (*grads, None, None)
 
 
@@ -288,9 +290,10 @@ class _TypedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         heads, d = ctx.args
-        grads = _recompute_grads(
-            lambda *a: hetero_window_attention_xla(*a, heads, d),
-            ctx.saved_tensors, g)
+        with twin_backward("typed_window_attention"):
+            grads = _recompute_grads(
+                lambda *a: hetero_window_attention_xla(*a, heads, d),
+                ctx.saved_tensors, g)
         return (*grads, None, None)
 
 

@@ -1,13 +1,16 @@
 """Single-frame detection decode on the device (port of
 ``hmvit_tpu/postprocess.py::decode_detections_device``): sigmoid score
 threshold, anchor delta decode, top-k, corners, sanity filters, rotated
-NMS and the GT-range clip, all fixed-shape."""
+NMS and the GT-range clip, all fixed-shape; and the label half of
+``AnchorPostprocessor``."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import GT_RANGE
-from .data.anchors import decode_deltas
+from .data.anchors import decode_deltas, generate_anchor_grid, \
+    generate_labels
 from .utils.boxes import (
     boxes_to_corners_3d,
     mask_corners_in_range,
@@ -38,3 +41,22 @@ def decode_detections_device(psm, rm, anchors, transform,
     keep, _ = nms_rotated_device(corners[:, :4, :2], masked, nms_threshold)
     valid = valid & keep & mask_corners_in_range(corners, GT_RANGE)
     return corners, masked, valid
+
+
+class AnchorPostprocessor:
+    """The anchor grid and the training labels of a postprocess config
+    (``anchor_args``, ``target_args``, ``order``): the label half of
+    ``hmvit_tpu/postprocess.py::AnchorPostprocessor``."""
+
+    def __init__(self, params: dict):
+        self.params = params
+        self.order = params.get("order", "hwl")
+
+    def generate_anchor_box(self) -> np.ndarray:
+        return generate_anchor_grid(self.params["anchor_args"], self.order)
+
+    def generate_label(self, gt_box_center, anchors, mask) -> dict:
+        target = self.params["target_args"]
+        return generate_labels(gt_box_center, mask, anchors,
+                               target["pos_threshold"],
+                               target["neg_threshold"])

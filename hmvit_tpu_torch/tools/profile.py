@@ -10,7 +10,7 @@ memcpys, memsets) up into classes:
     python -m hmvit_tpu_torch.tools.profile /tmp/trace --frames 4 [--top 30]
 
 ``--frames`` divides the totals by the number of traced frames, so the
-numbers read as ms/frame.  It prints the total device time, the time of
+numbers read as ms/frame (of a traced train step: ``--frames 1``).  It prints the total device time, the time of
 each class, and the ``--top`` device operations with their counts per
 frame.  The classes: ``convolution``, ``GEMM``, ``elementwise``,
 ``copy / permute``, ``reduction`` (reductions, norms, softmax, sort,
@@ -18,10 +18,20 @@ scan, top-k), each hand-written kernel of ``csrc/`` by the name of its
 wrapper (``hand-written: pair_warp`` ...), ``memcpy / memset``, and
 ``other``.  A device event's time is its own duration, so kernels that
 overlap are counted each in full.
+
+``--ranges PREFIX`` also rolls up, by class, the device operations
+launched inside each profiler range whose name starts with PREFIX (a
+``torch.profiler.record_function``): ``--ranges twin_backward:`` gives
+the device time of the kernels' plain-twin backward
+(:func:`hmvit_tpu_torch.ops.twin_backward`) by kernel and class.  A
+device operation belongs to a range when the host call that launched it
+(the runtime event of the same correlation id) lies inside the range on
+the same thread.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import glob
 import gzip
@@ -124,7 +134,48 @@ def device_op_totals(trace: dict):
     return agg, cnt, cat
 
 
-def summarize(path: str, top: int = 30, frames: int = 1) -> dict:
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+
+
+def range_totals(trace: dict, prefix: str) -> dict:
+    """{range name: {class: device us}} over the device operations
+    launched inside the profiler ranges named ``prefix...`` (see the
+    module's docstring)."""
+    events = [ev for ev in trace.get("traceEvents", [])
+              if ev.get("ph") == "X"]
+    launches = collections.defaultdict(list)  # (pid, tid) -> [(ts, corr)]
+    for ev in events:
+        if ev.get("cat") in LAUNCH_CATEGORIES:
+            corr = ev.get("args", {}).get("correlation")
+            if corr is not None:
+                launches[(ev.get("pid"), ev.get("tid"))].append(
+                    (float(ev["ts"]), corr))
+    for rows in launches.values():
+        rows.sort()
+    owner = {}
+    for ev in events:
+        if ev.get("cat") != "user_annotation" or \
+                not ev.get("name", "").startswith(prefix):
+            continue
+        rows = launches.get((ev.get("pid"), ev.get("tid")), [])
+        lo, hi = float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0))
+        for i in range(bisect.bisect_left(rows, (lo,)), len(rows)):
+            if rows[i][0] > hi:
+                break
+            owner[rows[i][1]] = ev["name"]
+    out = collections.defaultdict(collections.Counter)
+    for ev in events:
+        if ev.get("cat") not in DEVICE_CATEGORIES:
+            continue
+        name = owner.get(ev.get("args", {}).get("correlation"))
+        if name is not None:
+            out[name][op_class(ev.get("name", "?"), ev["cat"])] += \
+                float(ev.get("dur", 0.0))
+    return {name: dict(classes) for name, classes in out.items()}
+
+
+def summarize(path: str, top: int = 30, frames: int = 1,
+              ranges: str | None = None) -> dict:
     trace = load_trace(path)
     agg, cnt, cat = device_op_totals(trace)
     scale = 1e3 * frames  # us -> ms, per frame
@@ -144,10 +195,22 @@ def summarize(path: str, top: int = 30, frames: int = 1) -> dict:
     for name, us in agg.most_common(top):
         print(f"  {us / scale:7.3f} x{cnt[name] // max(frames, 1):4d}"
               f"  {name[:100]}")
-    return {"total_ms": total / scale,
-            "by_class": {k: us / scale for k, us in groups.items()},
-            "top": [(name, us / scale, cnt[name] // max(frames, 1))
-                    for name, us in agg.most_common(top)]}
+    result = {"total_ms": total / scale,
+              "by_class": {k: us / scale for k, us in groups.items()},
+              "top": [(name, us / scale, cnt[name] // max(frames, 1))
+                      for name, us in agg.most_common(top)]}
+    if ranges:
+        inside = range_totals(trace, ranges)
+        result["ranges"] = {name: {cls: us / scale for cls, us in
+                                   classes.items()}
+                            for name, classes in inside.items()}
+        whole = sum(sum(c.values()) for c in inside.values())
+        print(f"-- inside ranges {ranges}* (ms/frame): {whole / scale:.3f}")
+        for name, classes in sorted(inside.items()):
+            print(f"  {sum(classes.values()) / scale:8.3f}  {name}: "
+                  + ", ".join(f"{cls} {us / scale:.3f}" for cls, us in
+                              sorted(classes.items(), key=lambda kv: -kv[1])))
+    return result
 
 
 def main(argv=None):
@@ -156,8 +219,11 @@ def main(argv=None):
     p.add_argument("--top", type=int, default=30)
     p.add_argument("--frames", type=int, default=1,
                    help="traced frame count (totals divided by this)")
+    p.add_argument("--ranges", default=None,
+                   help="also roll up the device time inside the profiler "
+                        "ranges of this name prefix, e.g. twin_backward:")
     a = p.parse_args(argv)
-    summarize(a.trace, top=a.top, frames=a.frames)
+    summarize(a.trace, top=a.top, frames=a.frames, ranges=a.ranges)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,185 @@
+"""The training step (port of ``hmvit_tpu/train/trainer.py``): a
+:class:`TrainState`, the train step over the run-both trace or
+bucketed on the batch's camera count, the eval step, the forward, and
+the anchor labels of a batch.
+
+``half=True`` is the JAX package's ``_to_bf16``, not autocast: every
+float32 parameter (BatchNorm and LayerNorm scales included) enters the
+forward as a bfloat16 copy through ``torch.func.functional_call``, so
+its gradient lands on the float32 master through the cast; every
+float32 tensor of the batch (poses and intrinsics included) is cast;
+the running statistics stay float32; the outputs are cast to float32
+before the loss.  The optimizer updates the float32 masters.
+
+Dropout draws from a generator seeded from (seed, step), the
+counterpart of ``jax.random.fold_in(rng, state.step)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..nn import dropout_rng
+from .losses import point_pillar_loss
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The step count, the model (float32 master parameters and running
+    statistics) and its optimizer; a train step updates all three in
+    place."""
+    step: int
+    model: nn.Module
+    opt: torch.optim.Optimizer
+
+
+def create_train_state(model: nn.Module,
+                       opt: torch.optim.Optimizer) -> TrainState:
+    return TrainState(step=0, model=model, opt=opt)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The dropout generator of one step: seeded from (seed, step)."""
+    mixed = np.random.SeedSequence([int(seed), int(step)]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(mixed))
+
+
+def _to_bf16(tensors: dict) -> dict:
+    return {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+            for k, v in tensors.items()}
+
+
+def make_train_step(model, opt, loss_fn: Callable = point_pillar_loss,
+                    loss_kwargs: dict | None = None, half: bool = False,
+                    schedule: Callable[[int], float] | None = None):
+    """Returns ``step(state, batch, labels, seed=0) -> (state, parts)``
+    over the run-both trace (both encoders on every slot).  ``batch`` and
+    ``labels`` are dicts of tensors on the model's device; ``parts`` are
+    the loss's terms, detached.  ``schedule`` (``step -> lr``) sets every
+    parameter group's learning rate before the update, as optax's
+    schedule does inside its transformation; without it the groups keep
+    theirs.  ``half=True``: bfloat16 compute against float32 masters (see
+    the module's docstring)."""
+    return _make_train_step(model, opt, loss_fn, loss_kwargs, half,
+                            schedule, camera_bucket=None)
+
+
+def _make_train_step(model, opt, loss_fn, loss_kwargs, half, schedule,
+                     camera_bucket=None):
+    loss_kwargs = loss_kwargs or {}
+    apply_kwargs = ({} if camera_bucket is None
+                    else {"camera_bucket": camera_bucket})
+    # the optimizer's parameters: each gets a gradient every step (zero
+    # for a branch the step did not run, as in the JAX package, so
+    # AdamW still decays it)
+    trained = [p for group in opt.param_groups for p in group["params"]]
+
+    def step(state: TrainState, batch: dict, labels: dict, seed: int = 0):
+        if state.model is not model or state.opt is not opt:
+            raise ValueError("the state holds another model or optimizer "
+                             "than this step was made for")
+        device = next(model.parameters()).device
+        model.train()
+        model.zero_grad(set_to_none=True)
+        batch_in = _to_bf16(batch) if half else batch
+        with dropout_rng(step_generator(seed, state.step, device)):
+            if half:
+                params = _to_bf16(dict(model.named_parameters()))
+                out = torch.func.functional_call(model, params, (batch_in,),
+                                                 apply_kwargs)
+                out = {k: v.to(torch.float32) for k, v in out.items()}
+            else:
+                out = model(batch_in, **apply_kwargs)
+            total, parts = loss_fn(out, labels, **loss_kwargs)
+            total.backward()
+        for p in trained:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if schedule is not None:
+            lr = schedule(state.step)
+            for group in opt.param_groups:
+                group["lr"] = lr
+        opt.step()
+        state.step += 1
+        return state, {k: v.detach() for k, v in parts.items()}
+
+    return step
+
+
+def make_bucketed_train_step(model, opt, loss_fn: Callable = point_pillar_loss,
+                             loss_kwargs: dict | None = None,
+                             half: bool = False,
+                             schedule: Callable[[int], float] | None = None):
+    """The train step specialised on the batch's camera count: the camera
+    encoder's forward, backward and remat recompute run on the camera
+    rows only, the lidar encoder's on the rest (the model's
+    ``camera_bucket``).  Each branch's train-mode BatchNorm normalises
+    over its real rows (the reference's row split); a branch the batch
+    does not run gets zero gradients, which AdamW still decays (the
+    reference's ``find_unused_parameters`` contract).  One step function
+    per camera count is kept (``cache_info``), as the JAX package keeps
+    one compiled step."""
+    @functools.lru_cache(maxsize=None)
+    def bucket(n_cam: int):
+        return _make_train_step(model, opt, loss_fn, loss_kwargs, half,
+                                schedule, camera_bucket=n_cam)
+
+    def dispatch(state, batch, labels, seed: int = 0):
+        # the active camera agents: one host read of mode and agent_mask
+        mode = torch.as_tensor(batch["mode"]).cpu()
+        active = torch.as_tensor(batch["agent_mask"]).cpu() > 0
+        n_cam = int(((mode == 0) & active).sum())
+        return bucket(n_cam)(state, batch, labels, seed)
+
+    dispatch.cache_info = bucket.cache_info
+    return dispatch
+
+
+def make_eval_step(model, loss_fn: Callable = point_pillar_loss,
+                   loss_kwargs: dict | None = None):
+    """``step(state, batch, labels) -> parts`` in eval mode (running
+    statistics, no dropout), without gradients."""
+    loss_kwargs = loss_kwargs or {}
+
+    def step(state: TrainState, batch: dict, labels: dict):
+        state.model.eval()
+        with torch.no_grad():
+            out = state.model(batch)
+            _, parts = loss_fn(out, labels, **loss_kwargs)
+        return parts
+
+    return step
+
+
+def make_forward(model):
+    """``forward(state, batch) -> outputs`` in eval mode, no gradients."""
+    def fwd(state: TrainState, batch: dict):
+        state.model.eval()
+        with torch.no_grad():
+            return state.model(batch)
+
+    return fwd
+
+
+def labels_for_batch(postprocessor, anchors, batch, device=None) -> dict:
+    """Host-side anchor labels of a padded batch (numpy arrays or
+    tensors): ``pos_equal_one``, ``neg_equal_one`` (B, H, W, A) and
+    ``targets`` (B, H, W, 7A), float32 tensors on ``device``.  The
+    anchor-free label map (``anchors is None``, the BEV postprocessor)
+    is not ported."""
+    if anchors is None:
+        raise NotImplementedError("the anchor-free PIXOR label map is not "
+                                  "ported (ROADMAP.md Queue 1 item 7)")
+    centers = np.asarray(torch.as_tensor(batch["object_bbx_center"]).cpu())
+    masks = np.asarray(torch.as_tensor(batch["object_bbx_mask"]).cpu())
+    labels = [postprocessor.generate_label(centers[i], anchors, masks[i])
+              for i in range(centers.shape[0])]
+    return {key: torch.as_tensor(np.stack([lab[key] for lab in labels]),
+                                 dtype=torch.float32, device=device)
+            for key in ("pos_equal_one", "neg_equal_one", "targets")}

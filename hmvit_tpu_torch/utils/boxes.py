@@ -1,6 +1,6 @@
 """Box geometry on tensors (torch versions of the numpy ``xp`` functions
-of ``hmvit_tpu/utils/boxes.py``), and the two numpy functions the
-synthetic scenes need.
+of ``hmvit_tpu/utils/boxes.py``), and the numpy functions the synthetic
+scenes and the anchor labels need.
 
 Boxes are ``(x, y, z, dims..., yaw)`` with dims ordered ``hwl`` or
 ``lwh``; corners follow the JAX package's numbering: 0-3 the bottom face
@@ -41,6 +41,13 @@ def boxes_to_corners_3d_np(boxes, order: str = "lwh") -> np.ndarray:
     x, y, z = corners[..., 0], corners[..., 1], corners[..., 2]
     corners = np.stack([x * c - y * s, x * s + y * c, z], axis=-1)
     return corners + boxes[:, None, 0:3]
+
+
+def corners_to_standup_np(corners) -> np.ndarray:
+    """(N, K, 2+) corners -> (N, 4) axis-aligned [x1, y1, x2, y2]."""
+    return np.stack([corners[..., 0].min(axis=1), corners[..., 1].min(axis=1),
+                     corners[..., 0].max(axis=1), corners[..., 1].max(axis=1)],
+                    axis=1)
 
 
 def mask_boxes_outside_range_np(boxes, limit_range, order,

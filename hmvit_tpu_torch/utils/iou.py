@@ -1,12 +1,31 @@
 """Rotated BEV IoU on the device (torch port of the ``xp`` functions of
 ``hmvit_tpu/utils/iou.py``): analytic convex-quad intersection —
 candidate vertices (corners inside the other quad plus edge-edge
-crossings), angle sort, shoelace."""
+crossings), angle sort, shoelace.  And the axis-aligned IoU of anchor
+matching, in numpy on the host (:func:`aligned_iou`)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-8
+
+
+def aligned_iou(boxes, query) -> np.ndarray:
+    """Axis-aligned IoU matrix with the Pascal ``+1`` extent convention
+    (the reference's Cython ``bbox_overlaps``, kept for bit-equal label
+    generation): boxes (N, 4) [x1, y1, x2, y2], query (K, 4) -> (N, K)."""
+    boxes = np.asarray(boxes)
+    query = np.asarray(query)
+    area_q = (query[:, 2] - query[:, 0] + 1) * (query[:, 3] - query[:, 1] + 1)
+    area_b = (boxes[:, 2] - boxes[:, 0] + 1) * (boxes[:, 3] - boxes[:, 1] + 1)
+    iw = (np.minimum(boxes[:, None, 2], query[None, :, 2])
+          - np.maximum(boxes[:, None, 0], query[None, :, 0]) + 1)
+    ih = (np.minimum(boxes[:, None, 3], query[None, :, 3])
+          - np.maximum(boxes[:, None, 1], query[None, :, 1]) + 1)
+    inter = np.clip(iw, 0, None) * np.clip(ih, 0, None)
+    union = area_b[:, None] + area_q[None, :] - inter
+    return np.where(inter > 0, inter / union, np.zeros_like(inter))
 
 
 def _ccw(quads):

@@ -1,8 +1,9 @@
 """The port's benchmark entry, ``python -m hmvit_tpu_torch.bench``: its
 CPU rehearsal prints one JSON line with ``bench.py``'s keys and says its
 time is no device time; without CUDA and without ``--cpu`` it exits 2;
-``--train`` and ``--stem_s2d`` are refused with the ROADMAP item that
-will bring them.  At tiny widths the batch-2 serving forward, with the
+``--stem_s2d`` is refused with the ROADMAP item that will bring it;
+``--train --cpu`` rehearses the training bench and prints
+``bench.py``'s training keys.  At tiny widths the batch-2 serving forward, with the
 hints ``bench --batch 2`` gives, equals two batch-1 forwards and the JAX
 package's batch-2 forward; ``flops_per_frame`` is the FLOP counter's
 count plus the hand-written kernels' operation counts, each wrapper
@@ -36,7 +37,7 @@ def _one_thread():
 
 def cpu_args(**kw):
     args = dict(fp32=False, cpu=True, fused_wa=False, no_stripe=False,
-                expand=None, batch=1, iters=1)
+                expand=None, batch=1, iters=1, train=False)
     args.update(kw)
     return argparse.Namespace(**args)
 
@@ -69,12 +70,37 @@ def test_refuses_to_run_without_cuda(capsys):
     assert captured.out == "" and "no CUDA device" in captured.err
 
 
-@pytest.mark.parametrize("flag,item", [("--train", "Queue 1 item 3"),
-                                       ("--stem_s2d", "Queue 1 item 7")])
+@pytest.mark.parametrize("flag,item", [("--stem_s2d", "Queue 1 item 7")])
 def test_unported_flags_are_refused(flag, item, capsys):
     assert bench.main(["--cpu", flag]) == 2
     captured = capsys.readouterr()
     assert captured.out == "" and item in captured.err
+
+
+TRAIN_KEYS = {"metric", "value", "unit", "frames_per_sec", "flops_per_step",
+              "flops_unit", "train_mfu", "hbm_peak_gb", "vs_baseline",
+              "device_kind"}
+
+
+@pytest.mark.parametrize("flags", [[], ["--no_remat", "--bucketed"]])
+def test_train_cpu_rehearsal_prints_one_record(flags, capsys):
+    """``--train --cpu``: the training bench's flow (labels, AdamW, the
+    half-precision step with remat, FLOP count) at the rehearsal widths;
+    no device number (``train_mfu``, ``hbm_peak_gb``) on the CPU."""
+    assert bench.main(["--cpu", "--train", "--iters", "1", *flags]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    record = json.loads(lines[0])
+    assert TRAIN_KEYS <= set(record)
+    assert record["metric"].startswith(bench.TRAIN_METRIC)
+    assert ("remat=False" in record["metric"]) == ("--no_remat" in flags)
+    assert ("count-bucketed" in record["metric"]) == ("--bucketed" in flags)
+    assert record["unit"] == "steps/sec/chip"
+    assert record["value"] > 0 and record["frames_per_sec"] > 0
+    assert record["flops_per_step"] > record["kernel_gflops_per_step"] > 0
+    assert record["train_mfu"] is None and record["hbm_peak_gb"] is None
+    assert all(np.isfinite(record["loss_first_last"]))
+    assert record["note"] == bench.CPU_NOTE
 
 
 def test_peak_table():

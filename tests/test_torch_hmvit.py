@@ -407,18 +407,21 @@ def test_bucket_branch_host_reads(flagship, monkeypatch, debug, static,
 
 
 def test_train_mode_is_refused(flagship):
-    """The port is eval only (ROADMAP.md Queue 1 item 2): a new model is
-    in eval mode, ``train(True)`` raises instead of running eval
-    arithmetic under a training flag, and ``eval()`` / ``train(False)``
-    still work."""
+    """Named for what it held while the port was eval only; train mode is
+    ported now and no longer refused.  A new model is in eval mode;
+    ``train()`` / ``train(True)`` put every module in train mode (batch
+    statistics, dropout, remat) and ``eval()`` / ``train(False)`` put
+    every module back."""
     from hmvit_tpu_torch.nn import init_parameters
 
     model = HMViT(flagship["cfg"])
     assert not any(m.training for m in model.modules())
     for call in (model.train, lambda: model.train(True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            call()
-    assert not model.training
-    assert model.eval() is model and model.train(False) is model
+        assert call() is model
+        assert all(m.training for m in model.modules())
+        assert model.eval() is model
+        assert not any(m.training for m in model.modules())
+    assert model.train(True).train(False) is model
+    assert not any(m.training for m in model.modules())
     assert init_parameters(model, seed=0) is model
     assert not any(m.training for m in model.modules())

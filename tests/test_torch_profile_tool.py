@@ -1,7 +1,9 @@
 """hmvit_tpu_torch/tools/profile.py: the chrome-trace rollup by kernel
 class on a small synthetic trace (the cases of tests/test_profile_tool.py
 on the port's trace format): the classes, the per-name totals that
-ignore host events, the ``--frames`` division and the ``--top`` order."""
+ignore host events, the ``--frames`` division and the ``--top`` order;
+and the rollup of the device operations launched inside named profiler
+ranges (``--ranges``), by the launch's correlation id."""
 import gzip
 import json
 
@@ -12,6 +14,7 @@ from hmvit_tpu_torch.tools.profile import (
     hand_written_kernel,
     main,
     op_class,
+    range_totals,
     summarize,
 )
 
@@ -129,3 +132,52 @@ def test_cli(tmp_path, capsys):
     (tmp_path / "empty").mkdir()
     with pytest.raises(SystemExit, match="no chrome trace"):
         main([str(tmp_path / "empty")])
+
+
+def make_range_trace():
+    """Two twin-backward ranges on the autograd thread (tid 9) and one
+    other range; each launch (cuda_runtime, correlation id) maps to a
+    device event of the same id."""
+    def x(name, cat, ts, dur, tid=9, corr=None):
+        ev = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+              "pid": 1, "tid": tid}
+        if corr is not None:
+            ev["args"] = {"correlation": corr}
+        return ev
+
+    return {"traceEvents": [
+        x("twin_backward:pair_warp", "user_annotation", 100, 50),
+        x("twin_backward:plain_window_attention", "user_annotation", 200, 50),
+        x("forward", "user_annotation", 300, 50),
+        x("cudaLaunchKernel", "cuda_runtime", 110, 2, corr=1),
+        x("cudaLaunchKernel", "cuda_runtime", 120, 2, corr=2),
+        x("cudaLaunchKernel", "cuda_runtime", 210, 2, corr=3),
+        x("cudaLaunchKernel", "cuda_runtime", 310, 2, corr=4),
+        # a launch at the same time on another thread: not in a range
+        x("cudaLaunchKernel", "cuda_runtime", 115, 2, tid=3, corr=5),
+        x(ADD, "kernel", 400, 30, tid=7, corr=1),
+        x(CAT, "kernel", 440, 20, tid=7, corr=2),
+        x(GEMM, "kernel", 470, 40, tid=7, corr=3),
+        x(CONV, "kernel", 520, 60, tid=7, corr=4),
+        x(ADD, "kernel", 600, 10, tid=7, corr=5),
+    ]}
+
+
+def test_range_totals_by_correlation():
+    got = range_totals(make_range_trace(), "twin_backward:")
+    assert got == {
+        "twin_backward:pair_warp": {"elementwise": 30.0,
+                                    "copy / permute": 20.0},
+        "twin_backward:plain_window_attention": {"GEMM": 40.0}}
+    assert range_totals(make_range_trace(), "nothing:") == {}
+
+
+def test_cli_ranges(tmp_path, capsys):
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps(make_range_trace()))
+    res = summarize(str(path), top=1, frames=1, ranges="twin_backward:")
+    assert res["ranges"]["twin_backward:pair_warp"]["elementwise"] == \
+        pytest.approx(0.03)
+    main([str(path), "--ranges", "twin_backward:"])
+    out = capsys.readouterr().out
+    assert "-- inside ranges twin_backward:* (ms/frame): 0.090" in out

@@ -84,6 +84,41 @@ def flax_variables(module, *args, seed=0, **kwargs):
     return random_variables(shapes, seed)
 
 
+def flax_tree(port_module, shapes):
+    """The inverse of the bridge: a flax variables tree, of the structure
+    of ``shapes`` (``jax.eval_shape`` of the flax module's init), holding
+    ``port_module``'s tensors as numpy (e.g. the port's own seeded
+    initialisation, which draws flax's default distributions)."""
+    def unconvert(arr, kind):
+        if kind == "dense":
+            return arr.T
+        if kind == "conv":
+            return arr.transpose(2, 3, 1, 0)
+        if kind == "conv_transpose":
+            return arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        return arr
+
+    leaves = {}
+    for key, tensor in port_module.state_dict().items():
+        mod_path, _, leaf = key.rpartition(".")
+        module = port_module.get_submodule(mod_path) if mod_path \
+            else port_module
+        coll, flax_leaf, kind = getattr(module, "flax_leaves", {}).get(
+            leaf, ("params", leaf, "copy"))
+        path = (coll, *(mod_path.split(".") if mod_path else ()), flax_leaf)
+        leaves[path] = np.ascontiguousarray(unconvert(tensor.numpy(), kind))
+
+    def fill(path, s):
+        key = tuple(str(getattr(p, "key", p)) for p in path)
+        arr = leaves.pop(key)
+        assert arr.shape == s.shape, (key, arr.shape, s.shape)
+        return arr
+
+    tree = jax.tree_util.tree_map_with_path(fill, shapes)
+    assert not leaves, sorted(leaves)[:4]
+    return tree
+
+
 def bridged(port_module, variables):
     """Load flax variables into a port module (eval mode, CPU)."""
     load_flax(port_module, jax.tree_util.tree_map(np.asarray, variables))
@@ -202,3 +237,74 @@ def no_host_copies(monkeypatch):
         m.setattr(torch, "tensor", guarded(torch.tensor))
         m.setattr(torch, "as_tensor", guarded(torch.as_tensor))
         yield
+
+
+# -- train steps ------------------------------------------------------------
+
+def f64(tree):
+    """float32 leaves of a tree of arrays -> float64 numpy."""
+    def widen(a):
+        a = np.asarray(a)
+        return a.astype(np.float64) if a.dtype == np.float32 else a
+    return jax.tree_util.tree_map(widen, tree)
+
+
+def adamw_update(tx, grads, opt_state, params):
+    """One optax update: (new params, new optimizer state)."""
+    import optax
+
+    updates, opt_state = tx.update(grads, opt_state, params)
+    return optax.apply_updates(params, updates), opt_state
+
+
+def jax_adamw_steps(jm, variables, batch, labels, x64, lr, weight_decay,
+                    steps=2, **apply_kwargs):
+    """``steps`` train steps of the flax model ``jm`` (point-pillar loss,
+    ``optax.adamw``), computed in float64 under ``jax.enable_x64``
+    (``x64``) or in float32.  Returns [(loss, grads, batch_stats after
+    the step)] and the params after the last step, as float64 numpy."""
+    import optax
+
+    from hmvit_tpu.train.losses import point_pillar_loss as jloss
+
+    conv = f64 if x64 else (lambda tr: jax.tree_util.tree_map(np.asarray,
+                                                              tr))
+    with jax.enable_x64(x64):
+        jb = {k: jnp.asarray(v) for k, v in conv(batch).items()}
+        jl = {k: jnp.asarray(v) for k, v in conv(labels).items()}
+        params = jax.tree_util.tree_map(jnp.asarray,
+                                        conv(variables["params"]))
+        stats = jax.tree_util.tree_map(jnp.asarray,
+                                       conv(variables["batch_stats"]))
+
+        def compute(p, bs):
+            out, upd = jm.apply({"params": p, "batch_stats": bs}, jb,
+                                train=True, mutable=["batch_stats"],
+                                **apply_kwargs)
+            return jloss(out, jl)[0], upd["batch_stats"]
+
+        grad_fn = jax.jit(jax.value_and_grad(compute, has_aux=True))
+        tx = optax.adamw(lr, weight_decay=weight_decay)
+        opt_state = tx.init(params)
+        update = jax.jit(lambda g, o, p: adamw_update(tx, g, o, p))
+        out = []
+        for _ in range(steps):
+            (loss, stats), grads = grad_fn(params, stats)
+            params, opt_state = update(grads, opt_state, params)
+            out.append((float(loss), f64(grads), f64(stats)))
+        return out, f64(params)
+
+
+def held_to_yardstick(got, ref64, ref32, rel, floor=0.0):
+    """Per tensor of ``got`` (port, float32): |got - ref64| (JAX, float64)
+    within max(rel x its largest |ref64|, floor) or, where JAX's own
+    float32 result ``ref32`` lies farther than half that from ref64,
+    within twice JAX's distance.  Returns the worst (error / bar, name)."""
+    worst = (0.0, None)
+    for name, g in got.items():
+        want = ref64[name]
+        err = float((g.double() - want).abs().max())
+        jax_err = float((ref32[name] - want).abs().max())
+        bar = max(rel * float(want.abs().max()), floor, 2.0 * jax_err)
+        worst = max(worst, (err / bar if bar > 0 else np.inf * err, name))
+    return worst
