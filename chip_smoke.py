@@ -125,7 +125,30 @@ Phases:
    --no_remat`` and ``--train --bucketed``, each JSON line printed with
    the card's name and power limit, the first traced and rolled up by
    ``hmvit_tpu_torch.tools.profile`` (by class, and the plain twins'
-   backward by kernel: ``--ranges twin_backward:``).
+   backward by kernel: ``--ranges twin_backward:``);
+9. the accuracy gate's path (``hmvit_tpu_torch.prod_overfit``) at
+   production shapes: (a) write the mini-OPV2V fixture (1 scenario, 4
+   CAVs, 2 frames, 512^2 images, 16 384 points, vehicles 8 m apart in
+   +-30 m), load it through the port's dataset (seed 0, no PyYAML /
+   OpenCV), collate and label each frame, and print the loader's host ms
+   a frame (median); (b) the oracle decode: each frame's labels as its
+   outputs (a high logit on the positive anchors, the regression targets
+   as ``rm``) through ``post_process`` and the VOC evaluation must score
+   AP 1.0 at 0.3, 0.5 and 0.7; (c) 20 bfloat16 AdamW steps with remat of
+   the gate's configuration (``gate_config(512)``: ``PROD_CFG`` with remat
+   on every stage) on the two frames: the loss finite, the mean of its
+   last 5 under that of its first 5, and the pair warp, stripe and plain
+   launches of every step equal to ``train_launches``; (d) the gate's
+   eval forward (eval mode, no serving hints, the configuration's bf16
+   fusion) on both frames, then ``post_process`` and AP: the AP (not
+   held: 20 steps do not train the model), the ms a frame and the
+   launches (those of a forward without remat, a frame) printed.
+
+The pair warp in float32 is held to its twin at ``FP32_ATOL`` on the
+serving and ego poses; on spread poses (the phase 2 case and
+``SPREAD_DRAWS`` further draws, each from its own generator) to a
+per-element bound derived from the float32 rounding of the sample
+coordinates (``WARP_COORD_ULPS``, ``warp_fp32_bound``).
 
 The script imports torch, numpy, the standard library and
 ``hmvit_tpu_torch``: nothing of jax, of the JAX package ``hmvit_tpu`` or
@@ -149,6 +172,40 @@ import numpy as np
 # kernel vs plain twin on unit-normal inputs at the production shapes.
 # float32: the same arithmetic in another summation order.
 FP32_ATOL = 1e-4
+# The pair warp in float32 on spread poses (agents up to +-120 m apart)
+# is held per element to a bound derived from the sample coordinates'
+# rounding, FP32_ATOL plus it (``warp_fp32_bound``), not to FP32_ATOL
+# alone.  Each output element is a linear interpolation, per pass, of
+# neighbouring taps at a float32 coordinate: pass 1 (rows) at
+# v1 y' + v0 c + ty_adj on each column tap c, pass 2 (columns) at
+# m00 x' + m01 y' + tx.  The kernel reads the twin's coefficient rows
+# (bit-equal on the card), but copies an identity pair (flag 1: a row
+# within 1e-4 of the identity), while the twin interpolates it at the
+# coordinates its row gives: the pose chain inv(M_i) M_i rounds in
+# float32 at the agent's translation (about 1.5e-5 pixels at 120 m, 2e-5
+# of a tap there), so the twin samples a hair off the pixel centre.  Each
+# side evaluates a coordinate in float32 within an ulp of its terms'
+# magnitude.  Moving a coordinate by d moves a linear interpolation by d
+# times the difference of the two taps it weights, and pass 1's error
+# passes through pass 2's weights (which sum to at most 1); so per
+# element
+#   |kernel - twin| <= FP32_ATOL + (dC + dR
+#                      + WARP_COORD_ULPS * ulp(M)) * (D1 + D2),
+# with dC, dR the distances between the kernel's and the twin's column
+# and row coordinates (the pixel's own for a copied pair; the row one at
+# both column taps), M the largest sum of the terms' magnitudes (|m00 x'|
+# + |m01 y'| + |tx|, |v1 y'| + |v0 c| + |ty_adj| + 2 |v0 tx|), D1 the
+# largest difference of row-neighbouring source taps on the column taps
+# the element reads and D2 that of the column-neighbouring pass-1 values,
+# each one tap wider on both sides (a coordinate near an integer may
+# floor to either side).  So a reading near 1e-4 on a diagonal pair is
+# this rounding, not a fault (one draw read 1.054e-4 against FP32_ATOL
+# alone, another 1.373e-4 where a copied pixel's taps differ by 7); a
+# wrong tap moves an element by a whole tap difference (order 1) and
+# fails.  The serving and ego poses (within 20 m) keep FP32_ATOL alone.
+WARP_COORD_ULPS = 2.0
+# spread-pose draws, each from its own generator, held to that bound
+SPREAD_DRAWS = 20
 # bfloat16: both sides compute in float32 from the same bf16 inputs and
 # round the output once; the warp's hat weights are rounded to bf16 at
 # slightly different points (fp32 hat vs bf16 1 - frac), so a few
@@ -213,6 +270,8 @@ TRAIN_BF16_LOSS_TOL = 1e-3
 BF16_GRAD_SPREAD = 2.0
 BF16_GRAD_FLOOR = 1e-2
 TRAIN_STEPS = 5
+# phase 9: bf16 train steps of the accuracy gate on its fixture
+GATE_STEPS = 20
 
 KERNEL_META = {
     "pair_warp": ("hmvit_tpu_torch/csrc/pair_warp.cu",
@@ -360,6 +419,162 @@ def draw_222():
     return src.astype(np.float32), pair.astype(np.float32)
 
 
+def warp_fp32_bound(src_typed, pairwise, mode, discrete_ratio,
+                    downsample_rate, receivers=None):
+    """The per-element float32 bound of the pair warp against its twin
+    (see ``WARP_COORD_ULPS``): (B, I, J, H, W, C) float32, from the
+    twin's own geometry (type gather, discretized and centred affines,
+    post-swap coefficients) on these inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from hmvit_tpu_torch.ops.fused_warp import pair_warp_coefficients
+    from hmvit_tpu_torch.ops.shear_warp import _affine_coefficients, \
+        _pixel_affine
+    from hmvit_tpu_torch.ops.warp import centered_affine, \
+        discretize_transform
+
+    bsz, _, l, h, w, c = src_typed.shape
+    r = l if receivers is None else receivers
+    dev = src_typed.device
+    bidx = torch.arange(bsz, device=dev)[:, None]
+    typed = src_typed[bidx, mode[:, :r].long()].reshape(-1, h, w, c).float()
+    t_ij = pairwise.transpose(1, 2)[:, :r].reshape(-1, 4, 4)
+    t = centered_affine(discretize_transform(
+        t_ij, discrete_ratio, downsample_rate).to(torch.float32), (h, w))
+    coefs = _affine_coefficients(_pixel_affine(t, (h, w), (h, w)))
+    # the kernel's coefficient rows (flag 1: copied), in the twin's order
+    kcoef = pair_warp_coefficients(pairwise, (h, w), discrete_ratio,
+                                   downsample_rate)[:, :r].reshape(-1, 8)
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    cols = torch.arange(w, device=dev)[None, :]
+    yi = torch.arange(h, device=dev)[:, None]
+    bound = torch.empty_like(typed)
+    for n in range(typed.shape[0]):
+        m00, m01, tx, v0, v1, tya, swap = (q[n] for q in coefs)
+        s = typed[n].transpose(0, 1) if bool(swap) else typed[n]
+        s_pad = F.pad(s, (0, 0, 0, 0, 2, 2))  # rows -2 .. h + 1
+        rcoord = v1 * ys + v0 * xs + tya  # (Y, column tap)
+        r0 = torch.floor(rcoord).long()
+
+        def row(k):
+            return s_pad[(r0 + k).clamp(-2, h + 1) + 2, cols]
+
+        taps = [row(k) for k in (-1, 0, 1, 2)]
+        frac = (rcoord - torch.floor(rcoord))[..., None]
+        tmp = (1.0 - frac) * taps[1] + frac * taps[2]
+        g1 = torch.stack([(taps[k + 1] - taps[k]).abs() for k in range(3)]
+                         ).amax(0)  # (Y, column tap, C)
+        g1 = F.pad(g1, (0, 0, 2, 2))
+        tmp = F.pad(tmp, (0, 0, 2, 2))
+        g2 = (tmp[:, 1:] - tmp[:, :-1]).abs()  # column taps -2 .. w
+        ccoord = m00 * xs + m01 * ys + tx  # (Y, X)
+        x0 = torch.floor(ccoord).long()
+        xf = torch.floor(ccoord)
+        rows = [v1 * ys + v0 * (xf + k) + tya for k in (0.0, 1.0)]
+        if bool(kcoef[n, 7] == 1.0):  # the kernel copies the pixel
+            d_col = (xs - ccoord).abs()
+            d_row = torch.stack([(ys - r_).abs() for r_ in rows]).amax(0)
+        else:
+            km00, km01, ktx, kv0, kv1, ktya = kcoef[n, :6]
+            if bool(kcoef[n, 6] > 0.5) != bool(swap):
+                raise AssertionError(f"pair {n}: the kernel's coefficient "
+                                     f"row swaps the passes, the twin's not")
+            d_col = (km00 * xs + km01 * ys + ktx - ccoord).abs()
+            d_row = torch.stack([
+                ((kv1 * ys + kv0 * (xf + k) + ktya) - r_).abs()
+                for k, r_ in zip((0.0, 1.0), rows)]).amax(0)
+        d1 = torch.stack([g1[yi, (x0 + k).clamp(-2, w + 1) + 2]
+                          for k in (-1, 0, 1, 2)]).amax(0)
+        d2 = torch.stack([g2[yi, (x0 + k).clamp(-2, w) + 2]
+                          for k in (-1, 0, 1)]).amax(0)
+        # a float32 sum rounds at the magnitude of its terms, not of its
+        # value (a coordinate near 0 carries its translation's rounding)
+        mag = torch.maximum(
+            m00.abs() * xs + m01.abs() * ys + tx.abs(),
+            v1.abs() * ys + v0.abs() * (xf.abs() + 1.0) + tya.abs()
+            + 2.0 * (v0 * tx).abs()).clamp(min=1.0)
+        ulp = torch.ldexp(torch.ones_like(mag),
+                          torch.frexp(mag).exponent - 24)
+        shift = d_col + d_row + WARP_COORD_ULPS * ulp
+        bound[n] = FP32_ATOL + shift[..., None] * (d1 + d2)
+    return bound.reshape(bsz, r, l, h, w, c)
+
+
+def check_spread_draws(dev):
+    """Phase 2, P2: the tile and resident pair warps in float32 on
+    ``SPREAD_DRAWS`` spread-pose draws (agents within +-120 m, unit-normal
+    maps at the production shapes), each draw from its own generator,
+    held to their twin per element within ``warp_fp32_bound``.  Returns
+    {kernel: {"draws", "max_abs_err", "max_err_over_bound"}}."""
+    import torch
+
+    from hmvit_tpu_torch import perf_lab
+    from hmvit_tpu_torch.ops import plain_ops
+    from hmvit_tpu_torch.ops.fused_warp import fused_pair_warp
+    from hmvit_tpu_torch.utils.precision import strict_fp32
+
+    from hmvit_tpu_torch.ops.fused_warp import pair_warp_coefficients
+    from hmvit_tpu_torch.ops.shear_warp import _affine_coefficients, \
+        _pixel_affine
+    from hmvit_tpu_torch.ops.warp import centered_affine, \
+        discretize_transform
+
+    lab = perf_lab.Lab(dev, perf_lab.PROD, iters=1)
+    mode = torch.tensor([[1, 0, 1, 0]], device=dev)
+    worst = {v: [0.0, 0.0] for v in ("tile", "resident")}
+    at_copy = 0
+    for k in range(SPREAD_DRAWS):
+        lab.gen.manual_seed(1000 + k)
+        pair = lab.rand_pairwise(4, spread=120.0)
+        src = lab.randn(1, 2, 4, 128, 128, 512)
+        args = (src, pair, mode, 0.4, 4, None)
+        with strict_fp32():
+            with plain_ops():
+                want = fused_pair_warp(*args)
+            bound = warp_fp32_bound(*args)
+            line = []
+            # the kernel's coefficient rows against the twin's own chain
+            kcoef = pair_warp_coefficients(pair, (128, 128), 0.4, 4)[0] \
+                .reshape(16, 8)
+            t = centered_affine(discretize_transform(
+                pair.transpose(1, 2).reshape(4, 4, 4, 4), 0.4, 4)
+                .reshape(-1, 2, 3).float(), (128, 128))
+            tcoef = torch.stack(_affine_coefficients(
+                _pixel_affine(t, (128, 128), (128, 128))), -1).float()
+            rows_diff = float((kcoef[:, :7] - tcoef).abs().max())
+            for variant in worst:
+                got = fused_pair_warp(*args, variant=variant)
+                diff = (got - want).abs()
+                if variant == "tile":
+                    i, j = (int(q) for q in torch.unravel_index(
+                        diff.argmax(), diff.shape)[1:3])
+                    copied = bool(kcoef[i * 4 + j, 7] == 1.0)
+                    at_copy += copied
+                err = float(diff.max())
+                ratio = float((diff / bound).max())
+                line.append(f"{variant} {err:.3e} ({ratio:.3f} of bound)")
+                worst[variant] = [max(worst[variant][0], err),
+                                  max(worst[variant][1], ratio)]
+                if not ratio <= 1.0:
+                    raise AssertionError(
+                        f"pair warp ({variant}) float32, spread draw {k}: "
+                        f"max_abs_err {err}, {ratio} of the derived bound")
+        print(f"  pair warp float32, spread draw {k}: " + ", ".join(line)
+              + f"; bound {float(bound.min()):.3e} .. "
+              f"{float(bound.max()):.3e}; worst element on pair ({i}, {j})"
+              f"{', copied (identity)' if copied else ''}; coefficient rows "
+              f"kernel vs twin max|diff| {rows_diff:.1e}")
+        del src, pair, want, bound, got, diff
+    print(f"  pair warp float32, spread draws: the worst element lies on a "
+          f"copied identity pair in {at_copy} of {SPREAD_DRAWS}")
+    torch.cuda.empty_cache()
+    return {("pair_warp" if v == "tile" else "pair_warp_resident"):
+            {"draws": SPREAD_DRAWS, "max_abs_err": e,
+             "max_err_over_bound": q} for v, (e, q) in worst.items()}
+
+
 def check_kernels(dev, pairwise, agent_mask):
     """Phase 2: each kernel vs its plain twin at the production shapes."""
     import torch
@@ -470,8 +685,11 @@ def check_kernels(dev, pairwise, agent_mask):
                 launch()
                 return out
             what = "the previous body"
+        # spread poses in float32: the derived per-element bound
+        bound = (None if pair is not pair_far or dt != torch.float32
+                 else lambda: warp_fp32_bound(*args))
         return dict(
-            args=args, tensors=args[:1],
+            args=args, tensors=args[:1], bound=bound,
             fn=lambda *a: fused_pair_warp(*a, variant=variant),
             prep=lambda *a, **kw: pair_warp_launch(*a, variant=variant, **kw),
             exact=exact, exact_what=what, library=None, previous=True,
@@ -664,13 +882,25 @@ def check_kernels(dev, pairwise, agent_mask):
                 if got.shape != want.shape or got.dtype != want.dtype:
                     raise AssertionError(f"{name} {label}: {got.shape} "
                                          f"{got.dtype} vs {want.shape}")
-                err = float((got.float() - want.float()).abs().max())
-                print(f"  {name} [{label}, {key}]: max_abs_err {err:.3e} "
-                      f"(tol {tol})")
-                if not np.isfinite(err) or err > tol:
-                    raise AssertionError(
-                        f"{name} {label} {key}: kernel vs plain twin "
-                        f"max_abs_err {err} > {tol}")
+                diff = (got.float() - want.float()).abs()
+                err = float(diff.max())
+                if case.get("bound") is not None:
+                    ratio = float((diff / case["bound"]()).max())
+                    print(f"  {name} [{label}, {key}]: max_abs_err "
+                          f"{err:.3e}, {ratio:.3f} of the derived "
+                          f"per-element bound (warp_fp32_bound)")
+                    if not ratio <= 1.0:
+                        raise AssertionError(
+                            f"{name} {label} {key}: kernel vs plain twin "
+                            f"exceeds the derived bound ({ratio})")
+                else:
+                    print(f"  {name} [{label}, {key}]: max_abs_err "
+                          f"{err:.3e} (tol {tol})")
+                    if not np.isfinite(err) or err > tol:
+                        raise AssertionError(
+                            f"{name} {label} {key}: kernel vs plain twin "
+                            f"max_abs_err {err} > {tol}")
+                del diff
                 if same is not None:
                     diff = float((got.float() - same.float()).abs().max())
                     print(f"  {name} [{label}, {key}]: max|diff| against "
@@ -1432,6 +1662,107 @@ def train_phase(dev, card) -> dict:
     return counts
 
 
+def gate_phase(dev, card) -> dict:
+    """Phase 9 (see the module's docstring): the accuracy gate's path at
+    production shapes.  Returns each kernel's launches over the train
+    steps and the eval forward."""
+    import torch
+
+    from hmvit_tpu_torch import prod_overfit as gate
+    from hmvit_tpu_torch.models.hmvit import HMViT
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.postprocess import AnchorPostprocessor
+    from hmvit_tpu_torch.train.trainer import (
+        create_train_state,
+        make_forward,
+        make_train_step,
+    )
+
+    args = gate.parse_args([])
+    cfg, lidar_range = gate.gate_config(args.grid)
+    pp_cfg = gate.postprocess_config(args.grid, lidar_range)
+    pp_train = AnchorPostprocessor(pp_cfg, train=True)
+    pp_eval = AnchorPostprocessor(pp_cfg, train=False)
+    anchors = pp_train.generate_anchor_box()
+    # (a) the fixture on disk, loaded, collated, labelled
+    t0 = time.perf_counter()
+    batches, labels, gt, load_ms = gate.load_gate_data(
+        args, lidar_range, pp_train, anchors, dev)
+    print(f"gate: fixture written and {len(batches)} frames loaded in "
+          f"{time.perf_counter() - t0:.2f} s; loading {load_ms:.1f} ms a "
+          f"frame (host, median); ground-truth boxes "
+          f"{[len(g) for g in gt]}, positive anchors "
+          f"{[int(lab['pos_equal_one'].sum()) for lab in labels]} on {card}")
+    # (b) the oracle decode: the labels as outputs
+    aps = gate.average_precision([gate.oracle_outputs(lab) for lab in labels],
+                                 gt, pp_eval, anchors)
+    print(f"gate: oracle decode AP@0.3 / 0.5 / 0.7 = {aps}")
+    if aps != (1.0, 1.0, 1.0):
+        raise AssertionError(f"gate: the oracle decode scores {aps}, not 1.0 "
+                             f"at every threshold")
+    # (c) bf16 train steps with remat, launches per step
+    model = init_parameters(HMViT(cfg), seed=args.seed).to(dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=args.lr, **gate.ADAMW)
+    step = make_train_step(model, opt, half=True)
+    state = create_train_state(model, opt)
+    want = train_launches(cfg)
+    total = dict.fromkeys(KERNEL_META, 0)
+    losses = []
+    t0 = time.perf_counter()
+    for k in range(GATE_STEPS):
+        cuda.reset_launches()
+        state, parts = step(state, batches[k % len(batches)],
+                            labels[k % len(batches)], 1)
+        losses.append(float(parts["total_loss"]))
+        counts = cuda.launch_counts()
+        for name in total:
+            total[name] += counts[name]
+        got = {name: counts[name] for name in want}
+        if got != want:
+            raise AssertionError(f"gate step {k}: launches {got}, expected "
+                                 f"{want}")
+    seconds = time.perf_counter() - t0
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"gate: {GATE_STEPS} bf16 remat AdamW steps in {seconds:.2f} s "
+          f"(first one included), loss {[round(v, 4) for v in losses]}; "
+          f"mean of the first 5 {first:.4f}, of the last 5 {last:.4f}; "
+          f"launches a step {want} on {card}")
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"gate: the loss is not finite or does not "
+                             f"fall: {losses}")
+    # (d) the eval forward (the configuration's bf16 fusion), decode, AP
+    fwd = make_forward(model)
+    cuda.reset_launches()
+    outs, eval_ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(fwd(state, b))
+        torch.cuda.synchronize()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = cuda.launch_counts()
+    for name in total:
+        total[name] += counts[name]
+    aps = gate.average_precision(outs, gt, pp_eval, anchors)
+    forward = {name: counts[name] for name in want}
+    print(f"gate: eval forward {[round(v, 2) for v in eval_ms]} ms a frame "
+          f"on {card}; launches over {len(batches)} frames {forward}; "
+          f"AP@0.3 / 0.5 / 0.7 after {GATE_STEPS} steps = {aps} (not held)")
+    expect = {name: n * len(batches) for name, n in
+              train_launches(dict(cfg, remat=False)).items()}
+    if forward != expect:
+        raise AssertionError(f"gate eval forward: launches {forward}, "
+                             f"expected {expect}")
+    for out in outs:
+        if not all(torch.isfinite(out[k].float()).all() for k in ("psm",
+                                                                   "rm")):
+            raise AssertionError("gate eval forward: non-finite outputs")
+    del model, opt, step, state, batches, labels, outs
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1473,6 +1804,8 @@ def main() -> int:
     record.update(check_lidar_kernels(
         dev, geo["points"][0, :NUM_AGENTS][is_lidar],
         geo["points_mask"][0, :NUM_AGENTS][is_lidar]))
+    for name, spread in check_spread_draws(dev).items():
+        record[name]["spread_draws"] = spread
     torch.cuda.empty_cache()
 
     # -- 3. the production model in its four serving variants ----------------
@@ -1702,6 +2035,9 @@ def main() -> int:
     # -- 8. training on the card ----------------------------------------------
     train_counts = train_phase(dev, card)
 
+    # -- 9. the accuracy gate's path ------------------------------------------
+    gate_counts = gate_phase(dev, card)
+
     kernels = []
     for name, rec in record.items():
         launches = path_counts[KERNEL_PATH[name]][name]
@@ -1718,7 +2054,8 @@ def main() -> int:
                         "source": KERNEL_META[name][0],
                         "replaces": KERNEL_META[name][1],
                         "launches": launches,
-                        "train_launches": train_counts[name], **rec})
+                        "train_launches": train_counts[name],
+                        "gate_launches": gate_counts[name], **rec})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,3 +28,5 @@ __version__ = "0.3.0"
 
 # ground-truth / evaluation range [x0, y0, z0, x1, y1, z1] in metres
 GT_RANGE = [-102.4, -102.4, -3.0, 102.4, 102.4, 1.0]
+# agents farther than this from the ego (metres) send nothing
+COM_RANGE = 50.0

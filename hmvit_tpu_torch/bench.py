@@ -93,7 +93,7 @@ def peak_bf16_flops(device_name: str) -> float | None:
 def refused(flag: str) -> str | None:
     """Why a flag of ``bench.py`` is not served here, or None."""
     return {"--stem_s2d": "the space-to-depth camera stem is not ported "
-                          "(ROADMAP.md Queue 1 item 7)",
+                          "(ROADMAP.md Queue 1 item 5)",
             }.get(flag)
 
 
@@ -142,11 +142,9 @@ def count_flops(model, request, hints) -> tuple[float, float]:
     tensors are hidden from it).  The model's parameters must not
     require grad, as :func:`build` leaves them: the counter's module
     tracker hooks autograd."""
-    from torch.utils.flop_counter import FlopCounterMode
+    from .ops.opcount import flop_counter, record_kernel_ops
 
-    from .ops.opcount import record_kernel_ops
-
-    counter = FlopCounterMode(display=False)
+    counter = flop_counter()
     with torch.no_grad(), counter, record_kernel_ops() as calls:
         model(request, **hints)
     return float(counter.get_total_flops()), sum(ops for _, ops in calls)
@@ -214,11 +212,9 @@ def count_train_flops(state, step, batch, labels) -> tuple[float, float]:
     sees the forward's library calls, the backward, the remat recomputes
     and the plain twins' backward recompute; the kernels' formulas count
     every launch, the remat recompute's too."""
-    from torch.utils.flop_counter import FlopCounterMode
+    from .ops.opcount import flop_counter, record_kernel_ops
 
-    from .ops.opcount import record_kernel_ops
-
-    counter = FlopCounterMode(display=False)
+    counter = flop_counter()
     with counter, record_kernel_ops() as calls:
         step(state, batch, labels, TRAIN_SEED)
     return float(counter.get_total_flops()), sum(ops for _, ops in calls)

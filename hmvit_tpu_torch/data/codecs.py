@@ -1,0 +1,597 @@
+"""File codecs of the dataset, on the standard library and numpy only: PNG
+(over ``zlib`` and ``struct``) and the YAML subset the OPV2V frame files
+use.  The JAX package reads and writes these files with OpenCV and
+PyYAML; the port's data path needs neither, nor Pillow.
+
+PNG: :func:`write_png` writes 8-bit grey or RGB with filter 0 on every
+row; :func:`read_png` reads 8-bit grey, grey + alpha, RGB and RGBA, not
+interlaced, with any of the five row filters (so it also reads what
+``cv2.imwrite`` writes).  Pixels come back in the file's channel order
+(RGB), not OpenCV's BGR.  :func:`resize_bilinear` is ``cv2.resize``'s
+``INTER_LINEAR`` (half-pixel centres, edge clamp) in float64, rounded to
+uint8: it may differ from OpenCV's fixed-point weights by one grey level.
+
+YAML: :func:`yaml_dump` writes what PyYAML's ``safe_dump`` writes for
+nested mappings (int and str keys, sorted), lists, floats, ints, bools,
+null and strings, in block style.  :func:`yaml_load` reads that block style,
+one-line flow sequences and mappings, quoted strings, comments and the
+``!!python/tuple`` tag, and resolves plain scalars as PyYAML's
+``SafeLoader`` does (YAML 1.1: ``yes`` is true, ``1e5`` is a string).
+Anything else (anchors, aliases, other tags, block scalars, multi-line
+scalars or flows, octal, hex, sexagesimal or underscored numbers,
+timestamps, several documents) raises :class:`YamlSubsetError` naming it.
+"""
+from __future__ import annotations
+
+import math
+import re
+import struct
+import zlib
+
+import numpy as np
+
+# -- PNG -------------------------------------------------------------------
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> channels, at bit depth 8
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write an (H, W) grey or (H, W, 3) RGB uint8 image."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        raise ValueError(f"write_png: uint8 images only, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.ndim != 3 or img.shape[2] not in (1, 3):
+        raise ValueError(f"write_png: (H, W) or (H, W, 3), got {img.shape}")
+    h, w, c = img.shape
+    rows = np.zeros((h, 1 + w * c), np.uint8)  # filter byte 0 a row
+    rows[:, 1:] = img.reshape(h, w * c)
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if c == 1 else 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE + _png_chunk(b"IHDR", header)
+                + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + _png_chunk(b"IEND", b""))
+
+
+def _unfilter_row(kind: int, row: np.ndarray, prev: np.ndarray,
+                  bpp: int) -> np.ndarray:
+    """One PNG scanline's filter undone (row, prev: uint8 of one row)."""
+    if kind == 0:
+        return row
+    if kind == 2:  # Up
+        return row + prev
+    if kind == 1:  # Sub: a running sum per channel, mod 256
+        sums = np.cumsum(row.reshape(-1, bpp).astype(np.int64), axis=0)
+        return (sums % 256).astype(np.uint8).reshape(-1)
+    # Average and Paeth depend on the reconstructed left neighbour
+    out = bytearray(row.tobytes())
+    up = prev.tobytes()
+    n = len(out)
+    if kind == 3:
+        for i in range(n):
+            left = out[i - bpp] if i >= bpp else 0
+            out[i] = (out[i] + ((left + up[i]) >> 1)) & 0xFF
+    elif kind == 4:
+        for i in range(n):
+            if i >= bpp:
+                a, c = out[i - bpp], up[i - bpp]
+            else:
+                a = c = 0
+            b = up[i]
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            out[i] = (out[i] + pred) & 0xFF
+    else:
+        raise ValueError(f"PNG: unknown row filter {kind}")
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an 8-bit, non-interlaced PNG -> (H, W, C) uint8 in the file's
+    channel order (C = 1 grey, 2 grey + alpha, 3 RGB, 4 RGBA)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{path}: bad CRC in chunk {kind!r}")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"{path}: only 8-bit grey / grey + alpha / RGB / "
+                         f"RGBA, not interlaced, is read (bit depth {depth}, "
+                         f"colour type {ctype}, interlace {interlace})")
+    c = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    stride = 1 + w * c
+    if raw.size != h * stride:
+        raise ValueError(f"{path}: {raw.size} bytes of pixel data for "
+                         f"{h} x {stride}")
+    raw = raw.reshape(h, stride)
+    kinds = raw[:, 0]
+    if not kinds.any():
+        return raw[:, 1:].reshape(h, w, c).copy()
+    out = np.empty((h, w * c), np.uint8)
+    prev = np.zeros(w * c, np.uint8)
+    for y in range(h):
+        prev = out[y] = _unfilter_row(int(kinds[y]), raw[y, 1:], prev, c)
+    return out.reshape(h, w, c)
+
+
+def resize_bilinear(img: np.ndarray, size: int) -> np.ndarray:
+    """(H, W, C) uint8 -> (size, size, C) uint8 by ``cv2.resize``'s
+    ``INTER_LINEAR`` sampling; the image itself when it has that size."""
+    h, w = img.shape[:2]
+    if (h, w) == (size, size):
+        return img
+
+    def taps(n_in):
+        x = (np.arange(size) + 0.5) * (n_in / size) - 0.5
+        x0 = np.floor(x)
+        frac = x - x0
+        x0 = x0.astype(np.int64)
+        frac = np.where(x0 < 0, 0.0, frac)
+        x0 = np.clip(x0, 0, n_in - 1)
+        frac = np.where(x0 >= n_in - 1, 0.0, frac)
+        return x0, np.minimum(x0 + 1, n_in - 1), frac
+
+    y0, y1, fy = taps(h)
+    x0, x1, fx = taps(w)
+    f = img.astype(np.float64)
+    rows = (f[y0] * (1.0 - fy)[:, None, None] + f[y1] * fy[:, None, None])
+    out = (rows[:, x0] * (1.0 - fx)[None, :, None]
+           + rows[:, x1] * fx[None, :, None])
+    return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
+
+
+# -- YAML subset ------------------------------------------------------------
+
+
+class YamlSubsetError(ValueError):
+    """A YAML construct outside the subset :func:`yaml_load` reads."""
+
+
+_TUPLE_TAG = "!!python/tuple"
+_NULLS = {"", "~", "null", "Null", "NULL"}
+_BOOLS = {w: v for v, words in (
+    (True, "yes Yes YES true True TRUE on On ON"),
+    (False, "no No NO false False FALSE off Off OFF"))
+    for w in words.split()}
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9]*)$")
+_FLOAT = re.compile(r"(?:[-+]?[0-9]+\.[0-9]*|\.[0-9]+)(?:[eE][-+][0-9]+)?$")
+_INF = re.compile(r"([-+]?)\.(?:inf|Inf|INF)$")
+_NAN = re.compile(r"\.(?:nan|NaN|NAN)$")
+# plain scalars PyYAML resolves to a type this reader does not take:
+# binary, octal, hex, sexagesimal and underscored numbers, timestamps,
+# the merge key and the value key
+_OUTSIDE = [
+    (re.compile(r"[-+]?0b[0-1_]+$"), "a binary integer"),
+    (re.compile(r"[-+]?0[0-7_]+$"), "an octal integer"),
+    (re.compile(r"[-+]?0x[0-9a-fA-F_]+$"), "a hexadecimal integer"),
+    (re.compile(r"[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?$"),
+     "a sexagesimal number"),
+    (re.compile(r"[-+]?[0-9_]*_[0-9_]*(?:\.[0-9_]*)?(?:[eE][-+][0-9]+)?$"),
+     "a number with underscores"),
+    (re.compile(r"[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}"), "a timestamp"),
+    (re.compile(r"(?:<<|=)$"), "a merge or value key"),
+]
+
+
+def _resolve_plain(text: str, where: str):
+    """A plain scalar's value, by PyYAML's YAML 1.1 resolver."""
+    if text in _NULLS:
+        return None
+    if text in _BOOLS:
+        return _BOOLS[text]
+    if _INT.match(text):
+        return int(text)
+    if _FLOAT.match(text):
+        return float(text)
+    m = _INF.match(text)
+    if m:
+        return -math.inf if m.group(1) == "-" else math.inf
+    if _NAN.match(text):
+        return math.nan
+    for pattern, what in _OUTSIDE:
+        if pattern.match(text) and any(ch.isdigit() or ch in "<=" for ch in
+                                       text):
+            raise YamlSubsetError(f"{where}: {text!r} is {what}, outside "
+                                  f"the YAML subset read here")
+    if text[0] in "&*!|>%@`?{}[],#'\"":
+        raise YamlSubsetError(f"{where}: the plain scalar {text!r} starts "
+                              f"with an indicator outside the subset")
+    return text
+
+
+def _quoted(text: str, where: str) -> str:
+    """The value of a whole single- or double-quoted scalar."""
+    q = text[0]
+    if len(text) < 2 or text[-1] != q:
+        raise YamlSubsetError(f"{where}: unterminated quoted scalar {text!r}")
+    body = text[1:-1]
+    if q == "'":
+        if re.search(r"(?<!')'(?!')", body.replace("''", "")):
+            raise YamlSubsetError(f"{where}: stray quote in {text!r}")
+        return body.replace("''", "'")
+    out, i = [], 0
+    escapes = {'"': '"', "\\": "\\", "/": "/", "n": "\n", "t": "\t",
+               "r": "\r", "0": "\0"}
+    while i < len(body):
+        ch = body[i]
+        if ch == '"':
+            raise YamlSubsetError(f"{where}: stray quote in {text!r}")
+        if ch == "\\":
+            nxt = body[i + 1:i + 2]
+            if nxt in escapes:
+                out.append(escapes[nxt])
+                i += 2
+                continue
+            if nxt in ("x", "u"):
+                n = 2 if nxt == "x" else 4
+                out.append(chr(int(body[i + 2:i + 2 + n], 16)))
+                i += 2 + n
+                continue
+            raise YamlSubsetError(f"{where}: escape \\{nxt} outside the "
+                                  f"subset")
+        out.append(ch)
+        i += 1
+    return "".join(out)
+
+
+def _scalar(text: str, where: str):
+    text = text.strip()
+    if text[:1] in ("'", '"'):
+        return _quoted(text, where)
+    return _resolve_plain(text, where)
+
+
+def _strip_comment(line: str) -> str:
+    """The line without a trailing comment (a ``#`` at the start or after
+    a space, outside quotes)."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"" and (i == 0 or line[i - 1] in " -[{,:"):
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def _split_key(content: str):
+    """(key text, rest) of a ``key: value`` entry, or None."""
+    quote = None
+    depth = 0
+    for i, ch in enumerate(content):
+        if quote:
+            if ch == quote:
+                quote = None
+            continue
+        if ch in "'\"" and i == 0:
+            quote = ch
+        elif ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+        elif (ch == ":" and depth == 0
+              and (i + 1 == len(content) or content[i + 1] == " ")):
+            return content[:i], content[i + 1:].strip()
+    return None
+
+
+def _flow(text: str, where: str):
+    """A one-line flow sequence or mapping of scalars or flows."""
+    pos = 0
+
+    def skip():
+        nonlocal pos
+        while pos < len(text) and text[pos] == " ":
+            pos += 1
+
+    def item(stop):
+        nonlocal pos
+        skip()
+        if pos >= len(text):
+            raise YamlSubsetError(f"{where}: unterminated or multi-line "
+                                  f"flow collection {text!r}")
+        if text[pos] in "[{":
+            return node()
+        start = pos
+        quote = text[pos] if text[pos] in "'\"" else None
+        pos += 1 if quote else 0
+        while pos < len(text):
+            ch = text[pos]
+            if quote:
+                if ch == quote:
+                    if quote == "'" and text[pos + 1:pos + 2] == "'":
+                        pos += 1  # an escaped quote
+                    else:
+                        quote = None
+            elif ch in stop:
+                break
+            pos += 1
+        return text[start:pos].strip()
+
+    def node():
+        nonlocal pos
+        opener = text[pos]
+        closer = "]" if opener == "[" else "}"
+        pos += 1
+        out = [] if opener == "[" else {}
+        skip()
+        if pos < len(text) and text[pos] == closer:
+            pos += 1
+            return out
+        while True:
+            if opener == "[":
+                raw = item(",]")
+                out.append(raw if not isinstance(raw, str)
+                           else _scalar(raw, where))
+            else:
+                raw = item(":,}")
+                if pos >= len(text) or text[pos] != ":":
+                    raise YamlSubsetError(f"{where}: flow mapping entry "
+                                          f"without ': ' in {text!r}")
+                pos += 1
+                val = item(",}")
+                out[_scalar(raw, where)] = (val if not isinstance(val, str)
+                                            else _scalar(val, where))
+            skip()
+            if pos >= len(text):
+                raise YamlSubsetError(f"{where}: unterminated or multi-line "
+                                      f"flow collection {text!r}")
+            if text[pos] == closer:
+                pos += 1
+                return out
+            if text[pos] != ",":
+                raise YamlSubsetError(f"{where}: unexpected {text[pos]!r} "
+                                      f"in flow collection {text!r}")
+            pos += 1
+
+    value = node()
+    skip()
+    if pos != len(text):
+        raise YamlSubsetError(f"{where}: text after a flow collection: "
+                              f"{text!r}")
+    return value
+
+
+class _Lines:
+    """The document's content lines as (line number, indent, text)."""
+
+    def __init__(self, source: str):
+        self.items = []
+        started = False
+        for no, raw in enumerate(source.splitlines(), 1):
+            if "\t" in raw[:len(raw) - len(raw.lstrip(" \t"))]:
+                raise YamlSubsetError(f"line {no}: tab indentation")
+            line = _strip_comment(raw)
+            if not line.strip():
+                continue
+            if line.startswith("%"):
+                raise YamlSubsetError(f"line {no}: directives are outside "
+                                      f"the subset")
+            if line.rstrip() in ("---", "..."):
+                if started or line.rstrip() == "...":
+                    raise YamlSubsetError(f"line {no}: several documents "
+                                          f"are outside the subset")
+                continue
+            started = True
+            indent = len(line) - len(line.lstrip(" "))
+            self.items.append([no, indent, line.strip()])
+
+
+def _inline(text: str, lines: _Lines, i: int, indent: int, where: str,
+            seq_ok_at_indent: bool):
+    """The value written after ``key:`` or ``- `` on line i: (value, the
+    next line's index)."""
+    tag = None
+    if text.startswith("!"):
+        tag, _, text = text.partition(" ")
+        if tag != _TUPLE_TAG:
+            raise YamlSubsetError(f"{where}: the tag {tag} is outside the "
+                                  f"subset (only {_TUPLE_TAG})")
+        text = text.strip()
+    if text[:1] in ("&", "*"):
+        raise YamlSubsetError(f"{where}: anchors and aliases are outside "
+                              f"the subset")
+    if text[:1] in ("|", ">"):
+        raise YamlSubsetError(f"{where}: block scalars are outside the "
+                              f"subset")
+    if text:
+        value = _flow(text, where) if text[0] in "[{" else _scalar(text,
+                                                                   where)
+        nxt = i + 1
+    else:
+        value, nxt = None, i + 1
+        if nxt < len(lines.items):
+            _, ind, content = lines.items[nxt]
+            seq_here = (seq_ok_at_indent and ind == indent
+                        and (content == "-" or content.startswith("- ")))
+            if ind > indent or seq_here:
+                value, nxt = _node(lines, nxt, ind)
+    if nxt < len(lines.items) and lines.items[nxt][1] > indent and text:
+        raise YamlSubsetError(f"line {lines.items[nxt][0]}: multi-line "
+                              f"scalars are outside the subset")
+    if tag is not None:
+        if not isinstance(value, list):
+            raise YamlSubsetError(f"{where}: {_TUPLE_TAG} on a non-sequence")
+        value = tuple(value)
+    return value, nxt
+
+
+def _node(lines: _Lines, i: int, indent: int):
+    """The block node whose first line is i, at column ``indent``."""
+    no, ind, content = lines.items[i]
+    if content == "-" or content.startswith("- "):
+        out = []
+        while i < len(lines.items):
+            no, ind, content = lines.items[i]
+            if ind != indent or not (content == "-"
+                                     or content.startswith("- ")):
+                break
+            rest = content[1:].lstrip(" ")
+            inner = indent + len(content) - len(rest)
+            where = f"line {no}"
+            if rest and (rest == "-" or rest.startswith("- ")
+                         or (_split_key(rest) is not None
+                             and rest[0] not in "[{")):
+                # a compact nested node: its first line is this one's rest
+                lines.items[i] = [no, inner, rest]
+                value, i = _node(lines, i, inner)
+            else:
+                value, i = _inline(rest, lines, i, indent, where, False)
+            out.append(value)
+        return out, i
+    if _split_key(content) is None:
+        value, nxt = _inline(content, lines, i, indent - 1, f"line {no}",
+                             False)
+        return value, nxt
+    out = {}
+    while i < len(lines.items):
+        no, ind, content = lines.items[i]
+        if ind != indent:
+            break
+        split = _split_key(content)
+        if split is None:
+            raise YamlSubsetError(f"line {no}: expected 'key: value' at "
+                                  f"column {indent}, got {content!r}")
+        key_text, rest = split
+        if key_text.startswith("?"):
+            raise YamlSubsetError(f"line {no}: complex keys are outside "
+                                  f"the subset")
+        key = _scalar(key_text, f"line {no}")
+        if key in out:
+            raise YamlSubsetError(f"line {no}: duplicate key {key!r}")
+        out[key], i = _inline(rest, lines, i, indent, f"line {no}", True)
+    return out, i
+
+
+def yaml_load(source: str):
+    """Parse a YAML document of the subset (module docstring)."""
+    lines = _Lines(source)
+    if not lines.items:
+        return None
+    value, i = _node(lines, 0, lines.items[0][1])
+    if i != len(lines.items):
+        no, ind, content = lines.items[i]
+        raise YamlSubsetError(f"line {no}: unexpected {content!r} at column "
+                              f"{ind}")
+    return value
+
+
+def yaml_load_file(path: str):
+    with open(path) as f:
+        return yaml_load(f.read())
+
+
+def _dump_scalar(value) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    if isinstance(value, str):
+        try:
+            plain = (value == value.strip() and value
+                     and not re.search(r": |:$| #|[\n'\"]", value)
+                     and _resolve_plain(value, "") == value)
+        except YamlSubsetError:
+            plain = False
+        return value if plain else "'" + value.replace("'", "''") + "'"
+    raise TypeError(f"yaml_dump: cannot write {type(value).__name__}")
+
+
+def _dump(value, indent: int, out: list, in_seq: bool):
+    """Append the block lines of a non-scalar ``value``."""
+    pad = " " * indent
+    if isinstance(value, dict):
+        try:
+            keys = sorted(value)
+        except TypeError:
+            keys = list(value)
+        for n, key in enumerate(keys):
+            lead = pad if not (in_seq and n == 0) else ""
+            _dump_entry(lead + _dump_scalar(key) + ":", value[key], indent,
+                        out, mapping=True)
+    else:
+        for n, item in enumerate(value):
+            lead = pad if not (in_seq and n == 0) else ""
+            _dump_entry(lead + "-", item, indent, out, mapping=False)
+
+
+def _dump_entry(head: str, value, indent: int, out: list, mapping: bool):
+    if isinstance(value, (dict, list)) and len(value) == 0:
+        out.append(f"{head} " + ("{}" if isinstance(value, dict) else "[]"))
+    elif isinstance(value, dict):
+        if mapping:
+            out.append(head)
+            _dump(value, indent + 2, out, False)
+        else:
+            out.append(head + " ")
+            _dump(value, indent + 2, out, True)
+            _join_compact(out, head)
+    elif isinstance(value, list):
+        if mapping:
+            # PyYAML writes a mapping's sequence at the key's own column
+            out.append(head)
+            _dump(value, indent, out, False)
+        else:
+            out.append(head + " ")
+            _dump(value, indent + 2, out, True)
+            _join_compact(out, head)
+    else:
+        out.append(f"{head} {_dump_scalar(value)}")
+
+
+def _join_compact(out: list, head: str):
+    """Join a ``- `` line with the first line of the node written after
+    it (``- - 1.0``, ``- key: value``)."""
+    idx = len(out) - 1
+    while out[idx] != head + " ":
+        idx -= 1
+    out[idx:idx + 2] = [head + " " + out[idx + 1]]
+
+
+def yaml_dump(value: dict) -> str:
+    """Block-style YAML of a mapping (module docstring)."""
+    if not isinstance(value, dict):
+        raise TypeError("yaml_dump: a mapping at the top level")
+    out: list = []
+    _dump(value, 0, out, False)
+    return "\n".join(out) + "\n"

@@ -1,0 +1,401 @@
+"""OPV2V on-disk dataset (the port of ``hmvit_tpu/data/opv2v.py``, numpy
+only): scenario scan, hetero modality assignment, pose reform, ground
+truth projection and fixed-shape frame assembly.
+
+No voxelization happens here: a frame carries raw padded point clouds
+(the model voxelizes on the device), and every array has a static shape
+(``max_cav`` agent slots, ``max_points``, ``max_objects``).  Files are
+read through the port's own codecs (:mod:`.codecs`, :mod:`.pcd_io`):
+the data path needs no PyYAML, OpenCV or Pillow.
+
+Layout: root/<scenario>/<cav_id>/<timestamp>.yaml / .pcd /
+_camera{0..3}.png.  RSUs have negative cav ids and sort to the end; the
+ego is the first CAV.
+
+Not ported yet: the BEV map ground truth (``add_data_extension``,
+``seg_labels``; ROADMAP.md Queue 1 item 5), the early / late fusion
+frames (with item 4's trainer) and the inspection API (``get_sample``,
+``visualize_all_agents_bbx``; item 7).
+"""
+from __future__ import annotations
+
+import os
+import re
+import threading
+from collections import OrderedDict
+
+import numpy as np
+
+from .. import COM_RANGE
+from ..utils import transforms as T
+from ..utils.boxes import corners_to_boxes, mask_boxes_outside_range_np
+from .codecs import read_png, resize_bilinear, yaml_load_file
+from .pcd_io import read_pcd_padded
+
+# ImageNet normalisation of the camera images (RGB)
+IMAGE_MEAN = (0.485, 0.456, 0.406)
+IMAGE_STD = (0.229, 0.224, 0.225)
+
+
+def load_frame_yaml(path: str) -> dict:
+    """A frame's yaml (the ``!!python/tuple`` tag reads as a tuple)."""
+    return yaml_load_file(path)
+
+
+def create_corner_template(extent) -> np.ndarray:
+    """(8, 3) corners of a box with half-extents [ex, ey, ez], ordered to
+    match the global corner convention."""
+    ex, ey, ez = extent
+    return np.array(
+        [
+            [ex, -ey, -ez], [ex, ey, -ez], [-ex, ey, -ez], [-ex, -ey, -ez],
+            [ex, -ey, ez], [ex, ey, ez], [-ex, ey, ez], [-ex, -ey, ez],
+        ]
+    )
+
+
+def project_world_objects(vehicles: dict, lidar_pose, lidar_range,
+                          order: str = "hwl") -> "OrderedDict":
+    """World-frame vehicle dicts -> {id: (7,) box in the lidar frame},
+    the boxes inside ``lidar_range``.
+
+    Vehicle schema (per OPV2V frame yaml): location + center offset,
+    angle [roll, yaw, pitch] degrees, extent = half dims [l/2, w/2, h/2].
+    """
+    out = OrderedDict()
+    for obj_id, content in vehicles.items():
+        loc = content["location"]
+        center = content.get("center", [0, 0, 0])
+        angle = content["angle"]
+        object_pose = [
+            loc[0] + center[0], loc[1] + center[1], loc[2] + center[2],
+            angle[0], angle[1], angle[2],
+        ]
+        obj_to_lidar = T.pose_to_pose(object_pose, lidar_pose)
+        corners = create_corner_template(content["extent"])
+        corners = T.project_points(corners, obj_to_lidar)
+        box = corners_to_boxes(corners[None], order)[0]
+        if mask_boxes_outside_range_np(box[None], lidar_range, order)[0]:
+            out[obj_id] = box
+    return out
+
+
+def mask_ego_points(points: np.ndarray, x_half: float = 1.95,
+                    y_half: float = 1.1) -> np.ndarray:
+    """Remove the ego vehicle's own body returns."""
+    hit = (np.abs(points[:, 0]) <= x_half) & (np.abs(points[:, 1]) <= y_half)
+    return points[~hit]
+
+
+def scan_scenarios(root: str) -> list:
+    """[(scenario_name, OrderedDict{cav_id: {timestamp: file dict}})]."""
+    scenarios = []
+    for scen in sorted(os.listdir(root)):
+        scen_dir = os.path.join(root, scen)
+        if not os.path.isdir(scen_dir):
+            continue
+        cav_ids = [c for c in os.listdir(scen_dir)
+                   if os.path.isdir(os.path.join(scen_dir, c))]
+        # RSUs (negative ids) go last; the ego is the first CAV
+        cav_ids = sorted(cav_ids, key=lambda c: (int(c) < 0, int(c)))
+        cavs = OrderedDict()
+        for cav in cav_ids:
+            cav_dir = os.path.join(scen_dir, cav)
+            stamps = sorted(
+                {m.group(1) for fn in os.listdir(cav_dir)
+                 if (m := re.match(r"(\d+)\.yaml$", fn))})
+            frames = OrderedDict()
+            for ts in stamps:
+                frames[ts] = {
+                    "yaml": os.path.join(cav_dir, f"{ts}.yaml"),
+                    "pcd": os.path.join(cav_dir, f"{ts}.pcd"),
+                    "cameras": [os.path.join(cav_dir, f"{ts}_camera{i}.png")
+                                for i in range(4)],
+                }
+            cavs[cav] = frames
+        scenarios.append((scen, cavs))
+    return scenarios
+
+
+def preprocess_image(path: str, size: int, mean, std) -> np.ndarray:
+    """A camera PNG -> (size, size, 3) RGB in [0, 1], normalised by
+    ``mean`` and ``std``: OpenCV's colour read (grey replicated, alpha
+    dropped) and ``INTER_LINEAR`` resize (:func:`.codecs.resize_bilinear`,
+    the image itself when it already has the size)."""
+    img = read_png(path)
+    if img.shape[2] < 3:
+        img = np.repeat(img[:, :, :1], 3, axis=2)
+    img = resize_bilinear(img[:, :, :3], size).astype(np.float32) / 255.0
+    return (img - np.asarray(mean)) / np.asarray(std)
+
+
+class _Now:
+    """An already-finished 'future': the serial decode of one core."""
+
+    __slots__ = ("_v",)
+
+    def __init__(self, fn, *a, **k):
+        self._v = fn(*a, **k)
+
+    def result(self):
+        return self._v
+
+
+class _Serial:
+    submit = _Now
+
+
+class HeteroCooperativeDataset:
+    """Intermediate-fusion hetero dataset of padded frames.
+
+    params keys used: root_dir / validate_dir, train_params.max_cav,
+    camera_to_lidar_ratio, ego_mode, preprocess (camera size, lidar
+    range), postprocess (max_num, order), wild_setting (async, loc_err),
+    cur_ego_pose_flag, io_workers.  Random draws (modalities, pose noise,
+    point shuffles) come from ``numpy.random.default_rng``: in training
+    from ``seed`` (None, the default, draws fresh entropy as the JAX
+    dataset does), in evaluation from 0."""
+
+    IMAGE_MEAN = IMAGE_MEAN
+    IMAGE_STD = IMAGE_STD
+
+    def __init__(self, params: dict, train: bool = True,
+                 max_points: int = 60000, seed: int | None = None):
+        if params.get("add_data_extension"):
+            raise NotImplementedError(
+                "the BEV map ground truth (add_data_extension) is not "
+                "ported yet: ROADMAP.md Queue 1 item 5")
+        self.params = params
+        self.train = train
+        root = params["root_dir"] if train else params["validate_dir"]
+        self.scenarios = scan_scenarios(root)
+        self.max_cav = params["train_params"]["max_cav"]
+        self.max_objects = params["postprocess"].get("max_num", 100)
+        self.max_points = max_points
+        self.camera_ratio = params.get("camera_to_lidar_ratio", 0.0)
+        self.ego_mode = params.get("ego_mode", "lidar")
+        self.lidar_range = params["preprocess"]["cav_lidar_range"]
+        cam_args = (params["preprocess"]["args"]
+                    .get("camera_preprocess", {}).get("args", {}))
+        self.image_size = cam_args.get("resize_x", 512)
+        self.order = params["postprocess"].get("order", "hwl")
+
+        # communication impairments: 'sim' delays by a fixed number of
+        # frames; 'real' derives the delay from payload size / link speed
+        # + backbone time, in 100 ms frames
+        wild = params.get("wild_setting", {})
+        self.async_frames = 0
+        if wild.get("async", False):
+            if wild.get("async_mode", "sim") == "real":
+                data_size = float(wild.get("data_size", 1.06))  # MB
+                speed = float(wild.get("transmission_speed", 27.0))  # Mbps
+                backbone = float(wild.get("backbone_delay", 10.0))  # ms
+                delay_ms = data_size * 8 / speed * 1000 + backbone
+                self.async_frames = int(np.ceil(delay_ms / 100.0))
+            else:
+                self.async_frames = int(wild.get("async_overhead", 0))
+        self.loc_err = wild.get("loc_err", False)
+        self.xyz_std = float(wild.get("xyz_std", 0.2))
+        self.ryp_std = float(wild.get("ryp_std", 0.2))
+        # True: transforms map a delayed CAV to the CURRENT ego.  False:
+        # to the DELAYED ego pose, and spatial_correction_matrix carries
+        # the ego's own motion over the delay
+        self.cur_ego_pose_flag = bool(params.get("cur_ego_pose_flag", True))
+
+        # flat index over (scenario, timestamp) on the ego's timeline
+        self.index = []
+        for si, (_, cavs) in enumerate(self.scenarios):
+            for ts in next(iter(cavs.values())):
+                self.index.append((si, ts))
+
+        self._rng = np.random.default_rng(seed if train else 0)
+        # __getitem__ may run on loader threads; numpy Generators are not
+        # thread-safe, so every draw goes through this lock
+        self._rng_lock = threading.Lock()
+        self._pool = None
+        self.reinitialize()
+
+    def reinitialize(self):
+        """Re-roll the per-(cav, frame) modalities (1 = lidar); the
+        evaluation draws restart from seed 0."""
+        if not self.train:
+            self._rng = np.random.default_rng(0)
+        self.modalities = []
+        for _, cavs in self.scenarios:
+            n_ts = len(next(iter(cavs.values())))
+            draws = (self._rng.uniform(0, 1, (len(cavs), n_ts))
+                     >= self.camera_ratio).astype(np.int32)
+            if self.ego_mode == "camera":
+                draws[0, :] = 0
+            elif self.ego_mode == "lidar":
+                draws[0, :] = 1
+            self.modalities.append(draws)
+
+    def __len__(self):
+        return len(self.index)
+
+    def _noisy_pose(self, pose):
+        if not self.loc_err:
+            return pose
+        pose = list(pose)
+        with self._rng_lock:
+            noise = self._rng.normal(0, 1.0, 3)
+        pose[0] += float(noise[0]) * self.xyz_std
+        pose[1] += float(noise[1]) * self.xyz_std
+        pose[4] += float(noise[2]) * self.ryp_std
+        return pose
+
+    def _io_pool(self):
+        """The decode pool of the pcd and PNG reads: threads (zlib and
+        numpy release the GIL), ``io_workers`` of them (default 8); on
+        one core, unless ``io_workers`` is set, the decodes run inline."""
+        if self._pool is None:
+            if (os.cpu_count() or 1) <= 1 and "io_workers" not in self.params:
+                self._pool = _Serial()
+            else:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._pool = ThreadPoolExecutor(
+                    max_workers=int(self.params.get("io_workers", 8)))
+        return self._pool
+
+    def __getitem__(self, idx: int) -> dict:
+        si, ts = self.index[idx]
+        _, cavs = self.scenarios[si]
+        cav_list = list(cavs.keys())
+        ts_index = list(cavs[cav_list[0]].keys()).index(ts)
+
+        ego_pose = load_frame_yaml(cavs[cav_list[0]][ts]["yaml"])["lidar_pose"]
+        ego_stamps = list(cavs[cav_list[0]].keys())
+
+        frame = _empty_frame(self.max_cav, self.max_points,
+                             self.image_size, self.max_objects)
+        objects = OrderedDict()
+        # phase 1 walks the fleet (yaml metadata, eligibility, geometry)
+        # and submits the decodes (one pcd and up to 4 PNGs an agent);
+        # phase 2 puts them into the frame
+        io_jobs = []
+        slot = 0
+        for ci, cav in enumerate(cav_list):
+            if slot >= self.max_cav:
+                break
+            # communication delay: a non-ego agent sends an older frame
+            cav_stamps = list(cavs[cav].keys())
+            eff_ts = ts
+            delay_frames = 0
+            if ci > 0 and self.async_frames:
+                cur = cav_stamps.index(ts) if ts in cav_stamps else 0
+                pos = max(cur - self.async_frames, 0)
+                eff_ts = cav_stamps[pos]
+                delay_frames = cur - pos
+            if eff_ts not in cavs[cav]:
+                continue
+            meta = load_frame_yaml(cavs[cav][eff_ts]["yaml"])
+            pose = meta["lidar_pose"]
+            dist = np.hypot(pose[0] - ego_pose[0], pose[1] - ego_pose[1])
+            if ci > 0 and dist > COM_RANGE:
+                continue
+            noisy_pose = self._noisy_pose(pose) if ci > 0 else pose
+
+            # the ground truth always from the true poses
+            objects.update(project_world_objects(
+                meta.get("vehicles", {}), ego_pose, self.lidar_range,
+                self.order))
+
+            with self._rng_lock:
+                pcd_seed = int(self._rng.integers(1 << 31))
+            pool = self._io_pool()
+            pcd_fut = pool.submit(
+                read_pcd_padded, cavs[cav][eff_ts]["pcd"],
+                self.max_points + 4096, seed=pcd_seed, shuffle=self.train)
+            cam_futs = []
+            for mi, cam_path in enumerate(cavs[cav][eff_ts]["cameras"]):
+                cam_key = f"camera{mi}"
+                if cam_key in meta and os.path.exists(cam_path):
+                    cam_futs.append((mi, pool.submit(
+                        preprocess_image, cam_path, self.image_size,
+                        self.IMAGE_MEAN, self.IMAGE_STD)))
+                    frame["intrinsics"][slot, mi] = np.asarray(
+                        meta[cam_key]["intrinsic"], np.float32)
+                    frame["extrinsics"][slot, mi] = T.pose_to_pose(
+                        meta[cam_key]["cords"], pose).astype(np.float32)
+            io_jobs.append((slot, pcd_fut, cam_futs))
+
+            frame["mode"][slot] = self.modalities[si][
+                min(ci, self.modalities[si].shape[0] - 1), ts_index]
+            frame["agent_mask"][slot] = 1
+            # (v / 30, delay in frames, infrastructure)
+            frame["prior_encoding"][slot] = (
+                float(meta.get("ego_speed", 0.0)) / 30.0,
+                float(delay_frames),
+                1.0 if int(cav) < 0 else 0.0,
+            )
+            if not self.cur_ego_pose_flag and delay_frames and ci > 0:
+                # to the ego's DELAYED pose; the correction (delayed ego ->
+                # current ego) goes to the model
+                d_pos = max(ego_stamps.index(ts) - delay_frames, 0)
+                ego_delay_pose = load_frame_yaml(
+                    cavs[cav_list[0]][ego_stamps[d_pos]]["yaml"]
+                )["lidar_pose"]
+                frame["transformation_matrix"][slot] = T.pose_to_pose(
+                    noisy_pose, ego_delay_pose).astype(np.float32)
+                frame["spatial_correction_matrix"][slot] = T.pose_to_pose(
+                    ego_delay_pose, ego_pose).astype(np.float32)
+            else:
+                frame["transformation_matrix"][slot] = T.pose_to_pose(
+                    noisy_pose, ego_pose).astype(np.float32)
+            frame["_poses"].append(noisy_pose)
+            slot += 1
+
+        for slot_i, pcd_fut, cam_futs in io_jobs:
+            raw, raw_mask = pcd_fut.result()
+            pts = mask_ego_points(raw[raw_mask > 0])
+            n = min(len(pts), self.max_points)
+            frame["points"][slot_i, :n] = pts[:n]
+            frame["points_mask"][slot_i, :n] = 1
+            for mi, fut in cam_futs:
+                frame["camera"][slot_i, mi] = fut.result()
+
+        poses = frame.pop("_poses")
+        frame["pairwise_t_matrix"][:] = T.pairwise_transforms(
+            poses, self.max_cav).astype(np.float32)
+        frame["record_len"] = np.int32(slot)
+
+        boxes = list(objects.values())[: self.max_objects]
+        for i, b in enumerate(boxes):
+            frame["object_bbx_center"][i] = b
+            frame["object_bbx_mask"][i] = 1
+        frame["object_ids"] = list(objects.keys())[: self.max_objects]
+        return frame
+
+    @staticmethod
+    def collate_batch(frames: list) -> dict:
+        keys = [k for k in frames[0] if not k.startswith("object_ids")]
+        batch = {k: np.stack([f[k] for f in frames]) for k in keys}
+        batch["object_ids"] = [f["object_ids"] for f in frames]
+        return batch
+
+
+def _empty_frame(max_cav, max_points, image_size, max_objects) -> dict:
+    eye4 = np.eye(4, dtype=np.float32)
+    return {
+        "points": np.zeros((max_cav, max_points, 4), np.float32),
+        "points_mask": np.zeros((max_cav, max_points), np.float32),
+        "camera": np.zeros((max_cav, 4, image_size, image_size, 3),
+                           np.float32),
+        "intrinsics": np.tile(np.eye(3, dtype=np.float32),
+                              (max_cav, 4, 1, 1)),
+        "extrinsics": np.tile(eye4, (max_cav, 4, 1, 1)),
+        # padded slots count as lidar: an empty point set is a cheap
+        # all-masked pillar pass, and camera buckets stay tight
+        "mode": np.ones(max_cav, np.int32),
+        "agent_mask": np.zeros(max_cav, np.float32),
+        # (velocity / 30, delay in frames, infrastructure) per CAV
+        "prior_encoding": np.zeros((max_cav, 3), np.float32),
+        "pairwise_t_matrix": np.tile(eye4, (max_cav, max_cav, 1, 1)),
+        "transformation_matrix": np.tile(eye4, (max_cav, 1, 1)),
+        "spatial_correction_matrix": np.tile(eye4, (max_cav, 1, 1)),
+        "object_bbx_center": np.zeros((max_objects, 7), np.float32),
+        "object_bbx_mask": np.zeros(max_objects, np.float32),
+        "_poses": [],
+    }

@@ -41,6 +41,7 @@ from ..ops.window_attention import (
     plain_window_attention_xla,
 )
 from ..utils.constants import device_constant
+from ..utils.precision import dot_f32
 from .layers import HeteroDense, HeteroFeedForward, HeteroLayerNorm
 
 
@@ -178,10 +179,19 @@ class HeteroWindowAttention(nn.Module):
             bsel = torch.stack([bkv[:, int(m)] for m in static_modes],
                                dim=1).to(cdt)   # (ntau, L, 2C)
             # bias joins in fp32 before the compute-dtype rounding
-            kv2 = (torch.einsum("bjxyc,tjcf->btjxyf", x.to(f32),
-                                wsel.to(f32))
-                   + bsel[None, :, :, None, None].to(f32))
-            return kv2.to(cdt)
+            bias = bsel[None, :, :, None, None].to(f32)
+            if not (x.is_cuda and cdt != f32):
+                kv2 = torch.einsum("bjxyc,tjcf->btjxyf", x.to(f32),
+                                   wsel.to(f32)) + bias
+                return kv2.to(cdt)
+            # the compute-dtype operands into a float32 product, one GEMM
+            # per sender over every variant's columns
+            prod = dot_f32(x.transpose(0, 1).reshape(l, b * h * w, c),
+                           wsel.permute(1, 2, 0, 3).reshape(l, c, -1))
+            prod = prod.view(l, b, h, w, ntau, 2 * c).permute(1, 4, 0, 2, 3,
+                                                               5)
+            return (prod + bias).to(cdt,
+                                    memory_format=torch.contiguous_format)
         k = self.to_k(x, mode)
         v = self.to_v(x, mode)
         taus = device_constant(tuple(taus_used), torch.long, x.device)
@@ -189,9 +199,19 @@ class HeteroWindowAttention(nn.Module):
         rel = torch.stack([self.relation_att, self.relation_msg], dim=1)
         w_t = rel.to(cdt)[idx]  # (TAU, B, J, 2, heads, d, d)
         kvh = torch.stack([k, v], dim=-2).reshape(b, l, h, w, 2, heads, d)
-        kv2 = torch.einsum("bjxyshe,tbjshde->btjxyshd", kvh.to(f32),
-                           w_t.to(f32)).to(cdt)
-        return kv2.reshape(b, ntau, l, h, w, 2 * c)
+        if not (x.is_cuda and cdt != f32):
+            kv2 = torch.einsum("bjxyshe,tbjshde->btjxyshd", kvh.to(f32),
+                               w_t.to(f32)).to(cdt)
+            return kv2.reshape(b, ntau, l, h, w, 2 * c)
+        # the compute-dtype operands into a float32 product: a GEMM per
+        # (batch, sender, K / V, head) over every variant's columns
+        prod = dot_f32(
+            kvh.permute(0, 1, 4, 5, 2, 3, 6).reshape(-1, h * w, d),
+            w_t.permute(1, 2, 3, 4, 6, 0, 5).reshape(-1, d, ntau * d))
+        prod = prod.view(b, l, 2, heads, h, w, ntau, d).permute(
+            0, 6, 1, 4, 5, 2, 3, 7)
+        return prod.to(cdt, memory_format=torch.contiguous_format).reshape(
+            b, ntau, l, h, w, 2 * c)
 
     def forward(self, x, mode, pairwise, agent_mask, pair_mask=None,
                 receivers: int | None = None,

@@ -67,3 +67,22 @@ def hidden():
     from torch.utils._python_dispatch import _disable_current_modes
 
     return _disable_current_modes()
+
+
+def _bmm_flop(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """``bmm``'s count for every overload: ``bmm(a, b, out_dtype)`` (the
+    float32-result product of ``utils.precision.dot_f32``) passes its
+    dtype where the library's formula takes the output's shape."""
+    from torch.utils.flop_counter import bmm_flop
+
+    return bmm_flop(a_shape, b_shape)
+
+
+def flop_counter():
+    """A ``FlopCounterMode`` (no display) that also counts ``bmm`` with
+    an ``out_dtype``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    return FlopCounterMode(display=False,
+                           custom_mapping={torch.ops.aten.bmm: _bmm_flop})

@@ -95,8 +95,9 @@ def build_schedule(cfg: dict, base_lr: float,
 def build_optimizer(model: torch.nn.Module, opt_cfg: dict, sched_cfg: dict,
                     steps_per_epoch: int, frozen_prefixes: tuple = ()):
     """(optimizer, schedule) from a hypes ``optimizer`` and
-    ``lr_scheduler`` block: AdamW (optax's defaults: betas 0.9 / 0.999,
-    eps 1e-8, weight decay 1e-2 unless the block names one), Adam or SGD
+    ``lr_scheduler`` block: AdamW (betas 0.9 / 0.999, eps 1e-8, and the
+    JAX package's ``build_optimizer`` default weight decay of 1e-2 unless
+    the block names one: ``optax.adamw``'s own default is 1e-4), Adam or SGD
     (momentum 0.9).  Parameters of the top-level submodules in
     ``frozen_prefixes`` stay out of the optimizer: no update and no
     weight decay, as ``optax.set_to_zero`` gives them (staged training:

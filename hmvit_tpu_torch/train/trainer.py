@@ -175,7 +175,7 @@ def labels_for_batch(postprocessor, anchors, batch, device=None) -> dict:
     is not ported."""
     if anchors is None:
         raise NotImplementedError("the anchor-free PIXOR label map is not "
-                                  "ported (ROADMAP.md Queue 1 item 7)")
+                                  "ported (ROADMAP.md Queue 1 item 5)")
     centers = np.asarray(torch.as_tensor(batch["object_bbx_center"]).cpu())
     masks = np.asarray(torch.as_tensor(batch["object_bbx_mask"]).cpu())
     labels = [postprocessor.generate_label(centers[i], anchors, masks[i])

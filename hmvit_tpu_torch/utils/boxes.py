@@ -1,6 +1,6 @@
 """Box geometry on tensors (torch versions of the numpy ``xp`` functions
 of ``hmvit_tpu/utils/boxes.py``), and the numpy functions the synthetic
-scenes and the anchor labels need.
+scenes, the anchor labels, the dataset and the evaluation need.
 
 Boxes are ``(x, y, z, dims..., yaw)`` with dims ordered ``hwl`` or
 ``lwh``; corners follow the JAX package's numbering: 0-3 the bottom face
@@ -43,6 +43,39 @@ def boxes_to_corners_3d_np(boxes, order: str = "lwh") -> np.ndarray:
     return corners + boxes[:, None, 0:3]
 
 
+def corners_to_boxes(corners, order: str = "lwh") -> np.ndarray:
+    """(N, 8, 3) corners -> (N, 7) center boxes, float64 numpy.
+
+    Averages the redundant edge measurements, so it is the exact inverse
+    of :func:`boxes_to_corners_3d_np` for well-formed boxes and a
+    least-squares estimate for noisy ones."""
+    corners = np.asarray(corners, dtype=np.float64)
+    assert corners.ndim == 3
+
+    xyz = np.mean(corners[:, [0, 3, 5, 6], :], axis=1)
+    h = np.abs(np.mean(corners[:, 4:, 2] - corners[:, :4, 2], axis=1))
+
+    def edge(a, b):
+        return np.linalg.norm(corners[:, a, :2] - corners[:, b, :2], axis=1)
+
+    l = (edge(0, 3) + edge(2, 1) + edge(4, 7) + edge(5, 6)) / 4.0
+    w = (edge(0, 1) + edge(2, 3) + edge(4, 5) + edge(6, 7)) / 4.0
+
+    def yaw(a, b):
+        d = corners[:, a, :2] - corners[:, b, :2]
+        return np.arctan2(d[:, 1], d[:, 0])
+
+    theta = (yaw(1, 2) + yaw(0, 3) + yaw(5, 6) + yaw(4, 7)) / 4.0
+
+    if order == "lwh":
+        dims = np.stack([l, w, h], axis=1)
+    elif order == "hwl":
+        dims = np.stack([h, w, l], axis=1)
+    else:
+        raise ValueError(f"unknown box order {order!r}")
+    return np.concatenate([xyz, dims, theta[:, None]], axis=1)
+
+
 def corners_to_standup_np(corners) -> np.ndarray:
     """(N, K, 2+) corners -> (N, 4) axis-aligned [x1, y1, x2, y2]."""
     return np.stack([corners[..., 0].min(axis=1), corners[..., 1].min(axis=1),
@@ -61,8 +94,9 @@ def mask_boxes_outside_range_np(boxes, limit_range, order,
     return inside.sum(axis=1) >= min_num_corners
 
 
-def boxes_to_corners_3d(boxes, order: str = "hwl"):
-    """(N, 7) center boxes -> (N, 8, 3) corners."""
+def boxes_to_corners_3d(boxes, order: str = "lwh"):
+    """(N, 7) center boxes -> (N, 8, 3) corners (the JAX function's
+    default order, ``lwh``)."""
     if order == "hwl":
         dims = boxes[:, 3:6].flip(-1)  # columns 5, 4, 3
     elif order == "lwh":

@@ -1,8 +1,10 @@
 """Rotated BEV IoU on the device (torch port of the ``xp`` functions of
 ``hmvit_tpu/utils/iou.py``): analytic convex-quad intersection —
 candidate vertices (corners inside the other quad plus edge-edge
-crossings), angle sort, shoelace.  And the axis-aligned IoU of anchor
-matching, in numpy on the host (:func:`aligned_iou`)."""
+crossings), angle sort, shoelace.  And, in numpy on the host, the
+axis-aligned IoU of anchor matching (:func:`aligned_iou`) and the
+rotated IoU of the AP matching and the host NMS
+(:func:`rotated_iou_matrix_np`, the JAX functions' ``xp=np`` path)."""
 from __future__ import annotations
 
 import numpy as np
@@ -115,3 +117,89 @@ def rotated_iou_matrix(corners_a, corners_b):
     union = quad_area(qa) + quad_area(qb) - inter
     return torch.where(union > _EPS, inter / torch.clamp(union, min=_EPS),
                        torch.zeros_like(inter))
+
+
+# -- numpy (host) versions: the AP matching and the host NMS --------------
+
+def _ccw_np(quads):
+    x, y = quads[..., 0], quads[..., 1]
+    area2 = np.sum(x * np.roll(y, -1, axis=-1) - np.roll(x, -1, axis=-1) * y,
+                   axis=-1)
+    return np.where(area2[..., None, None] < 0, quads[..., ::-1, :], quads)
+
+
+def _points_in_quad_np(points, quad):
+    a = quad[..., None, :, :]
+    b = np.roll(quad, -1, axis=-2)[..., None, :, :]
+    p = points[..., :, None, :]
+    cross = ((b[..., 0] - a[..., 0]) * (p[..., 1] - a[..., 1])
+             - (b[..., 1] - a[..., 1]) * (p[..., 0] - a[..., 0]))
+    return np.all(cross >= -1e-6, axis=-1)
+
+
+def _segment_intersections_np(qa, qb):
+    a0 = qa[..., :, None, :]
+    a1 = np.roll(qa, -1, axis=-2)[..., :, None, :]
+    b0 = qb[..., None, :, :]
+    b1 = np.roll(qb, -1, axis=-2)[..., None, :, :]
+    da = a1 - a0
+    db = b1 - b0
+    denom = da[..., 0] * db[..., 1] - da[..., 1] * db[..., 0]
+    ok = np.abs(denom) > _EPS
+    denom = np.where(ok, denom, 1.0)
+    d0 = b0 - a0
+    t = (d0[..., 0] * db[..., 1] - d0[..., 1] * db[..., 0]) / denom
+    u = (d0[..., 0] * da[..., 1] - d0[..., 1] * da[..., 0]) / denom
+    hit = ok & (t >= 0) & (t <= 1) & (u >= 0) & (u <= 1)
+    pts = a0 + t[..., None] * da
+    batch = pts.shape[:-3]
+    return pts.reshape(*batch, 16, 2), hit.reshape(*batch, 16)
+
+
+def quad_intersection_area_np(qa, qb):
+    """Intersection area of convex quads (..., 4, 2), float64 numpy: the
+    same construction as :func:`quad_intersection_area`."""
+    qa = _ccw_np(np.asarray(qa, dtype=np.float64))
+    qb = _ccw_np(np.asarray(qb))
+    in_b = _points_in_quad_np(qa, qb)
+    in_a = _points_in_quad_np(qb, qa)
+    cross_pts, cross_ok = _segment_intersections_np(qa, qb)
+    pts = np.concatenate([qa, qb, cross_pts], axis=-2)
+    valid = np.concatenate([in_b, in_a, cross_ok], axis=-1)
+    num_valid = valid.sum(axis=-1)
+    first_idx = np.argmax(valid, axis=-1)
+    first_pt = np.take_along_axis(
+        pts, first_idx[..., None, None].repeat(2, -1), axis=-2)
+    pts = np.where(valid[..., None], pts, first_pt)
+    center = np.sum(pts * valid[..., None], axis=-2) / np.maximum(
+        num_valid[..., None], 1)
+    rel = pts - center[..., None, :]
+    ang = np.arctan2(rel[..., 1], rel[..., 0])
+    order = np.argsort(ang, axis=-1)
+    srel = np.take_along_axis(rel, order[..., None], axis=-2)
+    nxt = np.roll(srel, -1, axis=-2)
+    area = 0.5 * np.abs(np.sum(srel[..., 0] * nxt[..., 1]
+                               - nxt[..., 0] * srel[..., 1], axis=-1))
+    return np.where(num_valid >= 3, area, np.zeros_like(area))
+
+
+def quad_area_np(q):
+    x, y = q[..., 0], q[..., 1]
+    return 0.5 * np.abs(np.sum(x * np.roll(y, -1, axis=-1)
+                               - np.roll(x, -1, axis=-1) * y, axis=-1))
+
+
+def rotated_iou_matrix_np(corners_a, corners_b) -> np.ndarray:
+    """BEV IoU of rotated boxes on the host: (N, 4, 2) or (N, 8, 3) vs
+    (M, 4, 2) corners -> (N, M) float64."""
+    corners_a = np.asarray(corners_a)[..., :4, :2]
+    corners_b = np.asarray(corners_b)[..., :4, :2]
+    n, m = corners_a.shape[0], corners_b.shape[0]
+    if n == 0 or m == 0:
+        return np.zeros((n, m))
+    qa = np.broadcast_to(corners_a[:, None], (n, m, 4, 2))
+    qb = np.broadcast_to(corners_b[None, :], (n, m, 4, 2))
+    inter = quad_intersection_area_np(qa, qb)
+    union = quad_area_np(qa) + quad_area_np(qb) - inter
+    return np.where(union > _EPS, inter / np.maximum(union, _EPS),
+                    np.zeros_like(inter))

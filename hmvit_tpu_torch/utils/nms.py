@@ -1,10 +1,39 @@
-"""Fixed-shape greedy rotated NMS on the device (port of
-``hmvit_tpu/utils/nms.py::nms_rotated_device``)."""
+"""Greedy rotated NMS (port of ``hmvit_tpu/utils/nms.py``): on the host
+in numpy (:func:`nms_rotated`, the joint NMS across agents) and
+fixed-shape on the device (:func:`nms_rotated_device`)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .iou import rotated_iou_matrix
+from .iou import rotated_iou_matrix, rotated_iou_matrix_np
+
+
+def nms_rotated(corners, scores, threshold: float,
+                top: int = 1000) -> np.ndarray:
+    """Greedy rotated NMS on the host: corners (N, 4, 2) or (N, 8, 3),
+    scores (N,).  Returns the kept indices in pick order (descending
+    score, at most ``top`` candidates), int32.
+
+    This is the JAX function's ``backend="numpy"`` loop.  Its default
+    backend binds a native clipper (``native/rotated_nms.cpp``) that
+    ``tests/test_native_nms.py`` holds to this loop's pick order; the port
+    does not bind it, so it has no ``backend`` argument."""
+    corners = np.asarray(corners)
+    scores = np.asarray(scores)
+    if corners.shape[0] == 0:
+        return np.array([], dtype=np.int32)
+    iou = rotated_iou_matrix_np(corners, corners)
+    ixs = scores.argsort()[::-1][:top]
+    pick = []
+    while len(ixs) > 0:
+        i = ixs[0]
+        pick.append(i)
+        overlap = iou[i, ixs[1:]]
+        remove = np.where(overlap > threshold)[0] + 1
+        ixs = np.delete(ixs, remove)
+        ixs = np.delete(ixs, 0)
+    return np.array(pick, dtype=np.int32)
 
 
 def nms_rotated_device(corners, scores, threshold: float,

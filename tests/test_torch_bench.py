@@ -70,7 +70,7 @@ def test_refuses_to_run_without_cuda(capsys):
     assert captured.out == "" and "no CUDA device" in captured.err
 
 
-@pytest.mark.parametrize("flag,item", [("--stem_s2d", "Queue 1 item 7")])
+@pytest.mark.parametrize("flag,item", [("--stem_s2d", "Queue 1 item 5")])
 def test_unported_flags_are_refused(flag, item, capsys):
     assert bench.main(["--cpu", flag]) == 2
     captured = capsys.readouterr()
@@ -208,3 +208,19 @@ def test_kernel_operation_formulas():
     assert attention_ops(4, windows, t, 4, heads, d, typed=True) == \
         4 * windows * heads * 4 * (qk_pv + typed)
     assert pair_warp_ops(3, 4, 128, 128, 512) == 12.0 * 3 * 4 * 128 ** 2 * 512
+
+
+def test_flop_counter_counts_bmm_with_out_dtype():
+    """``bmm(a, b, out_dtype=float32)`` (the bf16 [K|V] contraction's
+    product on the card) counts as a ``bmm``; the library's own formula
+    takes the dtype for the output's shape and raises."""
+    from hmvit_tpu_torch.ops.opcount import flop_counter
+
+    a = torch.empty(3, 40, 32, device="meta", dtype=torch.bfloat16)
+    b = torch.empty(3, 32, 24, device="meta", dtype=torch.bfloat16)
+    counter = flop_counter()
+    with counter:
+        out = torch.bmm(a, b, out_dtype=torch.float32)
+        torch.bmm(a, b)
+    assert out.dtype == torch.float32
+    assert counter.get_total_flops() == 2 * (2 * 3 * 40 * 32 * 24)

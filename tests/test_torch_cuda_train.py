@@ -92,3 +92,54 @@ def test_train_step_kernels_vs_plain(dev, remat):
         ref = runs["plain"][2][name]
         scale = max(float(ref.abs().max()), 1e-12)
         assert float((g - ref).abs().max()) <= TOL * scale, name
+
+
+@pytest.mark.parametrize("static", [True, False])
+def test_bf16_kv_contraction_accumulates_in_float32(dev, static):
+    """The typed [K|V] contraction of a bf16 fusion block on the card: the
+    bf16 operands enter the GEMM as they are and come out in float32
+    (``utils.precision.dot_f32``), in both branches (the
+    static-modes parameter fold and the per-sender relation product).
+    The float32 path on the CPU rounds its float32 result to bf16 too, so
+    the two lie within one bf16 ulp (2^-7 relative) of each other.  The
+    gradients through the contraction agree with float32 autograd."""
+    from hmvit_tpu_torch.models.hetero_fusion import HeteroWindowAttention
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.utils.precision import dot_f32
+
+    a = torch.randn(3, 40, 32, device=dev).bfloat16().requires_grad_()
+    b = torch.randn(3, 32, 24, device=dev).bfloat16().requires_grad_()
+    got = dot_f32(a, b)
+    assert got.dtype == torch.float32
+    with strict_fp32():
+        ref = torch.bmm(a.detach().float(), b.detach().float())
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    g = torch.randn_like(got)
+    ga, gb = torch.autograd.grad(got, (a, b), g)
+    with strict_fp32():
+        a32 = a.detach().float().requires_grad_()
+        b32 = b.detach().float().requires_grad_()
+        ra, rb = torch.autograd.grad(torch.bmm(a32, b32), (a32, b32), g)
+    assert ga.dtype == a.dtype and gb.dtype == b.dtype
+    assert float((ga.float() - ra).abs().max()) <= \
+        2 ** -7 * float(ra.abs().max())
+    assert float((gb.float() - rb).abs().max()) <= \
+        2 ** -7 * float(rb.abs().max())
+
+    attn = init_parameters(HeteroWindowAttention(
+        64, dim_head=16, compute_dtype="bfloat16"), seed=0)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 8, 8, 64, generator=gen).bfloat16()
+    mode = torch.tensor([[1, 0, 1], [0, 1, 1]])
+    static_modes = (1, 0, 1) if static else None
+    if static:
+        x, mode = x[:1], mode[:1]
+    want = attn._typed_kv(x, mode, static_modes, (0, 1))  # CPU: float32
+    attn_dev = attn.to(dev)
+    with strict_fp32():
+        got = attn_dev._typed_kv(x.to(dev), mode.to(dev), static_modes,
+                                 (0, 1))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    ref = want.float().to(dev)
+    bound = 2 ** -7 * ref.abs() + 1e-5 * float(ref.abs().max())
+    assert bool(((got.float() - ref).abs() <= bound).all())

@@ -222,3 +222,97 @@ def test_port_imports_nothing_of_the_jax_package():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_box_corner_order_defaults_to_jax_packages():
+    """``boxes_to_corners_3d`` defaults to ``lwh``, as the JAX function and
+    the port's numpy copies do (ROADMAP Queue 3 P4)."""
+    import inspect
+
+    for fn in (boxes.boxes_to_corners_3d, boxes.boxes_to_corners_3d_np,
+               boxes.corners_to_boxes, jboxes.boxes_to_corners_3d,
+               jboxes.corners_to_boxes):
+        assert inspect.signature(fn).parameters["order"].default == "lwh"
+    rng = np.random.default_rng(9)
+    b = np.concatenate([rng.uniform(-9, 9, (5, 3)), rng.uniform(1, 5, (5, 3)),
+                        rng.uniform(-3, 3, (5, 1))], 1).astype(np.float32)
+    np.testing.assert_allclose(
+        boxes.boxes_to_corners_3d(torch.from_numpy(b)).numpy(),
+        jboxes.boxes_to_corners_3d(b), atol=1e-5, rtol=0)
+
+
+def test_data_constants_equal_originals():
+    from hmvit_tpu.data import opv2v as jopv2v
+    from hmvit_tpu_torch.data import opv2v
+
+    assert hmvit_tpu_torch.COM_RANGE == hmvit_tpu.COM_RANGE
+    ds, jds = opv2v.HeteroCooperativeDataset, jopv2v.HeteroCooperativeDataset
+    assert opv2v.IMAGE_MEAN == ds.IMAGE_MEAN == jds.IMAGE_MEAN
+    assert opv2v.IMAGE_STD == ds.IMAGE_STD == jds.IMAGE_STD
+
+
+def _literal(tree, target, names):
+    """The value of ``prod_overfit.py``'s assignment to ``target`` inside
+    ``main``, evaluated with ``names`` bound."""
+    import ast
+
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    node = next(n for n in ast.walk(main) if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", None) == target)
+    return eval(compile(ast.Expression(node.value), "prod_overfit.py",
+                        "eval"), {}, names)
+
+
+@pytest.mark.parametrize("grid", [64, 512])
+def test_gate_configuration_equals_prod_overfit_literals(grid, monkeypatch):
+    """The port's gate takes the JAX script's configuration: its model
+    config, anchors and decode (``anchor_args``, ``pp_cfg``), dataset
+    parameters and fixture arguments, read from ``prod_overfit.py``'s own
+    source; and ``optax.adamw``'s default weight decay."""
+    import argparse
+    import ast
+    import copy
+    import inspect
+
+    import optax
+
+    from hmvit_tpu_torch import prod_overfit as gate
+
+    with open(os.path.join(REPO, "prod_overfit.py")) as f:
+        tree = ast.parse(f.read())
+    cfg, lidar_range = gate.gate_config(grid)
+    half_range = grid * 0.4 / 2.0
+    assert lidar_range == [-half_range, -half_range, -3.0, half_range,
+                           half_range, 1.0]
+    want = copy.deepcopy(bench.PROD_CFG)
+    want["lidar"]["lidar_range"] = lidar_range
+    want["lidar"]["point_pillar_scatter"]["grid_size"] = [grid, grid, 1]
+    want["camera"]["bev_size"] = max(grid // 4, 8)
+    want["camera"]["bev_range"] = half_range
+    want["remat"] = True
+    assert cfg == want
+    names = {"grid": grid, "lidar_range": lidar_range, "root": "/r",
+             "args": argparse.Namespace(image_size=48)}
+    names["anchor_args"] = _literal(tree, "anchor_args", names)
+    assert gate.postprocess_config(grid, lidar_range) == \
+        _literal(tree, "pp_cfg", names)
+    assert gate.dataset_params("/r", lidar_range, 48) == \
+        _literal(tree, "params_ds", names)
+    seen = {}
+    monkeypatch.setattr(gate, "write_mini_opv2v",
+                        lambda root, **kw: seen.update(kw))
+    gate.write_fixture("/r", grid, 4, 512, 30000)
+    call = next(n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                and getattr(n.func, "id", None) == "write_mini_opv2v")
+    scope = {"args": argparse.Namespace(num_cavs=4, image_size=512,
+                                        max_points=30000),
+             "half_range": half_range, "min": min}
+    assert seen == {k.arg: eval(compile(ast.Expression(k.value), "", "eval"),
+                                {}, scope) for k in call.keywords}
+    sig = inspect.signature(optax.adamw).parameters
+    assert gate.ADAMW == {
+        "betas": (sig["b1"].default, sig["b2"].default),
+        "eps": sig["eps"].default,
+        "weight_decay": sig["weight_decay"].default}
+    assert gate.ADAMW["weight_decay"] == 1e-4
