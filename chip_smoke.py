@@ -142,7 +142,26 @@ Phases:
    eval forward (eval mode, no serving hints, the configuration's bf16
    fusion) on both frames, then ``post_process`` and AP: the AP (not
    held: 20 steps do not train the model), the ms a frame and the
-   launches (those of a forward without remat, a frame) printed.
+   launches (those of a forward without remat, a frame) printed;
+10. the run-directory path, through the tools a user calls: (a) ``python
+   -m hmvit_tpu_torch.tools.train`` on
+   ``hmvit_tpu_torch/config/hypes/hmvit_prod_serving.yaml`` (production
+   width, nothing cut) with ``--synthetic --half --remat --epoches 1
+   --steps_per_epoch 10`` into a temporary run directory: every loss
+   finite, ``config.yaml`` and the epoch's checkpoint written, and the
+   pair warp, stripe and plain launches of every step equal to
+   ``train_launches``; the steps/s after the first printed; (b) ``python
+   -m hmvit_tpu_torch.tools.inference`` on that run directory with
+   ``--synthetic --synthetic_frames 8 --bf16 --serving_buckets
+   --max_frames 8`` (a captured CUDA graph per fleet bucket): AP@0.3 /
+   0.5 / 0.7 (not held: 10 steps do not train), the end-to-end fps, p50
+   and p95, each bucket's capture seconds and the launches its graph
+   holds (held to a serving frame's: ``serving_launches``) printed; then
+   one frame served by a captured graph and by the eager bf16 forward of
+   the same model: psm, rm and the decoded boxes equal bit for bit; (c)
+   ``tools.train`` on ``smoke_hetero_tiny.yaml`` for 2 steps, float32,
+   so that the cross-view transformer camera encoder runs on the card:
+   the losses finite and the launches of each step ``train_launches``.
 
 The pair warp in float32 is held to its twin at ``FP32_ATOL`` on the
 serving and ego poses; on spread poses (the phase 2 case and
@@ -272,6 +291,10 @@ BF16_GRAD_FLOOR = 1e-2
 TRAIN_STEPS = 5
 # phase 9: bf16 train steps of the accuracy gate on its fixture
 GATE_STEPS = 20
+# phase 10: the run-directory tools on the shipped configurations
+RUN_DIR_STEPS = 10
+RUN_DIR_FRAMES = 8
+HYPES = "hmvit_tpu_torch/config/hypes"
 
 KERNEL_META = {
     "pair_warp": ("hmvit_tpu_torch/csrc/pair_warp.cu",
@@ -1442,7 +1465,27 @@ def train_launches(cfg: dict) -> dict:
     return {"pair_warp": 2 * iters * fusion,
             "stripe_window_attention": iters * fusion,
             "plain_window_attention": (iters * fusion + camera
-                                       * cfg["camera"]["num_layers"])}
+                                       * camera_attention_layers(cfg))}
+
+
+def camera_attention_layers(cfg: dict) -> int:
+    """The camera encoder's BEV self-attentions (plain launches) a
+    forward: one a layer of the BEVFormer encoder, none in the cross-view
+    transformer's."""
+    cam = cfg["camera"]
+    if cam.get("encoder", "cvt") != "bevformer":
+        return 0
+    return cam.get("num_layers", 3)
+
+
+def serving_launches(cfg: dict, cameras: int) -> dict:
+    """The kernels one served frame launches (eval mode, serving hints):
+    a forward's, without the camera encoder's when the fleet has no
+    camera."""
+    want = train_launches(dict(cfg, remat=False))
+    if cameras == 0:
+        want["plain_window_attention"] -= camera_attention_layers(cfg)
+    return want
 
 
 def train_phase(dev, card) -> dict:
@@ -1763,6 +1806,144 @@ def gate_phase(dev, card) -> dict:
     return total
 
 
+def run_dir_phase(dev, card) -> dict:
+    """Phase 10 (see the module's docstring): the run-directory tools.
+    Returns each kernel's launches over the phase."""
+    import os
+    import tempfile
+
+    import torch
+
+    from hmvit_tpu_torch.config import load_config
+    from hmvit_tpu_torch.data.opv2v import HeteroCooperativeDataset
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.postprocess import build_postprocessor
+    from hmvit_tpu_torch.serving import GEOMETRY_KEYS
+    from hmvit_tpu_torch.tools import common, inference, train
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    total = dict.fromkeys(KERNEL_META, 0)
+
+    def add(counts):
+        for name in total:
+            total[name] += counts[name]
+
+    def train_run(hypes, flags, steps, want):
+        """tools.train into a new run directory; every step's launches
+        held to ``want``; returns (run dir, losses, seconds a step after
+        the first)."""
+        losses, stamps = [], []
+
+        def on_step(epoch, step, metrics):
+            losses.append(float(metrics["total_loss"]))  # synchronises
+            stamps.append(time.perf_counter())
+            counts = cuda.launch_counts()
+            cuda.reset_launches()
+            add(counts)
+            got = {name: counts[name] for name in want}
+            if got != want:
+                raise AssertionError(f"tools.train {os.path.basename(hypes)}"
+                                     f" step {len(losses) - 1}: launches "
+                                     f"{got}, expected {want}")
+
+        run = tempfile.mkdtemp(prefix="chip_smoke_run_", dir=tmp)
+        cuda.reset_launches()
+        train.main(["--hypes_yaml", hypes, "--model_dir", run, "--synthetic",
+                    "--epoches", "1", "--steps_per_epoch", str(steps),
+                    *flags], on_step=on_step)
+        add(cuda.launch_counts())  # the validation forwards
+        if len(losses) != steps or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"tools.train {hypes}: losses {losses}")
+        for path in ("config.yaml", os.path.join("ckpt", "1", "state.pt")):
+            if not os.path.exists(os.path.join(run, path)):
+                raise AssertionError(f"tools.train {hypes}: no {path}")
+        per_step = ((stamps[-1] - stamps[0]) / (steps - 1) if steps > 1
+                    else None)
+        return run, losses, per_step
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase10_") as tmp:
+        # (a) production width, bf16 with remat
+        hypes = os.path.join(repo, HYPES, "hmvit_prod_serving.yaml")
+        cfg = dict(load_config(hypes)["model"]["args"], remat=True)
+        want = train_launches(cfg)
+        t0 = time.perf_counter()
+        run, losses, per_step = train_run(
+            hypes, ["--half", "--remat"], RUN_DIR_STEPS, want)
+        print(f"tools.train hmvit_prod_serving --half --remat: "
+              f"{RUN_DIR_STEPS} steps, {time.perf_counter() - t0:.2f} s with "
+              f"the fixture, validation and checkpoint; "
+              f"{1.0 / per_step:.3f} steps/s after the first; loss "
+              f"{[round(v, 4) for v in losses]}; launches a step {want} on "
+              f"{card}")
+        # (b) the run directory served: captured graphs per fleet bucket
+        cuda.reset_launches()
+        res = inference.main(["--model_dir", run, "--synthetic",
+                              "--synthetic_frames", str(RUN_DIR_FRAMES),
+                              "--bf16", "--serving_buckets", "--max_frames",
+                              str(RUN_DIR_FRAMES), "--ap_mode", "iou"])
+        add(cuda.launch_counts())
+        iou, e2e = res["iou"], res["e2e"]
+        print(f"tools.inference --bf16 --serving_buckets: AP@0.3 / 0.5 / 0.7 "
+              f"{iou['ap_30']:.4f} / {iou['ap_50']:.4f} / {iou['ap_70']:.4f} "
+              f"(not held); e2e {e2e['fps']} fps over {e2e['frames']} frames,"
+              f" p50 {e2e['p50_ms']} ms, p95 {e2e['p95_ms']} ms on {card}")
+        for b in res["serving"]["buckets"]:
+            cams = b["hints"]["camera_bucket"]
+            got = {name: b["launches"][name] for name in want}
+            expect = serving_launches(cfg, cams)
+            print(f"  bucket {b['hints']}: capture {b['capture_s']} s, "
+                  f"launches a frame {got}")
+            if got != expect:
+                raise AssertionError(f"tools.inference bucket {b['hints']}: "
+                                     f"launches {got}, expected {expect}")
+        # one frame: the captured graph against the eager bf16 forward
+        model, params = common.load_runnable(run, dev)
+        model = model.to(torch.bfloat16)
+        common.write_synthetic(params, "chip_smoke_frame_", 60000,
+                               num_scenarios=1, num_cavs=2, num_frames=1)
+        ds = HeteroCooperativeDataset(params, train=False)
+        pp = build_postprocessor(params["postprocess"], train=False)
+        anchors = pp.generate_anchor_box()
+        frame = ds[0]
+        req = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32
+                   and k not in GEOMETRY_KEYS else v)
+               for k, v in common.to_device(ds.collate_batch([frame]),
+                                            dev).items()}
+        hints = inference.fleet_hints(frame)
+        graph = inference.GraphServing(model, anchors)(req, hints)
+        graph = {k: v.clone() for k, v in graph.items()}
+        with torch.no_grad():
+            eager = model(req, **hints)
+        boxes = []
+        for out in (graph, eager):
+            boxes.append(pp.post_process(
+                {0: {"transformation_matrix": np.eye(4),
+                     "anchor_box": anchors, "no_post_projection": True}},
+                {0: {k: out[k] for k in ("psm", "rm")}}))
+        same = all(torch.equal(graph[k], eager[k]) for k in ("psm", "rm"))
+        (gc, gs), (ec, es) = boxes
+        same_boxes = ((gc is None and ec is None)
+                      or (gc is not None and ec is not None
+                          and np.array_equal(gc, ec)
+                          and np.array_equal(gs, es)))
+        print(f"tools.inference graph vs eager bf16, one frame of fleet "
+              f"{hints['static_modes']}: psm / rm bit for bit {same}, boxes "
+              f"({0 if gc is None else len(gc)}) bit for bit {same_boxes}")
+        if not (same and same_boxes):
+            raise AssertionError("tools.inference: the captured graph's "
+                                 "outputs differ from the eager forward's")
+        del model, graph, eager
+        torch.cuda.empty_cache()
+        # (c) the cross-view transformer camera encoder on the card
+        hypes = os.path.join(repo, HYPES, "smoke_hetero_tiny.yaml")
+        want = train_launches(load_config(hypes)["model"]["args"])
+        _, losses, _ = train_run(hypes, [], 2, want)
+        print(f"tools.train smoke_hetero_tiny (cvt camera encoder): loss "
+              f"{[round(v, 4) for v in losses]}, launches a step {want}")
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2038,6 +2219,9 @@ def main() -> int:
     # -- 9. the accuracy gate's path ------------------------------------------
     gate_counts = gate_phase(dev, card)
 
+    # -- 10. the run-directory tools -----------------------------------------
+    run_dir_counts = run_dir_phase(dev, card)
+
     kernels = []
     for name, rec in record.items():
         launches = path_counts[KERNEL_PATH[name]][name]
@@ -2055,7 +2239,8 @@ def main() -> int:
                         "replaces": KERNEL_META[name][1],
                         "launches": launches,
                         "train_launches": train_counts[name],
-                        "gate_launches": gate_counts[name], **rec})
+                        "gate_launches": gate_counts[name],
+                        "run_dir_launches": run_dir_counts[name], **rec})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,16 @@ null and strings, in block style.  :func:`yaml_load` reads that block style,
 one-line flow sequences and mappings, quoted strings, comments and the
 ``!!python/tuple`` tag, and resolves plain scalars as PyYAML's
 ``SafeLoader`` does (YAML 1.1: ``yes`` is true, ``1e5`` is a string).
-Anything else (anchors, aliases, other tags, block scalars, multi-line
-scalars or flows, octal, hex, sexagesimal or underscored numbers,
-timestamps, several documents) raises :class:`YamlSubsetError` naming it.
+``yaml_load(..., hypes=True)`` reads the model configurations
+("hypes") as the JAX package's config loader does: anchors (``&name``
+before a value) and aliases (``*name`` as a whole value, the anchored
+object itself, shared as PyYAML shares it) are read too, and a plain
+scalar that is neither null, bool nor int is a float also with an
+unsigned exponent or none but an exponent (``2e-4``, ``1.0e5``).
+Anything else (anchors and aliases outside hypes, aliases inside a flow,
+merge keys ``<<``, other tags, block scalars, multi-line scalars or
+flows, octal, hex, sexagesimal or underscored numbers, timestamps,
+several documents) raises :class:`YamlSubsetError` naming it.
 """
 from __future__ import annotations
 
@@ -184,6 +191,10 @@ _INT = re.compile(r"[-+]?(?:0|[1-9][0-9]*)$")
 _FLOAT = re.compile(r"(?:[-+]?[0-9]+\.[0-9]*|\.[0-9]+)(?:[eE][-+][0-9]+)?$")
 _INF = re.compile(r"([-+]?)\.(?:inf|Inf|INF)$")
 _NAN = re.compile(r"\.(?:nan|NaN|NAN)$")
+# the JAX config loader's float resolver, tried after the YAML 1.1 ones
+# (its underscored and sexagesimal forms stay outside the subset)
+_HYPES_FLOAT = re.compile(
+    r"(?:[-+]?[0-9]+\.[0-9]*(?:[eE][-+]?[0-9]+)?|[-+]?[0-9]+[eE][-+]?[0-9]+)$")
 # plain scalars PyYAML resolves to a type this reader does not take:
 # binary, octal, hex, sexagesimal and underscored numbers, timestamps,
 # the merge key and the value key
@@ -200,8 +211,9 @@ _OUTSIDE = [
 ]
 
 
-def _resolve_plain(text: str, where: str):
-    """A plain scalar's value, by PyYAML's YAML 1.1 resolver."""
+def _resolve_plain(text: str, where: str, hypes: bool = False):
+    """A plain scalar's value, by PyYAML's YAML 1.1 resolver (with the
+    config loader's float pattern after it when ``hypes``)."""
     if text in _NULLS:
         return None
     if text in _BOOLS:
@@ -209,6 +221,8 @@ def _resolve_plain(text: str, where: str):
     if _INT.match(text):
         return int(text)
     if _FLOAT.match(text):
+        return float(text)
+    if hypes and _HYPES_FLOAT.match(text):
         return float(text)
     m = _INF.match(text)
     if m:
@@ -261,11 +275,11 @@ def _quoted(text: str, where: str) -> str:
     return "".join(out)
 
 
-def _scalar(text: str, where: str):
+def _scalar(text: str, where: str, hypes: bool = False):
     text = text.strip()
     if text[:1] in ("'", '"'):
         return _quoted(text, where)
-    return _resolve_plain(text, where)
+    return _resolve_plain(text, where, hypes)
 
 
 def _strip_comment(line: str) -> str:
@@ -304,7 +318,7 @@ def _split_key(content: str):
     return None
 
 
-def _flow(text: str, where: str):
+def _flow(text: str, where: str, hypes: bool = False):
     """A one-line flow sequence or mapping of scalars or flows."""
     pos = 0
 
@@ -351,7 +365,7 @@ def _flow(text: str, where: str):
             if opener == "[":
                 raw = item(",]")
                 out.append(raw if not isinstance(raw, str)
-                           else _scalar(raw, where))
+                           else _scalar(raw, where, hypes))
             else:
                 raw = item(":,}")
                 if pos >= len(text) or text[pos] != ":":
@@ -359,8 +373,9 @@ def _flow(text: str, where: str):
                                           f"without ': ' in {text!r}")
                 pos += 1
                 val = item(",}")
-                out[_scalar(raw, where)] = (val if not isinstance(val, str)
-                                            else _scalar(val, where))
+                out[_scalar(raw, where, hypes)] = (
+                    val if not isinstance(val, str)
+                    else _scalar(val, where, hypes))
             skip()
             if pos >= len(text):
                 raise YamlSubsetError(f"{where}: unterminated or multi-line "
@@ -382,9 +397,12 @@ def _flow(text: str, where: str):
 
 
 class _Lines:
-    """The document's content lines as (line number, indent, text)."""
+    """The document's content lines as (line number, indent, text), and
+    the reading's mode (``hypes``) and anchors."""
 
-    def __init__(self, source: str):
+    def __init__(self, source: str, hypes: bool = False):
+        self.hypes = hypes
+        self.anchors = {}
         self.items = []
         started = False
         for no, raw in enumerate(source.splitlines(), 1):
@@ -417,15 +435,34 @@ def _inline(text: str, lines: _Lines, i: int, indent: int, where: str,
             raise YamlSubsetError(f"{where}: the tag {tag} is outside the "
                                   f"subset (only {_TUPLE_TAG})")
         text = text.strip()
-    if text[:1] in ("&", "*"):
+    anchor = None
+    if text[:1] in ("&", "*") and not lines.hypes:
         raise YamlSubsetError(f"{where}: anchors and aliases are outside "
-                              f"the subset")
+                              f"the subset (they are read in hypes only)")
+    if text[:1] == "*":
+        name = text[1:]
+        if tag is not None or not re.fullmatch(r"[^\s\[\]{},]+", name):
+            raise YamlSubsetError(f"{where}: an alias is read only as a "
+                                  f"whole value, got {text!r}")
+        if name not in lines.anchors:
+            raise YamlSubsetError(f"{where}: alias *{name} of no anchor")
+        nxt = i + 1
+        if nxt < len(lines.items) and lines.items[nxt][1] > indent:
+            raise YamlSubsetError(f"line {lines.items[nxt][0]}: a node "
+                                  f"after an alias")
+        return lines.anchors[name], nxt
+    if text[:1] == "&":
+        anchor, _, text = text[1:].partition(" ")
+        text = text.strip()
+        if not anchor or text[:1] in ("&", "*", "!"):
+            raise YamlSubsetError(f"{where}: an anchor is read only before "
+                                  f"an untagged value")
     if text[:1] in ("|", ">"):
         raise YamlSubsetError(f"{where}: block scalars are outside the "
                               f"subset")
     if text:
-        value = _flow(text, where) if text[0] in "[{" else _scalar(text,
-                                                                   where)
+        value = (_flow(text, where, lines.hypes) if text[0] in "[{"
+                 else _scalar(text, where, lines.hypes))
         nxt = i + 1
     else:
         value, nxt = None, i + 1
@@ -442,6 +479,8 @@ def _inline(text: str, lines: _Lines, i: int, indent: int, where: str,
         if not isinstance(value, list):
             raise YamlSubsetError(f"{where}: {_TUPLE_TAG} on a non-sequence")
         value = tuple(value)
+    if anchor is not None:
+        lines.anchors[anchor] = value
     return value, nxt
 
 
@@ -485,16 +524,17 @@ def _node(lines: _Lines, i: int, indent: int):
         if key_text.startswith("?"):
             raise YamlSubsetError(f"line {no}: complex keys are outside "
                                   f"the subset")
-        key = _scalar(key_text, f"line {no}")
+        key = _scalar(key_text, f"line {no}", lines.hypes)
         if key in out:
             raise YamlSubsetError(f"line {no}: duplicate key {key!r}")
         out[key], i = _inline(rest, lines, i, indent, f"line {no}", True)
     return out, i
 
 
-def yaml_load(source: str):
-    """Parse a YAML document of the subset (module docstring)."""
-    lines = _Lines(source)
+def yaml_load(source: str, hypes: bool = False):
+    """Parse a YAML document of the subset (module docstring); ``hypes``
+    reads a model configuration (anchors, aliases, the config floats)."""
+    lines = _Lines(source, hypes)
     if not lines.items:
         return None
     value, i = _node(lines, 0, lines.items[0][1])
@@ -505,9 +545,9 @@ def yaml_load(source: str):
     return value
 
 
-def yaml_load_file(path: str):
+def yaml_load_file(path: str, hypes: bool = False):
     with open(path) as f:
-        return yaml_load(f.read())
+        return yaml_load(f.read(), hypes)
 
 
 def _dump_scalar(value) -> str:
@@ -530,7 +570,8 @@ def _dump_scalar(value) -> str:
         try:
             plain = (value == value.strip() and value
                      and not re.search(r": |:$| #|[\n'\"]", value)
-                     and _resolve_plain(value, "") == value)
+                     and _resolve_plain(value, "") == value
+                     and _resolve_plain(value, "", hypes=True) == value)
         except YamlSubsetError:
             plain = False
         return value if plain else "'" + value.replace("'", "''") + "'"

@@ -12,10 +12,15 @@ Layout: root/<scenario>/<cav_id>/<timestamp>.yaml / .pcd /
 _camera{0..3}.png.  RSUs have negative cav ids and sort to the end; the
 ego is the first CAV.
 
+Besides the intermediate-fusion frame, :meth:`HeteroCooperativeDataset.
+early_fusion_frame` merges every agent's cloud into the ego's slot and
+:meth:`~HeteroCooperativeDataset.late_fusion_frame` gives one
+single-agent frame per agent (``tools/inference.py --fusion_method
+early|late``).
+
 Not ported yet: the BEV map ground truth (``add_data_extension``,
-``seg_labels``; ROADMAP.md Queue 1 item 5), the early / late fusion
-frames (with item 4's trainer) and the inspection API (``get_sample``,
-``visualize_all_agents_bbx``; item 7).
+``seg_labels``; ROADMAP.md Queue 1 item 5) and the inspection API
+(``get_sample``, ``visualize_all_agents_bbx``; item 7).
 """
 from __future__ import annotations
 
@@ -367,6 +372,61 @@ class HeteroCooperativeDataset:
             frame["object_bbx_mask"][i] = 1
         frame["object_ids"] = list(objects.keys())[: self.max_objects]
         return frame
+
+    def early_fusion_frame(self, idx: int) -> dict:
+        """Early fusion: every agent's points projected into the ego frame
+        and merged into one cloud on agent slot 0, a lidar fleet of one."""
+        frame = self[idx]
+        n_live = int(frame["record_len"])
+        merged = []
+        for i in range(n_live):
+            m = frame["points_mask"][i] > 0
+            pts = frame["points"][i][m]
+            pts[:, :3] = T.project_points(
+                pts[:, :3], frame["transformation_matrix"][i])
+            merged.append(pts)
+        merged = np.concatenate(merged) if merged else np.zeros((0, 4))
+        out = dict(frame)
+        out["points"] = np.zeros_like(frame["points"])
+        out["points_mask"] = np.zeros_like(frame["points_mask"])
+        n = min(len(merged), out["points"].shape[1])
+        out["points"][0, :n] = merged[:n]
+        out["points_mask"][0, :n] = 1
+        out["agent_mask"] = np.zeros_like(frame["agent_mask"])
+        out["agent_mask"][0] = 1
+        out["record_len"] = np.int32(1)
+        out["mode"] = np.array([1] * len(frame["mode"]), np.int32)
+        return out
+
+    def late_fusion_frame(self, idx: int) -> list:
+        """Late fusion: one single-agent frame per live agent, each in its
+        own frame, with its modality on every slot and its transform to
+        the ego (``to_ego``)."""
+        frame = self[idx]
+        n_live = int(frame["record_len"])
+        subs = []
+        for i in range(n_live):
+            sub = {k: np.array(v, copy=True) for k, v in frame.items()
+                   if k != "object_ids"}
+            for key in ("points", "points_mask", "camera", "intrinsics",
+                        "extrinsics"):
+                sub[key][0] = frame[key][i]
+                sub[key][1:] = 0
+            sub["agent_mask"] = np.zeros_like(frame["agent_mask"])
+            sub["agent_mask"][0] = 1
+            sub["mode"] = np.array(
+                [frame["mode"][i]] * len(frame["mode"]), np.int32)
+            sub["record_len"] = np.int32(1)
+            sub["pairwise_t_matrix"] = np.tile(
+                np.eye(4, dtype=np.float32),
+                (*frame["pairwise_t_matrix"].shape[:2], 1, 1))
+            sub["transformation_matrix"] = np.tile(
+                np.eye(4, dtype=np.float32),
+                (frame["transformation_matrix"].shape[0], 1, 1))
+            sub["to_ego"] = frame["transformation_matrix"][i]
+            sub["object_ids"] = frame.get("object_ids", [])
+            subs.append(sub)
+        return subs
 
     @staticmethod
     def collate_batch(frames: list) -> dict:

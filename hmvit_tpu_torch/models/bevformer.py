@@ -133,9 +133,17 @@ class BEVFormerEncoder(nn.Module):
         super().__init__()
         cfg = config
         if cfg.get("lift", "planar") != "planar":
-            raise ValueError("only the planar lift is ported")
+            raise NotImplementedError(
+                "only the planar lift is ported; the deformable lift is "
+                "ROADMAP.md Queue 1 item 5")
         if cfg.get("decoder_layers", 0):
-            raise ValueError("the BEVFormer upsampling decoder is not ported")
+            raise NotImplementedError(
+                "the BEVFormer upsampling decoder is not ported yet: "
+                "ROADMAP.md Queue 1 item 5")
+        if not cfg.get("backbone"):
+            raise NotImplementedError(
+                "the BEVFormer encoder on the plain image encoder is not "
+                "ported yet: ROADMAP.md Queue 1 item 5")
         self.cfg = cfg
         dim = cfg.get("dim", 256)
         self.bev_hw = cfg.get("bev_size", 128)

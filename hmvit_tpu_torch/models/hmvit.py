@@ -1,5 +1,6 @@
 """HM-ViT flagship: hetero-modal multi-agent cooperative detector (port
-of ``hmvit_tpu/models/hmvit.py``, BEVFormer planar camera branch).
+of ``hmvit_tpu/models/hmvit.py``; camera branch: the cross-view
+transformer, the default, or the planar BEVFormer).
 mode convention: 0 = camera, 1 = lidar.  ``train()`` is the JAX model's
 ``train=True``: batch statistics, dropout, and remat over the stages
 ``cfg["remat"]`` names.
@@ -10,10 +11,26 @@ import torch
 from torch import nn
 
 from .bevformer import BEVFormerEncoder
+from .cvt import CrossViewTransformer
 from ..nn import DTYPES, remat
 from .hetero_fusion import HeteroFusion
 from .layers import DetectionHead, NaiveDecoder
 from .pillar_encoder import PointPillarEncoder
+
+
+# the camera encoders the port builds, by the config's ``encoder`` key
+CAMERA_ENCODERS = {"cvt": CrossViewTransformer, "bevformer": BEVFormerEncoder}
+
+
+def make_camera_encoder(cfg: dict) -> nn.Module:
+    """The camera -> BEV encoder ``cfg["encoder"]`` names: ``cvt`` (the
+    default) or ``bevformer``."""
+    kind = cfg.get("encoder", "cvt")
+    if kind not in CAMERA_ENCODERS:
+        raise NotImplementedError(
+            f"the camera encoder {kind!r} is not ported yet (the port builds "
+            f"{sorted(CAMERA_ENCODERS)}): ROADMAP.md Queue 1 item 5")
+    return CAMERA_ENCODERS[kind](cfg)
 
 
 class HeteroDecoder(nn.Module):
@@ -71,22 +88,22 @@ _SLICED = ("mode", "agent_mask", "points", "points_mask", "camera",
 
 
 class HMViT(nn.Module):
-    """Hetero-modal cooperative detector: lidar PointPillars + camera
-    BEVFormer encoders, H3GAT fusion, per-modality decoder.  A new model
-    is in eval mode."""
+    """Hetero-modal cooperative detector: lidar PointPillars + a camera
+    encoder (:func:`make_camera_encoder`), H3GAT fusion, per-modality
+    decoder.  A new model is in eval mode."""
 
     def __init__(self, config: dict):
         super().__init__()
         cfg = config
         self.config = cfg
         if cfg.get("compression", 0):
-            raise ValueError("the bandwidth compressor is not ported")
+            raise NotImplementedError("the bandwidth compressor is not "
+                                      "ported yet: ROADMAP.md Queue 1 item 5")
         if cfg.get("fusion_override"):
-            raise ValueError("fusion overrides are not ported")
-        if cfg["camera"].get("encoder", "cvt") != "bevformer":
-            raise ValueError("only the bevformer camera encoder is ported")
+            raise NotImplementedError("fusion overrides are not ported yet: "
+                                      "ROADMAP.md Queue 1 item 5")
         self.lidar_encoder = PointPillarEncoder(cfg["lidar"])
-        self.camera_encoder = BEVFormerEncoder(cfg["camera"])
+        self.camera_encoder = make_camera_encoder(cfg["camera"])
         self.fusion = HeteroFusion(cfg["hetero_fusion"])
         dec = cfg["hetero_decoder"]
         self.HeteroDecoder_0 = HeteroDecoder(

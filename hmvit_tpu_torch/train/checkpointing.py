@@ -51,6 +51,17 @@ def restore_checkpoint(ckpt_dir: str, state, step: int | None = None):
     return state
 
 
+def saved_model_state(ckpt_dir: str, step: int | None = None,
+                      map_location="cpu") -> dict | None:
+    """The model state dict of the checkpoint of ``step`` (default: the
+    last), or None when there is no checkpoint."""
+    step = find_last_step(ckpt_dir) if step is None else step
+    if step is None:
+        return None
+    return torch.load(os.path.join(ckpt_dir, str(int(step)), STATE_FILE),
+                      map_location=map_location, weights_only=True)["model"]
+
+
 def graft_subtree(state_dict: dict, donor_state_dict: dict,
                   key: str) -> dict:
     """A copy of ``state_dict`` whose entries under the prefix ``key``

@@ -1,0 +1,210 @@
+"""Port parity of the configuration layer: the port's ``load_config``
+(its own YAML reader in hypes mode: anchors, aliases, the config floats)
+against the JAX package's PyYAML loader on every shipped hypes file, the
+port's copies of the hypes it builds, ``build_model`` on them and its
+refusals, the ``config.yaml`` snapshot read back by both loaders, and
+the port's copy of ``data/augment.py``."""
+import copy
+import glob
+import os
+import shutil
+
+import numpy as np
+import pytest
+import yaml
+
+from hmvit_tpu.config import loader as jloader
+from hmvit_tpu.data import augment as jaugment
+from hmvit_tpu.models import zoo as jzoo
+from hmvit_tpu_torch.config import loader
+from hmvit_tpu_torch.data import augment, codecs
+from hmvit_tpu_torch.models import zoo
+from hmvit_tpu_torch.models.hmvit import HMViT
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_HYPES = os.path.join(REPO, "hmvit_tpu", "config", "hypes")
+PORT_HYPES = os.path.join(REPO, "hmvit_tpu_torch", "config", "hypes")
+ALL_YAMLS = sorted(os.path.relpath(p, JAX_HYPES) for p in glob.glob(
+    os.path.join(JAX_HYPES, "**", "*.yaml"), recursive=True))
+COPIES = sorted(os.path.relpath(p, PORT_HYPES) for p in glob.glob(
+    os.path.join(PORT_HYPES, "**", "*.yaml"), recursive=True))
+
+
+def without_dirname(params):
+    return {k: v for k, v in params.items() if k != "fileDirname"}
+
+
+def test_corpus_and_copies_present():
+    assert len(ALL_YAMLS) == 83
+    assert COPIES == ["hmvit_cvt_point_pillar_hetero.yaml",
+                      "hmvit_prod_serving.yaml",
+                      "opcl/bevformer_point_pillar_hetero.yaml",
+                      "smoke_hetero_tiny.yaml"]
+
+
+@pytest.mark.parametrize("name", ALL_YAMLS)
+def test_load_config_equals_jax(name):
+    """The port's load_config equals JAX's, floats exactly, the derived
+    parameters included; every model core_method is one the port's
+    registry knows (built or refused by name)."""
+    path = os.path.join(JAX_HYPES, name)
+    got = loader.load_config(path)
+    assert got == jloader.load_config(path)
+    method = got.get("model", {}).get("core_method")
+    if method is not None:
+        assert method.lower() in zoo.HETERO_NAMES | zoo.ZOO_NAMES
+
+
+def test_aliases_share_the_anchored_object():
+    """An alias is the anchored object itself, as in PyYAML: a parser's
+    write through one reference shows at the others."""
+    path = os.path.join(PORT_HYPES, "smoke_hetero_tiny.yaml")
+    raw = codecs.yaml_load_file(path, hypes=True)
+    want = yaml.load(open(path), Loader=jloader._Loader)
+    assert raw == want
+    margs = raw["model"]["args"]
+    assert margs["spatial_transform"] is \
+        margs["hetero_fusion"]["spatial_transform"]
+    assert margs["lidar"]["voxel_size"] is \
+        raw["preprocess"]["args"]["lidar_preprocess"]["args"]["voxel_size"]
+    assert isinstance(raw["optimizer"]["lr"], float) and \
+        raw["optimizer"]["lr"] == 2e-3
+
+
+@pytest.mark.parametrize("doc,what", [
+    ("a: &x {k: 1}\nb:\n  <<: *x\n", "merge"),
+    ("a: !!float 1\n", "tag"),
+    ("a: |\n  text\n", "block scalar"),
+    ("a: >\n  text\n", "block scalar"),
+    ("a: [*x]\n", "indicator"),
+    ("a: *y\n", "no anchor"),
+])
+def test_hypes_reader_refuses_by_name(doc, what):
+    with pytest.raises(codecs.YamlSubsetError, match=what):
+        codecs.yaml_load(doc, hypes=True)
+
+
+@pytest.mark.parametrize("text,want", [
+    ("2e-4", 2e-4), ("1e-2", 1e-2), ("5e-6", 5e-6), ("1.0e5", 1e5),
+    ("+3E2", 3e2), ("7", 7), ("1.5", 1.5), ("'2e-4'", "2e-4")])
+def test_hypes_floats_resolve_as_the_jax_loader(text, want):
+    doc = f"v: {text}\n"
+    got = codecs.yaml_load(doc, hypes=True)["v"]
+    assert got == yaml.load(doc, Loader=jloader._Loader)["v"] == want
+    assert type(got) is type(want)
+
+
+def test_unknown_parser_raises_key_error(tmp_path):
+    path = tmp_path / "bad.yaml"
+    path.write_text("name: x\nyaml_parser: [no_such_parser]\n")
+    with pytest.raises(KeyError):
+        loader.load_config(str(path))
+    assert sorted(loader._PARSERS) == sorted(jloader._PARSERS)
+
+
+@pytest.mark.parametrize("name", COPIES)
+def test_hypes_copy_byte_equal_to_original(name):
+    with open(os.path.join(PORT_HYPES, name), "rb") as f:
+        mine = f.read()
+    with open(os.path.join(JAX_HYPES, name), "rb") as f:
+        assert mine == f.read()
+
+
+@pytest.mark.parametrize("name", COPIES)
+def test_build_model_builds_each_copy(name):
+    params = loader.load_config(os.path.join(PORT_HYPES, name))
+    model = zoo.build_model(params["model"])
+    assert isinstance(model, HMViT) and not model.training
+    encoder = params["model"]["args"]["camera"].get("encoder", "cvt")
+    want = {"cvt": "CrossViewTransformer", "bevformer": "BEVFormerEncoder"}
+    assert type(model.camera_encoder).__name__ == want[encoder]
+
+
+@pytest.mark.parametrize("name", sorted(zoo.ZOO_NAMES))
+def test_build_model_refuses_the_rest_of_the_zoo(name):
+    """Every other name of the JAX registry: JAX knows it, the port
+    raises NotImplementedError naming the queue item."""
+    jzoo.build_model({"core_method": name, "args": {}})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        zoo.build_model({"core_method": name, "args": {}})
+
+
+def test_registry_tables_covered_and_unknown_name_raises():
+    tables = (set(jzoo._LIDAR_FUSIONS) | set(jzoo._CAMERA_FUSIONS)
+              | set(jzoo._VPN_FUSIONS) | set(jzoo._MIXED_FUSIONS))
+    assert tables <= zoo.ZOO_NAMES
+    assert zoo.HETERO_NAMES == jzoo._HETERO_NAMES
+    for build in (zoo.build_model, jzoo.build_model):
+        with pytest.raises(ValueError, match="unknown"):
+            build({"core_method": "no_such_model", "args": {}})
+
+
+@pytest.mark.parametrize("encoder", ["fax", "vpn", "bev_swap"])
+def test_unported_camera_encoder_named(encoder):
+    params = loader.load_config(os.path.join(PORT_HYPES,
+                                             "smoke_hetero_tiny.yaml"))
+    model_cfg = copy.deepcopy(params["model"])
+    model_cfg["args"]["camera"]["encoder"] = encoder
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        zoo.build_model(model_cfg)
+
+
+@pytest.mark.parametrize("name", COPIES)
+def test_snapshot_round_trip_in_both_loaders(name, tmp_path):
+    """The port's config.yaml snapshot loads back equal in the port's and
+    the JAX package's loader (as inference reads it: load_config("",
+    model_dir=...)); and JAX's snapshot (PyYAML's dump, with its
+    anchors) in the port's."""
+    params = loader.load_config(os.path.join(PORT_HYPES, name))
+    port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+    port_dir.mkdir()
+    jax_dir.mkdir()
+    loader.save_config(params, str(port_dir / "config.yaml"))
+    jloader.save_config(jloader.load_config(os.path.join(PORT_HYPES, name)),
+                        str(jax_dir / "config.yaml"))
+    want = without_dirname(params)
+    for load, run in ((loader.load_config, port_dir),
+                      (jloader.load_config, port_dir),
+                      (loader.load_config, jax_dir)):
+        back = load("", model_dir=str(run))
+        assert without_dirname(back) == want
+        assert back["fileDirname"] == str(run)
+
+
+def test_snapshot_wins_over_the_hypes_path(tmp_path):
+    src = os.path.join(PORT_HYPES, "smoke_hetero_tiny.yaml")
+    shutil.copy(src, tmp_path / "config.yaml")
+    other = os.path.join(PORT_HYPES, "hmvit_prod_serving.yaml")
+    got = loader.load_config(other, model_dir=str(tmp_path))
+    assert got["name"] == "smoke_hetero_tiny"
+    assert loader.load_config(other, model_dir=str(tmp_path / "none"))[
+        "name"] == "hmvit_prod_serving"
+
+
+AUGMENT_QUEUES = [
+    ["random_world_flip"],
+    [{"NAME": "random_world_flip", "ALONG_AXIS_LIST": ["x", "y"]}],
+    [{"NAME": "random_world_rotation",
+      "WORLD_ROT_ANGLE": [-0.78539816, 0.78539816]}],
+    [{"NAME": "random_world_scaling", "WORLD_SCALE_RANGE": [0.95, 1.05]}],
+    ["random_world_flip", "random_world_rotation", "random_world_scaling"],
+]
+
+
+@pytest.mark.parametrize("queue", AUGMENT_QUEUES)
+@pytest.mark.parametrize("seed", [0, 7])
+def test_augment_equals_jax(queue, seed):
+    rng = np.random.default_rng(100 + seed)
+    points = rng.uniform(-50, 50, (512, 4)).astype(np.float32)
+    boxes = rng.uniform(-5, 5, (12, 7)).astype(np.float32)
+    for _ in range(3):  # the draws of later calls too
+        mine = augment.DataAugmentor(queue, train=True, seed=seed)
+        theirs = jaugment.DataAugmentor(queue, train=True, seed=seed)
+        for (p, b), (jp, jb) in zip(
+                [mine(points, boxes) for _ in range(3)],
+                [theirs(points, boxes) for _ in range(3)]):
+            assert np.array_equal(p, jp) and np.array_equal(b, jb)
+            assert p.dtype == jp.dtype and b.dtype == jb.dtype
+    # evaluation: an empty queue, the input unchanged (a copy)
+    p, b = augment.DataAugmentor(queue, train=False)(points, boxes)
+    assert np.array_equal(p, points) and p is not points

@@ -273,11 +273,11 @@ def _bf16_cfg(cfg):
     return serving_config(cfg, bf16=True)
 
 
-@pytest.fixture(scope="module")
-def bf16_runs(flagship):
-    """JAX fp32 (the flagship reference), JAX bf16 and the port's bf16
-    forward (plain twins, CPU) on the same weights and batch, as float32
-    numpy: {"psm": (sigmoid scores) , "rm": ...} each."""
+def _read_bf16_runs(flagship, variables, fp32_ref):
+    """JAX fp32 (``fp32_ref``, the reference forward of ``variables``),
+    JAX bf16 and the port's bf16 forward (plain twins, CPU) on the same
+    weights and batch, as float32 numpy: {"psm": (sigmoid scores) ,
+    "rm": ...} each."""
     from hmvit_tpu_torch.serving import GEOMETRY_KEYS, batch_to_device
 
     torch.set_num_threads(1)
@@ -291,9 +291,8 @@ def bf16_runs(flagship):
                        for k, v in flagship["batch"].items())}
     with widened_bf16_einsum():
         jout = japply(JHMViT(cfg), jax.tree_util.tree_map(
-            to_bf16, flagship["variables"]), jb, train=False,
-            **flagship["hints"])
-    pm = bridged(HMViT(cfg), flagship["variables"]).to(torch.bfloat16)
+            to_bf16, variables), jb, train=False, **flagship["hints"])
+    pm = bridged(HMViT(cfg), variables).to(torch.bfloat16)
     with torch.no_grad():
         pout = pm(batch_to_device(flagship["batch"], "cpu", bf16=True),
                   **flagship["hints"])
@@ -304,27 +303,82 @@ def bf16_runs(flagship):
             if not isinstance(x, torch.Tensor) else x.float().numpy()
 
     runs = {}
-    for name, out in (("fp32", flagship["ref"]), ("jax_bf16", jout),
+    for name, out in (("fp32", fp32_ref), ("jax_bf16", jout),
                       ("port_bf16", pout)):
         runs[name] = {"psm": 1.0 / (1.0 + np.exp(-host(out["psm"]))),
                       "rm": host(out["rm"])}
     return runs
 
 
-@pytest.mark.parametrize("key", ["psm", "rm"])
-def test_port_bf16_against_jax_fp32(bf16_runs, key):
+@pytest.fixture(scope="module")
+def bf16_runs(flagship):
+    """The three forwards (``_read_bf16_runs``) on the flagship's random
+    weights, where every score sits near the focal prior 0.01."""
+    return _read_bf16_runs(flagship, flagship["variables"], flagship["ref"])
+
+
+# the span of the fp32 logits of the steep-score case: sigmoid(+-4) covers
+# (0.018, 0.982), where the sigmoid's slope reaches 0.25, as on the
+# accuracy gate's trained weights (at the prior it is 0.0099)
+STEEP_LOGIT = 4.0
+
+
+@pytest.fixture(scope="module")
+def bf16_steep_runs(flagship):
+    """The three forwards on weights that put the scores off the prior:
+    the flagship's random weights with each detection head's psm conv
+    bias set to 0 and its kernel scaled so that the JAX fp32 logits span
+    +-STEEP_LOGIT (the head is the model's last, linear layer, so the
+    logits without the bias are the reference's minus it).  Both
+    frameworks get the identical tree through the bridge."""
+    v = jax.tree_util.tree_map(np.array, flagship["variables"])
+    dec = v["params"]["HeteroDecoder_0"]
+    ego = ("camera_head", "lidar_head")[
+        flagship["hints"]["static_ego_modality"]]
+    bias = dec[ego]["Conv_0"]["bias"]
+    logits = np.asarray(flagship["ref"]["psm"]) - bias[None, :, None, None]
+    scale = STEEP_LOGIT / float(np.abs(logits).max())
+    for head in ("camera_head", "lidar_head"):
+        dec[head]["Conv_0"]["kernel"] = (
+            dec[head]["Conv_0"]["kernel"] * scale).astype(np.float32)
+        dec[head]["Conv_0"]["bias"] = np.zeros_like(
+            dec[head]["Conv_0"]["bias"])
+    jb = {k: jnp.asarray(val) for k, val in flagship["batch"].items()}
+    ref = japply(JHMViT(flagship["cfg"]), v, jb, train=False,
+                 **flagship["hints"])
+    return _read_bf16_runs(flagship, v, ref)
+
+
+def _hold_bf16_spread(runs, key):
     """max |port bf16 - JAX fp32| on sigmoid(psm), and on rm over
     max(1, max |rm|), within BF16_SPREAD_FACTOR x the JAX package's own
     bf16-vs-fp32 spread + BF16_FLOOR; both spreads finite and the bf16
     runs not bit-equal to fp32 (the casts took effect)."""
-    ref = bf16_runs["fp32"][key]
+    ref = runs["fp32"][key]
     scale = max(1.0, float(np.abs(ref).max())) if key == "rm" else 1.0
-    spread = {name: float(np.abs(bf16_runs[name][key] - ref).max()) / scale
+    spread = {name: float(np.abs(runs[name][key] - ref).max()) / scale
               for name in ("jax_bf16", "port_bf16")}
     assert all(np.isfinite(v) and v > 0 for v in spread.values()), spread
     bar = BF16_SPREAD_FACTOR * spread["jax_bf16"] + BF16_FLOOR
     print(f"{key}: spread against JAX fp32 {spread}, bar {bar}")
     assert spread["port_bf16"] <= bar, (spread, bar)
+
+
+@pytest.mark.parametrize("key", ["psm", "rm"])
+def test_port_bf16_against_jax_fp32(bf16_runs, key):
+    """The bar (``_hold_bf16_spread``) at random weights."""
+    _hold_bf16_spread(bf16_runs, key)
+
+
+@pytest.mark.parametrize("key", ["psm", "rm"])
+def test_port_bf16_against_jax_fp32_steep_scores(bf16_steep_runs, key):
+    """The same bar on weights where the sigmoid is steep (P3): the JAX
+    package's own bf16 spread is read at these weights, and the fp32
+    scores run from the tail through 0.5, where the slope is 0.25."""
+    scores = bf16_steep_runs["fp32"]["psm"]
+    assert scores.min() < 0.05 and scores.max() > 0.5, (scores.min(),
+                                                        scores.max())
+    _hold_bf16_spread(bf16_steep_runs, key)
 
 
 def _debug_model(flagship, debug: bool):

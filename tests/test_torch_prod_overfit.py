@@ -88,3 +88,40 @@ def test_bf16_bar_reads_bf16_server_against_fp32_forward():
     assert len(rows) == 1 and rows[0]["bar"] == BAR
     assert 0.0 < rows[0]["max_abs_sigmoid_psm"] < 0.05
     assert rows[0]["max_abs_rm_over_scale"] < 0.1
+
+
+@pytest.mark.parametrize("stage", ["lidar", "camera", "fusion", "decoder"])
+def test_bf16_bar_keeps_one_stage_in_fp32(stage):
+    """``--fp32_stage``: the reading with one stage of the bf16 server in
+    float32 (its compute dtype in the configuration, its weights cast
+    back), on the CPU at the shrunk shapes."""
+    from hmvit_tpu_torch.models.hmvit import HMViT
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.serving import serving_config
+    from hmvit_tpu_torch.tools.bf16_bar import bar_readings, \
+        stage_fp32_config
+
+    args = prod_overfit.parse_args(SHRUNK + ["--cpu"])
+    cfg, lidar_range = prod_overfit.gate_config(args.grid)
+    served = serving_config(dict(cfg, remat=False), bf16=True)
+    kept = stage_fp32_config(served, stage)
+    def dtypes(c):
+        return {"lidar": c["lidar"].get("compute_dtype"),
+                "camera": c["camera"].get("compute_dtype"),
+                "fusion": c["hetero_fusion"]["hetero_fusion_block"][
+                    "compute_dtype"],
+                "decoder": c["hetero_decoder"].get("compute_dtype")}
+
+    want = dict(dtypes(served), **{
+        stage: {"lidar": None, "camera": "float32", "fusion": "float32",
+                "decoder": None}[stage]})
+    assert dtypes(kept) == want and dtypes(served)["fusion"] == "bfloat16"
+    pp = AnchorPostprocessor(prod_overfit.postprocess_config(
+        args.grid, lidar_range))
+    batches, _, _, _ = prod_overfit.load_gate_data(
+        args, lidar_range, pp, pp.generate_anchor_box(), torch.device("cpu"))
+    weights = init_parameters(HMViT(cfg), seed=0).state_dict()
+    rows = bar_readings(weights, cfg, batches[:1], torch.device("cpu"),
+                        fp32_stage=stage)
+    assert len(rows) == 1 and rows[0]["fp32_stage"] == stage
+    assert 0.0 <= rows[0]["max_abs_sigmoid_psm"] < 0.05
