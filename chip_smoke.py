@@ -161,7 +161,32 @@ Phases:
    the same model: psm, rm and the decoded boxes equal bit for bit; (c)
    ``tools.train`` on ``smoke_hetero_tiny.yaml`` for 2 steps, float32,
    so that the cross-view transformer camera encoder runs on the card:
-   the losses finite and the launches of each step ``train_launches``.
+   the losses finite and the launches of each step ``train_launches``;
+11. every camera encoder of the zoo under HM-ViT: (a) ``tools.train`` on
+   ``hmvit_fax_point_pillar_hetero.yaml`` (FAX) and
+   ``bevformer_point_pillar_hetero.yaml`` (the planar BEVFormer on the
+   plain conv trunk, with the upsampling decoder), published widths,
+   ``--half``, 10 steps each: losses finite, every step's launches
+   ``train_launches`` (the BEVFormer's camera layers one plain launch
+   each, FAX none); (b) ``tools.inference --bf16 --serving_buckets`` on
+   each run directory, as phase 10 (b): fps, p50 / p95, each bucket's
+   launches, one frame graph == eager bit for bit; (c) HMViT of
+   ``smoke_hetero_tiny.yaml`` with each camera configuration of
+   ``ZOO_CAMERAS`` (FAX, VPN, VPN-MS, BEVSwap, the planar BEVFormer on
+   the plain trunk, the deformable lift, the CVT on ResNet-18 / 34 and
+   VoVNet-19 / 39, and ``compression: 2``), float32: the kernels'
+   forward against ``plain_ops()`` (which launches nothing) within
+   ``FORWARD_ATOL``, the launches a served frame's, and the forward
+   captured in a CUDA graph (``CompiledServer``) equal to the eager one
+   bit for bit; (d) the deformable lift at the BEVFormer configuration's
+   widths (``lift: deformable``): 2 ``tools.train`` steps, ``--half``,
+   losses finite, peak device memory printed; (e) the space-to-depth
+   stem against the plain stem on the same weights, float32, within
+   ``S2D_TOL`` where the JAX package sets that bar (ResNet-18 stage 1,
+   2 x 64^2) and on the stem's own output at 4 x 512^2, the ResNet-50
+   stage-1 output at 512^2 printed beside a float64 forward (not held);
+   then ``python -m hmvit_tpu_torch.bench`` and ``--stem_s2d``, both
+   frames/s printed.  The phase prints its length.
 
 The pair warp in float32 is held to its twin at ``FP32_ATOL`` on the
 serving and ego poses; on spread poses (the phase 2 case and
@@ -295,6 +320,34 @@ GATE_STEPS = 20
 RUN_DIR_STEPS = 10
 RUN_DIR_FRAMES = 8
 HYPES = "hmvit_tpu_torch/config/hypes"
+# phase 11: every camera encoder of the zoo under HM-ViT
+ZOO_HYPES = ("hmvit_fax_point_pillar_hetero.yaml",
+             "bevformer_point_pillar_hetero.yaml")
+ZOO_TRAIN_STEPS = 10
+DEFORMABLE_STEPS = 2
+# the space-to-depth stem against the plain stem: the JAX package's own
+# bar (tests/test_resnet.py), atol = rtol
+S2D_TOL = 2e-5
+# camera-block keys (and model keys) over smoke_hetero_tiny.yaml's HMViT
+# (its camera: dim 32, a 4^2 BEV upsampled twice to the 16^2 lidar map,
+# 4 cameras of 64^2)
+ZOO_CAMERAS = {
+    "fax": ({"encoder": "fax", "bev_window": 4, "heads": 2,
+             "dim_head": 16}, {}),
+    "vpn": ({"encoder": "vpn", "img_size": 64}, {}),
+    "vpn_ms": ({"encoder": "vpn_ms", "img_size": 64}, {}),
+    "bev_swap": ({"encoder": "bev_swap", "window": 4, "num_cams": 4}, {}),
+    "bevformer_planar_plain_trunk": ({"encoder": "bevformer", "heads": 2,
+                                      "window": 4, "num_layers": 2,
+                                      "num_cams": 4}, {}),
+    "bevformer_deformable": ({"encoder": "bevformer", "lift": "deformable",
+                              "heads": 2, "num_layers": 2}, {}),
+    "cvt_resnet18": ({"backbone": "resnet18", "id_pick": [3]}, {}),
+    "cvt_resnet34": ({"backbone": "resnet34", "id_pick": [3]}, {}),
+    "cvt_vovnet19": ({"backbone": "vovnet-19", "id_pick": [3]}, {}),
+    "cvt_vovnet39": ({"backbone": "vovnet-39", "id_pick": [3]}, {}),
+    "cvt_compression_2": ({}, {"compression": 2}),
+}
 
 KERNEL_META = {
     "pair_warp": ("hmvit_tpu_torch/csrc/pair_warp.cu",
@@ -1470,10 +1523,12 @@ def train_launches(cfg: dict) -> dict:
 
 def camera_attention_layers(cfg: dict) -> int:
     """The camera encoder's BEV self-attentions (plain launches) a
-    forward: one a layer of the BEVFormer encoder, none in the cross-view
-    transformer's."""
+    forward: one a layer of the BEVFormer encoder's planar lift (on
+    either trunk), none in the deformable lift nor in any other camera
+    encoder (cvt, fax, vpn, vpn_ms, bev_swap)."""
     cam = cfg["camera"]
-    if cam.get("encoder", "cvt") != "bevformer":
+    if cam.get("encoder", "cvt") != "bevformer" or \
+            cam.get("lift", "planar") != "planar":
         return 0
     return cam.get("num_layers", 3)
 
@@ -1806,6 +1861,131 @@ def gate_phase(dev, card) -> dict:
     return total
 
 
+def tools_train(hypes, flags, steps, want, tmp, total):
+    """``tools.train`` of ``hypes`` into a new run directory under ``tmp``:
+    every step's launches held to ``want``, every launch (the validation
+    forwards' too) added to ``total``; returns (run dir, losses, seconds
+    a step after the first)."""
+    import os
+    import tempfile
+
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.tools import train
+
+    losses, stamps = [], []
+
+    def add(counts):
+        for name in total:
+            total[name] += counts[name]
+
+    def on_step(epoch, step, metrics):
+        losses.append(float(metrics["total_loss"]))  # synchronises
+        stamps.append(time.perf_counter())
+        counts = cuda.launch_counts()
+        cuda.reset_launches()
+        add(counts)
+        got = {name: counts[name] for name in want}
+        if got != want:
+            raise AssertionError(f"tools.train {os.path.basename(hypes)}"
+                                 f" step {len(losses) - 1}: launches "
+                                 f"{got}, expected {want}")
+
+    run = tempfile.mkdtemp(prefix="chip_smoke_run_", dir=tmp)
+    cuda.reset_launches()
+    train.main(["--hypes_yaml", hypes, "--model_dir", run, "--synthetic",
+                "--epoches", "1", "--steps_per_epoch", str(steps),
+                *flags], on_step=on_step)
+    add(cuda.launch_counts())  # the validation forwards
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"tools.train {hypes}: losses {losses}")
+    for path in ("config.yaml", os.path.join("ckpt", "1", "state.pt")):
+        if not os.path.exists(os.path.join(run, path)):
+            raise AssertionError(f"tools.train {hypes}: no {path}")
+    per_step = ((stamps[-1] - stamps[0]) / (steps - 1) if steps > 1
+                else None)
+    return run, losses, per_step
+
+
+def serve_run_dir(run, cfg, dev, card, total, what):
+    """``tools.inference --bf16 --serving_buckets`` on a run directory
+    (a captured CUDA graph per fleet bucket): AP (not held), end-to-end
+    fps, p50 and p95 printed, each bucket's launches held to
+    ``serving_launches`` of the model configuration ``cfg``, every launch
+    added to ``total``; then one frame served by a captured graph and by
+    the eager bf16 forward of the same model: psm, rm and the decoded
+    boxes equal bit for bit."""
+    import torch
+
+    from hmvit_tpu_torch.data.opv2v import HeteroCooperativeDataset
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.postprocess import build_postprocessor
+    from hmvit_tpu_torch.serving import GEOMETRY_KEYS
+    from hmvit_tpu_torch.tools import common, inference
+
+    cuda.reset_launches()
+    res = inference.main(["--model_dir", run, "--synthetic",
+                          "--synthetic_frames", str(RUN_DIR_FRAMES),
+                          "--bf16", "--serving_buckets", "--max_frames",
+                          str(RUN_DIR_FRAMES), "--ap_mode", "iou"])
+    for name, n in cuda.launch_counts().items():
+        total[name] += n
+    iou, e2e = res["iou"], res["e2e"]
+    print(f"tools.inference {what} --bf16 --serving_buckets: AP@0.3 / 0.5 / "
+          f"0.7 {iou['ap_30']:.4f} / {iou['ap_50']:.4f} / "
+          f"{iou['ap_70']:.4f} (not held); e2e {e2e['fps']} fps over "
+          f"{e2e['frames']} frames, p50 {e2e['p50_ms']} ms, p95 "
+          f"{e2e['p95_ms']} ms on {card}")
+    want = train_launches(dict(cfg, remat=False))
+    for b in res["serving"]["buckets"]:
+        cams = b["hints"]["camera_bucket"]
+        got = {name: b["launches"][name] for name in want}
+        expect = serving_launches(cfg, cams)
+        print(f"  bucket {b['hints']}: capture {b['capture_s']} s, "
+              f"launches a frame {got}")
+        if got != expect:
+            raise AssertionError(f"tools.inference {what} bucket "
+                                 f"{b['hints']}: launches {got}, expected "
+                                 f"{expect}")
+    # one frame: the captured graph against the eager bf16 forward
+    model, params = common.load_runnable(run, dev)
+    model = model.to(torch.bfloat16)
+    common.write_synthetic(params, "chip_smoke_frame_", 60000,
+                           num_scenarios=1, num_cavs=2, num_frames=1)
+    ds = HeteroCooperativeDataset(params, train=False)
+    pp = build_postprocessor(params["postprocess"], train=False)
+    anchors = pp.generate_anchor_box()
+    frame = ds[0]
+    req = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32
+               and k not in GEOMETRY_KEYS else v)
+           for k, v in common.to_device(ds.collate_batch([frame]),
+                                        dev).items()}
+    hints = inference.fleet_hints(frame)
+    graph = inference.GraphServing(model, anchors)(req, hints)
+    graph = {k: v.clone() for k, v in graph.items()}
+    with torch.no_grad():
+        eager = model(req, **hints)
+    boxes = []
+    for out in (graph, eager):
+        boxes.append(pp.post_process(
+            {0: {"transformation_matrix": np.eye(4),
+                 "anchor_box": anchors, "no_post_projection": True}},
+            {0: {k: out[k] for k in ("psm", "rm")}}))
+    same = all(torch.equal(graph[k], eager[k]) for k in ("psm", "rm"))
+    (gc, gs), (ec, es) = boxes
+    same_boxes = ((gc is None and ec is None)
+                  or (gc is not None and ec is not None
+                      and np.array_equal(gc, ec)
+                      and np.array_equal(gs, es)))
+    print(f"tools.inference {what} graph vs eager bf16, one frame of fleet "
+          f"{hints['static_modes']}: psm / rm bit for bit {same}, boxes "
+          f"({0 if gc is None else len(gc)}) bit for bit {same_boxes}")
+    if not (same and same_boxes):
+        raise AssertionError(f"tools.inference {what}: the captured graph's "
+                             f"outputs differ from the eager forward's")
+    del model, graph, eager
+    torch.cuda.empty_cache()
+
+
 def run_dir_phase(dev, card) -> dict:
     """Phase 10 (see the module's docstring): the run-directory tools.
     Returns each kernel's launches over the phase."""
@@ -1815,60 +1995,17 @@ def run_dir_phase(dev, card) -> dict:
     import torch
 
     from hmvit_tpu_torch.config import load_config
-    from hmvit_tpu_torch.data.opv2v import HeteroCooperativeDataset
-    from hmvit_tpu_torch.ops import cuda
-    from hmvit_tpu_torch.postprocess import build_postprocessor
-    from hmvit_tpu_torch.serving import GEOMETRY_KEYS
-    from hmvit_tpu_torch.tools import common, inference, train
 
     repo = os.path.dirname(os.path.abspath(__file__))
     total = dict.fromkeys(KERNEL_META, 0)
-
-    def add(counts):
-        for name in total:
-            total[name] += counts[name]
-
-    def train_run(hypes, flags, steps, want):
-        """tools.train into a new run directory; every step's launches
-        held to ``want``; returns (run dir, losses, seconds a step after
-        the first)."""
-        losses, stamps = [], []
-
-        def on_step(epoch, step, metrics):
-            losses.append(float(metrics["total_loss"]))  # synchronises
-            stamps.append(time.perf_counter())
-            counts = cuda.launch_counts()
-            cuda.reset_launches()
-            add(counts)
-            got = {name: counts[name] for name in want}
-            if got != want:
-                raise AssertionError(f"tools.train {os.path.basename(hypes)}"
-                                     f" step {len(losses) - 1}: launches "
-                                     f"{got}, expected {want}")
-
-        run = tempfile.mkdtemp(prefix="chip_smoke_run_", dir=tmp)
-        cuda.reset_launches()
-        train.main(["--hypes_yaml", hypes, "--model_dir", run, "--synthetic",
-                    "--epoches", "1", "--steps_per_epoch", str(steps),
-                    *flags], on_step=on_step)
-        add(cuda.launch_counts())  # the validation forwards
-        if len(losses) != steps or not np.all(np.isfinite(losses)):
-            raise AssertionError(f"tools.train {hypes}: losses {losses}")
-        for path in ("config.yaml", os.path.join("ckpt", "1", "state.pt")):
-            if not os.path.exists(os.path.join(run, path)):
-                raise AssertionError(f"tools.train {hypes}: no {path}")
-        per_step = ((stamps[-1] - stamps[0]) / (steps - 1) if steps > 1
-                    else None)
-        return run, losses, per_step
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_phase10_") as tmp:
         # (a) production width, bf16 with remat
         hypes = os.path.join(repo, HYPES, "hmvit_prod_serving.yaml")
         cfg = dict(load_config(hypes)["model"]["args"], remat=True)
         want = train_launches(cfg)
         t0 = time.perf_counter()
-        run, losses, per_step = train_run(
-            hypes, ["--half", "--remat"], RUN_DIR_STEPS, want)
+        run, losses, per_step = tools_train(
+            hypes, ["--half", "--remat"], RUN_DIR_STEPS, want, tmp, total)
         print(f"tools.train hmvit_prod_serving --half --remat: "
               f"{RUN_DIR_STEPS} steps, {time.perf_counter() - t0:.2f} s with "
               f"the fixture, validation and checkpoint; "
@@ -1876,71 +2013,219 @@ def run_dir_phase(dev, card) -> dict:
               f"{[round(v, 4) for v in losses]}; launches a step {want} on "
               f"{card}")
         # (b) the run directory served: captured graphs per fleet bucket
-        cuda.reset_launches()
-        res = inference.main(["--model_dir", run, "--synthetic",
-                              "--synthetic_frames", str(RUN_DIR_FRAMES),
-                              "--bf16", "--serving_buckets", "--max_frames",
-                              str(RUN_DIR_FRAMES), "--ap_mode", "iou"])
-        add(cuda.launch_counts())
-        iou, e2e = res["iou"], res["e2e"]
-        print(f"tools.inference --bf16 --serving_buckets: AP@0.3 / 0.5 / 0.7 "
-              f"{iou['ap_30']:.4f} / {iou['ap_50']:.4f} / {iou['ap_70']:.4f} "
-              f"(not held); e2e {e2e['fps']} fps over {e2e['frames']} frames,"
-              f" p50 {e2e['p50_ms']} ms, p95 {e2e['p95_ms']} ms on {card}")
-        for b in res["serving"]["buckets"]:
-            cams = b["hints"]["camera_bucket"]
-            got = {name: b["launches"][name] for name in want}
-            expect = serving_launches(cfg, cams)
-            print(f"  bucket {b['hints']}: capture {b['capture_s']} s, "
-                  f"launches a frame {got}")
-            if got != expect:
-                raise AssertionError(f"tools.inference bucket {b['hints']}: "
-                                     f"launches {got}, expected {expect}")
-        # one frame: the captured graph against the eager bf16 forward
-        model, params = common.load_runnable(run, dev)
-        model = model.to(torch.bfloat16)
-        common.write_synthetic(params, "chip_smoke_frame_", 60000,
-                               num_scenarios=1, num_cavs=2, num_frames=1)
-        ds = HeteroCooperativeDataset(params, train=False)
-        pp = build_postprocessor(params["postprocess"], train=False)
-        anchors = pp.generate_anchor_box()
-        frame = ds[0]
-        req = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32
-                   and k not in GEOMETRY_KEYS else v)
-               for k, v in common.to_device(ds.collate_batch([frame]),
-                                            dev).items()}
-        hints = inference.fleet_hints(frame)
-        graph = inference.GraphServing(model, anchors)(req, hints)
-        graph = {k: v.clone() for k, v in graph.items()}
-        with torch.no_grad():
-            eager = model(req, **hints)
-        boxes = []
-        for out in (graph, eager):
-            boxes.append(pp.post_process(
-                {0: {"transformation_matrix": np.eye(4),
-                     "anchor_box": anchors, "no_post_projection": True}},
-                {0: {k: out[k] for k in ("psm", "rm")}}))
-        same = all(torch.equal(graph[k], eager[k]) for k in ("psm", "rm"))
-        (gc, gs), (ec, es) = boxes
-        same_boxes = ((gc is None and ec is None)
-                      or (gc is not None and ec is not None
-                          and np.array_equal(gc, ec)
-                          and np.array_equal(gs, es)))
-        print(f"tools.inference graph vs eager bf16, one frame of fleet "
-              f"{hints['static_modes']}: psm / rm bit for bit {same}, boxes "
-              f"({0 if gc is None else len(gc)}) bit for bit {same_boxes}")
-        if not (same and same_boxes):
-            raise AssertionError("tools.inference: the captured graph's "
-                                 "outputs differ from the eager forward's")
-        del model, graph, eager
-        torch.cuda.empty_cache()
+        serve_run_dir(run, cfg, dev, card, total, "hmvit_prod_serving")
         # (c) the cross-view transformer camera encoder on the card
         hypes = os.path.join(repo, HYPES, "smoke_hetero_tiny.yaml")
         want = train_launches(load_config(hypes)["model"]["args"])
-        _, losses, _ = train_run(hypes, [], 2, want)
+        _, losses, _ = tools_train(hypes, [], 2, want, tmp, total)
         print(f"tools.train smoke_hetero_tiny (cvt camera encoder): loss "
               f"{[round(v, 4) for v in losses]}, launches a step {want}")
     torch.cuda.empty_cache()
+    return total
+
+
+def zoo_forwards(dev, card, total) -> None:
+    """Phase 11 (c): HMViT of ``smoke_hetero_tiny.yaml`` with each camera
+    configuration of ZOO_CAMERAS, float32, one forward with the kernels
+    and one under ``plain_ops()``: sigmoid(psm) and rm within
+    FORWARD_ATOL over max(1, max |x|), every output finite, and the
+    kernels' launches those of a served frame (``serving_launches``);
+    then the forward captured by ``CompiledServer`` and replayed: equal
+    to the eager forward bit for bit."""
+    import copy
+    import os
+
+    import torch
+
+    from hmvit_tpu_torch.config import load_config
+    from hmvit_tpu_torch.data.synthetic import make_hetero_batch
+    from hmvit_tpu_torch.graph_server import CompiledServer
+    from hmvit_tpu_torch.models.hmvit import HMViT
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.ops import cuda, plain_ops
+    from hmvit_tpu_torch.serving import batch_to_device, serving_hints
+    from hmvit_tpu_torch.utils.precision import strict_fp32
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    params = load_config(os.path.join(repo, HYPES, "smoke_hetero_tiny.yaml"))
+    base = params["model"]["args"]
+    batch, _ = make_hetero_batch(
+        seed=3, max_cav=2, num_agents=2, max_points=512, image_size=64,
+        num_cams=4, camera_ratio=0.5, ego_mode="lidar",
+        lidar_range=params["preprocess"]["cav_lidar_range"])
+    batch["mode"][:, :2] = (1, 0)  # a lidar ego and a camera agent
+    tb = batch_to_device(batch, dev, bf16=False)
+    hints = serving_hints(batch["mode"][0], 2)
+    # decode's operands (the boxes are not read here)
+    anchors = torch.zeros((16, 16, 2, 7), device=dev)
+    eye = torch.eye(4, device=dev)
+    for name, (camera, model_keys) in ZOO_CAMERAS.items():
+        cfg = dict(copy.deepcopy(base), **model_keys)
+        cfg["camera"] = dict(cfg["camera"], **camera)
+        model = init_parameters(HMViT(cfg), seed=0).to(dev)
+        cuda.reset_launches()
+        with torch.no_grad(), strict_fp32():
+            out_k = model(tb, **hints)
+            counts = cuda.launch_counts()
+            with plain_ops():
+                out_p = model(tb, **hints)
+        torch.cuda.synchronize()
+        if cuda.launch_counts() != counts:
+            raise AssertionError(f"phase 11 {name}: the plain forward "
+                                 f"launched kernels")
+        for kernel, n in counts.items():
+            total[kernel] += n
+        want = serving_launches(cfg, hints["camera_bucket"])
+        got = {kernel: counts[kernel] for kernel in want}
+        logit = float((out_k["psm"] - out_p["psm"]).abs().max())
+        errs = {}
+        for key, fn in (("psm", torch.sigmoid), ("rm", lambda z: z)):
+            a, b = fn(out_k[key].float()), fn(out_p[key].float())
+            scale = max(1.0, float(b.abs().max()))
+            errs[key] = float((a - b).abs().max()) / scale
+            if not (torch.isfinite(a).all() and errs[key] <= FORWARD_ATOL):
+                raise AssertionError(f"phase 11 {name}: fp32 {key} kernels "
+                                     f"vs plain {errs[key]} (tol "
+                                     f"{FORWARD_ATOL})")
+        # the same forward captured in a CUDA graph (the serving path)
+        with strict_fp32():
+            server = CompiledServer(model, hints, tb, anchors, eye)
+            graph, _ = server(tb)
+        same = all(torch.equal(graph[k], out_k[k]) for k in ("psm", "rm"))
+        print(f"phase 11 {name}: fp32 forward kernels vs plain "
+              f"max_abs_err/scale psm {errs['psm']:.3e}, rm "
+              f"{errs['rm']:.3e} (tol {FORWARD_ATOL}; logits {logit:.3e}, "
+              f"not held); launches {got}, none under plain_ops; graph == "
+              f"eager bit for bit {same}")
+        if got != want:
+            raise AssertionError(f"phase 11 {name}: launches {got}, "
+                                 f"expected {want}")
+        if not same:
+            raise AssertionError(f"phase 11 {name}: the captured graph's "
+                                 f"outputs differ from the eager forward's")
+        del model, out_k, out_p, server, graph
+    torch.cuda.empty_cache()
+
+
+def s2d_check(dev, card) -> None:
+    """Phase 11 (e): the space-to-depth stem against the plain stem on the
+    same weights, float32 (TF32 off), held within S2D_TOL (atol = rtol)
+    where the JAX package sets that bar (ResNet-18 stage 1, 2 x 64^2,
+    ``tests/test_resnet.py``) and on the stem's own output at the
+    production shape (4 x 512^2); the ResNet-50 stage-1 output at 512^2
+    printed beside a float64 forward of both (not held: three bottleneck
+    blocks amplify the stems' float32 rounding); then ``python -m
+    hmvit_tpu_torch.bench`` and ``--stem_s2d``, both frames/s printed."""
+    import torch
+
+    from hmvit_tpu_torch.models.resnet import ResNetEncoder, s2d_stem
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.utils.precision import strict_fp32
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def hold(what, got, want):
+        err = float((got - want).abs().max())
+        worst = float(((got - want).abs() - S2D_TOL * want.abs()).max())
+        print(f"phase 11 s2d stem vs plain stem, {what}: max_abs_err "
+              f"{err:.3e} (atol = rtol = {S2D_TOL}) on {card}")
+        if not (torch.isfinite(got).all() and worst <= S2D_TOL):
+            raise AssertionError(f"phase 11: the s2d stem differs from the "
+                                 f"plain stem ({what}): {err}")
+
+    with torch.no_grad(), strict_fp32():
+        enc = init_parameters(ResNetEncoder("resnet18", (1,)), seed=0)
+        enc = enc.to(dev)
+        x = torch.randn((2, 64, 64, 3), generator=gen, device=dev)
+        plain = enc(x)
+        enc.stem_s2d = True
+        hold("ResNet-18 stage 1, 2 x 64^2", enc(x), plain)
+        enc = init_parameters(ResNetEncoder("resnet50", (1,)), seed=0)
+        enc = enc.to(dev)
+        x = torch.randn((4, 512, 512, 3), generator=gen, device=dev)
+        hold("the stem's 7x7 / 2 output, 4 x 512^2",
+             s2d_stem(x, enc.Conv_0.weight), enc.Conv_0(x))
+        outs = {}
+        for s2d in (False, True):
+            enc.stem_s2d = s2d
+            outs[s2d] = enc(x)
+            outs[s2d, "f64"] = enc.double()(x.double())
+            enc.float()
+        ref = outs[False, "f64"]
+        print(f"phase 11 ResNet-50 stage 1, 4 x 512^2 (not held): s2d vs "
+              f"plain {float((outs[True] - outs[False]).abs().max()):.3e}; "
+              f"against the plain stem in float64: plain "
+              f"{float((outs[False] - ref).abs().max()):.3e}, s2d "
+              f"{float((outs[True] - ref).abs().max()):.3e}; float64 s2d vs "
+              f"plain {float((outs[True, 'f64'] - ref).abs().max()):.3e}; "
+              f"max |x| {float(ref.abs().max()):.3f}")
+    del enc, x, plain, outs, ref
+    torch.cuda.empty_cache()
+    fps = {}
+    for flags in ((), ("--stem_s2d",)):
+        res = subprocess.run(
+            [sys.executable, "-m", "hmvit_tpu_torch.bench", *flags],
+            capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"bench {' '.join(flags)} failed "
+                                 f"({res.returncode}):\n{res.stderr}")
+        record = json.loads(res.stdout.strip().splitlines()[-1])
+        fps[" ".join(flags) or "plain stem"] = record["value"]
+        if not record["value"] > 0:
+            raise AssertionError(f"bench {' '.join(flags)}: {record}")
+    print(f"phase 11 bench frames/s: {fps} on {card}")
+
+
+def zoo_phase(dev, card) -> dict:
+    """Phase 11 (see the module's docstring): every camera encoder of the
+    zoo under HM-ViT.  Returns each kernel's launches over the phase."""
+    import copy
+    import os
+    import tempfile
+
+    import torch
+
+    from hmvit_tpu_torch.config import load_config, save_config
+
+    t_start = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    total = dict.fromkeys(KERNEL_META, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase11_") as tmp:
+        # (a), (b) the corpus's FAX and BEVFormer hetero configurations
+        for name in ZOO_HYPES:
+            hypes = os.path.join(repo, HYPES, name)
+            cfg = load_config(hypes)["model"]["args"]
+            want = train_launches(cfg)
+            t0 = time.perf_counter()
+            run, losses, per_step = tools_train(
+                hypes, ["--half"], ZOO_TRAIN_STEPS, want, tmp, total)
+            print(f"tools.train {name} --half: {ZOO_TRAIN_STEPS} steps, "
+                  f"{time.perf_counter() - t0:.2f} s with the fixture, "
+                  f"validation and checkpoint; {1.0 / per_step:.3f} steps/s "
+                  f"after the first; loss {[round(v, 4) for v in losses]}; "
+                  f"launches a step {want} on {card}")
+            serve_run_dir(run, cfg, dev, card, total, name)
+        # (c) every camera encoder, kernels vs twins
+        zoo_forwards(dev, card, total)
+        # (d) the deformable lift at the BEVFormer configuration's widths
+        params = load_config(os.path.join(repo, HYPES, ZOO_HYPES[1]))
+        params = copy.deepcopy(params)
+        params["model"]["args"]["camera"]["lift"] = "deformable"
+        hypes = os.path.join(tmp, "bevformer_deformable.yaml")
+        save_config(params, hypes)
+        want = train_launches(params["model"]["args"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, losses, _ = tools_train(hypes, ["--half"], DEFORMABLE_STEPS, want,
+                                   tmp, total)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"tools.train {ZOO_HYPES[1]} with lift: deformable --half: "
+              f"loss {[round(v, 4) for v in losses]}, launches a step "
+              f"{want}, peak device memory {peak:.3f} GiB on {card}")
+        torch.cuda.empty_cache()
+    # (e) the space-to-depth stem
+    s2d_check(dev, card)
+    print(f"phase 11: {time.perf_counter() - t_start:.1f} s on {card}")
     return total
 
 
@@ -2222,6 +2507,9 @@ def main() -> int:
     # -- 10. the run-directory tools -----------------------------------------
     run_dir_counts = run_dir_phase(dev, card)
 
+    # -- 11. every camera encoder of the zoo under HM-ViT ---------------------
+    zoo_counts = zoo_phase(dev, card)
+
     kernels = []
     for name, rec in record.items():
         launches = path_counts[KERNEL_PATH[name]][name]
@@ -2240,7 +2528,8 @@ def main() -> int:
                         "launches": launches,
                         "train_launches": train_counts[name],
                         "gate_launches": gate_counts[name],
-                        "run_dir_launches": run_dir_counts[name], **rec})
+                        "run_dir_launches": run_dir_counts[name],
+                        "zoo_launches": zoo_counts[name], **rec})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

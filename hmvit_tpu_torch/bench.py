@@ -3,16 +3,19 @@ frames/sec/chip on one NVIDIA GPU (the port of ``bench.py::main``), or
 training steps/sec/chip with ``--train`` (``bench.py::train_main``).
 
     python -m hmvit_tpu_torch.bench [--fp32] [--batch N] [--no_stripe]
-        [--fused_wa] [--expand v1|v2] [--iters N] [--cpu]
+        [--fused_wa] [--expand v1|v2] [--stem_s2d] [--iters N] [--cpu]
     python -m hmvit_tpu_torch.bench --train [--no_remat]
-        [--remat_stages a,b] [--batch N] [--bucketed] [--iters N] [--cpu]
+        [--remat_stages a,b] [--batch N] [--bucketed] [--stem_s2d]
+        [--iters N] [--cpu]
 
 The production model (:data:`hmvit_tpu_torch.serving.PROD_CFG`: lidar
 range +-102.4 m, 0.4 m voxels -> 512^2 pillar grid, 4 x 512^2 camera
 images per camera agent, 128^2 x 256 BEV fusion, window 8, 2 H3GAT
 iterations), random weights from seed 0, the request ``bench.py`` builds
 (seed 0, 4 agents alternating lidar / camera in 5 slots) with its bf16
-casts and serving hints.  The forward is captured once in a CUDA graph
+casts and serving hints.  ``--stem_s2d`` runs the camera trunk's stem
+as the space-to-depth convolution (the same weights and function,
+``models/resnet.py::s2d_stem``).  The forward is captured once in a CUDA graph
 (:class:`hmvit_tpu_torch.graph_server.CompiledServer`, the port's
 ``jax.jit``) and replayed ``--iters`` times back to back, with one
 ``torch.cuda.synchronize()`` at the end: fps = batch x iters / dt.
@@ -90,13 +93,6 @@ def peak_bf16_flops(device_name: str) -> float | None:
     return None
 
 
-def refused(flag: str) -> str | None:
-    """Why a flag of ``bench.py`` is not served here, or None."""
-    return {"--stem_s2d": "the space-to-depth camera stem is not ported "
-                          "(ROADMAP.md Queue 1 item 5)",
-            }.get(flag)
-
-
 def build(args, device):
     """(model, request, hints, anchors): the served variant, the request
     on ``device`` and its static hints."""
@@ -123,6 +119,7 @@ def build(args, device):
         base, shape = PROD_CFG, {}
     cfg = serving_config(base, bf16=bf16, fused_wa=args.fused_wa,
                          stripe=not args.no_stripe, expand=args.expand)
+    cfg["camera"]["stem_s2d"] = args.stem_s2d
     model = init_parameters(HMViT(cfg), seed=0)
     model = (model.to(device, torch.bfloat16) if bf16
              else model.to(device)).eval().requires_grad_(False)
@@ -165,6 +162,7 @@ def train_config(args) -> dict:
             PROD_CFG["hetero_fusion"]["hetero_fusion_block"]["compute_dtype"]
     else:
         cfg = copy.deepcopy(PROD_CFG)
+    cfg["camera"]["stem_s2d"] = args.stem_s2d
     remat = True
     if args.no_remat:
         remat = False
@@ -356,11 +354,6 @@ def run(args) -> dict:
 
 
 def main(argv=None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    for flag in ("--stem_s2d",):
-        if flag in argv:
-            print(f"bench: {flag}: {refused(flag)}", file=sys.stderr)
-            return 2
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fp32", action="store_true",
                     help="float32 weights and compute (default bf16)")
@@ -371,6 +364,8 @@ def main(argv=None) -> int:
                     help="local phases in the fused warp + attention kernel")
     ap.add_argument("--expand", choices=("v1", "v2"), default=None,
                     help="the lidar dense grid by an expansion kernel")
+    ap.add_argument("--stem_s2d", action="store_true",
+                    help="the camera stem as the space-to-depth conv")
     ap.add_argument("--iters", type=int, default=None,
                     help="timed forwards (default 20) or train steps (10)")
     ap.add_argument("--cpu", action="store_true",

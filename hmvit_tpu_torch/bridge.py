@@ -11,9 +11,17 @@ port IS its path in the flax tree.  Each leaf class says, in
 * ``conv_transpose``: (kh, kw, in, out) -> (in, out, kh, kw) with a
   spatial flip (flax does not flip a transposed convolution's kernel,
   PyTorch's ``conv_transpose2d`` does);
-* ``copy``: as is — BatchNorm scale/bias/mean/var, stacked hetero
-  parameters with their type axis, ``rel_pos_bias``, ``relation_att``,
-  ``relation_msg``, ``bev_embedding``.
+* ``copy``: as is — BatchNorm scale/bias/mean/var (the VoVNet's and
+  BasicBlock projections' too), every bias, stacked hetero parameters
+  with their type axis, ``rel_pos_bias`` (window and swap attention),
+  ``relation_att``, ``relation_msg``, ``bev_embedding`` (of every camera
+  encoder: (bev, bev, C), or (bev^2, C) for the deformable lift),
+  ``view_embedding``.
+
+Named sub-layers keep their flax names (the deformable lift's
+``offsets`` / ``weights`` / ``value`` / ``out``, VPN's ``view_hidden`` /
+``view_transform``, swap attention's ``to_qkv`` / ``to_out``), each a
+Dense with the ``dense`` conversion.
 
 Leaves of modules without ``flax_leaves`` copy from ``params`` under
 their own name.  Every port tensor must be filled and every flax leaf

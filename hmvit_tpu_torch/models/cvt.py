@@ -18,6 +18,7 @@ from torch import nn
 from ..nn import Dense, LayerNorm, gelu, normal_
 from .layers import ConvBNReLU, NaiveDecoder
 from .resnet import ResNetEncoder
+from .vovnet import VoVNet
 
 
 class ImageEncoder(nn.Module):
@@ -34,7 +35,8 @@ class ImageEncoder(nn.Module):
                 self.add_module(f"ConvBNReLU_{2 * k + j}", blk)
                 self.blocks.append(blk)
                 cin = ch
-        self.out_channels = cin
+        self.picked_channels = [cin]
+        self.halvings = len(channels)
 
     def forward(self, x):
         for blk in self.blocks:
@@ -42,22 +44,37 @@ class ImageEncoder(nn.Module):
         return x
 
 
-def make_image_backbone(cfg: dict):
-    """The image backbone ``cfg["backbone"]`` names (a ResNet), else the
-    plain strided conv encoder of ``encoder_channels``."""
+def make_image_backbone(cfg: dict) -> nn.Module:
+    """The image backbone ``cfg["backbone"]`` names (``vovnet-19/39/57``
+    or ``resnet18/34/50``, the ResNet with ``stem_s2d``; ``id_pick``
+    picks the stages, stage 3 by default), else the plain strided conv
+    encoder of ``encoder_channels``.  Every backbone has
+    ``picked_channels`` (the channels of each picked output) and
+    ``halvings`` (of the last one), and its flax name is its class's."""
     backbone = cfg.get("backbone")
     if not backbone:
         return ImageEncoder(tuple(cfg.get(
             "encoder_channels", (32, 64, 128, cfg.get("dim", 128)))))
-    if not backbone.startswith("resnet"):
-        raise NotImplementedError(
-            f"camera backbone {backbone!r} is not ported yet: ROADMAP.md "
-            f"Queue 1 item 5")
-    if cfg.get("stem_s2d"):
-        raise NotImplementedError("the space-to-depth stem is not ported "
-                                  "yet: ROADMAP.md Queue 1 item 5")
-    return ResNetEncoder(arch=backbone,
-                         id_pick=tuple(cfg.get("id_pick", (3,))))
+    id_pick = tuple(cfg.get("id_pick", (3,)))
+    if backbone.startswith("vovnet"):
+        return VoVNet(arch=backbone, id_pick=id_pick)
+    return ResNetEncoder(arch=backbone, id_pick=id_pick,
+                         stem_s2d=cfg.get("stem_s2d", False))
+
+
+def backbone_name(backbone: nn.Module) -> str:
+    """The flax module name of a backbone made by
+    :func:`make_image_backbone`: ``ImageEncoder_0``, ``ResNetEncoder_0`` or
+    ``VoVNet_0``."""
+    return f"{type(backbone).__name__}_0"
+
+
+def single_output_channels(backbone: nn.Module, encoder: str) -> int:
+    """The channels of a backbone that must return one map."""
+    if len(backbone.picked_channels) != 1:
+        raise ValueError(f"the {encoder} encoder takes one backbone stage "
+                         f"(id_pick {backbone.id_pick})")
+    return backbone.picked_channels[0]
 
 
 def _matvec(m, v):
@@ -86,6 +103,21 @@ def pixel_rays(intrinsics, h: int, w: int, img_h: int, img_w: int):
     k_inv = _inv(intrinsics)
     lead = k_inv.shape[:-2]
     return _matvec(k_inv.reshape(*lead, 1, 1, 3, 3), pix)
+
+
+def view_directions(intrinsics, extrinsics, h: int, w: int, img_h: int,
+                    img_w: int):
+    """Unit pixel rays in the agent frame, and the inverse extrinsics:
+    intrinsics (N, M, 3, 3), extrinsics (N, M, 4, 4 camera -> agent) ->
+    ((N M, h, w, 3) float32 directions E^-1[:3, :3] K^-1 [u, v, 1] over
+    their norm + 1e-6, (N M, 4, 4) float32 E^-1)."""
+    nm = intrinsics.shape[0] * intrinsics.shape[1]
+    rays = pixel_rays(intrinsics.reshape(nm, 3, 3), h, w, img_h, img_w)
+    rot = _inv(extrinsics.reshape(nm, 4, 4))
+    dirs = _matvec(rot[:, None, None, :3, :3], rays)
+    dirs = dirs / (torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+                   + 1e-6)
+    return dirs, rot
 
 
 class CrossViewAttention(nn.Module):
@@ -148,15 +180,8 @@ class CrossViewTransformer(nn.Module):
         self.bev_hw = cfg.get("bev_size", 32)
         out_dim = cfg.get("out_dim", 256)
         backbone = make_image_backbone(cfg)
-        if isinstance(backbone, ImageEncoder):
-            feat_dim = backbone.out_channels
-        else:
-            if len(backbone.id_pick) != 1:
-                raise ValueError("the CVT encoder takes one backbone stage "
-                                 f"(id_pick {backbone.id_pick})")
-            feat_dim = backbone.stage_channels[backbone.id_pick[0] - 1]
-        # the flax module's name: ImageEncoder_0 or ResNetEncoder_0
-        self.backbone_name = f"{type(backbone).__name__}_0"
+        feat_dim = single_output_channels(backbone, "CVT")
+        self.backbone_name = backbone_name(backbone)
         self.add_module(self.backbone_name, backbone)
         self.Dense_0 = Dense(feat_dim, dim)
         # image embedding: Dense_1(gelu(Dense_2(dirs))); camera embedding:
@@ -189,12 +214,8 @@ class CrossViewTransformer(nn.Module):
         fh, fw = feats.shape[1:3]
         feats = self.Dense_0(feats)
 
-        rays = pixel_rays(intrinsics.reshape(n * m, 3, 3), fh, fw, img_h,
-                          img_w)
-        rot = _inv(extrinsics.reshape(n * m, 4, 4))
-        dirs = _matvec(rot[:, None, None, :3, :3], rays)
-        dirs = dirs / (torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
-                       + 1e-6)
+        dirs, rot = view_directions(intrinsics, extrinsics, fh, fw, img_h,
+                                    img_w)
         img_embed = self.Dense_1(gelu(self.Dense_2(dirs)))
         cam_embed = self.Dense_3(gelu(self.Dense_4(rot[:, :3, 3])))
         tokens = (feats + img_embed + cam_embed[:, None, None]).reshape(

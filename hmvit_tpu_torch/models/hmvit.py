@@ -1,6 +1,6 @@
 """HM-ViT flagship: hetero-modal multi-agent cooperative detector (port
-of ``hmvit_tpu/models/hmvit.py``; camera branch: the cross-view
-transformer, the default, or the planar BEVFormer).
+of ``hmvit_tpu/models/hmvit.py``; camera branch: any camera encoder of
+:func:`make_camera_encoder`, the cross-view transformer by default).
 mode convention: 0 = camera, 1 = lidar.  ``train()`` is the JAX model's
 ``train=True``: batch statistics, dropout, and remat over the stages
 ``cfg["remat"]`` names.
@@ -10,26 +10,36 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .bev_swap import BEVSwapEncoder
 from .bevformer import BEVFormerEncoder
 from .cvt import CrossViewTransformer
+from .fax import FAXCameraEncoder
 from ..nn import DTYPES, remat
 from .hetero_fusion import HeteroFusion
-from .layers import DetectionHead, NaiveDecoder
+from .layers import DetectionHead, NaiveCompressor, NaiveDecoder
 from .pillar_encoder import PointPillarEncoder
+from .vpn import ViewParseNetwork
 
 
 # the camera encoders the port builds, by the config's ``encoder`` key
-CAMERA_ENCODERS = {"cvt": CrossViewTransformer, "bevformer": BEVFormerEncoder}
+CAMERA_ENCODERS = {"cvt": CrossViewTransformer, "fax": FAXCameraEncoder,
+                   "bevformer": BEVFormerEncoder, "vpn": ViewParseNetwork,
+                   "vpn_ms": ViewParseNetwork, "bev_swap": BEVSwapEncoder}
+# the JAX package's reference-faithful twins, not ported yet
+REFERENCE_TWINS = ("fax_ref", "cvt_ref", "bevformer_ref")
 
 
 def make_camera_encoder(cfg: dict) -> nn.Module:
-    """The camera -> BEV encoder ``cfg["encoder"]`` names: ``cvt`` (the
-    default) or ``bevformer``."""
+    """The camera -> BEV encoder ``cfg["encoder"]`` names (a key of
+    :data:`CAMERA_ENCODERS`; ``cvt`` by default)."""
     kind = cfg.get("encoder", "cvt")
-    if kind not in CAMERA_ENCODERS:
+    if kind in REFERENCE_TWINS:
         raise NotImplementedError(
-            f"the camera encoder {kind!r} is not ported yet (the port builds "
-            f"{sorted(CAMERA_ENCODERS)}): ROADMAP.md Queue 1 item 5")
+            f"the reference twin camera encoder {kind!r} is not ported yet "
+            f"(the port builds {sorted(CAMERA_ENCODERS)}): ROADMAP.md "
+            f"Queue 1 item 5")
+    if kind not in CAMERA_ENCODERS:
+        raise ValueError(f"unknown camera encoder {kind!r}")
     return CAMERA_ENCODERS[kind](cfg)
 
 
@@ -89,21 +99,24 @@ _SLICED = ("mode", "agent_mask", "points", "points_mask", "camera",
 
 class HMViT(nn.Module):
     """Hetero-modal cooperative detector: lidar PointPillars + a camera
-    encoder (:func:`make_camera_encoder`), H3GAT fusion, per-modality
-    decoder.  A new model is in eval mode."""
+    encoder (:func:`make_camera_encoder`), the bandwidth compressor when
+    ``compression`` is non-zero, H3GAT fusion, per-modality decoder.  A
+    new model is in eval mode."""
 
     def __init__(self, config: dict):
         super().__init__()
         cfg = config
         self.config = cfg
-        if cfg.get("compression", 0):
-            raise NotImplementedError("the bandwidth compressor is not "
-                                      "ported yet: ROADMAP.md Queue 1 item 5")
         if cfg.get("fusion_override"):
             raise NotImplementedError("fusion overrides are not ported yet: "
                                       "ROADMAP.md Queue 1 item 5")
         self.lidar_encoder = PointPillarEncoder(cfg["lidar"])
         self.camera_encoder = make_camera_encoder(cfg["camera"])
+        if cfg.get("compression", 0):
+            # on the (B L, H, W, C) agent maps, whose C is the fusion's
+            self.NaiveCompressor_0 = NaiveCompressor(
+                cfg["hetero_fusion"]["hetero_fusion_block"]["input_dim"],
+                cfg["compression"])
         self.fusion = HeteroFusion(cfg["hetero_fusion"])
         dec = cfg["hetero_decoder"]
         self.HeteroDecoder_0 = HeteroDecoder(
@@ -210,6 +223,8 @@ class HMViT(nn.Module):
             x[cam_idx] = cam_bev.to(x.dtype)
             x[lid_idx] = lidar_bev.to(x.dtype)
 
+        if self.config.get("compression", 0):
+            x = self.NaiveCompressor_0(x)
         h, w, c = x.shape[1:]
         x = x.reshape(b, l, h, w, c) * agent_mask[:, :, None, None, None]
         ego = stage("fusion", self.fusion, x, mode, pairwise, agent_mask,

@@ -18,6 +18,7 @@ from torch import nn
 from ..nn import (
     BatchNorm,
     Conv,
+    ConvTranspose,
     Dropout,
     gelu,
     resize_nearest,
@@ -67,6 +68,42 @@ class NaiveDecoder(nn.Module):
             if self.use_upsample and k % 2 == 0:
                 x = resize_nearest(x, (x.shape[1] * 2, x.shape[2] * 2))
         return x
+
+
+class NaiveCompressor(nn.Module):
+    """Channel-bottleneck autoencoder that simulates a V2V bandwidth
+    limit: conv-BN-ReLU to ``input_dim // compress_ratio`` channels and
+    back, then one more at ``input_dim`` (the convs with bias)."""
+
+    def __init__(self, input_dim: int, compress_ratio: int):
+        super().__init__()
+        mid = input_dim // compress_ratio
+        self.ConvBNReLU_0 = ConvBNReLU(input_dim, mid, use_bias=True)
+        self.ConvBNReLU_1 = ConvBNReLU(mid, input_dim, use_bias=True)
+        self.ConvBNReLU_2 = ConvBNReLU(input_dim, input_dim, use_bias=True)
+
+    def forward(self, x):
+        return self.ConvBNReLU_2(self.ConvBNReLU_1(self.ConvBNReLU_0(x)))
+
+
+class AutoEncoder(nn.Module):
+    """Strided conv autoencoder compressor: two stride-2 conv-BN-ReLUs to
+    ``input_dim // compress_ratio`` channels (a 4x spatial squeeze), then
+    two 2x2 / 2 transposed convs with ReLU back to ``input_dim``."""
+
+    def __init__(self, input_dim: int, compress_ratio: int = 4):
+        super().__init__()
+        ch = input_dim // compress_ratio
+        self.ConvBNReLU_0 = ConvBNReLU(input_dim, ch, stride=2, use_bias=True)
+        self.ConvBNReLU_1 = ConvBNReLU(ch, ch, stride=2, use_bias=True)
+        self.ConvTranspose_0 = ConvTranspose(ch, ch, 2, 2, use_bias=True)
+        self.ConvTranspose_1 = ConvTranspose(ch, input_dim, 2, 2,
+                                             use_bias=True)
+
+    def forward(self, x):
+        h = self.ConvBNReLU_1(self.ConvBNReLU_0(x))
+        h = F.relu(self.ConvTranspose_0(h))
+        return F.relu(self.ConvTranspose_1(h))
 
 
 class DoubleConv(nn.Module):

@@ -1,4 +1,4 @@
-"""ResNet-50 image backbone and FPN on NHWC (port of
+"""ResNet-18/34/50 image backbones and FPN on NHWC (port of
 ``hmvit_tpu/models/resnet.py``, XLA 'SAME' padding: stride-2 convs pad
 (0, 1) at even sizes, the 7x7 stem and the max-pool pad the XLA way, and
 BatchNorm keeps flax's default eps 1e-5, with momentum 0.9)."""
@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -13,6 +14,27 @@ from ..nn import BatchNorm, Conv, max_pool_same, resize_nearest
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, cin: int, features: int, stride: int = 1):
+        super().__init__()
+        self.Conv_0 = Conv(cin, features, 3, stride, use_bias=False)
+        self.BatchNorm_0 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
+        self.Conv_1 = Conv(features, features, 3, use_bias=False)
+        self.BatchNorm_1 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
+        self.project = cin != features or stride != 1
+        if self.project:
+            self.Conv_2 = Conv(cin, features, 1, stride, use_bias=False)
+            self.BatchNorm_2 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
+
+    def forward(self, x):
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = self.BatchNorm_1(self.Conv_1(y))
+        residual = self.BatchNorm_2(self.Conv_2(x)) if self.project else x
+        return F.relu(y + residual)
 
 
 class Bottleneck(nn.Module):
@@ -40,20 +62,49 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
-_ARCH = {"resnet50": (Bottleneck, (3, 4, 6, 3))}
+_ARCH = {
+    "resnet18": (BasicBlock, (2, 2, 2, 2)),
+    "resnet34": (BasicBlock, (3, 4, 6, 3)),
+    "resnet50": (Bottleneck, (3, 4, 6, 3)),
+}
+
+
+def s2d_stem(x, weight):
+    """The 7x7 / 2 stem as a 4x4 / 1 convolution over the 2 x 2
+    space-to-depth input (3 -> 12 channels), the same function: per axis,
+    with XLA 'SAME' padding (2, 3),
+      out[i] = sum_k K7[k] x[2i + k - 2]
+             = sum_t sum_s K8[2t + s] X_s[i + t - 1],
+    with K8 the 7 taps and a zero eighth, X_s the parity-s slice; so the
+    4-tap convolution pads (1, 2).  ``weight`` is the plain stem's
+    (64, 3, 7, 7), cast to the input's type as the JAX stem casts it."""
+    k8 = F.pad(weight.to(x.dtype), (0, 1, 0, 1))  # (64, 3, 8, 8)
+    cout, cin = k8.shape[:2]
+    # (o, c, 4 ty, 2 sy, 4 tx, 2 sx) -> (o, sy, sx, c, ty, tx): the input
+    # channel of parity slice (sy, sx) and colour c is (2 sy + sx) 3 + c
+    k4 = k8.reshape(cout, cin, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    k4 = k4.reshape(cout, 4 * cin, 4, 4)
+    xs = torch.cat([x[:, sy::2, sx::2, :] for sy in (0, 1) for sx in (0, 1)],
+                   dim=-1).permute(0, 3, 1, 2)
+    y = F.conv2d(F.pad(xs, (1, 2, 1, 2)), k4)
+    return y.permute(0, 2, 3, 1)
 
 
 class ResNetEncoder(nn.Module):
     """(N, H, W, 3) -> the stage outputs picked by ``id_pick`` (1-4,
-    strides 4/8/16/32): one array, or a list for several."""
+    strides 4/8/16/32): one array, or a list for several.  ``stem_s2d``
+    runs the stem as :func:`s2d_stem`, on the same ``Conv_0`` weight, so
+    a checkpoint serves both stems."""
 
     def __init__(self, arch: str = "resnet50",
-                 id_pick: Sequence[int] = (3,)):
+                 id_pick: Sequence[int] = (3,), stem_s2d: bool = False):
         super().__init__()
         if arch not in _ARCH:
-            raise ValueError(f"backbone {arch!r} is not ported")
+            raise ValueError(f"unknown ResNet {arch!r} (the port builds "
+                             f"{sorted(_ARCH)})")
         block, layout = _ARCH[arch]
         self.id_pick = tuple(id_pick)
+        self.stem_s2d = stem_s2d
         self.Conv_0 = Conv(3, 64, 7, 2, use_bias=False)
         self.BatchNorm_0 = BatchNorm(64, _BN_EPS, _BN_MOMENTUM)
         self.stages = []
@@ -72,8 +123,19 @@ class ResNetEncoder(nn.Module):
         self.stage_channels = [64 * block.expansion * 2 ** s
                                for s in range(len(layout))]
 
+    @property
+    def picked_channels(self) -> list[int]:
+        return [self.stage_channels[i - 1] for i in self.id_pick]
+
+    @property
+    def halvings(self) -> int:
+        """How many times the last picked stage halves the input."""
+        return 1 + self.id_pick[-1]
+
     def forward(self, x):
-        x = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        x = (s2d_stem(x, self.Conv_0.weight) if self.stem_s2d
+             else self.Conv_0(x))
+        x = F.relu(self.BatchNorm_0(x))
         x = max_pool_same(x, 3, 2)
         outs = []
         for blocks in self.stages:

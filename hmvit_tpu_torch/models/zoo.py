@@ -2,12 +2,18 @@
 ``hmvit_tpu/models/zoo.py::build_model``).
 
 The port builds the hetero (camera + lidar) assembly, :class:`HMViT`
-with H3GAT fusion, under the JAX registry's names for it; a name that
-starts with ``fax_`` or ``bevformer_`` names the camera encoder, as in
-JAX.  Every other name of the JAX registry (the lidar-only, camera-only
-and cooperative-fusion families) raises ``NotImplementedError``: the
-rest of the zoo is ROADMAP.md Queue 1 item 5.  An unknown name raises
-``ValueError``, as in JAX.
+with H3GAT fusion, under the JAX registry's names for it
+(:data:`HETERO_NAMES`), with every camera encoder of the JAX package
+but its reference twins (``models/hmvit.py::CAMERA_ENCODERS``: ``cvt``,
+``fax``, ``bevformer`` with either lift, ``vpn``, ``vpn_ms``,
+``bev_swap``) and the bandwidth compressor; a name that starts with
+``fax_`` or ``bevformer_`` names the camera encoder, as in JAX.  So
+every hetero hypes of the corpus builds.  Every other name of the JAX
+registry (:data:`ZOO_NAMES`: the lidar-only, camera-only, segmentation
+and other-fusion families) raises ``NotImplementedError``: the fusion
+zoo, the camera-only and segmentation assemblies and the lidar zoo are
+ROADMAP.md Queue 1 item 5.  An unknown name raises ``ValueError``, as
+in JAX.
 """
 from __future__ import annotations
 

@@ -198,27 +198,34 @@ class Conv(nn.Module):
 
 class ConvTranspose(nn.Module):
     """flax ``nn.ConvTranspose`` with kernel == stride and "SAME"
-    padding (the BEV backbone's deblocks): every input pixel paints one
+    padding (the BEV backbone's deblocks, bias-free; the AutoEncoder's,
+    with ``use_bias``): every input pixel paints one
     disjoint k x k output patch.  Weight ``(in, out, k, k)`` holds the
     flax kernel spatially FLIPPED — flax does not flip the kernel of a
     transposed convolution, PyTorch's ``conv_transpose2d`` does."""
-    flax_leaves = {"weight": ("params", "kernel", "conv_transpose")}
+    flax_leaves = {"weight": ("params", "kernel", "conv_transpose"),
+                   "bias": ("params", "bias", "copy")}
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+                 use_bias: bool = False):
         super().__init__()
         if kernel != stride:
             raise ValueError("ConvTranspose supports kernel == stride only")
         self.stride = stride
         self.weight = nn.Parameter(torch.empty(cin, cout, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def reset_parameters(self, gen):
         cin, cout, k, _ = self.weight.shape
         lecun_normal_(self.weight, cin * k * k, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        dt = promote(x, self.weight)
+        dt = promote(x, self.weight, self.bias)
+        b = None if self.bias is None else self.bias.to(dt)
         y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
-                               self.weight.to(dt), stride=self.stride)
+                               self.weight.to(dt), b, stride=self.stride)
         return y.permute(0, 2, 3, 1)
 
 

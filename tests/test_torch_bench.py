@@ -1,8 +1,8 @@
 """The port's benchmark entry, ``python -m hmvit_tpu_torch.bench``: its
 CPU rehearsal prints one JSON line with ``bench.py``'s keys and says its
 time is no device time; without CUDA and without ``--cpu`` it exits 2;
-``--stem_s2d`` is refused with the ROADMAP item that will bring it;
-``--train --cpu`` rehearses the training bench and prints
+``--stem_s2d --cpu`` serves the space-to-depth stem, whose outputs are
+the plain stem's; ``--train --cpu`` rehearses the training bench and prints
 ``bench.py``'s training keys.  At tiny widths the batch-2 serving forward, with the
 hints ``bench --batch 2`` gives, equals two batch-1 forwards and the JAX
 package's batch-2 forward; ``flops_per_frame`` is the FLOP counter's
@@ -37,7 +37,7 @@ def _one_thread():
 
 def cpu_args(**kw):
     args = dict(fp32=False, cpu=True, fused_wa=False, no_stripe=False,
-                expand=None, batch=1, iters=1, train=False)
+                expand=None, batch=1, iters=1, train=False, stem_s2d=False)
     args.update(kw)
     return argparse.Namespace(**args)
 
@@ -70,11 +70,27 @@ def test_refuses_to_run_without_cuda(capsys):
     assert captured.out == "" and "no CUDA device" in captured.err
 
 
-@pytest.mark.parametrize("flag,item", [("--stem_s2d", "Queue 1 item 5")])
-def test_unported_flags_are_refused(flag, item, capsys):
-    assert bench.main(["--cpu", flag]) == 2
-    captured = capsys.readouterr()
-    assert captured.out == "" and item in captured.err
+@pytest.mark.parametrize("flag", ["--stem_s2d"])
+def test_unported_flags_are_refused(flag, capsys):
+    """The flags of ``bench.py`` the port once refused are served now:
+    ``bench --stem_s2d --cpu`` prints its record, and the model it serves
+    (float32, the rehearsal widths) gives the plain stem's psm and rm on
+    the same weights and request, within the s2d stem's own bar 2e-5
+    (tests/test_resnet.py) over max(1, max |x|)."""
+    assert bench.main(["--cpu", "--iters", "1", flag]) == 0
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert record["value"] > 0 and record["note"] == bench.CPU_NOTE
+    outs = []
+    for s2d in (False, True):
+        model, request, hints, _ = bench.build(
+            cpu_args(fp32=True, stem_s2d=s2d), torch.device("cpu"))
+        assert model.camera_encoder.ResNetEncoder_0.stem_s2d == s2d
+        with torch.no_grad():
+            outs.append(model(request, **hints))
+    for key in ("psm", "rm"):
+        plain, s2d = outs[0][key].numpy(), outs[1][key].numpy()
+        scale = max(1.0, float(np.abs(plain).max()))
+        np.testing.assert_allclose(s2d / scale, plain / scale, atol=2e-5)
 
 
 TRAIN_KEYS = {"metric", "value", "unit", "frames_per_sec", "flops_per_step",

@@ -36,10 +36,19 @@ def without_dirname(params):
 
 def test_corpus_and_copies_present():
     assert len(ALL_YAMLS) == 83
-    assert COPIES == ["hmvit_cvt_point_pillar_hetero.yaml",
+    assert COPIES == ["bevformer_point_pillar_hetero.yaml",
+                      "hmvit_cvt_point_pillar_hetero.yaml",
+                      "hmvit_fax_point_pillar_hetero.yaml",
                       "hmvit_prod_serving.yaml",
                       "opcl/bevformer_point_pillar_hetero.yaml",
+                      "opcl/fax_point_pillar_hetero.yaml",
                       "smoke_hetero_tiny.yaml"]
+    # every hetero (HMViT) hypes of the corpus has its copy
+    hetero = sorted(
+        name for name in ALL_YAMLS
+        if loader.load_config(os.path.join(JAX_HYPES, name)).get(
+            "model", {}).get("core_method", "").lower() in zoo.HETERO_NAMES)
+    assert hetero == COPIES
 
 
 @pytest.mark.parametrize("name", ALL_YAMLS)
@@ -116,7 +125,8 @@ def test_build_model_builds_each_copy(name):
     model = zoo.build_model(params["model"])
     assert isinstance(model, HMViT) and not model.training
     encoder = params["model"]["args"]["camera"].get("encoder", "cvt")
-    want = {"cvt": "CrossViewTransformer", "bevformer": "BEVFormerEncoder"}
+    want = {"cvt": "CrossViewTransformer", "bevformer": "BEVFormerEncoder",
+            "fax": "FAXCameraEncoder"}
     assert type(model.camera_encoder).__name__ == want[encoder]
 
 
@@ -139,14 +149,29 @@ def test_registry_tables_covered_and_unknown_name_raises():
             build({"core_method": "no_such_model", "args": {}})
 
 
-@pytest.mark.parametrize("encoder", ["fax", "vpn", "bev_swap"])
+@pytest.mark.parametrize("encoder", ["fax_ref", "cvt_ref", "bevformer_ref"])
 def test_unported_camera_encoder_named(encoder):
+    """The JAX package's reference twins: known, not ported yet."""
     params = loader.load_config(os.path.join(PORT_HYPES,
                                              "smoke_hetero_tiny.yaml"))
     model_cfg = copy.deepcopy(params["model"])
     model_cfg["args"]["camera"]["encoder"] = encoder
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         zoo.build_model(model_cfg)
+
+
+def test_unknown_camera_encoder_raises_value_error():
+    """As the JAX package's ``make_camera_encoder`` does."""
+    from hmvit_tpu.models.hmvit import make_camera_encoder
+
+    params = loader.load_config(os.path.join(PORT_HYPES,
+                                             "smoke_hetero_tiny.yaml"))
+    model_cfg = copy.deepcopy(params["model"])
+    model_cfg["args"]["camera"]["encoder"] = "no_such_encoder"
+    with pytest.raises(ValueError, match="unknown camera encoder"):
+        zoo.build_model(model_cfg)
+    with pytest.raises(ValueError, match="unknown camera encoder"):
+        make_camera_encoder(model_cfg["args"]["camera"])
 
 
 @pytest.mark.parametrize("name", COPIES)

@@ -381,6 +381,36 @@ def test_port_bf16_against_jax_fp32_steep_scores(bf16_steep_runs, key):
     _hold_bf16_spread(bf16_steep_runs, key)
 
 
+@pytest.fixture(scope="module")
+def bf16_fax_runs(flagship):
+    """The three forwards on the flagship's fleet and batch with the
+    camera branch of ``hmvit_fax_point_pillar_hetero.yaml`` (FAX) at the
+    smoke widths, on random weights."""
+    import copy
+
+    from hmvit_tpu_torch.config import load_config
+
+    corpus = load_config(os.path.join(REPO, "hmvit_tpu_torch", "config",
+                                      "hypes",
+                                      "hmvit_fax_point_pillar_hetero.yaml"))
+    cfg = copy.deepcopy(flagship["cfg"])
+    cfg["camera"] = dict(corpus["model"]["args"]["camera"], dim=32,
+                         bev_size=4, out_dim=64, bev_window=4, heads=2,
+                         dim_head=16, encoder_channels=[16, 32, 32, 32])
+    jm = JHMViT(cfg)
+    jb = {k: jnp.asarray(v) for k, v in flagship["batch"].items()}
+    v = flax_variables(jm, jb, train=False)
+    ref = japply(jm, v, jb, train=False, **flagship["hints"])
+    return _read_bf16_runs(dict(flagship, cfg=cfg), v, ref)
+
+
+@pytest.mark.parametrize("key", ["psm", "rm"])
+def test_port_bf16_against_jax_fp32_fax_camera(bf16_fax_runs, key):
+    """The bar with the FAX camera encoder (its float32 window scores
+    over bf16 operands)."""
+    _hold_bf16_spread(bf16_fax_runs, key)
+
+
 def _debug_model(flagship, debug: bool):
     return bridged(HMViT(dict(flagship["cfg"], debug_checks=debug)),
                    flagship["variables"])
