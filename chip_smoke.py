@@ -186,7 +186,36 @@ Phases:
    2 x 64^2) and on the stem's own output at 4 x 512^2, the ResNet-50
    stage-1 output at 512^2 printed beside a float64 forward (not held);
    then ``python -m hmvit_tpu_torch.bench`` and ``--stem_s2d``, both
-   frames/s printed.  The phase prints its length.
+   frames/s printed.  The phase prints its length;
+12. the fusion zoo: (a) HMViT of ``smoke_hetero_tiny.yaml`` with each
+   fusion of ``ZOO_FUSIONS`` as its ``fusion_override`` (F-Cooper,
+   attention, DiscoNet, V2VNet, SwapFusion, V2X-ViT with the batch's
+   prior encoding), float32, held as phase 11 (c) holds each camera
+   encoder: kernels vs ``plain_ops()`` within ``FORWARD_ATOL``, the
+   launches a served frame's (``fusion_launches``: V2X-ViT one plain
+   launch a pyramid window, the others none), graph == eager bit for
+   bit; (b) K3 at V2X-ViT's shapes (``V2XVIT_MAP``: the
+   ``point_pillar_v2xt`` map, 5 agents of 128^2 x 256, 8 heads of 32,
+   one sender) at windows 4, 8 and 16 (T = 16, 64, 256), float32 and
+   bfloat16 against its twin at phase 2's tolerances, each launch's
+   body, ``ms``, plain twin, bound and ``library_ms`` printed; (c)
+   ``tools.train --half`` at published widths (``FUSION_ZOO_TRAIN``: 10
+   steps on ``point_pillar_v2xt.yaml`` and
+   ``opcl/fax_point_pillar_v2xt.yaml``, 2 on the F-Cooper, attention,
+   V2VNet and SwapFusion FAX configurations, the BEVFormer DiscoNet one
+   and ``v2xt/point_pillar_intermediate.yaml``): losses finite, every
+   step's launches ``model_launches``, steps/s and peak device memory
+   printed; ``tools.inference --bf16 --serving_buckets`` on the two
+   V2X-ViT run directories (HMViT through captured graphs as phase 10
+   (b), graph == eager bit for bit; the ``CooperativeDetector`` through
+   its plain forward: no graph, 3 plain launches a frame); and
+   ``tools.inference --fusion_method late`` on
+   ``opcl/lidar_point_pillar_late_fusion.yaml`` (single-agent
+   PointPillars, 2 frames, no kernel launch).  Every plain launch of the
+   phase is counted by (tokens T, operand type) and by body; the kernels
+   line gains ``fusion_zoo_launches`` and one record per V2X-ViT window
+   (its launches at that T over the phase, the bfloat16 timing, and the
+   float32 one under ``float32``).  The phase prints its length.
 
 The pair warp in float32 is held to its twin at ``FP32_ATOL`` on the
 serving and ego poses; on spread poses (the phase 2 case and
@@ -348,6 +377,28 @@ ZOO_CAMERAS = {
     "cvt_vovnet39": ({"backbone": "vovnet-39", "id_pick": [3]}, {}),
     "cvt_compression_2": ({}, {"compression": 2}),
 }
+
+# phase 12: the fusion zoo.  Every fusion of models/fusion under the
+# smoke HMViT (fusion_override), float32
+ZOO_FUSIONS = ("fcooper", "att", "disconet", "v2vnet", "swap", "v2xvit")
+# V2X-ViT's pyramid windows (make_fusion's), one plain launch each a
+# forward: T = 16, 64 and 256 tokens
+V2XVIT_WINDOWS = (4, 8, 16)
+# K3 at the point_pillar_v2xt map: agents, map side, channels, heads,
+# head dim
+V2XVIT_MAP = (5, 128, 256, 8, 32)
+# the published-width runs of tools.train --half: (hypes, steps)
+FUSION_ZOO_TRAIN = (("point_pillar_v2xt.yaml", 10),
+                    ("opcl/fax_point_pillar_v2xt.yaml", 10),
+                    ("opcl/fax_point_pillar_fcooper.yaml", 2),
+                    ("opcl/fax_point_pillar_att_fuse.yaml", 2),
+                    ("opcl/fax_point_pillar_v2vnet.yaml", 2),
+                    ("opcl/fax_point_pillar_fax.yaml", 2),
+                    ("opcl/bevformer_point_pillar_disconet.yaml", 2),
+                    ("v2xt/point_pillar_intermediate.yaml", 2))
+# single-agent PointPillars, served by late fusion
+LATE_FUSION_HYPES = "opcl/lidar_point_pillar_late_fusion.yaml"
+LATE_FUSION_FRAMES = 2
 
 KERNEL_META = {
     "pair_warp": ("hmvit_tpu_torch/csrc/pair_warp.cu",
@@ -1512,13 +1563,49 @@ def train_launches(cfg: dict) -> dict:
     from hmvit_tpu_torch.models.hmvit import remat_stages
 
     stages = remat_stages(cfg.get("remat"))
-    iters = cfg["hetero_fusion"]["num_iters"]
-    fusion = 2 if "fusion" in stages else 1
     camera = 2 if "camera" in stages else 1
-    return {"pair_warp": 2 * iters * fusion,
-            "stripe_window_attention": iters * fusion,
-            "plain_window_attention": (iters * fusion + camera
-                                       * camera_attention_layers(cfg))}
+    if cfg.get("fusion_override"):
+        # a fusion of the zoo, never under remat
+        want = fusion_launches(cfg["fusion_override"])
+    else:
+        iters = cfg["hetero_fusion"]["num_iters"]
+        fusion = 2 if "fusion" in stages else 1
+        want = {"pair_warp": 2 * iters * fusion,
+                "stripe_window_attention": iters * fusion,
+                "plain_window_attention": iters * fusion}
+    want["plain_window_attention"] += camera * camera_attention_layers(cfg)
+    return want
+
+
+def fusion_launches(fusion) -> dict:
+    """The kernels a fusion of the zoo launches a forward: no warp or
+    stripe launch; V2X-ViT one plain launch a window of its pyramid (the
+    single-sender case of K3), every other fusion none."""
+    plain = len(V2XVIT_WINDOWS) if fusion in ("v2xvit", "v2xt") else 0
+    return {"pair_warp": 0, "stripe_window_attention": 0,
+            "plain_window_attention": plain}
+
+
+def model_launches(model_cfg: dict) -> dict:
+    """The kernels one train step (no remat) of a hypes ``model`` block
+    launches, by its registry name: HMViT with its fusion (H3GAT or
+    ``fusion_override``), a cooperative detector's fusion and camera
+    encoder, none for a single-agent lidar detector."""
+    from hmvit_tpu_torch.models import zoo
+
+    name = model_cfg["core_method"].lower()
+    args = model_cfg["args"]
+    if name in zoo.HETERO_NAMES:
+        return train_launches(args)
+    if name in zoo._MIXED_FUSIONS:
+        return train_launches(dict(args,
+                                   fusion_override=zoo._MIXED_FUSIONS[name]))
+    fusions = {**zoo._LIDAR_FUSIONS, **zoo._CAMERA_FUSIONS,
+               **zoo._VPN_FUSIONS}
+    want = fusion_launches(fusions.get(name))
+    if "camera" in args and name not in zoo._LIDAR_FUSIONS:
+        want["plain_window_attention"] += camera_attention_layers(args)
+    return want
 
 
 def camera_attention_layers(cfg: dict) -> int:
@@ -1861,11 +1948,26 @@ def gate_phase(dev, card) -> dict:
     return total
 
 
-def tools_train(hypes, flags, steps, want, tmp, total):
+def add_keyed(keyed) -> None:
+    """Add the plain kernel's launches since the last reset, by (tokens T,
+    operand type) and by body (keys ("body", "simt" | "mma")), to
+    ``keyed`` when it is given."""
+    from hmvit_tpu_torch.ops import cuda
+
+    if keyed is None:
+        return
+    for key, n in cuda.PLAIN_WINDOW_ATTENTION.launches_by_key.items():
+        keyed[key] = keyed.get(key, 0) + n
+    for body, n in cuda.attention_body_launches()[
+            "plain_window_attention"].items():
+        keyed["body", body] = keyed.get(("body", body), 0) + n
+
+
+def tools_train(hypes, flags, steps, want, tmp, total, keyed=None):
     """``tools.train`` of ``hypes`` into a new run directory under ``tmp``:
     every step's launches held to ``want``, every launch (the validation
-    forwards' too) added to ``total``; returns (run dir, losses, seconds
-    a step after the first)."""
+    forwards' too) added to ``total`` (and to ``keyed``: ``add_keyed``);
+    returns (run dir, losses, seconds a step after the first)."""
     import os
     import tempfile
 
@@ -1882,6 +1984,7 @@ def tools_train(hypes, flags, steps, want, tmp, total):
         losses.append(float(metrics["total_loss"]))  # synchronises
         stamps.append(time.perf_counter())
         counts = cuda.launch_counts()
+        add_keyed(keyed)
         cuda.reset_launches()
         add(counts)
         got = {name: counts[name] for name in want}
@@ -1896,6 +1999,7 @@ def tools_train(hypes, flags, steps, want, tmp, total):
                 "--epoches", "1", "--steps_per_epoch", str(steps),
                 *flags], on_step=on_step)
     add(cuda.launch_counts())  # the validation forwards
+    add_keyed(keyed)
     if len(losses) != steps or not np.all(np.isfinite(losses)):
         raise AssertionError(f"tools.train {hypes}: losses {losses}")
     for path in ("config.yaml", os.path.join("ckpt", "1", "state.pt")):
@@ -1906,7 +2010,7 @@ def tools_train(hypes, flags, steps, want, tmp, total):
     return run, losses, per_step
 
 
-def serve_run_dir(run, cfg, dev, card, total, what):
+def serve_run_dir(run, cfg, dev, card, total, what, keyed=None):
     """``tools.inference --bf16 --serving_buckets`` on a run directory
     (a captured CUDA graph per fleet bucket): AP (not held), end-to-end
     fps, p50 and p95 printed, each bucket's launches held to
@@ -1929,6 +2033,7 @@ def serve_run_dir(run, cfg, dev, card, total, what):
                           str(RUN_DIR_FRAMES), "--ap_mode", "iou"])
     for name, n in cuda.launch_counts().items():
         total[name] += n
+    add_keyed(keyed)
     iou, e2e = res["iou"], res["e2e"]
     print(f"tools.inference {what} --bf16 --serving_buckets: AP@0.3 / 0.5 / "
           f"0.7 {iou['ap_30']:.4f} / {iou['ap_50']:.4f} / "
@@ -2229,6 +2334,276 @@ def zoo_phase(dev, card) -> dict:
     return total
 
 
+def fusion_forwards(dev, card, total, keyed) -> None:
+    """Phase 12 (a): HMViT of ``smoke_hetero_tiny.yaml`` with each fusion
+    of ZOO_FUSIONS as its ``fusion_override`` (V2X-ViT with the batch's
+    prior encoding), float32, as phase 11 (c) holds each camera encoder:
+    the kernels' forward against ``plain_ops()`` (which launches nothing)
+    within FORWARD_ATOL over max(1, max |x|), the launches those of a
+    served frame, each plain launch's tokens and type printed, and the
+    forward captured by ``CompiledServer`` equal to the eager one bit for
+    bit."""
+    import copy
+    import os
+
+    import torch
+
+    from hmvit_tpu_torch.config import load_config
+    from hmvit_tpu_torch.data.synthetic import make_hetero_batch
+    from hmvit_tpu_torch.graph_server import CompiledServer
+    from hmvit_tpu_torch.models.hmvit import HMViT
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.ops import cuda, plain_ops
+    from hmvit_tpu_torch.serving import batch_to_device, serving_hints
+    from hmvit_tpu_torch.utils.precision import strict_fp32
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    params = load_config(os.path.join(repo, HYPES, "smoke_hetero_tiny.yaml"))
+    base = params["model"]["args"]
+    batch, _ = make_hetero_batch(
+        seed=3, max_cav=2, num_agents=2, max_points=512, image_size=64,
+        num_cams=4, camera_ratio=0.5, ego_mode="lidar",
+        lidar_range=params["preprocess"]["cav_lidar_range"])
+    batch["mode"][:, :2] = (1, 0)  # a lidar ego and a camera agent
+    batch["prior_encoding"][0, :2] = ((0.3, 0.0, 0.0), (0.1, 12.0, 1.0))
+    tb = batch_to_device(batch, dev, bf16=False)
+    hints = serving_hints(batch["mode"][0], 2)
+    anchors = torch.zeros((16, 16, 2, 7), device=dev)
+    eye = torch.eye(4, device=dev)
+    for fusion in ZOO_FUSIONS:
+        cfg = dict(copy.deepcopy(base), fusion_override=fusion)
+        model = init_parameters(HMViT(cfg), seed=0).to(dev)
+        cuda.reset_launches()
+        with torch.no_grad(), strict_fp32():
+            out_k = model(tb, **hints)
+            counts = cuda.launch_counts()
+            by_key = dict(cuda.PLAIN_WINDOW_ATTENTION.launches_by_key)
+            bodies = cuda.attention_body_launches()["plain_window_attention"]
+            add_keyed(keyed)
+            with plain_ops():
+                out_p = model(tb, **hints)
+        torch.cuda.synchronize()
+        if cuda.launch_counts() != counts:
+            raise AssertionError(f"phase 12 {fusion}: the plain forward "
+                                 f"launched kernels")
+        for kernel, n in counts.items():
+            total[kernel] += n
+        want = serving_launches(cfg, hints["camera_bucket"])
+        got = {kernel: counts[kernel] for kernel in want}
+        errs = {}
+        for key, fn in (("psm", torch.sigmoid), ("rm", lambda z: z)):
+            a, b = fn(out_k[key].float()), fn(out_p[key].float())
+            scale = max(1.0, float(b.abs().max()))
+            errs[key] = float((a - b).abs().max()) / scale
+            if not (torch.isfinite(a).all() and errs[key] <= FORWARD_ATOL):
+                raise AssertionError(f"phase 12 {fusion}: fp32 {key} kernels "
+                                     f"vs plain {errs[key]} (tol "
+                                     f"{FORWARD_ATOL})")
+        with strict_fp32():
+            server = CompiledServer(model, hints, tb, anchors, eye)
+            graph, _ = server(tb)
+        same = all(torch.equal(graph[k], out_k[k]) for k in ("psm", "rm"))
+        print(f"phase 12 fusion_override {fusion}: fp32 forward kernels vs "
+              f"plain max_abs_err/scale psm {errs['psm']:.3e}, rm "
+              f"{errs['rm']:.3e} (tol {FORWARD_ATOL}); launches {got}, plain "
+              f"launches by (T, type) {by_key}, by body {bodies}, none under "
+              f"plain_ops; graph == eager bit for bit {same}")
+        if got != want:
+            raise AssertionError(f"phase 12 {fusion}: launches {got}, "
+                                 f"expected {want}")
+        if not same:
+            raise AssertionError(f"phase 12 {fusion}: the captured graph's "
+                                 f"outputs differ from the eager forward's")
+        del model, out_k, out_p, server, graph
+    torch.cuda.empty_cache()
+
+
+def v2xvit_attention(dev, card) -> dict:
+    """Phase 12 (b): K3 at V2X-ViT's shapes (the point_pillar_v2xt map,
+    V2XVIT_MAP; windows V2XVIT_WINDOWS, one sender, every key live), in
+    float32 and bfloat16 against its plain twin at phase 2's tolerances;
+    the body each launch ran, ``ms`` (the kernel alone, one call between
+    CUDA events, median of 20), the plain twin's, the bound (bytes once at
+    PEAK_BYTES_PER_S or the operations at the type's peak) and
+    ``library_ms`` (``scaled_dot_product_attention`` with the bias as its
+    ``attn_mask``, timed only).  Returns {window: record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from hmvit_tpu_torch.ops import cuda, opcount, plain_ops
+    from hmvit_tpu_torch.ops.window_attention import (
+        attention_body,
+        fused_plain_window_attention,
+        plain_window_attention_launch,
+    )
+    from hmvit_tpu_torch.utils.precision import strict_fp32
+
+    n, hw, c, heads, d = V2XVIT_MAP
+    gen = torch.Generator(device=dev).manual_seed(12)
+    records = {}
+    for win in V2XVIT_WINDOWS:
+        t, nwin = win * win, (hw // win) ** 2
+        q32 = torch.randn(n, nwin, t, c, generator=gen, device=dev) * \
+            d ** -0.5
+        kv32 = torch.randn(n, 1, nwin, t, 2 * c, generator=gen, device=dev)
+        bias = torch.randn(heads, t, t, generator=gen, device=dev) * 0.5
+        rec = {}
+        for dt, tol in ((torch.float32, FP32_ATOL),
+                        (torch.bfloat16, BF16_ATOL["plain_window_attention"])):
+            key = str(dt).split(".")[-1]
+            q, kv = q32.to(dt), kv32.to(dt)
+            mask = torch.ones(n, 1, nwin, t, dtype=dt, device=dev)
+            args = (q, kv, bias, mask)
+            before = cuda.attention_body_launches()["plain_window_attention"]
+            with strict_fp32():
+                got = fused_plain_window_attention(*args, heads, d)
+                ran = cuda.attention_body_launches()["plain_window_attention"]
+                with plain_ops():
+                    want = fused_plain_window_attention(*args, heads, d)
+            torch.cuda.synchronize()
+            body = attention_body(dt, 1, t, d)
+            ran = {b: ran[b] - before[b] for b in ran}
+            if ran != {b: int(b == body) for b in ran}:
+                raise AssertionError(f"K3 V2X-ViT window {win} {key}: ran "
+                                     f"{ran}, expected one {body} launch")
+            err = float((got.float() - want.float()).abs().max())
+            if not np.isfinite(err) or err > tol:
+                raise AssertionError(f"K3 V2X-ViT window {win} {key}: kernel "
+                                     f"vs plain twin {err} > {tol}")
+            launch, out = plain_window_attention_launch(*args, heads, d)
+            k_ms = time_ms(launch)
+            with plain_ops():
+                p_ms = time_ms(lambda: fused_plain_window_attention(
+                    *args, heads, d))
+            # the library call: heads first, the bias as the additive mask
+            # (every key live, so the mask adds nothing more)
+            q4 = q.reshape(n * nwin, t, heads, d).transpose(1, 2).contiguous()
+            k4 = kv[:, 0, ..., :c].reshape(n * nwin, t, heads, d).transpose(
+                1, 2).contiguous()
+            v4 = kv[:, 0, ..., c:].reshape(n * nwin, t, heads, d).transpose(
+                1, 2).contiguous()
+            add = bias.to(dt)[None].contiguous()
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=add, scale=1.0))
+            b_ms, b_by = bound_ms(args, out, opcount.attention_ops(
+                n, nwin, t, 1, heads, d), key)
+            print(f"  K3 V2X-ViT window {win} (T={t}, N={n}, {nwin} windows "
+                  f"a map) [{key}]: body {body}, max_abs_err {err:.3e} (tol "
+                  f"{tol}); kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
+                  f"library call {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}) on {card}")
+            rec[key] = {"body": body, "max_abs_err": err, "ms": k_ms,
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib_ms}
+            del args, got, want, launch, out, q, kv, mask, q4, k4, v4, add
+        records[win] = rec
+        del q32, kv32, bias
+        torch.cuda.empty_cache()
+    return records
+
+
+def fusion_zoo_phase(dev, card):
+    """Phase 12 (see the module's docstring): the fusion zoo and the
+    cooperative detection assemblies.  Returns each kernel's launches
+    over the phase, the plain kernel's by (tokens, type) and by body, and
+    the K3 records of V2X-ViT's windows."""
+    import os
+    import tempfile
+
+    import torch
+
+    from hmvit_tpu_torch.config import load_config, save_config
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.tools import inference
+
+    t_start = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    total = dict.fromkeys(KERNEL_META, 0)
+    keyed = {}
+    # (a) every fusion under the smoke HMViT
+    fusion_forwards(dev, card, total, keyed)
+    # (b) K3 at V2X-ViT's shapes
+    k3 = v2xvit_attention(dev, card)
+    # (c) published widths, through the tools
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase12_") as tmp:
+        runs = {}
+        for name, steps in FUSION_ZOO_TRAIN:
+            hypes = os.path.join(repo, HYPES, name)
+            model_cfg = load_config(hypes)["model"]
+            want = model_launches(model_cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runs[name], losses, per_step = tools_train(
+                hypes, ["--half"], steps, want, tmp, total, keyed)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            rate = "" if per_step is None else \
+                f"{1.0 / per_step:.3f} steps/s after the first; "
+            print(f"tools.train {name} ({model_cfg['core_method']}) --half: "
+                  f"{steps} steps, {time.perf_counter() - t0:.2f} s with the "
+                  f"fixture, validation and checkpoint; {rate}loss "
+                  f"{[round(v, 4) for v in losses]}; K3 launches a step "
+                  f"{want['plain_window_attention']} (held); peak device "
+                  f"memory {peak:.3f} GiB on {card}")
+            torch.cuda.empty_cache()
+        # the two V2X-ViT run directories served: HMViT by captured graphs
+        # (graph == eager), the cooperative detector by its plain forward
+        name = "opcl/fax_point_pillar_v2xt.yaml"
+        cfg = dict(load_config(os.path.join(repo, HYPES, name))["model"][
+            "args"], fusion_override="v2xvit")
+        serve_run_dir(runs[name], cfg, dev, card, total, name, keyed)
+        name = "point_pillar_v2xt.yaml"
+        cuda.reset_launches()
+        res = inference.main(["--model_dir", runs[name], "--synthetic",
+                              "--synthetic_frames", str(RUN_DIR_FRAMES),
+                              "--bf16", "--serving_buckets", "--max_frames",
+                              str(RUN_DIR_FRAMES), "--ap_mode", "iou"])
+        counts = cuda.launch_counts()
+        bodies = cuda.attention_body_launches()["plain_window_attention"]
+        by_key = dict(cuda.PLAIN_WINDOW_ATTENTION.launches_by_key)
+        add_keyed(keyed)
+        for kernel, n in counts.items():
+            total[kernel] += n
+        frames = res["e2e"]["frames"] + 1
+        want = len(V2XVIT_WINDOWS) * frames
+        iou, e2e = res["iou"], res["e2e"]
+        print(f"tools.inference {name} --bf16 --serving_buckets (a "
+              f"CooperativeDetector: its plain forward, no graphs): AP@0.3 / "
+              f"0.5 / 0.7 {iou['ap_30']:.4f} / {iou['ap_50']:.4f} / "
+              f"{iou['ap_70']:.4f} (not held); e2e {e2e['fps']} fps, p50 "
+              f"{e2e['p50_ms']} ms, p95 {e2e['p95_ms']} ms; K3 launches "
+              f"{counts['plain_window_attention']} over {frames} frames "
+              f"(expected {want}), by (T, type) {by_key}, by body {bodies} "
+              f"on {card}")
+        if "serving" in res or counts["plain_window_attention"] != want:
+            raise AssertionError(f"tools.inference {name}: served by graphs "
+                                 f"or launches {counts} (expected {want} "
+                                 f"plain)")
+        # single-agent PointPillars through late fusion
+        run = os.path.join(tmp, "late_fusion")
+        os.makedirs(run)
+        save_config(load_config(os.path.join(repo, HYPES, LATE_FUSION_HYPES)),
+                    os.path.join(run, "config.yaml"))
+        cuda.reset_launches()
+        res = inference.main(["--model_dir", run, "--synthetic",
+                              "--fusion_method", "late", "--max_frames",
+                              str(LATE_FUSION_FRAMES), "--ap_mode", "iou"])
+        counts = cuda.launch_counts()
+        iou = res["iou"]
+        print(f"tools.inference {LATE_FUSION_HYPES} --fusion_method late "
+              f"(PointPillarDetector, random weights), {LATE_FUSION_FRAMES} "
+              f"frames: AP@0.3 / 0.5 / 0.7 {iou['ap_30']:.4f} / "
+              f"{iou['ap_50']:.4f} / {iou['ap_70']:.4f} (not held), "
+              f"{res['e2e']['fps']} fps; launches {counts} on {card}")
+        if any(counts.values()):
+            raise AssertionError(f"late fusion: launches {counts}, expected "
+                                 f"none (single-agent PointPillars)")
+    torch.cuda.empty_cache()
+    print(f"phase 12 plain launches by (T, type) and body: {keyed}")
+    print(f"phase 12: {time.perf_counter() - t_start:.1f} s on {card}")
+    return total, keyed, k3
+
+
 def main() -> int:
     import torch
 
@@ -2510,6 +2885,9 @@ def main() -> int:
     # -- 11. every camera encoder of the zoo under HM-ViT ---------------------
     zoo_counts = zoo_phase(dev, card)
 
+    # -- 12. the fusion zoo ---------------------------------------------------
+    fusion_counts, keyed, k3 = fusion_zoo_phase(dev, card)
+
     kernels = []
     for name, rec in record.items():
         launches = path_counts[KERNEL_PATH[name]][name]
@@ -2529,7 +2907,25 @@ def main() -> int:
                         "train_launches": train_counts[name],
                         "gate_launches": gate_counts[name],
                         "run_dir_launches": run_dir_counts[name],
-                        "zoo_launches": zoo_counts[name], **rec})
+                        "zoo_launches": zoo_counts[name],
+                        "fusion_zoo_launches": fusion_counts[name], **rec})
+    # K3 at V2X-ViT's windows: its launches at each T over phase 12
+    name = "plain_window_attention"
+    for win, rec in k3.items():
+        t = win * win
+        launches = sum(n for key, n in keyed.items() if key[0] == t)
+        if launches <= 0:
+            raise AssertionError(f"{name}: no launch at T = {t} in phase 12")
+        # the bf16 timing's body: T > 128 runs the fp32 CUDA-core body
+        source = (KERNEL_META[name][0] if rec["bfloat16"]["body"] == "mma"
+                  else "hmvit_tpu_torch/csrc/window_attention.cu")
+        kernels.append({"name": f"{name} (V2X-ViT window {win}, T={t})",
+                        "route": "cuda", "source": source,
+                        "replaces": KERNEL_META[name][1],
+                        "launches": launches,
+                        "launches_by_type": {key[1]: n for key, n in
+                                             keyed.items() if key[0] == t},
+                        **rec["bfloat16"], "float32": rec["float32"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

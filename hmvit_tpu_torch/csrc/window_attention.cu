@@ -63,11 +63,18 @@ using hm::kThreads;
 using hm::to_f;
 using hm::token_index;
 
+// A head's t x t bias is staged in shared memory up to T = 128 (64 KB).
+// A longer window (V2X-ViT's 16 x 16: T = 256, 256 KB a head, more than a
+// block may hold) is read from device memory by the body, the same values
+// from another place (L1 / L2 serve a block's repeated reads).
+constexpr int kMaxStagedBiasT = 128;
+
 size_t smem_bytes(int nk, int t, int d) {
   const int dp = d + 1;
+  const size_t tb = t <= kMaxStagedBiasT ? (size_t)t * t : 0;
   return sizeof(float4) * kPBufFloat4 +
          sizeof(float) * ((size_t)t * d + (size_t)nk * dp + (size_t)nk * d +
-                          (size_t)t * t + (size_t)nk);
+                          tb + (size_t)nk);
 }
 
 // grid (n_windows, N); q/out (N, S, C); kv (N, J, S, 2C); mask (N, J, S)
@@ -86,13 +93,14 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const int nk = nj * t;
   const int dp = d + 1;
   const long long s_per_n = (long long)nwin * t;
+  const bool stage_bias = t <= kMaxStagedBiasT;
   float4* pbuf = smem4;          // per warp: 32 keys x 4 rows of P
   float* qs = reinterpret_cast<float*>(smem4 + kPBufFloat4);
                                  // t x d (rows 16-byte aligned)
   float* ks = qs + t * d;        // nk x dp
   float* vs = ks + nk * dp;      // nk x d
-  float* bs = vs + nk * d;       // t x t
-  float* ms = bs + t * t;        // nk
+  float* bs = vs + nk * d;       // t x t when staged
+  float* ms = bs + (stage_bias ? t * t : 0);  // nk
 
   for (int i = threadIdx.x; i < nk; i += blockDim.x) {
     const int jj = i / t, tt = i - jj * t;
@@ -115,13 +123,15 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       ks[s * dp + dd] = to_f(row[hh * d + dd]);
       vs[s * d + dd] = to_f(row[c + hh * d + dd]);
     }
-    for (int i = threadIdx.x; i < t * t; i += blockDim.x) {
-      bs[i] = bias[(long long)hh * t * t + i];
+    const float* bias_h = bias + (long long)hh * t * t;
+    if (stage_bias) {
+      for (int i = threadIdx.x; i < t * t; i += blockDim.x) bs[i] = bias_h[i];
     }
     __syncthreads();
     hm::attend_head<T, STRIPE, false>(
-        qs, ks, vs, bs, ms, pbuf, out + (long long)n * s_per_n * c + hh * d,
-        wi, nk, t, d, c, win, wcols);
+        qs, ks, vs, stage_bias ? bs : bias_h, ms, pbuf,
+        out + (long long)n * s_per_n * c + hh * d, wi, nk, t, d, c, win,
+        wcols);
   }
 }
 

@@ -1,16 +1,17 @@
-"""Swap attention (port of ``relative_position_index_3d`` and
-``SwapAttention`` in ``hmvit_tpu/models/fusion/swap.py``): masked joint
-attention over every agent's tokens inside each local window or global
-grid cell, with a three-axis (agent, h, w) relative position bias.
-Plain PyTorch (einsums, as in the JAX package).  ``SwapFusionEncoder``,
-the fusion module built on it, waits for the fusion zoo."""
+"""Swap attention and the SwapFusion encoder (port of
+``hmvit_tpu/models/fusion/swap.py``): masked joint attention over every
+agent's tokens inside each local window or global grid cell, with a
+three-axis (agent, h, w) relative position bias, and the CoBEVT fusion
+built on it.  Plain PyTorch (einsums, as in the JAX package)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ...nn import Dense, normal_
+from ...nn import Dense, LayerNorm, normal_
+from ...ops.warp import roi_and_agent_mask, warp_bev_nhwc
 from ..hetero_fusion import _window_merge, _window_split
 
 
@@ -92,3 +93,58 @@ class SwapAttention(nn.Module):
         out = out.reshape(b, nx, ny, l, t_tok, heads * d)
         out = out.permute(0, 3, 1, 2, 4, 5)  # (B, L, X, Y, T, C)
         return self.to_out(_window_merge(out, win, self.style, h, w))
+
+
+class SwapFusionEncoder(nn.Module):
+    """Every agent warped into the ego frame, then ``depth`` x [local
+    window attention, FFN, grid attention, FFN], each a pre-norm residual
+    (``fn(LN(x)) + x``; the FFN's GELU the erf form), and the head: the
+    mean over the live agents, LayerNorm, Dense.  The relative-bias table
+    is sized for ``agent_size`` agents (the JAX module sizes it for
+    max(agent_size, L) when it is initialised): a fleet of more slots
+    raises."""
+
+    def __init__(self, dim: int, depth: int = 1, window: int = 8,
+                 dim_head: int = 32, agent_size: int = 5,
+                 discrete_ratio: float = 0.4, downsample_rate: float = 4.0):
+        super().__init__()
+        self.depth, self.agent_size = depth, agent_size
+        self.discrete_ratio, self.downsample_rate = (discrete_ratio,
+                                                     downsample_rate)
+        mlp_dim = 2 * dim
+        for di in range(depth):
+            for style in ("local", "grid"):
+                p = f"{style}_{di}"
+                self.add_module(f"attn_{p}", SwapAttention(
+                    dim, dim_head, window, agent_size=agent_size,
+                    style=style))
+                self.add_module(f"attn_norm_{p}", LayerNorm(dim))
+                self.add_module(f"ff_norm_{p}", LayerNorm(dim))
+                self.add_module(f"ff_in_{p}", Dense(dim, mlp_dim))
+                self.add_module(f"ff_out_{p}", Dense(mlp_dim, dim))
+        self.head_norm = LayerNorm(dim)
+        self.head_linear = Dense(dim, dim)
+
+    def forward(self, x, mode, pairwise, agent_mask):
+        b, l, h, w, c = x.shape
+        if l > self.agent_size:
+            raise ValueError(f"SwapFusionEncoder: {l} agent slots, but the "
+                             f"relative-bias table is built for "
+                             f"agent_size={self.agent_size}")
+        t = pairwise[:, :, 0]  # j -> ego
+        geo = (self.discrete_ratio, self.downsample_rate)
+        x = warp_bev_nhwc(x, t, *geo)
+        mask = roi_and_agent_mask(b, l, h, w, agent_mask, t, *geo)
+        mask = mask[..., 0, :].movedim(-1, 1)  # (B, L, H, W)
+        for di in range(self.depth):
+            for style in ("local", "grid"):
+                p = f"{style}_{di}"
+                x = x + getattr(self, f"attn_{p}")(
+                    getattr(self, f"attn_norm_{p}")(x), mask)
+                ff = getattr(self, f"ff_in_{p}")(
+                    getattr(self, f"ff_norm_{p}")(x))
+                x = x + getattr(self, f"ff_out_{p}")(F.gelu(ff))
+        valid = agent_mask[:, :, None, None, None]
+        fused = (x * valid).sum(dim=1) / torch.clamp(valid.sum(dim=1),
+                                                     min=1.0)
+        return self.head_linear(self.head_norm(fused))

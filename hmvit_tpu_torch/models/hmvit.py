@@ -1,6 +1,7 @@
 """HM-ViT flagship: hetero-modal multi-agent cooperative detector (port
 of ``hmvit_tpu/models/hmvit.py``; camera branch: any camera encoder of
-:func:`make_camera_encoder`, the cross-view transformer by default).
+:func:`make_camera_encoder`, the cross-view transformer by default;
+fusion: H3GAT, or the fusion of the zoo ``fusion_override`` names).
 mode convention: 0 = camera, 1 = lidar.  ``train()`` is the JAX model's
 ``train=True``: batch statistics, dropout, and remat over the stages
 ``cfg["remat"]`` names.
@@ -14,6 +15,7 @@ from .bev_swap import BEVSwapEncoder
 from .bevformer import BEVFormerEncoder
 from .cvt import CrossViewTransformer
 from .fax import FAXCameraEncoder
+from .fusion import make_fusion
 from ..nn import DTYPES, remat
 from .hetero_fusion import HeteroFusion
 from .layers import DetectionHead, NaiveCompressor, NaiveDecoder
@@ -25,6 +27,8 @@ from .vpn import ViewParseNetwork
 CAMERA_ENCODERS = {"cvt": CrossViewTransformer, "fax": FAXCameraEncoder,
                    "bevformer": BEVFormerEncoder, "vpn": ViewParseNetwork,
                    "vpn_ms": ViewParseNetwork, "bev_swap": BEVSwapEncoder}
+# the fusion overrides that take the batch's prior_encoding
+PRIOR_FUSIONS = ("v2xvit", "v2xt")
 # the JAX package's reference-faithful twins, not ported yet
 REFERENCE_TWINS = ("fax_ref", "cvt_ref", "bevformer_ref")
 
@@ -100,24 +104,32 @@ _SLICED = ("mode", "agent_mask", "points", "points_mask", "camera",
 class HMViT(nn.Module):
     """Hetero-modal cooperative detector: lidar PointPillars + a camera
     encoder (:func:`make_camera_encoder`), the bandwidth compressor when
-    ``compression`` is non-zero, H3GAT fusion, per-modality decoder.  A
-    new model is in eval mode."""
+    ``compression`` is non-zero, H3GAT fusion (or ``fusion_override``'s
+    fusion of ``models/fusion``), per-modality decoder.  A new model is
+    in eval mode."""
 
     def __init__(self, config: dict):
         super().__init__()
         cfg = config
         self.config = cfg
-        if cfg.get("fusion_override"):
-            raise NotImplementedError("fusion overrides are not ported yet: "
-                                      "ROADMAP.md Queue 1 item 5")
         self.lidar_encoder = PointPillarEncoder(cfg["lidar"])
         self.camera_encoder = make_camera_encoder(cfg["camera"])
+        # the agent maps' channels (both encoders give the same)
+        c = self.lidar_encoder.out_channels
         if cfg.get("compression", 0):
-            # on the (B L, H, W, C) agent maps, whose C is the fusion's
-            self.NaiveCompressor_0 = NaiveCompressor(
-                cfg["hetero_fusion"]["hetero_fusion_block"]["input_dim"],
-                cfg["compression"])
-        self.fusion = HeteroFusion(cfg["hetero_fusion"])
+            self.NaiveCompressor_0 = NaiveCompressor(c, cfg["compression"])
+        self.fusion_override = cfg.get("fusion_override")
+        if self.fusion_override:
+            # built as the JAX model builds it: no fusion arguments, the
+            # agents' context for V2X-ViT (the port's batches carry it)
+            fusion = make_fusion(
+                self.fusion_override, c, cfg.get("spatial_transform", {}),
+                prior_encoding=self.fusion_override in PRIOR_FUSIONS)
+            # flax names an unnamed module by its class
+            self.fusion_name = f"{type(fusion).__name__}_0"
+            self.add_module(self.fusion_name, fusion)
+        else:
+            self.fusion = HeteroFusion(cfg["hetero_fusion"])
         dec = cfg["hetero_decoder"]
         self.HeteroDecoder_0 = HeteroDecoder(
             dec["input_dim"], dec["num_layer"], tuple(dec["num_ch_dec"]),
@@ -227,8 +239,20 @@ class HMViT(nn.Module):
             x = self.NaiveCompressor_0(x)
         h, w, c = x.shape[1:]
         x = x.reshape(b, l, h, w, c) * agent_mask[:, :, None, None, None]
-        ego = stage("fusion", self.fusion, x, mode, pairwise, agent_mask,
-                    static_modes=static_modes)
+        if self.fusion_override:
+            # never under remat, as in the JAX model
+            kwargs = {}
+            if self.fusion_override in PRIOR_FUSIONS:
+                if "prior_encoding" not in batch:
+                    raise ValueError(
+                        f"fusion_override {self.fusion_override!r} takes the "
+                        f"batch's prior_encoding, which it lacks")
+                kwargs["prior_encoding"] = batch["prior_encoding"]
+            ego = getattr(self, self.fusion_name)(x, mode, pairwise,
+                                                  agent_mask, **kwargs)
+        else:
+            ego = stage("fusion", self.fusion, x, mode, pairwise, agent_mask,
+                        static_modes=static_modes)
         dec = self.config["hetero_decoder"]
         if dec.get("compute_dtype"):
             ego = ego.to(DTYPES[dec["compute_dtype"]])

@@ -3,10 +3,13 @@
 
 raw padded points (N, P, 4) -> pillarize -> per-point PFN (Dense +
 masked BN + ReLU) -> max scatter into the (ny, nx, C) grid -> 2D BEV
-backbone with transposed-conv up-fusion -> shrink conv.
+backbone with transposed-conv up-fusion -> shrink conv; and the BEV
+backbone with per-stage agent fusion of the intermediate lidar model
+(:class:`AttBEVBackbone`).
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -166,6 +169,40 @@ class BEVBackbone(nn.Module):
             for blk in blocks:
                 x = blk(x)
             ups.append(F.relu(bn(up(x))))
+        return torch.cat(ups, dim=-1) if len(ups) > 1 else ups[0]
+
+
+def pixel_agent_attention(x, agent_mask):
+    """Per-pixel scaled dot-product attention across the agents, the
+    ego's row returned (no learned projections): x (B, L, H, W, C),
+    agent_mask (B, L) -> (B, H, W, C).  Scores in float32, the weighted
+    sum in x's type."""
+    sim = torch.einsum("bihwc,bjhwc->bhwij", x[:, :1].to(torch.float32),
+                       x.to(torch.float32)) / math.sqrt(x.shape[-1])
+    sim = torch.where(agent_mask[:, None, None, None, :] > 0, sim, -1e9)
+    attn = torch.softmax(sim, dim=-1).to(x.dtype)
+    return torch.einsum("bhwij,bjhwc->bihwc", attn, x)[:, 0]
+
+
+class AttBEVBackbone(BEVBackbone):
+    """:class:`BEVBackbone` with per-stage agent fusion: each stage's
+    output is fused across the agents by :func:`pixel_agent_attention`,
+    and the fused (ego) map feeds that stage's upsampling branch while
+    the unfused maps go on to the next stage.  Its input is every
+    agent's map already in the ego frame; its output the ego's fused
+    multi-scale concatenation."""
+
+    def forward(self, x, agent_mask):
+        """x (B, L, H, W, C), agent_mask (B, L) -> (B, H', W', C')."""
+        b, l = x.shape[:2]
+        flat = x.reshape(b * l, *x.shape[2:])
+        ups = []
+        for blocks, up, bn in self.stages:
+            for blk in blocks:
+                flat = blk(flat)
+            fused = pixel_agent_attention(
+                flat.reshape(b, l, *flat.shape[1:]), agent_mask)
+            ups.append(F.relu(bn(up(fused))))
         return torch.cat(ups, dim=-1) if len(ups) > 1 else ups[0]
 
 

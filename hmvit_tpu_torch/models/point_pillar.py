@@ -22,9 +22,16 @@ class PointPillarDetector(nn.Module):
                 self.PointPillarEncoder_0.out_channels,
                 config["anchor_number"])
 
-    def forward(self, points, points_mask):
+    def forward(self, points, points_mask=None):
         """points (N, P, 4), points_mask (N, P) -> features (N, H, W, C)
-        or {"psm": (N, A, H, W), "rm": (N, 7A, H, W)}."""
+        or {"psm": (N, A, H, W), "rm": (N, 7A, H, W)}.  ``points`` may
+        also be a batch of the run-directory tools (a dict with
+        (B, L, P, 4) ``points`` and (B, L, P) ``points_mask``): its ego
+        slot is the input.  (The JAX module takes the arrays alone, so
+        the JAX tools cannot run it.)"""
+        if isinstance(points, dict):
+            points, points_mask = (points["points"][:, 0],
+                                   points["points_mask"][:, 0])
         x = self.PointPillarEncoder_0(points, points_mask)
         if self.return_features:
             return x

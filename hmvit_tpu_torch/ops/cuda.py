@@ -128,13 +128,17 @@ class Kernel:
     ``n_ptrs`` leading pointer arguments, then ``n_ints`` int arguments,
     then the stream; the C function returns a cudaError_t.
     ``launches`` counts the launches the host issued: a CUDA-graph
-    capture adds one per captured launch, a replay adds none."""
+    capture adds one per captured launch, a replay adds none;
+    ``launches_by_key`` splits them by the ``key`` a caller passes (the
+    stripe and plain window attention kernels: (tokens T of a window,
+    operand type))."""
 
     def __init__(self, symbol: str, n_ptrs: int, n_ints: int):
         self.symbol = symbol
         self.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                          + [ctypes.c_void_p])
         self.launches = 0
+        self.launches_by_key = {}
         self._fn = None
 
     def _bind(self):
@@ -145,7 +149,7 @@ class Kernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, tensors, ints):
+    def launch(self, tensors, ints, key=None):
         """Launch on the current stream of the tensors' device.  The host
         work is kept to what the launch needs (the raw stream handle, the
         arguments as plain ints that ctypes converts by ``argtypes``, the
@@ -169,6 +173,8 @@ class Kernel:
             raise RuntimeError(f"CUDA kernel {self.symbol} failed to launch: "
                                f"cudaError {rc}")
         self.launches += 1
+        if key is not None:
+            self.launches_by_key[key] = self.launches_by_key.get(key, 0) + 1
 
 
 PAIR_WARP = Kernel("hm_pair_warp", n_ptrs=4, n_ints=8)
@@ -228,6 +234,7 @@ ATTENTION_BODIES = ("simt", "mma")
 def reset_launches():
     for k in KERNELS.values():
         k.launches = 0
+        k.launches_by_key = {}
     if _lib is not None:
         _lib.hm_attention_body_reset()
 

@@ -160,7 +160,8 @@ def _attention_launch(kernel, q, kv, bias, mask, heads, dim_head, nwin, t,
                mask.to(torch.float32).contiguous(), torch.empty_like(q)]
     ints = [cuda.DTYPE_CODES[q.dtype], n, j, nwin, t, win, wcols, heads,
             dim_head]
-    return lambda: kernel.launch(tensors, ints), tensors[-1]
+    key = (t, str(q.dtype).split(".")[-1])  # counted by tokens and type
+    return lambda: kernel.launch(tensors, ints, key=key), tensors[-1]
 
 
 def stripe_window_attention_launch(q, kv, bias, mask, win, heads, dim_head,

@@ -18,9 +18,10 @@ current one; the copies to the card stay on the main thread.  After the
 first frame, the end-to-end frames per second and the p50 / p95 frame
 times are printed as one JSON line and stored under ``e2e``.
 
-``--serving_buckets`` serves the intermediate forward with the static
-hints of each frame's fleet (its camera count, active agents, modality
-layout and ego modality): on the card through
+``--serving_buckets`` serves the intermediate forward of an HMViT (with
+H3GAT or any ``fusion_override``; any other model serves its plain
+forward) with the static hints of each frame's fleet (its camera count,
+active agents, modality layout and ego modality): on the card through
 :class:`hmvit_tpu_torch.graph_server.CompiledServer`, one captured CUDA
 graph per (modality layout, active agents) bucket, whose captures are
 stored under ``serving``; on the CPU as an eager forward with the same
@@ -141,6 +142,7 @@ def main(argv=None):
     from ..config import load_config
     from ..data.codecs import yaml_dump
     from ..data.opv2v import HeteroCooperativeDataset
+    from ..models.hmvit import HMViT
     from ..postprocess import build_postprocessor
     from ..serving import GEOMETRY_KEYS
     from ..utils import evaluation as E
@@ -186,8 +188,11 @@ def main(argv=None):
             models["camera"] = runnable(args.camera_model_dir)
         if args.lidar_model_dir:
             models["lidar"] = runnable(args.lidar_model_dir)
-    # the serving hints of each frame's fleet; on the card captured graphs
-    hinted = args.serving_buckets and args.fusion_method == "intermediate"
+    # the serving hints of each frame's fleet (an HMViT only, with any
+    # fusion, as the JAX tool's bucketed dispatch; any other model serves
+    # its plain forward); on the card captured graphs
+    hinted = (args.serving_buckets and args.fusion_method == "intermediate"
+              and isinstance(model, HMViT))
     graphs = (GraphServing(model, anchors) if hinted and dev.type == "cuda"
               else None)
 

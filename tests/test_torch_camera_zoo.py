@@ -297,10 +297,19 @@ def test_hmvit_shrunk_corpus_config_matches_jax(smoke_batch, name, camera,
 
 
 def test_fusion_override_still_raises():
+    """The fusion overrides build (``tests/test_torch_fusion_zoo.py``
+    holds them to JAX); a name the fusion registry does not know still
+    raises, ValueError as in JAX's ``make_fusion``."""
+    from hmvit_tpu.models.fusion import make_fusion as jmake_fusion
+
     cfg = dict(shrunk_corpus_cfg("hmvit_fax_point_pillar_hetero.yaml"),
-               fusion_override="fcooper")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        HMViT(cfg)
+               fusion_override="no_such_fusion")
+    for build in (HMViT, lambda c: jmake_fusion(c["fusion_override"], 64,
+                                                 {})):
+        with pytest.raises(ValueError, match="unknown fusion"):
+            build(cfg)
+    assert HMViT(dict(cfg, fusion_override="fcooper")).fusion_override == \
+        "fcooper"
 
 
 @pytest.mark.parametrize("name", ["bev_swap", "vpn"])

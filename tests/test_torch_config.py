@@ -34,21 +34,55 @@ def without_dirname(params):
     return {k: v for k, v in params.items() if k != "fileDirname"}
 
 
+def builds(name: str) -> bool:
+    """Whether the port builds the model of corpus hypes ``name`` (False
+    for a hypes without one, or one the port refuses by name)."""
+    model = loader.load_config(os.path.join(JAX_HYPES, name)).get("model")
+    if model is None:
+        return False
+    try:
+        zoo.build_model(model)
+    except NotImplementedError:
+        return False
+    return True
+
+
 def test_corpus_and_copies_present():
     assert len(ALL_YAMLS) == 83
-    assert COPIES == ["bevformer_point_pillar_hetero.yaml",
-                      "hmvit_cvt_point_pillar_hetero.yaml",
-                      "hmvit_fax_point_pillar_hetero.yaml",
-                      "hmvit_prod_serving.yaml",
-                      "opcl/bevformer_point_pillar_hetero.yaml",
-                      "opcl/fax_point_pillar_hetero.yaml",
-                      "smoke_hetero_tiny.yaml"]
-    # every hetero (HMViT) hypes of the corpus has its copy
-    hetero = sorted(
-        name for name in ALL_YAMLS
-        if loader.load_config(os.path.join(JAX_HYPES, name)).get(
-            "model", {}).get("core_method", "").lower() in zoo.HETERO_NAMES)
-    assert hetero == COPIES
+    assert COPIES == [
+        "bevformer_point_pillar_hetero.yaml", "corpbevt.yaml",
+        "cvt_nofusion.yaml", "hmvit_cvt_point_pillar_hetero.yaml",
+        "hmvit_fax_point_pillar_hetero.yaml", "hmvit_prod_serving.yaml",
+        "opcl/bevformer_late_fusion.yaml",
+        "opcl/bevformer_point_pillar_att_fuse.yaml",
+        "opcl/bevformer_point_pillar_disconet.yaml",
+        "opcl/bevformer_point_pillar_fax.yaml",
+        "opcl/bevformer_point_pillar_hetero.yaml",
+        "opcl/bevformer_point_pillar_v2vnet.yaml",
+        "opcl/bevformer_point_pillar_v2xt.yaml", "opcl/corpbevt.yaml",
+        "opcl/fax_att_fuse.yaml", "opcl/fax_late_fusion.yaml",
+        "opcl/fax_point_pillar_att_fuse.yaml",
+        "opcl/fax_point_pillar_fax.yaml",
+        "opcl/fax_point_pillar_fcooper.yaml",
+        "opcl/fax_point_pillar_hetero.yaml",
+        "opcl/fax_point_pillar_v2vnet.yaml",
+        "opcl/fax_point_pillar_v2xt.yaml",
+        "opcl/lidar_point_pillar_late_fusion.yaml",
+        "opcl/point_pillar_att_fuse.yaml",
+        "opcl/point_pillar_cross_view_transformer_f_cooper.yaml",
+        "opcl/point_pillar_late_fusion.yaml",
+        "opv2v/point_pillar_early_fusion.yaml",
+        "opv2v/point_pillar_intermediate_fusion.yaml",
+        "opv2v/point_pillar_late_fusion.yaml", "point_pillar_fcooper.yaml",
+        "point_pillar_v2xt.yaml", "smoke_hetero_tiny.yaml",
+        "v2xt/point_pillar_early_fusion.yaml",
+        "v2xt/point_pillar_fcooper.yaml",
+        "v2xt/point_pillar_intermediate.yaml",
+        "v2xt/point_pillar_late_fusion.yaml",
+        "v2xt/point_pillar_opv2v.yaml",
+        "v2xt/point_pillar_transformer.yaml"]
+    # every corpus hypes whose model the port builds has its copy
+    assert sorted(name for name in ALL_YAMLS if builds(name)) == COPIES
 
 
 @pytest.mark.parametrize("name", ALL_YAMLS)
@@ -119,34 +153,160 @@ def test_hypes_copy_byte_equal_to_original(name):
         assert mine == f.read()
 
 
+def jax_param_count(model, params: dict) -> int:
+    """The flax parameter count of the JAX model of a hypes (traced on
+    the shapes of a synthetic batch of its fleet and image size, not
+    run)."""
+    import jax
+
+    from hmvit_tpu.data.synthetic import make_hetero_batch
+
+    cam = params["preprocess"]["args"]["camera_preprocess"]["args"]
+    batch, _ = make_hetero_batch(
+        seed=0, max_cav=params["train_params"]["max_cav"], num_agents=2,
+        max_points=64, image_size=cam["resize_x"], num_cams=4,
+        camera_ratio=0.5, ego_mode="mixed",
+        lidar_range=params["preprocess"]["cav_lidar_range"])
+    if type(model).__name__ == "PointPillarDetector":
+        # the JAX module takes the ego's cloud alone
+        batch = {k: batch[k][:, 0] for k in ("points", "points_mask")}
+    spec = {k: jax.ShapeDtypeStruct(np.shape(v), np.asarray(v).dtype)
+            for k, v in batch.items()}
+    args = ((spec["points"], spec["points_mask"])
+            if type(model).__name__ == "PointPillarDetector" else (spec,))
+    shapes = jax.eval_shape(
+        lambda *a: model.init(jax.random.key(0), *a, train=False), *args)
+    return sum(int(np.prod(x.shape))
+               for x in jax.tree_util.tree_leaves(shapes["params"]))
+
+
 @pytest.mark.parametrize("name", COPIES)
 def test_build_model_builds_each_copy(name):
+    """The port builds the JAX model's class, with its parameter count;
+    a new model is in eval mode; HMViT's camera encoder and fusion are
+    the config's."""
     params = loader.load_config(os.path.join(PORT_HYPES, name))
     model = zoo.build_model(params["model"])
-    assert isinstance(model, HMViT) and not model.training
-    encoder = params["model"]["args"]["camera"].get("encoder", "cvt")
-    want = {"cvt": "CrossViewTransformer", "bevformer": "BEVFormerEncoder",
-            "fax": "FAXCameraEncoder"}
-    assert type(model.camera_encoder).__name__ == want[encoder]
+    jmodel = jzoo.build_model(params["model"])
+    assert type(model).__name__ == type(jmodel).__name__
+    assert not model.training
+    assert sum(p.numel() for p in model.parameters()) == \
+        jax_param_count(jmodel, params)
+    if isinstance(model, HMViT):
+        encoder = model.config["camera"].get("encoder", "cvt")
+        want = {"cvt": "CrossViewTransformer",
+                "bevformer": "BEVFormerEncoder", "fax": "FAXCameraEncoder"}
+        assert type(model.camera_encoder).__name__ == want[encoder]
+        override = jzoo._MIXED_FUSIONS.get(
+            params["model"]["core_method"].lower())
+        assert model.fusion_override == override
+
+
+def tiny_model_args() -> dict:
+    """The smoke configuration's model block, with VPN's image size and
+    the BEVFormer's window for its 4^2 BEV in the camera block."""
+    params = loader.load_config(os.path.join(PORT_HYPES,
+                                             "smoke_hetero_tiny.yaml"))
+    args = copy.deepcopy(params["model"]["args"])
+    args["camera"].update(img_size=64, window=4)
+    return args
 
 
 @pytest.mark.parametrize("name", sorted(zoo.ZOO_NAMES))
 def test_build_model_refuses_the_rest_of_the_zoo(name):
-    """Every other name of the JAX registry: JAX knows it, the port
-    raises NotImplementedError naming the queue item."""
-    jzoo.build_model({"core_method": name, "args": {}})
+    """Every other name of the JAX registry, on the smoke widths: the
+    port builds the JAX model's class with its parameter count, or
+    raises NotImplementedError naming the ROADMAP item of what it
+    lacks."""
+    import jax
+    import jax.numpy as jnp
+
+    from hmvit_tpu.data.synthetic import make_hetero_batch
+
+    model_cfg = {"core_method": name, "args": tiny_model_args()}
+    jmodel = jzoo.build_model(model_cfg)
+    if name in zoo.UNPORTED:
+        assert name not in zoo.BUILT_NAMES
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            zoo.build_model(model_cfg)
+        return
+    assert name in zoo.BUILT_NAMES
+    model = zoo.build_model(model_cfg)
+    assert type(model).__name__ == type(jmodel).__name__
+    batch, _ = make_hetero_batch(
+        seed=0, max_cav=2, num_agents=2, max_points=64, image_size=64,
+        num_cams=4, camera_ratio=0.5, ego_mode="mixed",
+        lidar_range=[-20.48, -20.48, -3.0, 20.48, 20.48, 1.0])
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    args = ((jb["points"][:, 0], jb["points_mask"][:, 0])
+            if name == "point_pillar" else (jb,))
+    shapes = jax.eval_shape(
+        lambda *a: jmodel.init(jax.random.key(0), *a, train=False), *args)
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        int(np.prod(x.shape))
+        for x in jax.tree_util.tree_leaves(shapes["params"]))
+
+
+@pytest.mark.parametrize("what,model_cfg", [
+    ("task: seg", {"core_method": "cvt_fcooper", "args": {"task": "seg"}}),
+    ("lidar_encoder", {"core_method": "point_pillar_fcooper",
+                       "args": {"lidar_encoder": "second"}}),
+    ("bevformer_ref", {"core_method": "bevformer_wrapper",
+                       "args": {"camera": {"encoder": "bevformer_ref"}}}),
+], ids=["seg_task", "lidar_zoo_encoder", "bevformer_ref"])
+def test_unported_options_of_built_names_raise(what, model_cfg):
+    """What a built name may be configured with but the port lacks: the
+    segmentation task, the lidar zoo's encoders, the reference twin."""
+    args = dict(tiny_model_args(), **model_cfg["args"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        zoo.build_model({"core_method": name, "args": {}})
+        zoo.build_model(dict(model_cfg, args=args))
 
 
 def test_registry_tables_covered_and_unknown_name_raises():
+    for table in ("_LIDAR_FUSIONS", "_CAMERA_FUSIONS", "_VPN_FUSIONS",
+                  "_MIXED_FUSIONS"):
+        assert getattr(zoo, table) == getattr(jzoo, table)
     tables = (set(jzoo._LIDAR_FUSIONS) | set(jzoo._CAMERA_FUSIONS)
               | set(jzoo._VPN_FUSIONS) | set(jzoo._MIXED_FUSIONS))
-    assert tables <= zoo.ZOO_NAMES
+    assert tables <= zoo.BUILT_NAMES
+    assert zoo.ZOO_NAMES == (zoo.BUILT_NAMES - zoo.HETERO_NAMES) | set(
+        zoo.UNPORTED)
+    assert not zoo.BUILT_NAMES & set(zoo.UNPORTED)
     assert zoo.HETERO_NAMES == jzoo._HETERO_NAMES
     for build in (zoo.build_model, jzoo.build_model):
         with pytest.raises(ValueError, match="unknown"):
             build({"core_method": "no_such_model", "args": {}})
+
+
+def test_serving_buckets_serve_a_cooperative_detector_plainly(tmp_path,
+                                                              monkeypatch):
+    """``tools.inference --serving_buckets --cpu`` on a CooperativeDetector
+    run directory: its plain forward (no serving hints), as the JAX
+    tool's dispatch serves any model but HMViT."""
+    from hmvit_tpu_torch.tools import inference
+
+    params = loader.load_config(os.path.join(PORT_HYPES,
+                                             "smoke_hetero_tiny.yaml"))
+    params["model"] = {"core_method": "point_pillar_fcooper",
+                       "args": {k: params["model"]["args"][k] for k in
+                                ("anchor_number", "lidar",
+                                 "spatial_transform")}}
+    run = tmp_path / "run"
+    run.mkdir()
+    loader.save_config(params, str(run / "config.yaml"))
+    calls = []
+    forward = zoo.CooperativeDetector.forward
+
+    def spy(self, batch, **hints):
+        calls.append(hints)
+        return forward(self, batch, **hints)
+
+    monkeypatch.setattr(zoo.CooperativeDetector, "forward", spy)
+    res = inference.main(["--model_dir", str(run), "--synthetic",
+                          "--max_points", "2048", "--max_frames", "2",
+                          "--serving_buckets", "--cpu"])
+    assert calls == [{}, {}]
+    assert "serving" not in res and set(res["iou"]) >= {"ap_30", "ap_70"}
 
 
 @pytest.mark.parametrize("encoder", ["fax_ref", "cvt_ref", "bevformer_ref"])

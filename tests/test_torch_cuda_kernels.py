@@ -126,6 +126,29 @@ def test_window_attention_kernels(dev, dtype, j, d):
              (qw, kvw, bias, mw), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("win", [4, 8, 16])
+def test_plain_window_attention_at_v2xvit_windows(dev, dtype, win):
+    """The single-sender launches of V2X-ViT's pyramid: T = 16, 64 and
+    256 tokens, 8 heads of 32 (T = 256 reads its bias from device memory:
+    a head's 256 KB do not fit a block)."""
+    heads, d, n, hw = 8, 32, 3, 32
+    c, t = heads * d, win * win
+    nwin = (hw // win) ** 2
+    q = torch.randn(n, nwin, t, c, device=dev).to(dtype) * d ** -0.5
+    kv = torch.randn(n, 1, nwin, t, 2 * c, device=dev).to(dtype)
+    bias = torch.randn(heads, t, t, device=dev) * 0.5
+    mask = torch.ones(n, 1, nwin, t, device=dev).to(dtype)
+    bodies = cuda.attention_body_launches()["plain_window_attention"]
+    _compare(lambda *a: fused_plain_window_attention(*a, heads, d),
+             (q, kv, bias, mask), dtype)
+    ran = cuda.attention_body_launches()["plain_window_attention"]
+    body = attention_body(dtype, 1, t, d)
+    assert body == ("mma" if dtype == torch.bfloat16 and t <= 128
+                    else "simt")
+    assert ran[body] == bodies[body] + 1
+
+
 def _far_pair(rng, b, l, angles=None):
     """Rigid transforms with sender l-1 moved wholly out of every other
     agent's map (pair out of range), sender 0 co-located with itself
