@@ -215,7 +215,32 @@ Phases:
    phase is counted by (tokens T, operand type) and by body; the kernels
    line gains ``fusion_zoo_launches`` and one record per V2X-ViT window
    (its launches at that T over the phase, the bfloat16 timing, and the
-   float32 one under ``float32``).  The phase prints its length.
+   float32 one under ``float32``).  The phase prints its length;
+13. the segmentation assemblies and the lidar zoo, on which no kernel
+   runs: (a) each assembly of ``SEG_LIDAR_ASSEMBLIES`` at smoke widths
+   (``CameraSegmentor`` with CVT, FAX, VPN and BEVSwap; ``task: seg``
+   under F-Cooper and SwapFusion; ``VoxelNetDetector``,
+   ``SecondDetector``, ``PIXORDetector``, ``VoxelNetIntermediate``,
+   ``PixorIntermediate``, ``second_intermediate``), weights from seed
+   0, float32 with TF32 off on the card against the same model's CPU
+   forward: every output within ``SEG_LIDAR_ATOL`` over max(1, max
+   |x|), no launch of any of the nine kernels; (b) ``tools.train
+   --synthetic --half`` at published widths (``SEG_LIDAR_TRAIN``, 3 steps
+   each: ``opcamera/cvt.yaml`` with the map ground truth of
+   ``add_data_extension``, ``opcamera/corpbevt.yaml``,
+   ``opcamera/view_parse_network_v2vnet.yaml``, ``opcamera/bev_swap.yaml``,
+   ``opv2v/pixor_intermediate_fusion.yaml`` at batch 1,
+   ``opv2v/voxelnet_intermediate_fusion.yaml`` with its anchors at the
+   stride of its outputs, ``SEG_LIDAR_ANCHOR_STRIDE``, and
+   ``opv2v/second_intermediate_fusion.yaml``): losses finite, no launch,
+   steps/s after the first and peak device memory printed; (c)
+   ``tools.inference --bf16`` on the three lidar-zoo run directories
+   (their plain forward) and ``--fusion_method late`` on
+   ``opv2v/pixor_late_fusion.yaml`` (random weights): AP (not held), fps,
+   p50 / p95, no launch; (d) the cvt run directory's mIoU on two fixture
+   frames, ``seg_iou(seg_post_process(...))`` against the map labels
+   (printed, not held).  The kernels line gains ``seg_lidar_zoo_launches``
+   (all 0); the phase prints its length.
 
 The pair warp in float32 is held to its twin at ``FP32_ATOL`` on the
 serving and ego poses; on spread poses (the phase 2 case and
@@ -399,6 +424,33 @@ FUSION_ZOO_TRAIN = (("point_pillar_v2xt.yaml", 10),
 # single-agent PointPillars, served by late fusion
 LATE_FUSION_HYPES = "opcl/lidar_point_pillar_late_fusion.yaml"
 LATE_FUSION_FRAMES = 2
+# phase 13: each new assembly on the card (float32, TF32 off) against the
+# port's own CPU float32 forward of the same weights, over max(1, max|x|)
+SEG_LIDAR_ATOL = 1e-4
+# the published-width runs of tools.train --half: (hypes, steps, flags)
+SEG_LIDAR_TRAIN = (("opcamera/cvt.yaml", 3, ()),
+                   ("opcamera/corpbevt.yaml", 3, ()),
+                   ("opcamera/view_parse_network_v2vnet.yaml", 3, ()),
+                   ("opcamera/bev_swap.yaml", 3, ()),
+                   # the hypes' batch of 8 (x 5 slots of a 1600 x 400
+                   # raster, float32 by promotion) runs out of the card's
+                   # 80 GB in the first trunk stage
+                   ("opv2v/pixor_intermediate_fusion.yaml", 3,
+                    ("--batch_size", "1")),
+                   ("opv2v/voxelnet_intermediate_fusion.yaml", 3, ()),
+                   ("opv2v/second_intermediate_fusion.yaml", 3, ()))
+# VoxelNet's RPN answers at half its grid (256^2 of 512^2), but its
+# corpus hypes asks for anchors at feature stride 4 (128^2): the labels
+# cannot meet the outputs, in the JAX tools as in the port's.  Phase 13
+# trains and serves a copy with the stride of the outputs (the model's
+# widths unchanged)
+SEG_LIDAR_ANCHOR_STRIDE = {"opv2v/voxelnet_intermediate_fusion.yaml": 2}
+# the lidar zoo's run directories served, and PIXOR by late fusion
+SEG_LIDAR_SERVED = ("opv2v/pixor_intermediate_fusion.yaml",
+                    "opv2v/voxelnet_intermediate_fusion.yaml",
+                    "opv2v/second_intermediate_fusion.yaml")
+PIXOR_LATE_HYPES = "opv2v/pixor_late_fusion.yaml"
+SEG_LIDAR_FRAMES = 4
 
 KERNEL_META = {
     "pair_warp": ("hmvit_tpu_torch/csrc/pair_warp.cu",
@@ -2604,6 +2656,238 @@ def fusion_zoo_phase(dev, card):
     return total, keyed, k3
 
 
+# phase 13 (a): the smoke-width assemblies.  Camera: 4 x 64^2 cameras;
+# lidar: +-20.48 m, the grids of tests/test_torch_lidar_zoo.py
+SEG_LIDAR_RANGE = [-20.48, -20.48, -3.0, 20.48, 20.48, 1.0]
+_CAMERA_TRUNK = {"dim": 32, "out_dim": 48,
+                 "encoder_channels": [16, 16, 32, 32]}
+_CVT = dict(_CAMERA_TRUNK, encoder="cvt", bev_size=4, num_blocks=1,
+            decoder_layers=2)
+_FAX = dict(_CAMERA_TRUNK, encoder="fax", bev_size=8, bev_window=4, depth=1,
+            decoder_layers=1, heads=2, dim_head=16)
+_SPATIAL = {"downsample_rate": 4, "voxel_size": [0.64, 0.64, 4.0]}
+_VOXELNET = {"voxel_size": [0.64, 0.64, 0.5], "lidar_range": SEG_LIDAR_RANGE,
+             "grid_size": [64, 64, 8], "anchor_number": 2, "vfe_filters": 16}
+_SECOND = dict(_VOXELNET, voxel_size=[0.64, 0.64, 4.0 / 24],
+               grid_size=[64, 64, 24], base_bev_backbone={
+                   "layer_nums": [1, 1], "layer_strides": [1, 2],
+                   "num_filters": [32, 32], "upsample_strides": [1, 2],
+                   "num_upsample_filter": [32, 32]})
+_PIXOR = {"res": 0.64, "downsample_rate": 4, "lidar_range": SEG_LIDAR_RANGE,
+          "use_bn": True}
+# (name, modality of the batch, model block)
+SEG_LIDAR_ASSEMBLIES = (
+    ("CameraSegmentor cvt", "camera",
+     {"core_method": "cvt_seg", "args": {"camera": _CVT, "target": "both"}}),
+    ("CameraSegmentor fax", "camera",
+     {"core_method": "fax_fused_transformer",
+      "args": {"camera": dict(_FAX, encoder="fax"), "target": "static"}}),
+    ("CameraSegmentor vpn", "camera",
+     {"core_method": "view_parse_network",
+      "args": {"camera": dict(_CAMERA_TRUNK, bev_size=8, decoder_layers=1,
+                              img_size=64)}}),
+    ("CameraSegmentor bev_swap", "camera",
+     {"core_method": "bev_swap",
+      "args": {"camera": dict(_CAMERA_TRUNK, bev_size=8, window=4,
+                              num_blocks=1, upsample=1, dim_head=16,
+                              num_cams=4)}}),
+    ("task: seg, F-Cooper", "camera",
+     {"core_method": "cvt_fcooper",
+      "args": {"camera": _CVT, "spatial_transform": _SPATIAL, "task": "seg",
+               "anchor_number": 2}}),
+    ("task: seg, SwapFusion", "camera",
+     {"core_method": "corpbevt",
+      "args": {"camera": _FAX, "spatial_transform": _SPATIAL, "task": "seg",
+               "anchor_number": 2}}),
+    ("VoxelNetDetector", "lidar",
+     {"core_method": "voxel_net", "args": {"lidar": _VOXELNET}}),
+    ("SecondDetector", "lidar",
+     {"core_method": "second", "args": {"lidar": _SECOND}}),
+    ("PIXORDetector", "lidar",
+     {"core_method": "pixor", "args": {"lidar": _PIXOR}}),
+    ("VoxelNetIntermediate", "lidar",
+     {"core_method": "voxel_net_intermediate", "args": {"lidar": _VOXELNET}}),
+    ("PixorIntermediate", "lidar",
+     {"core_method": "pixor_intermediate", "args": {"lidar": _PIXOR}}),
+    ("second_intermediate", "lidar",
+     {"core_method": "second_intermediate",
+      "args": {"lidar": _SECOND, "anchor_number": 2,
+               "spatial_transform": dict(_SPATIAL, downsample_rate=8)}}),
+)
+
+
+def seg_lidar_forwards(dev, card, total) -> None:
+    """Phase 13 (a): each assembly of SEG_LIDAR_ASSEMBLIES (weights from
+    seed 0) on the card in float32 with TF32 off, against the same
+    model's float32 forward on the CPU: every output within
+    SEG_LIDAR_ATOL over max(1, max |x|), finite, and no kernel launched."""
+    import torch
+
+    from hmvit_tpu_torch.data.synthetic import make_hetero_batch
+    from hmvit_tpu_torch.models.zoo import build_model
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.utils.precision import strict_fp32
+
+    batches = {}
+    for modality, kw in (("camera", dict(max_points=64, image_size=64,
+                                          num_cams=4, camera_ratio=1.0,
+                                          ego_mode="camera")),
+                         ("lidar", dict(max_points=2048, image_size=8,
+                                        num_cams=1, camera_ratio=0.0,
+                                        ego_mode="lidar"))):
+        batch, _ = make_hetero_batch(seed=3, max_cav=3, num_agents=2,
+                                     lidar_range=SEG_LIDAR_RANGE, **kw)
+        if modality == "camera":
+            batch["mode"][:] = 0
+        batches[modality] = {k: torch.from_numpy(np.asarray(v))
+                             for k, v in batch.items()}
+    for name, modality, model_cfg in SEG_LIDAR_ASSEMBLIES:
+        model = init_parameters(build_model(model_cfg), seed=0)
+        with torch.no_grad():
+            want = model(batches[modality])
+        model = model.to(dev)
+        on_card = {k: v.to(dev) for k, v in batches[modality].items()}
+        cuda.reset_launches()
+        with torch.no_grad(), strict_fp32():
+            got = model(on_card)
+        torch.cuda.synchronize()
+        counts = cuda.launch_counts()
+        for kernel, n in counts.items():
+            total[kernel] += n
+        errs = {}
+        for key, ref in want.items():
+            out = got[key].float().cpu()
+            scale = max(1.0, float(ref.abs().max()))
+            errs[key] = float((out - ref).abs().max()) / scale
+            if not (torch.isfinite(out).all() and errs[key] <= SEG_LIDAR_ATOL
+                    and out.shape == ref.shape):
+                raise AssertionError(f"phase 13 {name} {key}: card vs CPU "
+                                     f"{errs[key]} (tol {SEG_LIDAR_ATOL})")
+        if any(counts.values()):
+            raise AssertionError(f"phase 13 {name}: launches {counts}")
+        print(f"{name} ({model_cfg['core_method']}) fp32 on the card vs the "
+              f"CPU: max_abs_err/scale "
+              + ", ".join(f"{k} {tuple(got[k].shape)} {e:.3e}"
+                          for k, e in errs.items())
+              + f" (tol {SEG_LIDAR_ATOL}); no kernel launched")
+        del model, got
+    torch.cuda.empty_cache()
+
+
+def seg_miou(run, dev, card) -> None:
+    """Phase 13 (d): the cvt run directory's dynamic map on a fixture
+    (2 frames), mIoU by ``seg_iou(seg_post_process(...))`` against the
+    frames' map labels, printed (not held: 3 steps do not train)."""
+    import torch
+
+    from hmvit_tpu_torch.data.opv2v import HeteroCooperativeDataset
+    from hmvit_tpu_torch.models.seg_head import seg_iou, seg_post_process
+    from hmvit_tpu_torch.tools import common
+
+    model, params = common.load_runnable(run, dev)
+    common.write_synthetic(params, "chip_smoke_seg_", 60000,
+                           num_scenarios=1, num_cavs=2, num_frames=2)
+    ds = HeteroCooperativeDataset(params, train=False)
+    mious = []
+    for i in range(len(ds)):
+        frame = ds[i]
+        with torch.no_grad():
+            out = seg_post_process(model(common.to_device(
+                ds.collate_batch([frame]), dev)))
+        pred = out["dynamic_map"][0].cpu().numpy()
+        label = ds.seg_labels(frame, pred.shape)["dynamic_seg"]
+        mious.append(seg_iou(pred, label)["miou"])
+    print(f"seg mIoU of the cvt run directory on {len(ds)} fixture frames "
+          f"(map ground truth, random-start weights after 3 steps; not "
+          f"held): {[round(m, 4) for m in mious]} on {card}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def seg_lidar_zoo_phase(dev, card) -> dict:
+    """Phase 13 (see the module's docstring): the segmentation
+    assemblies and the lidar zoo.  Returns each kernel's launches over
+    the phase (every one 0: no kernel runs on these paths)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from hmvit_tpu_torch.config import load_config, save_config
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.tools import inference
+
+    t_start = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    total = dict.fromkeys(KERNEL_META, 0)
+    none = dict.fromkeys(KERNEL_META, 0)
+    # (a) each new assembly, card vs CPU
+    seg_lidar_forwards(dev, card, total)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase13_") as tmp:
+        # (b) published widths, through the tools
+        runs = {}
+        for name, steps, flags in SEG_LIDAR_TRAIN:
+            hypes = os.path.join(repo, HYPES, name)
+            params = load_config(hypes)
+            model_cfg = params["model"]
+            if name in SEG_LIDAR_ANCHOR_STRIDE:
+                stride = SEG_LIDAR_ANCHOR_STRIDE[name]
+                params["postprocess"]["anchor_args"]["feature_stride"] = stride
+                hypes = os.path.join(tmp, f"anchor_stride_{stride}.yaml")
+                save_config(params, hypes)
+                print(f"{name}: anchors at feature stride {stride}, the "
+                      f"stride of its outputs (the hypes says 4)")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runs[name], losses, per_step = tools_train(
+                hypes, ["--half", *flags], steps, none, tmp, total)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"tools.train {name} ({model_cfg['core_method']}) --half"
+                  f"{''.join(' ' + f for f in flags)}: {steps} steps, "
+                  f"{time.perf_counter() - t0:.2f} s with the fixture, "
+                  f"validation and checkpoint; {1.0 / per_step:.3f} steps/s "
+                  f"after the first; loss {[round(v, 4) for v in losses]}; "
+                  f"no kernel launched; peak device memory {peak:.3f} GiB "
+                  f"on {card}")
+            torch.cuda.empty_cache()
+        # (c) the lidar zoo's run directories served (their plain forward)
+        late = os.path.join(tmp, "pixor_late_fusion")
+        os.makedirs(late)
+        save_config(load_config(os.path.join(repo, HYPES, PIXOR_LATE_HYPES)),
+                    os.path.join(late, "config.yaml"))
+        served = [(name, runs[name], []) for name in SEG_LIDAR_SERVED]
+        served.append((f"{PIXOR_LATE_HYPES} (pixor, random weights)", late,
+                       ["--fusion_method", "late"]))
+        for name, run, flags in served:
+            cuda.reset_launches()
+            res = inference.main(["--model_dir", run, "--synthetic",
+                                  "--synthetic_frames", str(SEG_LIDAR_FRAMES),
+                                  "--bf16", "--max_frames",
+                                  str(SEG_LIDAR_FRAMES), "--ap_mode", "iou",
+                                  *flags])
+            counts = cuda.launch_counts()
+            for kernel, n in counts.items():
+                total[kernel] += n
+            iou, e2e = res["iou"], res["e2e"]
+            print(f"tools.inference {name} --bf16 {' '.join(flags)}: AP@0.3 "
+                  f"/ 0.5 / 0.7 {iou['ap_30']:.4f} / {iou['ap_50']:.4f} / "
+                  f"{iou['ap_70']:.4f} (not held); e2e {e2e['fps']} fps over "
+                  f"{e2e['frames']} frames, p50 {e2e['p50_ms']} ms, p95 "
+                  f"{e2e['p95_ms']} ms; launches {counts} on {card}")
+            if any(counts.values()):
+                raise AssertionError(f"tools.inference {name}: launches "
+                                     f"{counts}, expected none")
+        # (d) the seg run's mIoU on the fixture
+        seg_miou(runs["opcamera/cvt.yaml"], dev, card)
+    if any(total.values()):
+        raise AssertionError(f"phase 13: launches {total}, expected none")
+    torch.cuda.empty_cache()
+    print(f"phase 13: {time.perf_counter() - t_start:.1f} s on {card}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2888,6 +3172,9 @@ def main() -> int:
     # -- 12. the fusion zoo ---------------------------------------------------
     fusion_counts, keyed, k3 = fusion_zoo_phase(dev, card)
 
+    # -- 13. the segmentation assemblies and the lidar zoo --------------------
+    seg_lidar_counts = seg_lidar_zoo_phase(dev, card)
+
     kernels = []
     for name, rec in record.items():
         launches = path_counts[KERNEL_PATH[name]][name]
@@ -2908,7 +3195,9 @@ def main() -> int:
                         "gate_launches": gate_counts[name],
                         "run_dir_launches": run_dir_counts[name],
                         "zoo_launches": zoo_counts[name],
-                        "fusion_zoo_launches": fusion_counts[name], **rec})
+                        "fusion_zoo_launches": fusion_counts[name],
+                        "seg_lidar_zoo_launches": seg_lidar_counts[name],
+                        **rec})
     # K3 at V2X-ViT's windows: its launches at each T over phase 12
     name = "plain_window_attention"
     for win, rec in k3.items():
@@ -2925,6 +3214,7 @@ def main() -> int:
                         "launches": launches,
                         "launches_by_type": {key[1]: n for key, n in
                                              keyed.items() if key[0] == t},
+                        "seg_lidar_zoo_launches": seg_lidar_counts[name],
                         **rec["bfloat16"], "float32": rec["float32"]})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,6 +8,7 @@ port IS its path in the flax tree.  Each leaf class says, in
 
 * ``dense``: kernel (in, out) -> weight (out, in);
 * ``conv``: HWIO -> OIHW;
+* ``conv3d``: DHWIO -> OIDHW;
 * ``conv_transpose``: (kh, kw, in, out) -> (in, out, kh, kw) with a
   spatial flip (flax does not flip a transposed convolution's kernel,
   PyTorch's ``conv_transpose2d`` does);
@@ -41,6 +42,8 @@ def _convert(arr: np.ndarray, kind: str) -> np.ndarray:
         return arr.T
     if kind == "conv":
         return arr.transpose(3, 2, 0, 1)
+    if kind == "conv3d":
+        return arr.transpose(4, 3, 0, 1, 2)
     if kind == "conv_transpose":
         return arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     raise ValueError(f"unknown conversion {kind!r}")

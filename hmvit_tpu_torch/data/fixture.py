@@ -5,11 +5,10 @@ port of ``hmvit_tpu/data/fixture.py``).
 For the same arguments and seed it writes the same scene, the same frame
 yaml content, the same point clouds and the same camera pixels as the
 JAX writer, through the port's own codecs (:mod:`.codecs`: no PyYAML,
-OpenCV or Pillow).  The BEV map rasters the JAX writer adds
-(``bev_dynamic`` / ``bev_static`` / ``bev_lane`` /
-``bev_visibility_corp``) need the segmentation head's rasterizer, which
-is not ported yet (ROADMAP.md Queue 1 item 5); they draw nothing from
-the generator, so leaving them out changes no other file.
+OpenCV or Pillow), and the same four BEV map rasters a frame
+(``bev_dynamic`` and ``bev_visibility_corp``: the vehicles in the
+agent's frame; ``bev_static``: a road band; ``bev_lane``: its centre
+line; 128 x 128 over +-50 m, 0 / 255 in three equal channels).
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ import os
 
 import numpy as np
 
+from ..models.seg_head import rasterize_boxes_to_mask
 from ..utils.boxes import boxes_to_corners_3d_np
 from . import synthetic
 from .codecs import write_png, yaml_dump
@@ -35,9 +35,10 @@ def write_mini_opv2v(
     min_separation: float = 0.0,
     area: float = 30.0,
 ) -> None:
-    """root/scenario_<s>/<641 + agent>/<timestamp>.{yaml,pcd} and
-    <timestamp>_camera{0..3}.png: every agent sees the same vehicles; the
-    four cameras of a frame share one random image."""
+    """root/scenario_<s>/<641 + agent>/<timestamp>.{yaml,pcd},
+    <timestamp>_camera{0..3}.png and <timestamp>_bev_*.png: every agent
+    sees the same vehicles; the four cameras of a frame share one random
+    image."""
     rng = np.random.default_rng(seed)
     for s in range(num_scenarios):
         vehicles, poses = synthetic.make_scene(
@@ -99,3 +100,27 @@ def write_mini_opv2v(
                 for mi in range(4):
                     write_png(os.path.join(cav_dir, f"{ts}_camera{mi}.png"),
                               img[..., ::-1])
+                write_bev_maps(cav_dir, ts, synthetic.vehicles_in_agent_frame(
+                    vehicles, pose, BEV_MAP_RANGE))
+
+
+# the BEV rasters' range and size
+BEV_MAP_RANGE = [-50, -50, -3, 50, 50, 1]
+BEV_MAP_SIZE = 128
+
+
+def write_bev_maps(cav_dir: str, ts: str, boxes) -> None:
+    """A frame's four BEV map rasters: the dynamic map (and the
+    visibility map, the same) of ``boxes`` (hwl, the agent's frame), a
+    road band over the middle half of the rows and a lane line of two
+    rows at its centre."""
+    n = BEV_MAP_SIZE
+    dyn = rasterize_boxes_to_mask(boxes, BEV_MAP_RANGE, (n, n), "hwl") * 255
+    road = np.zeros((n, n), np.uint8)
+    road[n // 4: 3 * n // 4] = 255
+    lane = np.zeros((n, n), np.uint8)
+    lane[n // 2 - 1: n // 2 + 1] = 255
+    for name, m in (("bev_dynamic", dyn), ("bev_static", road),
+                    ("bev_lane", lane), ("bev_visibility_corp", dyn)):
+        write_png(os.path.join(cav_dir, f"{ts}_{name}.png"),
+                  np.stack([m] * 3, -1))

@@ -9,8 +9,9 @@ read through the port's own codecs (:mod:`.codecs`, :mod:`.pcd_io`):
 the data path needs no PyYAML, OpenCV or Pillow.
 
 Layout: root/<scenario>/<cav_id>/<timestamp>.yaml / .pcd /
-_camera{0..3}.png.  RSUs have negative cav ids and sort to the end; the
-ego is the first CAV.
+_camera{0..3}.png / _bev_{dynamic,static,lane,visibility_corp}.png.
+RSUs have negative cav ids and sort to the end; the ego is the first
+CAV.
 
 Besides the intermediate-fusion frame, :meth:`HeteroCooperativeDataset.
 early_fusion_frame` merges every agent's cloud into the ego's slot and
@@ -18,9 +19,14 @@ early_fusion_frame` merges every agent's cloud into the ego's slot and
 single-agent frame per agent (``tools/inference.py --fusion_method
 early|late``).
 
-Not ported yet: the BEV map ground truth (``add_data_extension``,
-``seg_labels``; ROADMAP.md Queue 1 item 5) and the inspection API
-(``get_sample``, ``visualize_all_agents_bbx``; item 7).
+With ``add_data_extension`` a frame also carries the ego's BEV map
+ground truth (``gt_dynamic``, ``gt_static``, ``has_map_gt``) read from
+the rasters beside its yaml, as OpenCV reads them (the grey formula and
+the nearest resize of :mod:`.codecs`); :meth:`HeteroCooperativeDataset.
+seg_labels` gives the segmentation labels at a head's grid.
+
+Not ported yet: the inspection API (``get_sample``,
+``visualize_all_agents_bbx``; ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -34,12 +40,17 @@ import numpy as np
 from .. import COM_RANGE
 from ..utils import transforms as T
 from ..utils.boxes import corners_to_boxes, mask_boxes_outside_range_np
-from .codecs import read_png, resize_bilinear, yaml_load_file
+from .codecs import read_grey, read_png, resize_bilinear, resize_nearest, \
+    yaml_load_file
 from .pcd_io import read_pcd_padded
 
 # ImageNet normalisation of the camera images (RGB)
 IMAGE_MEAN = (0.485, 0.456, 0.406)
 IMAGE_STD = (0.229, 0.224, 0.225)
+
+
+# the BEV map rasters of a frame
+BEV_MAPS = ("bev_dynamic", "bev_static", "bev_lane", "bev_visibility_corp")
 
 
 def load_frame_yaml(path: str) -> dict:
@@ -116,6 +127,10 @@ def scan_scenarios(root: str) -> list:
                     "pcd": os.path.join(cav_dir, f"{ts}.pcd"),
                     "cameras": [os.path.join(cav_dir, f"{ts}_camera{i}.png")
                                 for i in range(4)],
+                    # the BEV map ground truth (add_data_extension)
+                    "bev_maps": {
+                        name: os.path.join(cav_dir, f"{ts}_{name}.png")
+                        for name in BEV_MAPS},
                 }
             cavs[cav] = frames
         scenarios.append((scen, cavs))
@@ -166,10 +181,6 @@ class HeteroCooperativeDataset:
 
     def __init__(self, params: dict, train: bool = True,
                  max_points: int = 60000, seed: int | None = None):
-        if params.get("add_data_extension"):
-            raise NotImplementedError(
-                "the BEV map ground truth (add_data_extension) is not "
-                "ported yet: ROADMAP.md Queue 1 item 5")
         self.params = params
         self.train = train
         root = params["root_dir"] if train else params["validate_dir"]
@@ -184,6 +195,11 @@ class HeteroCooperativeDataset:
                     .get("camera_preprocess", {}).get("args", {}))
         self.image_size = cam_args.get("resize_x", 512)
         self.order = params["postprocess"].get("order", "hwl")
+        # the ego's BEV map rasters, when the config asks for them; the
+        # dynamic map from bev_visibility_corp when train_params.visible
+        self.load_bev_maps = bool(params.get("add_data_extension"))
+        self.visible = params["train_params"].get("visible", False)
+        self.seg_gt_size = int(params["postprocess"].get("seg_gt_size", 128))
 
         # communication impairments: 'sim' delays by a fixed number of
         # frames; 'real' derives the delay from payload size / link speed
@@ -361,6 +377,9 @@ class HeteroCooperativeDataset:
             for mi, fut in cam_futs:
                 frame["camera"][slot_i, mi] = fut.result()
 
+        if self.load_bev_maps:
+            frame.update(self._load_bev_gt(cavs[cav_list[0]][ts]))
+
         poses = frame.pop("_poses")
         frame["pairwise_t_matrix"][:] = T.pairwise_transforms(
             poses, self.max_cav).astype(np.float32)
@@ -372,6 +391,58 @@ class HeteroCooperativeDataset:
             frame["object_bbx_mask"][i] = 1
         frame["object_ids"] = list(objects.keys())[: self.max_objects]
         return frame
+
+    def _load_bev_gt(self, files: dict) -> dict:
+        """The ego-frame BEV map ground truth of a frame's rasters, each
+        turned grey and resized (nearest) to ``seg_gt_size``: a nonzero
+        pixel is class 1; static is road (1) with lane (2) over it.  A
+        missing dynamic raster leaves ``has_map_gt`` 0."""
+        s = self.seg_gt_size
+
+        def binarize(name):
+            path = files["bev_maps"][name]
+            if not os.path.exists(path):
+                return None
+            return (resize_nearest(read_grey(path), s) > 0).astype(np.uint8)
+
+        dyn = binarize("bev_visibility_corp" if self.visible
+                       else "bev_dynamic")
+        road = binarize("bev_static")
+        lane = binarize("bev_lane")
+        out = {"gt_dynamic": np.zeros((s, s), np.uint8),
+               "gt_static": np.zeros((s, s), np.uint8),
+               "has_map_gt": np.float32(0.0)}
+        if dyn is not None:
+            out["gt_dynamic"] = dyn
+            out["has_map_gt"] = np.float32(1.0)
+        if road is not None:
+            static = road.copy()
+            if lane is not None:
+                static[lane == 1] = 2
+            out["gt_static"] = static
+        return out
+
+    def seg_labels(self, frame: dict, grid_hw) -> dict:
+        """The segmentation labels of one frame at a head's grid
+        (``grid_hw``): the map rasters subsampled (row ``i * H // h``,
+        column ``j * W // w``) when the frame carries them
+        (``has_map_gt``), else the dynamic map rasterized from the
+        frame's boxes."""
+        h, w = grid_hw
+        if "gt_dynamic" in frame and float(
+                np.asarray(frame.get("has_map_gt", 0))) > 0:
+            def down(m):
+                yi = np.arange(h) * m.shape[0] // h
+                xi = np.arange(w) * m.shape[1] // w
+                return m[np.ix_(yi, xi)]
+
+            return {"dynamic_seg": down(np.asarray(frame["gt_dynamic"])),
+                    "static_seg": down(np.asarray(frame["gt_static"]))}
+        from ..models.seg_head import rasterize_boxes_to_mask
+
+        boxes = frame["object_bbx_center"][frame["object_bbx_mask"] > 0]
+        return {"dynamic_seg": rasterize_boxes_to_mask(
+            boxes, self.lidar_range, grid_hw, self.order)}
 
     def early_fusion_frame(self, idx: int) -> dict:
         """Early fusion: every agent's points projected into the ego frame

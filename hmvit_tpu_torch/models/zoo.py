@@ -6,20 +6,28 @@ names:
   fusion (:data:`HETERO_NAMES`), or with another fusion of the zoo
   (``fusion_override``, the names of :data:`_MIXED_FUSIONS`);
 * the single-agent detectors: ``point_pillar``
-  (:class:`PointPillarDetector`) and the camera ones
+  (:class:`PointPillarDetector`), the camera ones
   (:class:`CameraDetector`: ``cross_view_transformer``,
-  ``cvt_nofusion``, ``fax``, ``bevformer_wrapper``);
+  ``cvt_nofusion``, ``fax``, ``bevformer_wrapper``) and the lidar zoo
+  (``voxel_net``, ``second``, ``pixor`` through
+  :class:`_SingleAgentLidar`);
+* the camera BEV segmentation (:class:`CameraSegmentor`: ``cvt_seg``,
+  ``corpbevt_seg``, ``bev_seg``, ``fax_fused_transformer``,
+  ``view_parse_network[_ms]``, ``bev_swap``);
 * the intermediate-fusion detector :class:`CooperativeDetector` on one
-  modality: lidar PointPillars (:data:`_LIDAR_FUSIONS`, with the
-  per-stage fusion of ``point_pillar_intermediate``) or a camera encoder
-  (:data:`_CAMERA_FUSIONS`, :data:`_VPN_FUSIONS`), for detection.
+  modality: a lidar encoder (PointPillars, or with ``lidar_encoder`` one
+  of the lidar zoo's; :data:`_LIDAR_FUSIONS`, with the per-stage fusion
+  of ``point_pillar_intermediate``, and ``second_intermediate``) or a
+  camera encoder (:data:`_CAMERA_FUSIONS`, :data:`_VPN_FUSIONS`), for
+  detection or, with ``task: seg``, segmentation;
+* the cooperative VoxelNet and PIXOR (``voxel_net_intermediate``,
+  ``pixor_intermediate``).
 
 A name that starts with ``fax_`` or ``bevformer_`` names the camera
-encoder, as in JAX.  What is not ported yet raises
-``NotImplementedError`` naming its ROADMAP.md item (:data:`UNPORTED`,
-and the segmentation task, the reference twins and the lidar zoo's
-encoders under a built name); an unknown name raises ``ValueError``, as
-in JAX.
+encoder, as in JAX.  Every name of the JAX registry builds
+(:data:`UNPORTED` is empty); the reference twin camera encoders raise
+``NotImplementedError`` from ``make_camera_encoder`` (ROADMAP.md Queue 1
+item 5); an unknown name raises ``ValueError``, as in JAX.
 """
 from __future__ import annotations
 
@@ -29,9 +37,12 @@ from torch import nn
 from .fusion import make_fusion
 from .hmvit import HMViT, make_camera_encoder
 from .layers import DetectionHead, DownsampleConv, NaiveDecoder
+from .lidar_zoo import SecondDetector, VoxelNetDetector, VoxelNetIntermediate
 from .pillar_encoder import AttBEVBackbone, PillarFeatureNet, \
     PointPillarEncoder
+from .pixor import PIXORDetector, PixorIntermediate
 from .point_pillar import PointPillarDetector
+from .seg_head import BevSegHead
 
 HETERO_NAMES = frozenset({
     "hmvit", "hetero_hmvit", "bevformer_point_pillar_hetero",
@@ -92,23 +103,26 @@ _MIXED_FUSIONS = {
 CAMERA_DETECTOR_NAMES = frozenset({"cross_view_transformer", "cvt_nofusion",
                                    "fax", "bevformer_wrapper"})
 
-_SEGMENTATION = ("the segmentation assemblies (CameraSegmentor, the BEV "
-                 "segmentation head and its post-processing)")
-_LIDAR_ZOO = "the lidar zoo (VoxelNet, SECOND, PIXOR)"
-# the names that raise, with what is missing
-UNPORTED = {
-    **dict.fromkeys(("cvt_seg", "corpbevt_seg", "bev_seg",
-                     "fax_fused_transformer", "view_parse_network",
-                     "view_parse_network_ms", "bev_swap"), _SEGMENTATION),
-    **dict.fromkeys(("voxel_net", "second", "pixor", "voxel_net_intermediate",
-                     "pixor_intermediate", "second_intermediate"),
-                    _LIDAR_ZOO),
+# camera BEV segmentation: model name -> the default camera encoder
+SEGMENTOR_ENCODERS = {
+    "cvt_seg": None, "corpbevt_seg": None, "bev_seg": None,
+    "fax_fused_transformer": "fax", "view_parse_network": "vpn",
+    "view_parse_network_ms": "vpn_ms", "bev_swap": "bev_swap",
 }
+# the lidar zoo's encoders by ``lidar_encoder`` / single-agent name
+LIDAR_ZOO = {"voxel_net": VoxelNetDetector, "second": SecondDetector,
+             "pixor": PIXORDetector}
+LIDAR_ZOO_COOPERATIVE = frozenset({"voxel_net_intermediate",
+                                   "pixor_intermediate",
+                                   "second_intermediate"})
+# the names that raise, with what is missing: none left
+UNPORTED: dict = {}
 # every name the port builds
 BUILT_NAMES = frozenset(HETERO_NAMES | set(_LIDAR_FUSIONS)
                         | set(_CAMERA_FUSIONS) | set(_VPN_FUSIONS)
                         | set(_MIXED_FUSIONS) | {"point_pillar"}
-                        | CAMERA_DETECTOR_NAMES)
+                        | CAMERA_DETECTOR_NAMES | set(SEGMENTOR_ENCODERS)
+                        | set(LIDAR_ZOO) | LIDAR_ZOO_COOPERATIVE)
 # the JAX registry's names other than the hetero ones
 ZOO_NAMES = frozenset((BUILT_NAMES - HETERO_NAMES) | set(UNPORTED))
 
@@ -155,6 +169,42 @@ class CameraDetector(nn.Module):
                       bev.reshape(b, l, *bev.shape[1:])[:, 0])
 
 
+class CameraSegmentor(nn.Module):
+    """Single-agent camera BEV segmentation: the camera encoder on every
+    slot, the ego's BEV through :class:`BevSegHead` (``target``:
+    dynamic, static or both); the outputs NHWC.  A new model is in eval
+    mode."""
+
+    def __init__(self, config: dict):
+        super().__init__()
+        self.config = config
+        self.camera_encoder = make_camera_encoder(config["camera"])
+        self.BevSegHead_0 = BevSegHead(camera_channels(config["camera"]),
+                                       config.get("target", "dynamic"))
+        self.eval()
+
+    def forward(self, batch: dict) -> dict:
+        b, l = batch["camera"].shape[:2]
+        bev = self.camera_encoder(*(_flat(batch, k, b, l) for k in
+                                    ("camera", "intrinsics", "extrinsics")))
+        return self.BevSegHead_0(bev.reshape(b, l, *bev.shape[1:])[:, 0])
+
+
+class _SingleAgentLidar(nn.Module):
+    """A single-agent lidar detector of the zoo driven by the tools'
+    batch: its ego slot's cloud.  A new model is in eval mode."""
+
+    def __init__(self, detector_cls: type, lidar_cfg: dict):
+        super().__init__()
+        self.detector_name = f"{detector_cls.__name__}_0"
+        self.add_module(self.detector_name, detector_cls(lidar_cfg))
+        self.eval()
+
+    def forward(self, batch: dict) -> dict:
+        return getattr(self, self.detector_name)(
+            batch["points"][:, 0], batch["points_mask"][:, 0])
+
+
 def project_points_to_ego(points, transform):
     """(B, L, P, >= 3) points in each agent's frame -> the ego frame by
     the agents' (B, L, 4, 4) transforms; the features past xyz kept.
@@ -168,23 +218,23 @@ def project_points_to_ego(points, transform):
 
 class CooperativeDetector(nn.Module):
     """Intermediate-fusion detector: one modality's encoder on every agent
-    slot, a fusion of the zoo (``make_fusion``, with the config's
-    ``<fusion>_fusion`` block), the decoder (when configured) and the
-    anchor heads.  ``att_bev`` projects every agent's points into the
-    ego frame and fuses inside the BEV backbone (:class:`AttBEVBackbone`)
-    instead.  A new model is in eval mode."""
+    slot (lidar: PointPillars, or ``lidar_encoder`` ``voxel_net`` /
+    ``second`` / ``pixor``, each returning its BEV features), a fusion
+    of the zoo (``make_fusion``, with the config's ``<fusion>_fusion``
+    block), the decoder (when configured) and the anchor heads, or with
+    ``task: seg`` :class:`BevSegHead` (NHWC outputs).  ``att_bev``
+    projects every agent's points into the ego frame and fuses inside
+    the BEV backbone (:class:`AttBEVBackbone`) instead, always with the
+    anchor heads, as in JAX.  A new model is in eval mode."""
 
     def __init__(self, config: dict, modality: str, fusion_name: str):
         super().__init__()
         cfg = config
-        if cfg.get("task") == "seg":
-            raise not_ported(f"task: seg ({_SEGMENTATION})")
         self.config, self.modality = cfg, modality
         self.att_bev = fusion_name == "att_bev"
+        self.encoder_name = None
         if modality == "lidar":
             kind = cfg.get("lidar_encoder", "point_pillar")
-            if kind != "point_pillar":
-                raise not_ported(f"lidar_encoder {kind!r}: {_LIDAR_ZOO}")
             lcfg = cfg["lidar"]
             if self.att_bev:
                 vfe = lcfg["pillar_vfe"]
@@ -206,8 +256,11 @@ class CooperativeDetector(nn.Module):
                         c, sh["kernal_size"], sh["dim"], sh["stride"])
                     c = sh["dim"][-1]
             else:
-                self.PointPillarEncoder_0 = PointPillarEncoder(lcfg)
-                c = self.PointPillarEncoder_0.out_channels
+                encoder = (PointPillarEncoder(lcfg) if kind == "point_pillar"
+                           else LIDAR_ZOO[kind](lcfg, return_features=True))
+                self.encoder_name = f"{type(encoder).__name__}_0"
+                self.add_module(self.encoder_name, encoder)
+                c = encoder.out_channels
         else:
             self.camera_encoder = make_camera_encoder(cfg["camera"])
             c = camera_channels(cfg["camera"])
@@ -226,7 +279,11 @@ class CooperativeDetector(nn.Module):
                                                dec["num_ch_dec"],
                                                use_upsample=False)
             c = dec["num_ch_dec"][0]
-        self.DetectionHead_0 = DetectionHead(c, cfg["anchor_number"])
+        self.seg = cfg.get("task") == "seg" and not self.att_bev
+        if self.seg:
+            self.BevSegHead_0 = BevSegHead(c, cfg.get("target", "dynamic"))
+        else:
+            self.DetectionHead_0 = DetectionHead(c, cfg["anchor_number"])
         self.eval()
 
     def forward(self, batch: dict) -> dict:
@@ -247,7 +304,7 @@ class CooperativeDetector(nn.Module):
                 if self.DownsampleConv_0 is not None:
                     fused = self.DownsampleConv_0(fused)
                 return self._decode(fused)
-            x = self.PointPillarEncoder_0(points, pmask)
+            x = getattr(self, self.encoder_name)(points, pmask)
         else:
             x = self.camera_encoder(*(_flat(batch, k, b, l) for k in
                                       ("camera", "intrinsics",
@@ -260,6 +317,8 @@ class CooperativeDetector(nn.Module):
     def _decode(self, fused) -> dict:
         if self.NaiveDecoder_0 is not None:
             fused = self.NaiveDecoder_0(fused)
+        if self.seg:
+            return self.BevSegHead_0(fused)
         return _heads(self.DetectionHead_0, fused)
 
 
@@ -292,6 +351,12 @@ def build_model(model_cfg: dict) -> nn.Module:
                                  "encoder (the reference twins)")
             args = dict(args, camera=camera)
         return CameraDetector(args)
+    if name in SEGMENTOR_ENCODERS:
+        encoder = SEGMENTOR_ENCODERS[name]
+        if encoder is not None:
+            args = dict(args, camera=dict(args.get("camera", {})))
+            args["camera"].setdefault("encoder", encoder)
+        return CameraSegmentor(args)
     if name in _VPN_FUSIONS:
         camera = dict(args.get("camera", {}))
         camera.setdefault("encoder", "vpn")
@@ -301,6 +366,13 @@ def build_model(model_cfg: dict) -> nn.Module:
         return CooperativeDetector(args, "lidar", _LIDAR_FUSIONS[name])
     if name in _CAMERA_FUSIONS:
         return CooperativeDetector(args, "camera", _CAMERA_FUSIONS[name])
-    if name in UNPORTED:
-        raise not_ported(f"model core_method {name!r}: {UNPORTED[name]}")
+    if name in LIDAR_ZOO:
+        return _SingleAgentLidar(LIDAR_ZOO[name], args.get("lidar", args))
+    if name == "voxel_net_intermediate":
+        return VoxelNetIntermediate(args.get("lidar", args))
+    if name == "pixor_intermediate":
+        return PixorIntermediate(args.get("lidar", args))
+    if name == "second_intermediate":
+        return CooperativeDetector(dict(args, lidar_encoder="second"),
+                                   "lidar", "att")
     raise ValueError(f"unknown model core_method {name!r}")

@@ -197,21 +197,28 @@ class Conv(nn.Module):
 
 
 class ConvTranspose(nn.Module):
-    """flax ``nn.ConvTranspose`` with kernel == stride and "SAME"
-    padding (the BEV backbone's deblocks, bias-free; the AutoEncoder's,
-    with ``use_bias``): every input pixel paints one
-    disjoint k x k output patch.  Weight ``(in, out, k, k)`` holds the
-    flax kernel spatially FLIPPED — flax does not flip the kernel of a
+    """flax ``nn.ConvTranspose`` on NHWC.  With ``padding=None``: kernel
+    == stride and "SAME" padding (the BEV backbone's deblocks,
+    bias-free; the AutoEncoder's, with ``use_bias``), every input pixel
+    painting one disjoint k x k output patch.  With an int ``padding``
+    p: the lax padding ``(k-1-p, k-1-p+op)`` per axis, which is PyTorch's
+    ``ConvTranspose2d(k, s, p, output_padding=op)`` (the PIXOR and
+    VoxelNet deconvolutions).  Weight ``(in, out, k, k)`` holds the flax
+    kernel spatially FLIPPED — flax does not flip the kernel of a
     transposed convolution, PyTorch's ``conv_transpose2d`` does."""
     flax_leaves = {"weight": ("params", "kernel", "conv_transpose"),
                    "bias": ("params", "bias", "copy")}
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
-                 use_bias: bool = False):
+                 use_bias: bool = False, padding: int | None = None,
+                 output_padding: tuple = (0, 0)):
         super().__init__()
-        if kernel != stride:
-            raise ValueError("ConvTranspose supports kernel == stride only")
+        if padding is None and kernel != stride:
+            raise ValueError("ConvTranspose with SAME padding supports "
+                             "kernel == stride only")
         self.stride = stride
+        self.padding = 0 if padding is None else padding
+        self.output_padding = tuple(int(op) for op in output_padding)
         self.weight = nn.Parameter(torch.empty(cin, cout, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
@@ -225,8 +232,41 @@ class ConvTranspose(nn.Module):
         dt = promote(x, self.weight, self.bias)
         b = None if self.bias is None else self.bias.to(dt)
         y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
-                               self.weight.to(dt), b, stride=self.stride)
+                               self.weight.to(dt), b, stride=self.stride,
+                               padding=self.padding,
+                               output_padding=self.output_padding)
         return y.permute(0, 2, 3, 1)
+
+
+class Conv3D(nn.Module):
+    """flax ``nn.Conv`` with a 3-D kernel on NDHWC; weight OIDHW (the
+    NDHWC input seen as NCDHW is channels-last-3d, cuDNN's layout).
+    ``padding``: the symmetric padding of each axis (the JAX modules'
+    ``((p, p), ...)``)."""
+    flax_leaves = {"weight": ("params", "kernel", "conv3d"),
+                   "bias": ("params", "bias", "copy")}
+
+    def __init__(self, cin: int, cout: int, kernel=(3, 3, 3),
+                 stride=(1, 1, 1), padding=(1, 1, 1),
+                 use_bias: bool = True):
+        super().__init__()
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.weight = nn.Parameter(torch.empty(cout, cin, *kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+
+    def reset_parameters(self, gen):
+        cin = self.weight.shape[1]
+        lecun_normal_(self.weight, cin * int(np.prod(self.weight.shape[2:])),
+                      gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = promote(x, self.weight, self.bias)
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), self.weight.to(dt), b,
+                     stride=self.stride, padding=self.padding)
+        return y.permute(0, 2, 3, 4, 1)
 
 
 class BatchNorm(nn.Module):

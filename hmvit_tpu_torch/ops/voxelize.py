@@ -180,6 +180,26 @@ def compact_pillar_rows(scanned, pillar_id, pid2, keep, num_pillars: int):
     return scanned[order], comp_ids
 
 
+def last_kept_rows(scanned, pillar_id, keep, num_pillars: int):
+    """(num_pillars, C): each pillar's row of ``scanned`` at its last kept
+    point (pillar-sorted rows, where an inclusive segmented scan leaves
+    the pillar's total), 0 for a pillar without one."""
+    p = scanned.shape[0]
+    iota = torch.arange(1, p + 1, device=scanned.device)
+    last_kept = torch.zeros(num_pillars + 1, dtype=torch.int64,
+                            device=scanned.device)
+    last_kept = last_kept.scatter_reduce(
+        0, pillar_id, torch.where(keep, iota, 0), reduce="amax")[:-1]
+    # index_select, not scanned[...]: the same rows, but its backward is
+    # an index_add; an indexing backward sorts the indices and sums each
+    # run serially, and every empty cell points at row 0 (907 ms of a
+    # 1434 ms train step on an H100)
+    feat = scanned.index_select(0, torch.clamp(last_kept - 1, min=0))
+    return torch.where((last_kept > 0)[:, None], feat,
+                       torch.zeros((), dtype=scanned.dtype,
+                                   device=scanned.device))
+
+
 def scatter_max_to_bev(point_features, pillar_id, keep, grid_size,
                        num_clouds: int = 1, sorted_ids: bool = True,
                        max_run: int | None = None,
@@ -233,18 +253,7 @@ def scatter_max_to_bev(point_features, pillar_id, keep, grid_size,
                   else expand_rows_to_dense)
             dense = fn(comp, comp_ids, num_pillars)
         else:
-            iota = torch.arange(1, p + 1, device=dev)
-            last_kept = torch.zeros(num_pillars + 1, dtype=torch.int64,
-                                    device=dev)
-            last_kept = last_kept.scatter_reduce(
-                0, pillar_id, torch.where(keep, iota, 0),
-                reduce="amax")[:-1]
-            # index_select, not scanned[...]: the same rows, but its
-            # backward is an index_add; an indexing backward sorts the
-            # indices and sums each run serially, and every empty cell
-            # points at row 0 (907 ms of a 1434 ms train step on an H100)
-            feat = scanned.index_select(0, torch.clamp(last_kept - 1, min=0))
-            dense = torch.where((last_kept > 0)[:, None], feat, zero)
+            dense = last_kept_rows(scanned, pillar_id, keep, num_pillars)
 
     if nz > 1:
         return dense.reshape(num_clouds, nz, ny, nx, -1)

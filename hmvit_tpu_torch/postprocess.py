@@ -4,7 +4,8 @@ sigmoid score threshold, anchor delta decode, top-k, corners, sanity
 filters, rotated NMS and the GT-range clip, all fixed-shape), and
 :class:`AnchorPostprocessor`, which makes the training labels and merges
 the decoded boxes of several agents by a joint host NMS for the
-evaluation."""
+evaluation; :func:`build_postprocessor` picks it or the anchor-free
+decode of :mod:`.postprocess_bev`."""
 from __future__ import annotations
 
 import numpy as np
@@ -109,11 +110,12 @@ class AnchorPostprocessor:
 
 def build_postprocessor(params: dict, train: bool = True):
     """The postprocessor of ``params["core_method"]``: the anchor decode
-    for ``VoxelPostprocessor`` (the default).  The anchor-free PIXOR decode
-    (``BevPostprocessor``) is not ported yet."""
+    for ``VoxelPostprocessor`` (the default), the anchor-free PIXOR decode
+    (:class:`hmvit_tpu_torch.postprocess_bev.BevPostprocessor`) for
+    ``BevPostprocessor``."""
     name = params.get("core_method", "VoxelPostprocessor")
     if name == "BevPostprocessor":
-        raise NotImplementedError(
-            "BevPostprocessor (the anchor-free PIXOR decode) is not ported "
-            "yet: ROADMAP.md Queue 1 item 5")
+        from .postprocess_bev import BevPostprocessor
+
+        return BevPostprocessor(params, train=train)
     return AnchorPostprocessor(params, train=train)

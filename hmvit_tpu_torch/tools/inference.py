@@ -34,6 +34,12 @@ geometry, calibration and raw points to bfloat16.
         [--camera_to_lidar_ratio R] [--ego_mode m] [--synthetic]
         [--max_frames N] [--save_npy] [--cpu]
 
+The detectors' outputs are read as the anchor heads' ``psm`` / ``rm``
+or the anchor-free PIXOR maps ``cls`` / ``reg`` (decoded by the
+config's postprocessor; the PIXOR boxes' BEV corners lifted to 3-D for
+the evaluation).  A segmentation run directory (``seg_loss`` /
+``vanilla_seg_loss``) is refused: the JAX tool evaluates detectors only.
+
 The flags are the JAX tool's, plus ``--cpu``.  ``--data_parallel`` (one
 card: ``parallel/``) raises, ROADMAP.md Queue 1 item 8; ``--save_vis``
 and ``--save_3d`` (visualization) raise, item 7.
@@ -77,6 +83,24 @@ def parse_args(argv=None):
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain twins)")
     return p.parse_args(argv)
+
+
+def detection_view(out: dict) -> dict:
+    """A detector's outputs for the postprocessor: the anchor heads'
+    ``psm`` / ``rm`` or the anchor-free ``cls`` / ``reg``."""
+    keys = ("psm", "rm") if "psm" in out else ("cls", "reg")
+    return {k: out[k] for k in keys}
+
+
+def lift_corners(corners):
+    """(N, 4, 2) anchor-free BEV corners -> (N, 8, 3) box corners (z from
+    0 to a nominal 1.5 m), so that the evaluation takes every family
+    alike; (N, 8, 3) corners and None pass through."""
+    if corners is None or corners.ndim != 3 or corners.shape[1] == 8:
+        return corners
+    lo = np.concatenate([corners, np.zeros_like(corners[..., :1])], axis=-1)
+    hi = lo + np.array([0.0, 0.0, 1.5])
+    return np.concatenate([lo, hi], axis=1)
 
 
 def fleet_hints(frame) -> dict:
@@ -152,6 +176,15 @@ def main(argv=None):
 
     dev = device_of(args.cpu, "tools.inference")
     params = load_config("", model_dir=args.model_dir)
+    from ..train.losses import SEG_LOSSES
+
+    if params.get("loss", {}).get("core_method", "") in SEG_LOSSES:
+        raise SystemExit(
+            f"tools.inference: {args.model_dir} is a segmentation run "
+            f"directory; this tool evaluates detectors only (box AP), as "
+            f"the JAX package's tool does, which reads psm / rm or cls / "
+            f"reg: there is no segmentation inference to port "
+            f"(ROADMAP.md Queue 3, open, oracle)")
     if args.camera_to_lidar_ratio is not None:
         params["camera_to_lidar_ratio"] = args.camera_to_lidar_ratio
     if args.ego_mode is not None:
@@ -243,7 +276,7 @@ def main(argv=None):
                               prepare(batch))
                 data_dict[ci] = {"transformation_matrix": sub["to_ego"],
                                  "anchor_box": anchors}
-                output_dict[ci] = {k: out[k] for k in ("psm", "rm")}
+                output_dict[ci] = detection_view(out)
             corners, scores = pp.post_process(data_dict, output_dict)
         else:
             hints = fleet_hints(frame) if hinted else None
@@ -252,7 +285,8 @@ def main(argv=None):
                 {"ego": {"transformation_matrix": np.eye(4),
                          "anchor_box": anchors,
                          "no_post_projection": True}},
-                {"ego": {k: out[k] for k in ("psm", "rm")}})
+                {"ego": detection_view(out)})
+        corners = lift_corners(corners)
         if i == 0:
             t_e2e = t_prev = time.perf_counter()
         else:

@@ -18,9 +18,13 @@ host loads the next batch on a thread (its frames decoded by a pool of
 
 The flags are the JAX tool's, plus ``--cpu`` (run on the CPU, where every
 kernel wrapper runs its plain twin; without it the tool runs on the
-card).  Differences: one card, so ``--mp`` above 1 (tensor parallelism,
-``parallel/``) raises, ROADMAP.md Queue 1 item 8; the segmentation task
-(``seg_loss``) raises, item 5; the scalars go to ``metrics.jsonl`` every
+card).  A segmentation config (loss ``vanilla_seg_loss`` / ``seg_loss``)
+trains its BEV heads on the map ground truth (``dataset.seg_labels`` at
+the heads' grid, read from one eval forward) with ``seg_loss``'s class
+weights ``d_weights`` / ``s_weights``; an anchor-free one (PIXOR) on its
+label map.  Differences: one card, so ``--mp`` above 1 (tensor
+parallelism, ``parallel/``) raises, ROADMAP.md Queue 1 item 8; the
+scalars go to ``metrics.jsonl`` every
 10 steps, not to TensorBoard; the dataset's draws come from ``--seed``
 (the JAX dataset draws fresh entropy); and a resume restores the
 optimizer's state and step with the weights (the JAX tool restores the
@@ -34,7 +38,11 @@ import os
 import time
 
 import numpy as np
+import torch
 
+# a frame's entries that seg_labels reads
+SEG_FRAME_KEYS = ("object_bbx_center", "object_bbx_mask", "gt_dynamic",
+                  "gt_static", "has_map_gt")
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("hmvit_tpu_torch trainer")
@@ -99,7 +107,7 @@ def main(argv=None, on_step=None):
     from ..postprocess import build_postprocessor
     from ..train.checkpointing import find_last_step, restore_checkpoint, \
         save_checkpoint
-    from ..train.losses import build_loss
+    from ..train.losses import SEG_LOSSES, build_loss
     from ..train.schedulers import build_optimizer
     from ..train.trainer import create_train_state, labels_for_batch, \
         make_bucketed_train_step, make_eval_step, make_train_step
@@ -107,10 +115,6 @@ def main(argv=None, on_step=None):
 
     dev = device_of(args.cpu, "tools.train")
     params = load_config(args.hypes_yaml, model_dir=args.model_dir or None)
-    if params.get("loss", {}).get("core_method", "") in ("vanilla_seg_loss",
-                                                        "seg_loss"):
-        raise NotImplementedError("the segmentation task is not ported yet: "
-                                  "ROADMAP.md Queue 1 item 5")
     if args.epoches:
         params["train_params"]["epoches"] = args.epoches
         params["lr_scheduler"]["epoches"] = args.epoches
@@ -163,6 +167,7 @@ def main(argv=None, on_step=None):
         print(f"resumed from epoch {last}")
 
     loss_fn, loss_kwargs = build_loss(params.get("loss", {}))
+    seg_task = params.get("loss", {}).get("core_method", "") in SEG_LOSSES
     make_step = make_bucketed_train_step if args.bucketed else make_train_step
     train_step = make_step(model, opt, loss_fn=loss_fn,
                            loss_kwargs=loss_kwargs, half=args.half,
@@ -174,6 +179,32 @@ def main(argv=None, on_step=None):
     eval_freq = params["train_params"].get("eval_freq", 2)
     save_freq = params["train_params"].get("save_freq", 1)
 
+    seg_grid = None
+    if seg_task:
+        # the heads' grid, from one eval forward
+        example = to_device(dataset.collate_batch([dataset[0]]), dev)
+        model.eval()
+        with torch.no_grad():
+            out0 = model(example)
+        key0 = "dynamic_seg" if "dynamic_seg" in out0 else "static_seg"
+        if key0 not in out0:
+            raise ValueError(
+                f"loss {params['loss']['core_method']!r} trains the BEV "
+                f"segmentation heads, but model "
+                f"{params['model']['core_method']!r} outputs {sorted(out0)}")
+        seg_grid = tuple(int(v) for v in out0[key0].shape[1:3])
+        del example, out0
+
+    def make_labels(batch, device=None):
+        if not seg_task:
+            return labels_for_batch(pp, anchors, batch, device)
+        per_frame = [dataset.seg_labels(
+            {k: batch[k][i] for k in SEG_FRAME_KEYS if k in batch},
+            seg_grid) for i in range(batch["object_bbx_center"].shape[0])]
+        return {k: torch.as_tensor(np.stack([f[k] for f in per_frame]),
+                                   dtype=torch.int32, device=device)
+                for k in per_frame[0]}
+
     def make_batch(idxs):
         """Host work of a batch (decode, collate, labels), on the
         prefetch thread; the copies to the card stay on the main one."""
@@ -184,7 +215,7 @@ def main(argv=None, on_step=None):
         while len(frames) < batch_size:
             frames.append(frames[-1])
         batch = dataset.collate_batch(frames)
-        return batch, labels_for_batch(pp, anchors, batch)
+        return batch, make_labels(batch)
 
     # one batch ahead on a thread, its frames decoded by a pool
     prefetcher = ThreadPoolExecutor(max_workers=1)
@@ -232,7 +263,7 @@ def main(argv=None, on_step=None):
                 for vi in range(min(len(val_dataset), 4)):
                     vb = val_dataset.collate_batch([val_dataset[vi]]
                                                    * batch_size)
-                    vl = labels_for_batch(pp, anchors, vb, dev)
+                    vl = make_labels(vb, dev)
                     m = eval_step(state, to_device(vb, dev), vl)
                     val_losses.append(float(m["total_loss"]))
                 print(f"[epoch {epoch}] val_loss={np.mean(val_losses):.4f} "

@@ -5,11 +5,14 @@ functions on tensors.
 classification (alpha 0.25, gamma 2) normalised by the positive count,
 weighted smooth-L1 regression (beta 1/9) with the sin-difference angle
 encoding.  ``voxel_net_loss`` and ``pixor_loss`` are the other two
-families; ``build_loss`` picks one from a hypes loss block.
+families, and ``seg_loss`` (``models/seg_head.py``) the segmentation one;
+``build_loss`` picks one from a hypes loss block.
 """
 from __future__ import annotations
 
 import torch
+
+from ..models.seg_head import seg_loss
 
 
 def sigmoid_focal_loss(logits, targets, weights, alpha=0.25, gamma=2.0):
@@ -119,15 +122,26 @@ LOSS_REGISTRY = {
     "point_pillar_loss": point_pillar_loss,
     "voxel_net_loss": voxel_net_loss,
     "pixor_loss": pixor_loss,
+    "seg_loss": seg_loss,
+    "vanilla_seg_loss": seg_loss,
 }
+# the BEV segmentation losses (trained on map labels, not boxes)
+SEG_LOSSES = ("seg_loss", "vanilla_seg_loss")
 
 
 def build_loss(loss_cfg: dict):
-    """(loss function, its keyword arguments) from a hypes loss block."""
+    """(loss function, its keyword arguments) from a hypes loss block.
+    The JAX package's ``build_loss`` knows the detection losses; its
+    ``tools/train.py`` picks ``seg_loss`` (with ``d_weights`` /
+    ``s_weights``) for the two segmentation names, here found in one
+    place."""
     name = loss_cfg.get("core_method", "point_pillar_loss").lower()
     fn = LOSS_REGISTRY[name]
     args = loss_cfg.get("args", {})
-    if name == "point_pillar_loss":
+    if name in SEG_LOSSES:
+        kwargs = {"d_weights": float(args.get("d_weights", 75.0)),
+                  "s_weights": float(args.get("s_weights", 15.0))}
+    elif name == "point_pillar_loss":
         kwargs = {"cls_weight": float(args.get("cls_weight", 1.0)),
                   "reg_weight": float(args.get("reg", 2.0))}
     elif name == "pixor_loss":

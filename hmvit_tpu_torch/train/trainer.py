@@ -1,7 +1,7 @@
 """The training step (port of ``hmvit_tpu/train/trainer.py``): a
 :class:`TrainState`, the train step over the run-both trace or
 bucketed on the batch's camera count, the eval step, the forward, and
-the anchor labels of a batch.
+the labels of a batch (anchor or anchor-free).
 
 ``half=True`` is the JAX package's ``_to_bf16``, not autocast: every
 float32 parameter (BatchNorm and LayerNorm scales included) enters the
@@ -168,16 +168,20 @@ def make_forward(model):
 
 
 def labels_for_batch(postprocessor, anchors, batch, device=None) -> dict:
-    """Host-side anchor labels of a padded batch (numpy arrays or
-    tensors): ``pos_equal_one``, ``neg_equal_one`` (B, H, W, A) and
-    ``targets`` (B, H, W, 7A), float32 tensors on ``device``.  The
-    anchor-free label map (``anchors is None``, the BEV postprocessor)
-    is not ported."""
-    if anchors is None:
-        raise NotImplementedError("the anchor-free PIXOR label map is not "
-                                  "ported (ROADMAP.md Queue 1 item 5)")
+    """Host-side labels of a padded batch (numpy arrays or tensors), as
+    float32 tensors on ``device``: the anchor labels ``pos_equal_one``,
+    ``neg_equal_one`` (B, H, W, A) and ``targets`` (B, H, W, 7A); or,
+    without anchors (``anchors is None``: the BEV postprocessor of the
+    PIXOR family), the stacked anchor-free ``label_map`` (B, 7, H, W)."""
     centers = np.asarray(torch.as_tensor(batch["object_bbx_center"]).cpu())
     masks = np.asarray(torch.as_tensor(batch["object_bbx_mask"]).cpu())
+    if anchors is None:
+        maps = [postprocessor.generate_label(gt_box_center=centers[i],
+                                             mask=masks[i])["label_map"]
+                for i in range(centers.shape[0])]
+        return {"label_map": torch.as_tensor(np.stack(maps),
+                                             dtype=torch.float32,
+                                             device=device)}
     labels = [postprocessor.generate_label(centers[i], anchors, masks[i])
               for i in range(centers.shape[0])]
     return {key: torch.as_tensor(np.stack([lab[key] for lab in labels]),

@@ -141,3 +141,15 @@ def mask_corners_in_range(corners, limit_range):
     ok = ((corners[:, :, :2] >= lo).all(-1)
           & (corners[:, :, :2] <= hi).all(-1))
     return ok.all(-1)
+
+
+def points_in_rotated_box_mask(points: np.ndarray,
+                               box_corners: np.ndarray) -> np.ndarray:
+    """Boolean mask of 2D points (N, >= 2) inside one rotated rectangle
+    given by its corners (4, 2), numbered as above."""
+    p1, p2, p4 = box_corners[0], box_corners[1], box_corners[3]
+    e12, e14 = p2 - p1, p4 - p1
+    rel = points[:, :2] - p1[None, :]
+    t = rel @ e12 / np.dot(e12, e12)
+    u = rel @ e14 / np.dot(e14, e14)
+    return (t >= 0) & (t <= 1) & (u >= 0) & (u <= 1)

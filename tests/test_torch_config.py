@@ -53,6 +53,29 @@ def test_corpus_and_copies_present():
         "bevformer_point_pillar_hetero.yaml", "corpbevt.yaml",
         "cvt_nofusion.yaml", "hmvit_cvt_point_pillar_hetero.yaml",
         "hmvit_fax_point_pillar_hetero.yaml", "hmvit_prod_serving.yaml",
+        "opcamera/bev_swap.yaml", "opcamera/bev_swap_static.yaml",
+        "opcamera/bevt_static.yaml", "opcamera/corpbevt.yaml",
+        "opcamera/corpbevt_single.yaml",
+        "opcamera/corpbevt_single_static.yaml",
+        "opcamera/corpbevt_static.yaml", "opcamera/cvt.yaml",
+        "opcamera/cvt_att_fuse.yaml", "opcamera/cvt_att_fuse_static.yaml",
+        "opcamera/cvt_disconet.yaml", "opcamera/cvt_disconet_static.yaml",
+        "opcamera/cvt_fcooper.yaml", "opcamera/cvt_fcooper_static.yaml",
+        "opcamera/cvt_static.yaml", "opcamera/cvt_swap_fuse.yaml",
+        "opcamera/cvt_swap_fuse_static.yaml", "opcamera/cvt_v2vnet.yaml",
+        "opcamera/cvt_v2vnet_static.yaml", "opcamera/fax.yaml",
+        "opcamera/view_parse_network.yaml",
+        "opcamera/view_parse_network_att_fuse.yaml",
+        "opcamera/view_parse_network_att_fuse_static.yaml",
+        "opcamera/view_parse_network_fcooper.yaml",
+        "opcamera/view_parse_network_fcooper_static.yaml",
+        "opcamera/view_parse_network_ms.yaml",
+        "opcamera/view_parse_network_ms_static.yaml",
+        "opcamera/view_parse_network_static.yaml",
+        "opcamera/view_parse_network_swap_fuse.yaml",
+        "opcamera/view_parse_network_swap_fuse_static.yaml",
+        "opcamera/view_parse_network_v2vnet.yaml",
+        "opcamera/view_parse_network_v2vnet_static.yaml",
         "opcl/bevformer_late_fusion.yaml",
         "opcl/bevformer_point_pillar_att_fuse.yaml",
         "opcl/bevformer_point_pillar_disconet.yaml",
@@ -71,16 +94,29 @@ def test_corpus_and_copies_present():
         "opcl/point_pillar_att_fuse.yaml",
         "opcl/point_pillar_cross_view_transformer_f_cooper.yaml",
         "opcl/point_pillar_late_fusion.yaml",
+        "opv2v/pixor_early_fusion.yaml",
+        "opv2v/pixor_intermediate_fusion.yaml",
+        "opv2v/pixor_late_fusion.yaml",
         "opv2v/point_pillar_early_fusion.yaml",
         "opv2v/point_pillar_intermediate_fusion.yaml",
-        "opv2v/point_pillar_late_fusion.yaml", "point_pillar_fcooper.yaml",
-        "point_pillar_v2xt.yaml", "smoke_hetero_tiny.yaml",
-        "v2xt/point_pillar_early_fusion.yaml",
+        "opv2v/point_pillar_late_fusion.yaml",
+        "opv2v/second_early_fusion.yaml",
+        "opv2v/second_intermediate_fusion.yaml",
+        "opv2v/second_late_fusion.yaml",
+        "opv2v/voxelnet_early_fusion.yaml",
+        "opv2v/voxelnet_intermediate_fusion.yaml",
+        "opv2v/voxelnet_late_fusion.yaml", "point_pillar_fcooper.yaml",
+        "point_pillar_v2xt.yaml", "smoke_camera_seg_tiny.yaml",
+        "smoke_hetero_tiny.yaml", "v2xt/point_pillar_early_fusion.yaml",
         "v2xt/point_pillar_fcooper.yaml",
         "v2xt/point_pillar_intermediate.yaml",
         "v2xt/point_pillar_late_fusion.yaml",
         "v2xt/point_pillar_opv2v.yaml",
         "v2xt/point_pillar_transformer.yaml"]
+    # the three corpus hypes without a model
+    assert sorted(set(ALL_YAMLS) - set(COPIES)) == [
+        "opcamera/base_camera.yaml", "opv2v/visualization.yaml",
+        "v2xt/visualization.yaml"]
     # every corpus hypes whose model the port builds has its copy
     assert sorted(name for name in ALL_YAMLS if builds(name)) == COPIES
 
@@ -212,25 +248,40 @@ def tiny_model_args() -> dict:
     return args
 
 
+# the lidar zoo's grids on the smoke range (+-20.48 m): VoxelNet's CML
+# keeps one of 8 z cells, SECOND's backbone one of 24 + 1, PIXOR rasters
+# 64^2 at 0.64 m
+LIDAR_ZOO_GRIDS = {
+    "voxel_net": {"voxel_size": [0.64, 0.64, 0.5], "grid_size": [64, 64, 8]},
+    "second": {"voxel_size": [0.64, 0.64, 4.0 / 24],
+               "grid_size": [64, 64, 24]},
+    "pixor": {"res": 0.64},
+}
+
+
+def zoo_model_args(name: str) -> dict:
+    """:func:`tiny_model_args`, with the lidar block of a lidar zoo name
+    given its grid (``LIDAR_ZOO_GRIDS``)."""
+    args = tiny_model_args()
+    kind = next((k for k in LIDAR_ZOO_GRIDS if name.startswith(k)), None)
+    if kind is not None:
+        args["lidar"] = dict(args["lidar"], **LIDAR_ZOO_GRIDS[kind])
+    return args
+
+
 @pytest.mark.parametrize("name", sorted(zoo.ZOO_NAMES))
 def test_build_model_refuses_the_rest_of_the_zoo(name):
-    """Every other name of the JAX registry, on the smoke widths: the
-    port builds the JAX model's class with its parameter count, or
-    raises NotImplementedError naming the ROADMAP item of what it
-    lacks."""
+    """Every other name of the JAX registry, on the smoke widths (the
+    lidar zoo on its grids): the port builds the JAX model's class with
+    its parameter count (nothing is refused any more)."""
     import jax
     import jax.numpy as jnp
 
     from hmvit_tpu.data.synthetic import make_hetero_batch
 
-    model_cfg = {"core_method": name, "args": tiny_model_args()}
+    model_cfg = {"core_method": name, "args": zoo_model_args(name)}
     jmodel = jzoo.build_model(model_cfg)
-    if name in zoo.UNPORTED:
-        assert name not in zoo.BUILT_NAMES
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            zoo.build_model(model_cfg)
-        return
-    assert name in zoo.BUILT_NAMES
+    assert name in zoo.BUILT_NAMES and name not in zoo.UNPORTED
     model = zoo.build_model(model_cfg)
     assert type(model).__name__ == type(jmodel).__name__
     batch, _ = make_hetero_batch(
@@ -255,11 +306,36 @@ def test_build_model_refuses_the_rest_of_the_zoo(name):
                        "args": {"camera": {"encoder": "bevformer_ref"}}}),
 ], ids=["seg_task", "lidar_zoo_encoder", "bevformer_ref"])
 def test_unported_options_of_built_names_raise(what, model_cfg):
-    """What a built name may be configured with but the port lacks: the
-    segmentation task, the lidar zoo's encoders, the reference twin."""
-    args = dict(tiny_model_args(), **model_cfg["args"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        zoo.build_model(dict(model_cfg, args=args))
+    """What a built name may be configured with: the segmentation task
+    (the BEV seg head after the fusion) and the lidar zoo's encoders now
+    build, with the JAX model's parameter count; the reference twin
+    still raises, naming its ROADMAP item."""
+    import jax
+    import jax.numpy as jnp
+
+    from hmvit_tpu.data.synthetic import make_hetero_batch
+
+    args = dict(zoo_model_args("second"), **model_cfg["args"])
+    model_cfg = dict(model_cfg, args=args)
+    if what == "bevformer_ref":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            zoo.build_model(model_cfg)
+        return
+    model = zoo.build_model(model_cfg)
+    if what == "task: seg":
+        assert model.seg and not hasattr(model, "DetectionHead_0")
+    else:
+        assert model.encoder_name == "SecondDetector_0"
+    batch, _ = make_hetero_batch(
+        seed=0, max_cav=2, num_agents=2, max_points=64, image_size=64,
+        num_cams=4, camera_ratio=0.5, ego_mode="mixed",
+        lidar_range=[-20.48, -20.48, -3.0, 20.48, 20.48, 1.0])
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    shapes = jax.eval_shape(lambda b: jzoo.build_model(model_cfg).init(
+        jax.random.key(0), b, train=False), jb)
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        int(np.prod(x.shape))
+        for x in jax.tree_util.tree_leaves(shapes["params"]))
 
 
 def test_registry_tables_covered_and_unknown_name_raises():

@@ -192,6 +192,23 @@ def test_numpy_box_copies_equal_originals(order):
             jboxes.mask_boxes_outside_range(b, lim, order, k))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_points_in_rotated_box_copy_equals_original(seed):
+    """The port's copy of ``points_in_rotated_box_mask`` (the seg
+    rasterizer's and the PIXOR labels'), bit for bit, with points on the
+    edges and corners."""
+    rng = np.random.default_rng(40 + seed)
+    box = np.concatenate([rng.uniform(-5, 5, 2), [0.0],
+                          rng.uniform(1, 5, 3), rng.uniform(-np.pi, np.pi, 1)])
+    corners = boxes.boxes_to_corners_3d_np(box[None], "lwh")[0, :4, :2]
+    pts = np.concatenate([rng.uniform(-8, 8, (500, 2)), corners,
+                          (corners + np.roll(corners, 1, 0)) / 2])
+    got = boxes.points_in_rotated_box_mask(pts, corners)
+    want = jboxes.points_in_rotated_box_mask(pts, corners)
+    assert got.dtype == want.dtype == bool
+    assert np.array_equal(got, want) and got.any() and not got.all()
+
+
 @pytest.mark.parametrize("order", ["hwl", "lhw"])
 def test_anchor_grid_copy_equals_original(order):
     prod = {"W": 512, "H": 512, "l": 3.9, "w": 1.6, "h": 1.56,

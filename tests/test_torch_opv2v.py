@@ -61,14 +61,15 @@ def params(root, **extra):
 
 def test_fixture_equals_jax_writer(roots):
     """Parsed yaml equal, the pcd files equal byte for byte (so their
-    points), the camera PNGs' pixels equal as OpenCV reads them.  The JAX
-    writer's BEV map rasters are not written (not ported)."""
+    points), the camera PNGs' and the four BEV map rasters' pixels equal
+    as OpenCV reads them."""
     jroot, proot = roots
     rel = {os.path.relpath(f, proot) for f in files(proot, "")
            if os.path.isfile(f)}
     want = {os.path.relpath(f, jroot) for f in files(jroot, "")
-            if os.path.isfile(f) and "_bev_" not in f}
-    assert rel == want and len(rel) == 2 * 3 * 6
+            if os.path.isfile(f)}
+    assert rel == want and len(rel) == 2 * 3 * 10
+    assert sum("_bev_" in name for name in rel) == 2 * 3 * 4
     for name in sorted(rel):
         a, b = os.path.join(jroot, name), os.path.join(proot, name)
         if name.endswith(".yaml"):
@@ -318,9 +319,17 @@ def test_dataset_train_mode_equals_jax_up_to_point_order(roots):
 
 
 def test_dataset_refuses_bev_maps_until_ported(roots):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        opv2v.HeteroCooperativeDataset(params(roots[1],
-                                              add_data_extension=["x"]))
+    """The BEV map ground truth (``add_data_extension``) is ported: each
+    eval frame's ``gt_dynamic``, ``gt_static`` and ``has_map_gt`` equal
+    the JAX dataset's bit for bit, and every other array too."""
+    p = params(roots[0], add_data_extension=["bev_dynamic.png"])
+    ours = opv2v.HeteroCooperativeDataset(p, train=False, max_points=600)
+    theirs = jopv2v.HeteroCooperativeDataset(p, train=False, max_points=600)
+    for i in range(len(ours)):
+        got, want = ours[i], theirs[i]
+        assert {"gt_dynamic", "gt_static", "has_map_gt"} <= set(got)
+        assert got["has_map_gt"] == 1.0 and got["gt_dynamic"].any()
+        assert_frames_equal(got, want)
 
 
 def test_data_path_loads_no_yaml_opencv_pillow_or_jax(tmp_path):

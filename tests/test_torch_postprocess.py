@@ -112,6 +112,10 @@ def test_build_postprocessor_routes_the_anchor_decode():
         assert type(jbuild(cfg, train=False)).__name__ == \
             type(pp).__name__
         assert pp.train is False and pp.order == "hwl"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        build_postprocessor(dict(POSTPROCESS_CFG,
-                                 core_method="BevPostprocessor"))
+    # the anchor-free decode of the PIXOR family
+    bev = dict(POSTPROCESS_CFG, core_method="BevPostprocessor",
+               geometry_param={"res": 0.4, "downsample_rate": 4})
+    pp = build_postprocessor(bev, train=False)
+    assert type(pp).__name__ == type(jbuild(bev, train=False)).__name__ \
+        == "BevPostprocessor"
+    assert pp.generate_anchor_box() is None and pp.order == "hwl"

@@ -94,6 +94,8 @@ def flax_tree(port_module, shapes):
             return arr.T
         if kind == "conv":
             return arr.transpose(2, 3, 1, 0)
+        if kind == "conv3d":
+            return arr.transpose(2, 3, 4, 1, 0)
         if kind == "conv_transpose":
             return arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
         return arr
@@ -258,14 +260,17 @@ def adamw_update(tx, grads, opt_state, params):
 
 
 def jax_adamw_steps(jm, variables, batch, labels, x64, lr, weight_decay,
-                    steps=2, **apply_kwargs):
-    """``steps`` train steps of the flax model ``jm`` (point-pillar loss,
-    ``optax.adamw``), computed in float64 under ``jax.enable_x64``
-    (``x64``) or in float32.  Returns [(loss, grads, batch_stats after
-    the step)] and the params after the last step, as float64 numpy."""
+                    steps=2, loss=None, **apply_kwargs):
+    """``steps`` train steps of the flax model ``jm`` (``loss``, by
+    default the point-pillar loss; ``optax.adamw``), computed in float64
+    under ``jax.enable_x64`` (``x64``) or in float32.  Returns [(loss,
+    grads, batch_stats after the step)] and the params after the last
+    step, as float64 numpy."""
     import optax
 
-    from hmvit_tpu.train.losses import point_pillar_loss as jloss
+    from hmvit_tpu.train.losses import point_pillar_loss
+
+    jloss = loss or point_pillar_loss
 
     conv = f64 if x64 else (lambda tr: jax.tree_util.tree_map(np.asarray,
                                                               tr))
