@@ -174,13 +174,16 @@ Phases:
    ``smoke_hetero_tiny.yaml`` with each camera configuration of
    ``ZOO_CAMERAS`` (FAX, VPN, VPN-MS, BEVSwap, the planar BEVFormer on
    the plain trunk, the deformable lift, the CVT on ResNet-18 / 34 and
-   VoVNet-19 / 39, and ``compression: 2``), float32: the kernels'
+   VoVNet-19 / 39, ``compression: 2``, and the reference twins
+   ``fax_ref``, ``cvt_ref`` and ``bevformer_ref``), float32: the kernels'
    forward against ``plain_ops()`` (which launches nothing) within
    ``FORWARD_ATOL``, the launches a served frame's, and the forward
    captured in a CUDA graph (``CompiledServer``) equal to the eager one
-   bit for bit; (d) the deformable lift at the BEVFormer configuration's
-   widths (``lift: deformable``): 2 ``tools.train`` steps, ``--half``,
-   losses finite, peak device memory printed; (e) the space-to-depth
+   bit for bit; the twins' plain forward also against the same model's
+   CPU forward within ``SEG_LIDAR_ATOL`` of scale; (d) the deformable
+   lift at the BEVFormer configuration's widths (``lift: deformable``):
+   2 ``tools.train`` steps, ``--half``, losses finite, peak device
+   memory printed; (e) the space-to-depth
    stem against the plain stem on the same weights, float32, within
    ``S2D_TOL`` where the JAX package sets that bar (ResNet-18 stage 1,
    2 x 64^2) and on the stem's own output at 4 x 512^2, the ResNet-50
@@ -240,7 +243,38 @@ Phases:
    p50 / p95, no launch; (d) the cvt run directory's mIoU on two fixture
    frames, ``seg_iou(seg_post_process(...))`` against the map labels
    (printed, not held).  The kernels line gains ``seg_lidar_zoo_launches``
-   (all 0); the phase prints its length.
+   (all 0); the phase prints its length;
+14. a reference checkpoint converted and served at full width
+   (``opcl/bevformer_point_pillar_hetero.yaml`` with ``camera.encoder:
+   bevformer_ref``: the BEVFormer twin at 128^2 x 256, 3 layers, on
+   ResNet-50 C5 over 4 x 512^2 images a camera agent; the 512^2 pillar
+   grid; H3GAT on the split route; 5 agent slots): (a) the port's
+   ``export_flagship`` of a seeded model as a reference run's
+   ``net_epoch3.pth`` -> ``python -m
+   hmvit_tpu_torch.tools.convert_checkpoint --from_reference ...
+   --core_method bevformer_point_pillar_hetero --hypes ... --output
+   <run>/ckpt``: the restored state_dict equal to the exported model's
+   bit for bit, and convert -> export -> convert bit for bit (decoder
+   conv biases non-zero); (b) ``tools.inference --bf16
+   --serving_buckets`` on the run directory, as phase 10 (b): fps, p50 /
+   p95, each bucket's launches a frame held (K1 4, K2 2, K3 2 and every
+   other kernel 0), each stage's output type on one frame and the peak
+   device memory printed (the run's few frames hold the buckets'
+   captures), then one bucket served ``TWIN_STEADY_FRAMES`` more times
+   after its capture: the steady p50 / p95; (c) one frame graph == eager
+   bit for bit, and the converted weights cut to ``TWIN_CPU_LAYERS``
+   camera layers, float32 with TF32 off, card against CPU within
+   ``SEG_LIDAR_ATOL`` of scale (a lidar ego and a camera agent), the
+   card's pillar projections held to the CPU's (``TWIN_UV_ATOL``: the
+   image coordinates, and visibilities differing only on image edges);
+   (d) ``bevformer_wrapper``
+   with ``bevformer_ref`` (the standalone ``RefBEVFormerDetector``) at
+   the smoke widths: written in the reference's names by the port's
+   exporters, converted by the CLI (bit for bit), served by
+   ``tools.inference --bf16`` (AP not held, fps, no launch).  The
+   kernels line gains ``reference_twin_launches`` (the rows of K3 at
+   V2X-ViT's windows: the phase's launches at that T); the phase prints
+   its length.
 
 The pair warp in float32 is held to its twin at ``FP32_ATOL`` on the
 serving and ego poses; on spread poses (the phase 2 case and
@@ -401,7 +435,21 @@ ZOO_CAMERAS = {
     "cvt_vovnet19": ({"backbone": "vovnet-19", "id_pick": [3]}, {}),
     "cvt_vovnet39": ({"backbone": "vovnet-39", "id_pick": [3]}, {}),
     "cvt_compression_2": ({}, {"compression": 2}),
+    # the reference twins (the camera blocks a converted reference
+    # checkpoint fills); each also against its own CPU forward
+    "fax_ref": ({"encoder": "fax_ref", "heads": 2, "dim_head": 16,
+                 "middle": [1, 1]}, {}),
+    "cvt_ref": ({"encoder": "cvt_ref", "heads": 2, "dim_head": 16,
+                 "middle": [1, 1]}, {}),
+    "bevformer_ref": ({"encoder": "bevformer_ref", "backbone": "resnet18",
+                       "dim": 64, "bev_h": 16, "num_layers": 2,
+                       "ffn_dim": 128, "fpn_channels": 64,
+                       "pc_range": [-20.48, -20.48, -3.0, 20.48, 20.48, 1.0],
+                       "num_cams": 4}, {}),
 }
+# the camera configurations of ZOO_CAMERAS held card vs CPU as well
+# (float32, TF32 off, within SEG_LIDAR_ATOL of scale)
+ZOO_TWINS = ("fax_ref", "cvt_ref", "bevformer_ref")
 
 # phase 12: the fusion zoo.  Every fusion of models/fusion under the
 # smoke HMViT (fusion_override), float32
@@ -2141,6 +2189,7 @@ def serve_run_dir(run, cfg, dev, card, total, what, keyed=None):
                              f"outputs differ from the eager forward's")
     del model, graph, eager
     torch.cuda.empty_cache()
+    return res
 
 
 def run_dir_phase(dev, card) -> dict:
@@ -2181,14 +2230,15 @@ def run_dir_phase(dev, card) -> dict:
     return total
 
 
-def zoo_forwards(dev, card, total) -> None:
+def zoo_forwards(dev, card, total, names=tuple(ZOO_CAMERAS)) -> None:
     """Phase 11 (c): HMViT of ``smoke_hetero_tiny.yaml`` with each camera
-    configuration of ZOO_CAMERAS, float32, one forward with the kernels
-    and one under ``plain_ops()``: sigmoid(psm) and rm within
-    FORWARD_ATOL over max(1, max |x|), every output finite, and the
-    kernels' launches those of a served frame (``serving_launches``);
-    then the forward captured by ``CompiledServer`` and replayed: equal
-    to the eager forward bit for bit."""
+    configuration of ZOO_CAMERAS (those of ``names``), float32, one
+    forward with the kernels and one under ``plain_ops()``: sigmoid(psm)
+    and rm within FORWARD_ATOL over max(1, max |x|), every output
+    finite, and the kernels' launches those of a served frame
+    (``serving_launches``); then the forward captured by
+    ``CompiledServer`` and replayed: equal to the eager forward bit for
+    bit."""
     import copy
     import os
 
@@ -2216,7 +2266,8 @@ def zoo_forwards(dev, card, total) -> None:
     # decode's operands (the boxes are not read here)
     anchors = torch.zeros((16, 16, 2, 7), device=dev)
     eye = torch.eye(4, device=dev)
-    for name, (camera, model_keys) in ZOO_CAMERAS.items():
+    for name in names:
+        camera, model_keys = ZOO_CAMERAS[name]
         cfg = dict(copy.deepcopy(base), **model_keys)
         cfg["camera"] = dict(cfg["camera"], **camera)
         model = init_parameters(HMViT(cfg), seed=0).to(dev)
@@ -2249,11 +2300,21 @@ def zoo_forwards(dev, card, total) -> None:
             server = CompiledServer(model, hints, tb, anchors, eye)
             graph, _ = server(tb)
         same = all(torch.equal(graph[k], out_k[k]) for k in ("psm", "rm"))
+        cpu = ""
+        if name in ZOO_TWINS:
+            # the card's plain forward: the same arithmetic as the CPU's
+            cpu_errs = card_vs_cpu(model, tb, hints, out_p)
+            cpu = (f"; card (plain_ops) vs CPU max_abs_err/scale psm "
+                   f"{cpu_errs['psm']:.3e}, rm {cpu_errs['rm']:.3e} (tol "
+                   f"{SEG_LIDAR_ATOL})")
+            if max(cpu_errs.values()) > SEG_LIDAR_ATOL:
+                raise AssertionError(f"phase 11 {name}: card vs CPU "
+                                     f"{cpu_errs} (tol {SEG_LIDAR_ATOL})")
         print(f"phase 11 {name}: fp32 forward kernels vs plain "
               f"max_abs_err/scale psm {errs['psm']:.3e}, rm "
               f"{errs['rm']:.3e} (tol {FORWARD_ATOL}; logits {logit:.3e}, "
               f"not held); launches {got}, none under plain_ops; graph == "
-              f"eager bit for bit {same}")
+              f"eager bit for bit {same}{cpu}")
         if got != want:
             raise AssertionError(f"phase 11 {name}: launches {got}, "
                                  f"expected {want}")
@@ -2262,6 +2323,34 @@ def zoo_forwards(dev, card, total) -> None:
                                  f"outputs differ from the eager forward's")
         del model, out_k, out_p, server, graph
     torch.cuda.empty_cache()
+
+
+def card_vs_cpu(model, batch, hints, out) -> dict:
+    """The same model's float32 forward on the CPU (a copy, plain twins)
+    against ``out``, the card's: sigmoid(psm) and rm, max |error| over
+    max(1, max |x|) each."""
+    import copy
+
+    import torch
+
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        ref = cpu({k: v.cpu() for k, v in batch.items()}, **hints)
+    return scaled_errors(out, ref)
+
+
+def scaled_errors(out, ref) -> dict:
+    """sigmoid(psm) and rm of ``out`` against ``ref``'s: max |error| over
+    max(1, max |ref|) each (inf where ``out`` is not finite)."""
+    import torch
+
+    errs = {}
+    for key, fn in (("psm", torch.sigmoid), ("rm", lambda z: z)):
+        a, b = fn(out[key].float().cpu()), fn(ref[key].float().cpu())
+        scale = max(1.0, float(b.abs().max()))
+        errs[key] = (float((a - b).abs().max()) / scale
+                     if torch.isfinite(a).all() else float("inf"))
+    return errs
 
 
 def s2d_check(dev, card) -> None:
@@ -2888,6 +2977,490 @@ def seg_lidar_zoo_phase(dev, card) -> dict:
     return total
 
 
+# phase 14: a reference flagship checkpoint converted and served at full
+# width: opcl/bevformer_point_pillar_hetero.yaml with the BEVFormer twin
+TWIN_FLAGSHIP_HYPES = "opcl/bevformer_point_pillar_hetero.yaml"
+TWIN_CORE = "bevformer_point_pillar_hetero"
+# (c): the camera depth of the card-vs-CPU forward (the converted
+# weights' first layers), its tolerance over max(1, max |x|)
+TWIN_CPU_LAYERS = 1
+# (c): the card's pillar projections against the CPU's, in normalised
+# image coordinates: |uv| on the points both devices see, and how near
+# an image edge a point must lie for the two devices' roundings to
+# decide its visibility differently (the fixture's 90-degree cameras
+# put BEV grid points exactly on their edges: 160 of 262 144 at full
+# width, 320 of 4096 within 1e-6 of an edge at the smoke width)
+TWIN_UV_ATOL = 1e-5
+# (b): the frames of one bucket served after its capture for the steady
+# p50 / p95 (the tools.inference run's few frames hold the captures)
+TWIN_STEADY_WARMUP = 3
+TWIN_STEADY_FRAMES = 40
+# (d): the standalone BEVFormer twin detector on the smoke widths
+TWIN_WRAPPER_CAMERA = {"encoder": "bevformer_ref", "backbone": "resnet18",
+                       "dim": 64, "bev_h": 16, "num_layers": 1,
+                       "ffn_dim": 128, "fpn_channels": 64,
+                       "pc_range": [-20.48, -20.48, -3.0, 20.48, 20.48, 1.0],
+                       "num_cams": 4}
+TWIN_WRAPPER_FRAMES = 4
+
+
+def twin_flagship_params(repo: str) -> dict:
+    """The flagship's hypes with ``camera.encoder: bevformer_ref`` (the
+    run directory's config a user writes for a converted checkpoint)."""
+    import os
+
+    from hmvit_tpu_torch.config import load_config
+
+    params = load_config(os.path.join(repo, HYPES, TWIN_FLAGSHIP_HYPES))
+    params["model"]["args"]["camera"]["encoder"] = "bevformer_ref"
+    return params
+
+
+def convert_cli(ref_dir, hypes, output, core_method) -> tuple[dict, float]:
+    """``python -m hmvit_tpu_torch.tools.convert_checkpoint`` as a user
+    runs it; returns its report and seconds."""
+    import os
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "hmvit_tpu_torch.tools.convert_checkpoint",
+         "--from_reference", ref_dir, "--core_method", core_method,
+         "--hypes", hypes, "--output", output],
+        capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"convert_checkpoint {core_method} failed "
+                             f"({res.returncode}):\n{res.stderr}")
+    with open(os.path.join(output, "conversion_report.json")) as f:
+        report = json.load(f)
+    if report["unconsumed_keys"]:
+        raise AssertionError(f"convert_checkpoint {core_method}: unconsumed "
+                             f"{report['unconsumed_keys'][:8]}")
+    return report, time.perf_counter() - t0
+
+
+def same_state(got: dict, want: dict) -> bool:
+    """Two state_dicts with the same keys, dtypes and bits."""
+    import torch
+
+    return sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype and torch.equal(got[k].cpu(),
+                                                      want[k].cpu())
+        for k in want)
+
+
+def convert_seeded_flagship(params, tmp):
+    """The port's ``export_flagship`` of the model of ``params`` (weights
+    from seed 0) as a reference run's ``net_epoch3.pth`` under ``tmp`` ->
+    ``convert_cli`` into a run directory with ``params`` as its
+    config.yaml; the restored state_dict must equal the model's bit for
+    bit.  Returns (model, run directory, report, the CLI's seconds)."""
+    import os
+
+    import torch
+
+    from hmvit_tpu_torch.bridge import state_dict_to_flax
+    from hmvit_tpu_torch.config import save_config
+    from hmvit_tpu_torch.models.zoo import build_model
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.tools import convert_checkpoint as cc
+    from hmvit_tpu_torch.train.checkpointing import saved_model_state
+
+    model = init_parameters(build_model(params["model"]), 0)
+    ref_dir = os.path.join(tmp, "reference_run")
+    os.makedirs(ref_dir)
+    sd_ref = cc.export_flagship(state_dict_to_flax(model, model.state_dict()),
+                                params["model"]["args"])
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd_ref.items()},
+               os.path.join(ref_dir, "net_epoch3.pth"))
+    run = os.path.join(tmp, "run")
+    os.makedirs(run)
+    hypes = os.path.join(run, "config.yaml")
+    save_config(params, hypes)
+    report, secs = convert_cli(ref_dir, hypes, os.path.join(run, "ckpt"),
+                               TWIN_CORE)
+    if not same_state(saved_model_state(os.path.join(run, "ckpt")),
+                      model.state_dict()):
+        raise AssertionError("phase 14 (a): the restored state_dict differs "
+                             "from the exported model's")
+    return model, run, report, secs
+
+
+def twin_export_round_trip(model, margs, tmp) -> None:
+    """(a) part 2: convert -> export -> convert bit for bit, on a reference
+    file whose decoder convs carry non-zero biases (the import folds them
+    into the BatchNorm means, the export writes them back as zeros)."""
+    import os
+
+    import torch
+
+    from hmvit_tpu_torch.bridge import state_dict_to_flax
+    from hmvit_tpu_torch.tools import convert_checkpoint as cc
+
+    ref = cc.export_flagship(state_dict_to_flax(model, model.state_dict()),
+                             margs)
+    rng = np.random.default_rng(0)
+    biases = [k for k in ref if "_decoder.decoder." in k
+              and k.endswith(".bias") and ref[k[:-4] + "weight"].ndim == 4]
+    for k in biases:
+        ref[k] = rng.standard_normal(ref[k].shape).astype(np.float32)
+    trees = []
+    for i in range(2):
+        path = os.path.join(tmp, f"round_trip_{i}.pth")
+        torch.save({k: torch.from_numpy(np.array(v)) for k, v in ref.items()},
+                   path)
+        r = cc.convert_flagship(cc.load_torch_state_dict(path), margs)
+        trees.append(r)
+        ref = cc.export_flagship(r, margs)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + k + "/")
+            else:
+                yield prefix + k, np.asarray(v)
+
+    a = dict(leaves({k: trees[0][k] for k in ("params", "batch_stats")}))
+    b = dict(leaves({k: trees[1][k] for k in ("params", "batch_stats")}))
+    same = sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+    print(f"phase 14 (a) convert -> export -> convert ({len(biases)} decoder "
+          f"conv biases non-zero): {len(a)} leaves bit for bit {same}")
+    if not same:
+        raise AssertionError("phase 14: convert -> export -> convert is not "
+                             "bit for bit")
+
+
+def stage_types(model, batch, hints) -> dict:
+    """The output dtype of each stage of one eager forward of ``model``:
+    camera encoder, lidar encoder, fusion, decoder."""
+    import torch
+
+    seen, hooks = {}, []
+    for name in ("camera_encoder", "lidar_encoder", "fusion",
+                 "HeteroDecoder_0"):
+        def hook(m, a, out, name=name):
+            first = out[0] if isinstance(out, (tuple, list)) else out
+            seen[name] = str(first.dtype).replace("torch.", "")
+        hooks.append(getattr(model, name).register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            model(batch, **hints)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def twin_frame(params):
+    """One fixture frame of the config's mixed fleet: a lidar ego and a
+    camera agent (ego_mode lidar, every other agent a camera).  Returns
+    the collated batch on the CPU and its hints."""
+    from hmvit_tpu_torch.data.opv2v import HeteroCooperativeDataset
+    from hmvit_tpu_torch.tools import common, inference
+
+    params = dict(params, ego_mode="lidar", camera_to_lidar_ratio=1.0)
+    common.write_synthetic(params, "chip_smoke_twin_", 60000,
+                           num_scenarios=1, num_cavs=2, num_frames=1)
+    ds = HeteroCooperativeDataset(params, train=False)
+    frame = ds[0]
+    if list(np.asarray(frame["mode"])[:2]) != [1, 0]:
+        raise AssertionError(f"phase 14: fleet {frame['mode']}, expected a "
+                             f"lidar ego and a camera agent")
+    return (common.to_device(ds.collate_batch([frame]), "cpu"),
+            inference.fleet_hints(frame))
+
+
+def twin_steady(model, batch, hints, params, dev, card) -> None:
+    """(b) steady serving of one bucket: the fixture frame's (a lidar
+    ego and a camera agent) captured as ``tools.inference
+    --serving_buckets`` captures it, TWIN_STEADY_WARMUP replays, then
+    TWIN_STEADY_FRAMES frames each timed on the host clock as the tool
+    serves them: the copy to the card with the bf16 casts and the
+    graph's replay (the card synchronised), then host decode + NMS.
+    Prints p50 / p95 of the frame and the medians of the two parts."""
+    import torch
+
+    from hmvit_tpu_torch.postprocess import build_postprocessor
+    from hmvit_tpu_torch.serving import GEOMETRY_KEYS
+    from hmvit_tpu_torch.tools import common, inference
+
+    pp = build_postprocessor(params["postprocess"], train=False)
+    anchors = pp.generate_anchor_box()
+    graphs = inference.GraphServing(model, anchors)
+    ego = {"ego": {"transformation_matrix": np.eye(4), "anchor_box": anchors,
+                   "no_post_projection": True}}
+
+    def frame():
+        t0 = time.perf_counter()
+        req = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32
+                   and k not in GEOMETRY_KEYS else v)
+               for k, v in common.to_device(batch, dev).items()}
+        out = graphs(req, hints)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pp.post_process(ego, {"ego": inference.detection_view(out)})
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    frame()
+    for _ in range(TWIN_STEADY_WARMUP):
+        frame()
+    rows = np.asarray([frame() for _ in range(TWIN_STEADY_FRAMES)])
+    total = rows.sum(axis=1)
+    fwd, dec = np.median(rows, axis=0)
+    print(f"phase 14 (b) steady serving, bucket {hints['static_modes']} "
+          f"after its capture ({graphs.captures[0]['capture_s']} s) and "
+          f"{TWIN_STEADY_WARMUP} replays: {TWIN_STEADY_FRAMES} frames, p50 "
+          f"{float(np.percentile(total, 50)):.2f} ms, p95 "
+          f"{float(np.percentile(total, 95)):.2f} ms, min "
+          f"{float(total.min()):.2f}, max {float(total.max()):.2f}; medians "
+          f"copy + graph forward {fwd:.2f} ms, host decode + NMS "
+          f"{dec:.2f} ms (host clock, card synchronised) on {card}")
+    if len(graphs.captures) != 1 or not np.isfinite(total).all():
+        raise AssertionError(f"phase 14 (b) steady serving: captures "
+                             f"{graphs.captures}, frames {rows}")
+
+
+def twin_card_vs_cpu(run, params, dev, card) -> None:
+    """(c) part 2: the converted flagship cut to TWIN_CPU_LAYERS camera
+    layers (its first layers' converted weights), float32 (the fusion's
+    ``compute_dtype`` too) with TF32 off on the card against the CPU, one
+    fixture frame with a camera agent: sigmoid(psm) and rm within
+    SEG_LIDAR_ATOL of scale.  The CPU forward takes the card's pillar
+    projections (``point_sampling``): the fixture's cameras see 90
+    degrees along the axes, so BEV grid points lie exactly on their
+    image edges, and the two devices' last-bit roundings decide those
+    visibilities differently (a discontinuity of the model, not of its
+    arithmetic).  The two devices' projections are held to each other:
+    a visibility may differ only at a point within TWIN_UV_ATOL of an
+    image edge, and the image coordinates of the points both see agree
+    within TWIN_UV_ATOL."""
+    import copy
+    import os
+
+    import torch
+
+    from hmvit_tpu_torch.models import bevformer_ref
+    from hmvit_tpu_torch.models.zoo import build_model
+    from hmvit_tpu_torch.train.checkpointing import saved_model_state
+    from hmvit_tpu_torch.utils.precision import strict_fp32
+
+    cut = copy.deepcopy(params)
+    cut["model"]["args"]["camera"]["num_layers"] = TWIN_CPU_LAYERS
+    # float32 throughout: the fusion's bf16 compute_dtype rounds its
+    # contractions on the card as a bf16 GEMM with a float32 result, on
+    # the CPU as a float32 einsum
+    cut["model"]["args"]["hetero_fusion"]["hetero_fusion_block"][
+        "compute_dtype"] = "float32"
+    model = build_model(cut["model"])
+    saved = saved_model_state(os.path.join(run, "ckpt"))
+    model.load_state_dict({k: v for k, v in saved.items()
+                           if k in model.state_dict()})
+    batch, hints = twin_frame(copy.deepcopy(params))
+    sampling = bevformer_ref.point_sampling
+    seen = {}
+
+    def on_card(*args):
+        seen["card"] = [t.cpu() for t in sampling(*args)]
+        return [t.to(dev) for t in seen["card"]]
+
+    def on_cpu(*args):
+        seen["cpu"] = sampling(*args)
+        return seen["card"]
+
+    cpu_model = copy.deepcopy(model)
+    model = model.to(dev)
+    try:
+        bevformer_ref.point_sampling = on_card
+        with torch.no_grad(), strict_fp32():
+            got = model({k: v.to(dev) for k, v in batch.items()}, **hints)
+        torch.cuda.synchronize()
+        bevformer_ref.point_sampling = on_cpu
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = cpu_model(batch, **hints)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        bevformer_ref.point_sampling = sampling
+    (uv_card, vis_card), (uv_cpu, vis_cpu) = seen["card"], seen["cpu"]
+    flipped = vis_cpu != vis_card
+    on_edge = torch.zeros_like(flipped)
+    for uv in (uv_card, uv_cpu):
+        on_edge |= ((uv.abs() < TWIN_UV_ATOL)
+                    | ((uv - 1).abs() < TWIN_UV_ATOL)).any(-1)
+    off_edge = int((flipped & ~on_edge).sum())
+    both = vis_cpu & vis_card
+    uv_err = float((uv_cpu - uv_card).abs()[both].max()) if both.any() \
+        else float("nan")
+    print(f"phase 14 (c) pillar projections, card vs CPU: "
+          f"{int(flipped.sum())} of {vis_card.numel()} visibilities differ, "
+          f"{off_edge} of them off the image edges ({int(on_edge.sum())} "
+          f"points within {TWIN_UV_ATOL:g} of one); max |uv| diff "
+          f"{uv_err:.3e} on the {int(both.sum())} points both see (tol "
+          f"{TWIN_UV_ATOL:g})")
+    if not (off_edge == 0 and uv_err <= TWIN_UV_ATOL):
+        raise AssertionError(f"phase 14 (c): the card's pillar projections "
+                             f"differ from the CPU's: {off_edge} "
+                             f"visibilities off the image edges, uv {uv_err}")
+    errs = scaled_errors(got, want)
+    if max(errs.values()) > SEG_LIDAR_ATOL:
+        raise AssertionError(f"phase 14 (c): card vs CPU {errs} (tol "
+                             f"{SEG_LIDAR_ATOL})")
+    print(f"phase 14 (c) converted flagship, {TWIN_CPU_LAYERS} camera layer, "
+          f"fleet {hints['static_modes']}: fp32 card (TF32 off) vs CPU on "
+          f"the card's projections max_abs_err/scale psm {errs['psm']:.3e}, "
+          f"rm {errs['rm']:.3e} (tol {SEG_LIDAR_ATOL}); CPU forward "
+          f"{cpu_s:.1f} s on {card}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def twin_wrapper(dev, card, tmp, total) -> None:
+    """(d) ``bevformer_wrapper`` with ``bevformer_ref`` (the standalone
+    RefBEVFormerDetector) at the smoke widths: a reference-named file
+    written by the port's exporters -> the convert CLI -> bit for bit ->
+    ``tools.inference --bf16`` serves it (its plain forward)."""
+    import os
+
+    import torch
+
+    from hmvit_tpu_torch.bridge import state_dict_to_flax
+    from hmvit_tpu_torch.config import load_config, save_config
+    from hmvit_tpu_torch.models.zoo import build_model
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.tools import convert_checkpoint as cc
+    from hmvit_tpu_torch.tools import inference
+    from hmvit_tpu_torch.train.checkpointing import saved_model_state
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    params = load_config(os.path.join(repo, HYPES, "smoke_hetero_tiny.yaml"))
+    params["model"] = {"core_method": "bevformer_wrapper", "args": {
+        "anchor_number": 2, "camera": dict(TWIN_WRAPPER_CAMERA),
+        "decoder": {"num_layer": 1, "num_ch_dec": [64]}}}
+    run = os.path.join(tmp, "wrapper_run")
+    os.makedirs(run)
+    hypes = os.path.join(run, "config.yaml")
+    save_config(params, hypes)
+    model = init_parameters(build_model(params["model"]), 1)
+    tree = state_dict_to_flax(model, model.state_dict())
+    p, s = tree["params"], tree["batch_stats"]
+    w = cc._Writer()
+    cc.export_bevformer_camera(w, "bevformer.", p["bevformer"],
+                               s["bevformer"], "resnet18")
+    cc.export_naive_decoder(w, "decoder", p["decoder"], s["decoder"], 1)
+    w.conv("cls_head", p["head"]["Conv_0"])
+    w.conv("reg_head", p["head"]["Conv_1"])
+    ref_dir = os.path.join(tmp, "wrapper_reference")
+    os.makedirs(ref_dir)
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in w.out.items()},
+               os.path.join(ref_dir, "net_epoch2.pth"))
+    report, secs = convert_cli(ref_dir, hypes, os.path.join(run, "ckpt"),
+                               "bevformer_wrapper")
+    same = same_state(saved_model_state(os.path.join(run, "ckpt")),
+                      model.state_dict())
+    cuda.reset_launches()
+    res = inference.main(["--model_dir", run, "--synthetic",
+                          "--synthetic_frames", str(TWIN_WRAPPER_FRAMES),
+                          "--bf16", "--max_frames", str(TWIN_WRAPPER_FRAMES),
+                          "--ap_mode", "iou"])
+    counts = cuda.launch_counts()
+    for kernel, n in counts.items():
+        total[kernel] += n
+    iou, e2e = res["iou"], res["e2e"]
+    print(f"phase 14 (d) bevformer_wrapper (RefBEVFormerDetector, smoke "
+          f"widths): {report['converted_params']} params converted in "
+          f"{secs:.1f} s, restored == exported bit for bit {same}; "
+          f"tools.inference --bf16: AP@0.3 / 0.5 / 0.7 {iou['ap_30']:.4f} / "
+          f"{iou['ap_50']:.4f} / {iou['ap_70']:.4f} (not held); e2e "
+          f"{e2e['fps']} fps over {e2e['frames']} frames, p50 "
+          f"{e2e['p50_ms']} ms, p95 {e2e['p95_ms']} ms; launches "
+          f"{sum(counts.values())} on {card}")
+    if not same:
+        raise AssertionError("phase 14 (d): the restored state_dict differs "
+                             "from the exported model's")
+    if any(counts.values()) or not all(
+            np.isfinite(iou[k]) for k in ("ap_30", "ap_50", "ap_70")):
+        raise AssertionError(f"phase 14 (d): launches {counts}, AP {iou}")
+
+
+def twin_phase(dev, card):
+    """Phase 14 (see the module's docstring): a reference flagship
+    checkpoint converted and served at full width.  Returns each kernel's
+    launches over the phase, and the plain kernel's by (T, type) and body
+    (``add_keyed``)."""
+    import copy
+    import os
+    import tempfile
+
+    import torch
+
+    from hmvit_tpu_torch.serving import GEOMETRY_KEYS
+    from hmvit_tpu_torch.tools import common
+
+    t_start = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    total = dict.fromkeys(KERNEL_META, 0)
+    keyed = {}
+    params = twin_flagship_params(repo)
+    margs = params["model"]["args"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase14_") as tmp:
+        # (a) the port's export of a seeded model as a reference run's
+        # net_epoch3.pth -> the convert CLI -> the run directory
+        model, run, report, secs = convert_seeded_flagship(params, tmp)
+        print(f"phase 14 (a) {TWIN_FLAGSHIP_HYPES} with bevformer_ref: "
+              f"seeded model exported in the reference's keys; "
+              f"convert_checkpoint CLI {report['converted_params']} params, "
+              f"{len(report.get('dead_reference_keys', []))} dead keys, "
+              f"camera layers {report['camera_num_layers']}, {secs:.1f} s; "
+              f"restored == exported bit for bit True")
+        twin_export_round_trip(model, margs, tmp)
+        del model
+        # (b) tools.inference --bf16 --serving_buckets on the run
+        # directory: captured graphs, launches a frame held (K1 4, K2 2,
+        # K3 2, every other kernel 0), one frame graph == eager (c)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = serve_run_dir(run, margs, dev, card, total,
+                            f"{TWIN_FLAGSHIP_HYPES} (bevformer_ref)", keyed)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for b in res["serving"]["buckets"]:
+            other = {k: n for k, n in b["launches"].items()
+                     if k not in TRAIN_KERNELS and n}
+            if other:
+                raise AssertionError(f"phase 14 bucket {b['hints']}: "
+                                     f"launches {other}, expected none")
+        # each stage's type on the served (bf16) model, one frame
+        model, _ = common.load_runnable(run, dev)
+        model = model.to(torch.bfloat16)
+        batch, hints = twin_frame(copy.deepcopy(params))
+        req = {k: (v.to(dev, torch.bfloat16) if v.dtype == torch.float32
+                   and k not in GEOMETRY_KEYS else v.to(dev))
+               for k, v in batch.items()}
+        types = stage_types(model, req, hints)
+        fusion_cdt = margs["hetero_fusion"]["hetero_fusion_block"].get(
+            "compute_dtype", "float32")
+        print(f"phase 14 (b) stage output types under --bf16 (fleet "
+              f"{hints['static_modes']}): {types}, the fusion computing in "
+              f"{fusion_cdt}; peak device memory {peak:.3f} GiB on {card}")
+        del req
+        twin_steady(model, batch, hints, params, dev, card)
+        del model
+        torch.cuda.empty_cache()
+        # (c) the card against the CPU, float32, one camera layer
+        twin_card_vs_cpu(run, params, dev, card)
+        # (d) the standalone detector, converted and served
+        twin_wrapper(dev, card, tmp, total)
+    for kernel, n in total.items():
+        if kernel not in TRAIN_KERNELS and n:
+            raise AssertionError(f"phase 14: {kernel} launched {n} times, "
+                                 f"expected none")
+    torch.cuda.empty_cache()
+    print(f"phase 14 launches: {total}; plain launches by (T, type) and "
+          f"body: {keyed}")
+    print(f"phase 14: {time.perf_counter() - t_start:.1f} s on {card}")
+    return total, keyed
+
+
 def main() -> int:
     import torch
 
@@ -3175,6 +3748,9 @@ def main() -> int:
     # -- 13. the segmentation assemblies and the lidar zoo --------------------
     seg_lidar_counts = seg_lidar_zoo_phase(dev, card)
 
+    # -- 14. a reference checkpoint converted and served ---------------------
+    twin_counts, twin_keyed = twin_phase(dev, card)
+
     kernels = []
     for name, rec in record.items():
         launches = path_counts[KERNEL_PATH[name]][name]
@@ -3197,6 +3773,7 @@ def main() -> int:
                         "zoo_launches": zoo_counts[name],
                         "fusion_zoo_launches": fusion_counts[name],
                         "seg_lidar_zoo_launches": seg_lidar_counts[name],
+                        "reference_twin_launches": twin_counts[name],
                         **rec})
     # K3 at V2X-ViT's windows: its launches at each T over phase 12
     name = "plain_window_attention"
@@ -3215,6 +3792,9 @@ def main() -> int:
                         "launches_by_type": {key[1]: n for key, n in
                                              keyed.items() if key[0] == t},
                         "seg_lidar_zoo_launches": seg_lidar_counts[name],
+                        "reference_twin_launches": sum(
+                            n for key, n in twin_keyed.items()
+                            if key[0] == t),
                         **rec["bfloat16"], "float32": rec["float32"]})
     print(json.dumps({"kernels": kernels}))
     print(card)

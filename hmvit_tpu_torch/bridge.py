@@ -1,5 +1,5 @@
 """Weight bridge: a flax ``variables`` tree -> a port module's
-``state_dict``.
+``state_dict``, and back (:func:`state_dict_to_flax`).
 
 Port modules carry their flax counterparts' names (``Dense_0``,
 ``ConvBNReLU_3``, ``to_q``, ...), so a parameter's module path in the
@@ -49,6 +49,32 @@ def _convert(arr: np.ndarray, kind: str) -> np.ndarray:
     raise ValueError(f"unknown conversion {kind!r}")
 
 
+def _unconvert(arr: np.ndarray, kind: str) -> np.ndarray:
+    """The inverse of :func:`_convert`."""
+    if kind == "copy":
+        return arr
+    if kind == "dense":
+        return arr.T
+    if kind == "conv":
+        return arr.transpose(2, 3, 1, 0)
+    if kind == "conv3d":
+        return arr.transpose(2, 3, 4, 1, 0)
+    if kind == "conv_transpose":
+        return arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    raise ValueError(f"unknown conversion {kind!r}")
+
+
+def _flax_source(model: nn.Module, key: str) -> tuple[tuple, str]:
+    """The flax path (collection, modules..., leaf) of the state_dict
+    entry ``key`` and its conversion kind."""
+    mod_path, _, leaf = key.rpartition(".")
+    module = model.get_submodule(mod_path) if mod_path else model
+    coll, flax_leaf, kind = getattr(module, "flax_leaves", {}).get(
+        leaf, ("params", leaf, "copy"))
+    return (coll, *(mod_path.split(".") if mod_path else ()), flax_leaf), \
+        kind
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if hasattr(v, "items"):
@@ -69,12 +95,7 @@ def flax_to_state_dict(model: nn.Module, variables) -> dict:
     used = set()
     out = {}
     for key, tensor in model.state_dict().items():
-        mod_path, _, leaf = key.rpartition(".")
-        module = model.get_submodule(mod_path) if mod_path else model
-        spec = getattr(module, "flax_leaves", {}).get(leaf,
-                                                      ("params", leaf, "copy"))
-        coll, flax_leaf, kind = spec
-        src = (coll, *(mod_path.split(".") if mod_path else ()), flax_leaf)
+        src, kind = _flax_source(model, key)
         if src not in leaves:
             raise KeyError(f"{key}: no flax leaf {'/'.join(src)}")
         arr = np.ascontiguousarray(_convert(leaves[src], kind))
@@ -89,6 +110,28 @@ def flax_to_state_dict(model: nn.Module, variables) -> dict:
         raise KeyError(f"flax leaves with no port counterpart: {unused[:8]}"
                        + (" ..." if len(unused) > 8 else ""))
     return out
+
+
+def state_dict_to_flax(model: nn.Module, state_dict: dict) -> dict:
+    """The inverse of :func:`flax_to_state_dict`: ``model``'s state_dict
+    entries (``state_dict``, e.g. a checkpoint's) as a flax variables tree
+    {collection: nested dicts} of numpy arrays, each in flax's layout and
+    the tensor's dtype.  Every entry of the model must be given."""
+    tree: dict = {}
+    for key in model.state_dict():
+        if key not in state_dict:
+            raise KeyError(f"{key}: missing from the state_dict")
+        src, kind = _flax_source(model, key)
+        arr = state_dict[key].detach().cpu()
+        if arr.dtype == torch.bfloat16:
+            raise TypeError(f"{key}: numpy has no bfloat16; convert a "
+                            f"float32 state_dict")
+        node = tree
+        for part in src[:-1]:
+            node = node.setdefault(part, {})
+        # .copy(): a flip leaves negative strides, and a copy owns its data
+        node[src[-1]] = _unconvert(arr.numpy(), kind).copy()
+    return tree
 
 
 def load_flax(model: nn.Module, variables) -> nn.Module:

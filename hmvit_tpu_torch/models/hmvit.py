@@ -13,8 +13,11 @@ from torch import nn
 
 from .bev_swap import BEVSwapEncoder
 from .bevformer import BEVFormerEncoder
+from .bevformer_ref import RefBEVFormerCameraEncoder
 from .cvt import CrossViewTransformer
+from .cvt_ref import CVTRefCameraEncoder
 from .fax import FAXCameraEncoder
+from .fax_ref import FAXRefCameraEncoder
 from .fusion import make_fusion
 from ..nn import DTYPES, remat
 from .hetero_fusion import HeteroFusion
@@ -24,24 +27,22 @@ from .vpn import ViewParseNetwork
 
 
 # the camera encoders the port builds, by the config's ``encoder`` key
+# (the ``*_ref`` ones are the reference-faithful twins that a converted
+# reference checkpoint fills)
 CAMERA_ENCODERS = {"cvt": CrossViewTransformer, "fax": FAXCameraEncoder,
                    "bevformer": BEVFormerEncoder, "vpn": ViewParseNetwork,
-                   "vpn_ms": ViewParseNetwork, "bev_swap": BEVSwapEncoder}
+                   "vpn_ms": ViewParseNetwork, "bev_swap": BEVSwapEncoder,
+                   "fax_ref": FAXRefCameraEncoder,
+                   "cvt_ref": CVTRefCameraEncoder,
+                   "bevformer_ref": RefBEVFormerCameraEncoder}
 # the fusion overrides that take the batch's prior_encoding
 PRIOR_FUSIONS = ("v2xvit", "v2xt")
-# the JAX package's reference-faithful twins, not ported yet
-REFERENCE_TWINS = ("fax_ref", "cvt_ref", "bevformer_ref")
 
 
 def make_camera_encoder(cfg: dict) -> nn.Module:
     """The camera -> BEV encoder ``cfg["encoder"]`` names (a key of
     :data:`CAMERA_ENCODERS`; ``cvt`` by default)."""
     kind = cfg.get("encoder", "cvt")
-    if kind in REFERENCE_TWINS:
-        raise NotImplementedError(
-            f"the reference twin camera encoder {kind!r} is not ported yet "
-            f"(the port builds {sorted(CAMERA_ENCODERS)}): ROADMAP.md "
-            f"Queue 1 item 5")
     if kind not in CAMERA_ENCODERS:
         raise ValueError(f"unknown camera encoder {kind!r}")
     return CAMERA_ENCODERS[kind](cfg)

@@ -1,7 +1,10 @@
 """ResNet-18/34/50 image backbones and FPN on NHWC (port of
 ``hmvit_tpu/models/resnet.py``, XLA 'SAME' padding: stride-2 convs pad
 (0, 1) at even sizes, the 7x7 stem and the max-pool pad the XLA way, and
-BatchNorm keeps flax's default eps 1e-5, with momentum 0.9)."""
+BatchNorm keeps flax's default eps 1e-5, with momentum 0.9).  With
+``torch_padding`` the grid is PyTorch's instead (the checkpoint-import
+twins): the stem pads (3, 3), the max-pool (1, 1) with -inf and each
+stride-2 3x3 conv (1, 1)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -16,12 +19,21 @@ _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.9
 
 
+def _pad3(stride: int, torch_padding: bool):
+    """A 3x3 conv's padding: PyTorch's (1, 1) for a stride-2 conv under
+    ``torch_padding``, else XLA 'SAME'."""
+    return 1 if torch_padding and stride > 1 else "SAME"
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 torch_padding: bool = False):
         super().__init__()
-        self.Conv_0 = Conv(cin, features, 3, stride, use_bias=False)
+        self.Conv_0 = Conv(cin, features, 3, stride,
+                           padding=_pad3(stride, torch_padding),
+                           use_bias=False)
         self.BatchNorm_0 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
         self.Conv_1 = Conv(features, features, 3, use_bias=False)
         self.BatchNorm_1 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
@@ -40,12 +52,15 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 torch_padding: bool = False):
         super().__init__()
         cout = features * 4
         self.Conv_0 = Conv(cin, features, 1, use_bias=False)
         self.BatchNorm_0 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
-        self.Conv_1 = Conv(features, features, 3, stride, use_bias=False)
+        self.Conv_1 = Conv(features, features, 3, stride,
+                           padding=_pad3(stride, torch_padding),
+                           use_bias=False)
         self.BatchNorm_1 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
         self.Conv_2 = Conv(features, cout, 1, use_bias=False)
         self.BatchNorm_2 = BatchNorm(cout, _BN_EPS, _BN_MOMENTUM)
@@ -94,10 +109,13 @@ class ResNetEncoder(nn.Module):
     """(N, H, W, 3) -> the stage outputs picked by ``id_pick`` (1-4,
     strides 4/8/16/32): one array, or a list for several.  ``stem_s2d``
     runs the stem as :func:`s2d_stem`, on the same ``Conv_0`` weight, so
-    a checkpoint serves both stems."""
+    a checkpoint serves both stems.  ``torch_padding`` pads on PyTorch's
+    grid (the stem, the max-pool and the stride-2 convs; ``stem_s2d`` is
+    then ignored, as in JAX)."""
 
     def __init__(self, arch: str = "resnet50",
-                 id_pick: Sequence[int] = (3,), stem_s2d: bool = False):
+                 id_pick: Sequence[int] = (3,), stem_s2d: bool = False,
+                 torch_padding: bool = False):
         super().__init__()
         if arch not in _ARCH:
             raise ValueError(f"unknown ResNet {arch!r} (the port builds "
@@ -105,7 +123,10 @@ class ResNetEncoder(nn.Module):
         block, layout = _ARCH[arch]
         self.id_pick = tuple(id_pick)
         self.stem_s2d = stem_s2d
-        self.Conv_0 = Conv(3, 64, 7, 2, use_bias=False)
+        self.torch_padding = torch_padding
+        self.Conv_0 = Conv(3, 64, 7, 2,
+                           padding=3 if torch_padding else "SAME",
+                           use_bias=False)
         self.BatchNorm_0 = BatchNorm(64, _BN_EPS, _BN_MOMENTUM)
         self.stages = []
         cin, features, k = 64, 64, 0
@@ -113,7 +134,7 @@ class ResNetEncoder(nn.Module):
             blocks = []
             for i in range(n_blocks):
                 stride = 2 if (stage > 0 and i == 0) else 1
-                blk = block(cin, features, stride)
+                blk = block(cin, features, stride, torch_padding)
                 self.add_module(f"{block.__name__}_{k}", blk)
                 blocks.append(blk)
                 cin = features * block.expansion
@@ -133,10 +154,15 @@ class ResNetEncoder(nn.Module):
         return 1 + self.id_pick[-1]
 
     def forward(self, x):
-        x = (s2d_stem(x, self.Conv_0.weight) if self.stem_s2d
-             else self.Conv_0(x))
+        x = (s2d_stem(x, self.Conv_0.weight)
+             if self.stem_s2d and not self.torch_padding else self.Conv_0(x))
         x = F.relu(self.BatchNorm_0(x))
-        x = max_pool_same(x, 3, 2)
+        if self.torch_padding:
+            # MaxPool2d(3, 2, padding=1): -inf padding on every side
+            x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, padding=1)
+            x = x.permute(0, 2, 3, 1)
+        else:
+            x = max_pool_same(x, 3, 2)
         outs = []
         for blocks in self.stages:
             for blk in blocks:

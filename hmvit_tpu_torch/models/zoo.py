@@ -24,16 +24,17 @@ names:
   ``pixor_intermediate``).
 
 A name that starts with ``fax_`` or ``bevformer_`` names the camera
-encoder, as in JAX.  Every name of the JAX registry builds
-(:data:`UNPORTED` is empty); the reference twin camera encoders raise
-``NotImplementedError`` from ``make_camera_encoder`` (ROADMAP.md Queue 1
-item 5); an unknown name raises ``ValueError``, as in JAX.
+encoder, as in JAX; ``bevformer_wrapper`` with ``encoder: bevformer_ref``
+is the reference's standalone detector (:class:`RefBEVFormerDetector`).
+Every name of the JAX registry builds (:data:`UNPORTED` is empty); an
+unknown name raises ``ValueError``, as in JAX.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from .bevformer_ref import RefBEVFormerDetector
 from .fusion import make_fusion
 from .hmvit import HMViT, make_camera_encoder
 from .layers import DetectionHead, DownsampleConv, NaiveDecoder
@@ -125,11 +126,6 @@ BUILT_NAMES = frozenset(HETERO_NAMES | set(_LIDAR_FUSIONS)
                         | set(LIDAR_ZOO) | LIDAR_ZOO_COOPERATIVE)
 # the JAX registry's names other than the hetero ones
 ZOO_NAMES = frozenset((BUILT_NAMES - HETERO_NAMES) | set(UNPORTED))
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: not ported yet, ROADMAP.md Queue 1 "
-                               f"item 5")
 
 
 def camera_channels(camera_cfg: dict) -> int:
@@ -346,10 +342,10 @@ def build_model(model_cfg: dict) -> nn.Module:
         if name == "bevformer_wrapper":
             camera = dict(args.get("camera", {}))
             camera.setdefault("encoder", "bevformer")
-            if camera["encoder"] == "bevformer_ref":
-                raise not_ported("bevformer_wrapper with the bevformer_ref "
-                                 "encoder (the reference twins)")
             args = dict(args, camera=camera)
+            if camera["encoder"] == "bevformer_ref":
+                # the checkpoint-portable twin: trunk, decoder and heads
+                return RefBEVFormerDetector(args)
         return CameraDetector(args)
     if name in SEGMENTOR_ENCODERS:
         encoder = SEGMENTOR_ENCODERS[name]

@@ -307,23 +307,22 @@ def test_build_model_refuses_the_rest_of_the_zoo(name):
 ], ids=["seg_task", "lidar_zoo_encoder", "bevformer_ref"])
 def test_unported_options_of_built_names_raise(what, model_cfg):
     """What a built name may be configured with: the segmentation task
-    (the BEV seg head after the fusion) and the lidar zoo's encoders now
-    build, with the JAX model's parameter count; the reference twin
-    still raises, naming its ROADMAP item."""
+    (the BEV seg head after the fusion), the lidar zoo's encoders and the
+    reference twin behind ``bevformer_wrapper`` (the standalone
+    RefBEVFormerDetector) build, with the JAX model's parameter count."""
     import jax
     import jax.numpy as jnp
 
     from hmvit_tpu.data.synthetic import make_hetero_batch
+    from hmvit_tpu_torch.models.bevformer_ref import RefBEVFormerDetector
 
     args = dict(zoo_model_args("second"), **model_cfg["args"])
     model_cfg = dict(model_cfg, args=args)
-    if what == "bevformer_ref":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            zoo.build_model(model_cfg)
-        return
     model = zoo.build_model(model_cfg)
     if what == "task: seg":
         assert model.seg and not hasattr(model, "DetectionHead_0")
+    elif what == "bevformer_ref":
+        assert isinstance(model, RefBEVFormerDetector)
     else:
         assert model.encoder_name == "SecondDetector_0"
     batch, _ = make_hetero_batch(
@@ -385,15 +384,40 @@ def test_serving_buckets_serve_a_cooperative_detector_plainly(tmp_path,
     assert "serving" not in res and set(res["iou"]) >= {"ap_30", "ap_70"}
 
 
+# the twins' camera keys over the smoke camera block: the BEVFormer twin
+# at the smoke map (16^2 x 64), the FAX / CVT twins as they default
+TWIN_CAMERA = {"fax_ref": {}, "cvt_ref": {},
+               "bevformer_ref": {"dim": 64, "bev_h": 16, "num_layers": 1,
+                                 "backbone": "resnet18"}}
+
+
 @pytest.mark.parametrize("encoder", ["fax_ref", "cvt_ref", "bevformer_ref"])
 def test_unported_camera_encoder_named(encoder):
-    """The JAX package's reference twins: known, not ported yet."""
+    """The JAX package's reference twins build under HMViT, with the JAX
+    model's parameter count."""
+    import jax
+    import jax.numpy as jnp
+
+    from hmvit_tpu.data.synthetic import make_hetero_batch
+    from hmvit_tpu_torch.models.hmvit import CAMERA_ENCODERS
+
     params = loader.load_config(os.path.join(PORT_HYPES,
                                              "smoke_hetero_tiny.yaml"))
     model_cfg = copy.deepcopy(params["model"])
-    model_cfg["args"]["camera"]["encoder"] = encoder
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        zoo.build_model(model_cfg)
+    model_cfg["args"]["camera"].update(encoder=encoder,
+                                       **TWIN_CAMERA[encoder])
+    model = zoo.build_model(model_cfg)
+    assert isinstance(model.camera_encoder, CAMERA_ENCODERS[encoder])
+    batch, _ = make_hetero_batch(
+        seed=0, max_cav=2, num_agents=2, max_points=64, image_size=64,
+        num_cams=4, camera_ratio=0.5, ego_mode="mixed",
+        lidar_range=params["preprocess"]["cav_lidar_range"])
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    shapes = jax.eval_shape(lambda b: jzoo.build_model(model_cfg).init(
+        jax.random.key(0), b, train=False), jb)
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        int(np.prod(x.shape))
+        for x in jax.tree_util.tree_leaves(shapes["params"]))
 
 
 def test_unknown_camera_encoder_raises_value_error():

@@ -13,7 +13,7 @@ import torch
 
 # imported before any trace: the module builds jnp constants at import
 import hmvit_tpu.models.bevformer  # noqa: F401
-from hmvit_tpu_torch.bridge import load_flax
+from hmvit_tpu_torch.bridge import _flatten, load_flax, state_dict_to_flax
 
 from tiny_cfg import RANGE, TINY_CFG
 
@@ -89,26 +89,8 @@ def flax_tree(port_module, shapes):
     of ``shapes`` (``jax.eval_shape`` of the flax module's init), holding
     ``port_module``'s tensors as numpy (e.g. the port's own seeded
     initialisation, which draws flax's default distributions)."""
-    def unconvert(arr, kind):
-        if kind == "dense":
-            return arr.T
-        if kind == "conv":
-            return arr.transpose(2, 3, 1, 0)
-        if kind == "conv3d":
-            return arr.transpose(2, 3, 4, 1, 0)
-        if kind == "conv_transpose":
-            return arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
-        return arr
-
-    leaves = {}
-    for key, tensor in port_module.state_dict().items():
-        mod_path, _, leaf = key.rpartition(".")
-        module = port_module.get_submodule(mod_path) if mod_path \
-            else port_module
-        coll, flax_leaf, kind = getattr(module, "flax_leaves", {}).get(
-            leaf, ("params", leaf, "copy"))
-        path = (coll, *(mod_path.split(".") if mod_path else ()), flax_leaf)
-        leaves[path] = np.ascontiguousarray(unconvert(tensor.numpy(), kind))
+    tree = state_dict_to_flax(port_module, port_module.state_dict())
+    leaves = dict(_flatten(tree))
 
     def fill(path, s):
         key = tuple(str(getattr(p, "key", p)) for p in path)
@@ -116,9 +98,9 @@ def flax_tree(port_module, shapes):
         assert arr.shape == s.shape, (key, arr.shape, s.shape)
         return arr
 
-    tree = jax.tree_util.tree_map_with_path(fill, shapes)
+    out = jax.tree_util.tree_map_with_path(fill, shapes)
     assert not leaves, sorted(leaves)[:4]
-    return tree
+    return out
 
 
 def bridged(port_module, variables):
