@@ -274,7 +274,28 @@ Phases:
    ``tools.inference --bf16`` (AP not held, fps, no launch).  The
    kernels line gains ``reference_twin_launches`` (the rows of K3 at
    V2X-ViT's windows: the phase's launches at that T); the phase prints
-   its length.
+   its length;
+15. the host-side remainder (no kernel of its own; the kernels line is
+   unchanged): (a) the host libraries (``native/rotated_nms.cpp``,
+   ``native/pcd_parser.cpp``) built with the host's C++ compiler; on
+   2 000 random boxes the native IoU within ``HOST_IOU_ATOL`` of the
+   numpy one (every 8th row) and the native NMS's kept indices equal to
+   the numpy loop's; (b) ``tools.inference --bf16`` on
+   ``opv2v/pixor_late_fusion.yaml`` (``--fusion_method late``) and
+   ``pixor_intermediate_fusion.yaml`` (random weights), every host NMS by
+   the numpy loop, then by the default backend, ``HOST_PIXOR_FRAMES``
+   frames each: fps, p50 / p95 and host NMS ms a call; the default served natively on every call, and
+   each native call's kept indices equal to the numpy loop's on the same
+   boxes; (c) phase 9's fixture loaded frame by frame
+   (``HOST_LOADER_PASSES`` passes a run) with the numpy pcd reader and
+   the native parser in turns: ms a frame, in evaluation (the frames
+   equal) and training mode, and each fixture cloud parsed alone by
+   each: ms a cloud; (d) ``tools.inference --bf16
+   --save_vis --save_3d --save_npy`` on phase 10's run directory: a BEV
+   PNG a frame of the range's shape, ``sequence.html`` with a frame a
+   frame, ``vis_npy.render_npy_dir`` over the dumps; (e) the hypes
+   generator into a temporary directory, its 73 files byte-equal to the
+   port's copies.  Any fallback to a numpy path fails the phase.
 
 The pair warp in float32 is held to its twin at ``FP32_ATOL`` on the
 serving and ego poses; on spread poses (the phase 2 case and
@@ -295,6 +316,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -499,6 +521,24 @@ SEG_LIDAR_SERVED = ("opv2v/pixor_intermediate_fusion.yaml",
                     "opv2v/second_intermediate_fusion.yaml")
 PIXOR_LATE_HYPES = "opv2v/pixor_late_fusion.yaml"
 SEG_LIDAR_FRAMES = 4
+# phase 15: the host-side remainder.  (a) the native clipper on random
+# boxes (2 000 in 120 m x 120 m) against the numpy loop: the IoU rows of
+# every HOST_IOU_STRIDE-th box within HOST_IOU_ATOL (the native matrix
+# is float32 of a double-precision clip), the kept indices equal
+HOST_NMS_BOXES = 2000
+HOST_IOU_STRIDE = 8
+HOST_IOU_ATOL = 1e-5
+# (b) PIXOR served (random weights), numpy host NMS then native
+HOST_PIXOR = (("opv2v/pixor_late_fusion.yaml", ("--fusion_method", "late")),
+              ("opv2v/pixor_intermediate_fusion.yaml", ()))
+HOST_PIXOR_FRAMES = 32  # p50 / p95 over the 31 after the first
+# (c) passes over phase 9's fixture (2 frames of 4 clouds) a loader run,
+# and timed reads of each fixture cloud by each parser
+HOST_LOADER_PASSES = 8
+HOST_PARSE_READS = 5
+# (d) the visualization flags on phase 10's run directory
+HOST_VIS_FRAMES = 3
+HOST_HYPES_GENERATED = 73
 
 KERNEL_META = {
     "pair_warp": ("hmvit_tpu_torch/csrc/pair_warp.cu",
@@ -2192,9 +2232,11 @@ def serve_run_dir(run, cfg, dev, card, total, what, keyed=None):
     return res
 
 
-def run_dir_phase(dev, card) -> dict:
+def run_dir_phase(dev, card, keep=None) -> dict:
     """Phase 10 (see the module's docstring): the run-directory tools.
-    Returns each kernel's launches over the phase."""
+    Returns each kernel's launches over the phase; with ``keep`` a copy
+    of the production-width run directory is left there (phase 15 serves
+    it)."""
     import os
     import tempfile
 
@@ -2220,6 +2262,8 @@ def run_dir_phase(dev, card) -> dict:
               f"{card}")
         # (b) the run directory served: captured graphs per fleet bucket
         serve_run_dir(run, cfg, dev, card, total, "hmvit_prod_serving")
+        if keep is not None:
+            shutil.copytree(run, keep)
         # (c) the cross-view transformer camera encoder on the card
         hypes = os.path.join(repo, HYPES, "smoke_hetero_tiny.yaml")
         want = train_launches(load_config(hypes)["model"]["args"])
@@ -3461,7 +3505,320 @@ def twin_phase(dev, card):
     return total, keyed
 
 
+# phase 15: the host-side remainder (see the module's docstring)
+def host_nms_check(card) -> None:
+    """Phase 15 (a): both host libraries build; the native IoU and NMS on
+    HOST_NMS_BOXES random boxes against the numpy loop."""
+    from hmvit_tpu_torch.data import pcd_native
+    from hmvit_tpu_torch.ops import host_build
+    from hmvit_tpu_torch.utils import nms, nms_native
+    from hmvit_tpu_torch.utils.boxes import boxes_to_corners_3d_np
+    from hmvit_tpu_torch.utils.iou import rotated_iou_matrix_np
+
+    t0 = time.perf_counter()
+    nms_native.library(require=True)
+    pcd_native.library(require=True)
+    print(f"phase 15 (a) host libraries rotated_nms and pcd_parser built and "
+          f"loaded in {time.perf_counter() - t0:.2f} s "
+          f"({host_build.compiler()} {' '.join(host_build.CXX_FLAGS)})")
+    rng = np.random.default_rng(15)
+    n = HOST_NMS_BOXES
+    boxes = np.zeros((n, 7))
+    boxes[:, :2] = rng.uniform(-60.0, 60.0, (n, 2))
+    boxes[:, 3] = 1.5
+    boxes[:, 4] = rng.uniform(1.2, 2.2, n)
+    boxes[:, 5] = rng.uniform(2.5, 5.0, n)
+    boxes[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    corners = boxes_to_corners_3d_np(boxes, "hwl")
+    scores = ((rng.permutation(n) + 1.0) / n).astype(np.float32)
+    t0 = time.perf_counter()
+    iou = nms_native.rotated_iou_matrix_native(corners, corners, require=True)
+    native_s = time.perf_counter() - t0
+    rows = np.arange(0, n, HOST_IOU_STRIDE)
+    t0 = time.perf_counter()
+    want = rotated_iou_matrix_np(corners[rows], corners)
+    numpy_s = time.perf_counter() - t0
+    err = float(np.abs(iou[rows] - want).max())
+    t0 = time.perf_counter()
+    keep_numpy = nms.nms_rotated(corners, scores, 0.15, backend="numpy")
+    t1 = time.perf_counter()
+    host_build.reset_counts()
+    keep = nms.nms_rotated(corners, scores, 0.15)
+    t2 = time.perf_counter()
+    served = host_build.calls(nms_native.NAME)
+    print(f"phase 15 (a) {n} boxes: native IoU {n} x {n} in {native_s:.3f} "
+          f"s, numpy {len(rows)} x {n} rows in {numpy_s:.3f} s, max_abs_err "
+          f"{err:.3e} (tol {HOST_IOU_ATOL}); NMS kept {len(keep)}, native "
+          f"{(t2 - t1) * 1e3:.2f} ms vs numpy {(t1 - t0) * 1e3:.2f} ms, "
+          f"pick order equal {np.array_equal(keep, keep_numpy)}; served "
+          f"{served}")
+    if err > HOST_IOU_ATOL or not np.array_equal(keep, keep_numpy):
+        raise AssertionError("phase 15 (a): the native IoU or NMS differs "
+                             "from the numpy loop")
+    if served != {"native": 1, "numpy": 0}:
+        raise AssertionError(f"phase 15 (a): host NMS served {served}")
+
+
+def host_pixor_serving(card, tmp) -> None:
+    """Phase 15 (b): PIXOR late and intermediate fusion (random weights)
+    served by ``tools.inference --bf16`` over HOST_PIXOR_FRAMES frames,
+    every host NMS by the numpy loop, then by the default backend: fps,
+    p50 / p95 and host NMS ms a call (median, p95 and mean a frame) each;
+    the default must be served natively on every call, and each native
+    call's kept indices equal the numpy loop's on the same boxes."""
+    import os
+
+    from hmvit_tpu_torch import postprocess_bev
+    from hmvit_tpu_torch.config import load_config, save_config
+    from hmvit_tpu_torch.ops import host_build
+    from hmvit_tpu_torch.tools import inference
+    from hmvit_tpu_torch.utils import nms_native
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    real = postprocess_bev.nms_rotated
+    for name, flags in HOST_PIXOR:
+        run = os.path.join(tmp, os.path.basename(name)[:-len(".yaml")])
+        os.makedirs(run)
+        save_config(load_config(os.path.join(repo, HYPES, name)),
+                    os.path.join(run, "config.yaml"))
+        argv = ["--model_dir", run, "--synthetic", "--synthetic_frames",
+                str(HOST_PIXOR_FRAMES), "--bf16", "--max_frames",
+                str(HOST_PIXOR_FRAMES), "--ap_mode", "iou", *flags]
+        calls = {"numpy": [], "auto": []}
+        for backend in ("numpy", "auto"):
+            call_ms = []
+
+            def timed(corners, scores, threshold, *a, **k):
+                t0 = time.perf_counter()
+                keep = real(corners, scores, threshold, *a,
+                            **dict(k, backend=backend))
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+                calls[backend].append((corners.copy(), scores.copy(),
+                                       threshold, keep))
+                return keep
+
+            host_build.reset_counts()
+            postprocess_bev.nms_rotated = timed
+            try:
+                res = inference.main(argv)
+            finally:
+                postprocess_bev.nms_rotated = real
+            served = host_build.calls(nms_native.NAME)
+            e2e = res["e2e"]
+            print(f"phase 15 (b) tools.inference {name} --bf16 "
+                  f"{' '.join(flags)}, host NMS {backend}: e2e {e2e['fps']} "
+                  f"fps over {e2e['frames']} frames after the first, p50 "
+                  f"{e2e['p50_ms']} ms, p95 {e2e['p95_ms']} ms; host NMS "
+                  f"{len(call_ms)} calls, median "
+                  f"{np.median(call_ms):.2f} ms, p95 "
+                  f"{np.percentile(call_ms, 95):.2f} ms, "
+                  f"{sum(call_ms) / HOST_PIXOR_FRAMES:.2f} ms a frame "
+                  f"({served}) on {card}")
+            other = "native" if backend == "numpy" else "numpy"
+            if (served[other] or not sum(served.values())
+                    or e2e["frames"] != HOST_PIXOR_FRAMES - 1):
+                raise AssertionError(f"phase 15 (b) {name}, backend "
+                                     f"{backend}: host NMS served {served} "
+                                     f"over {e2e['frames']} frames")
+        # each native call against the numpy loop on the same boxes: the
+        # numpy run's pick where its call saw the same arrays, else a
+        # fresh numpy call
+        same, fresh = [], 0
+        for i, (c, s, t, keep) in enumerate(calls["auto"]):
+            seen = calls["numpy"][i] if i < len(calls["numpy"]) else None
+            if not (seen is not None and seen[2] == t
+                    and np.array_equal(seen[0], c)
+                    and np.array_equal(seen[1], s)):
+                fresh += 1
+                seen = (c, s, t, real(c, s, t, backend="numpy"))
+            same.append(np.array_equal(seen[3], keep))
+        native = calls["auto"]
+        print(f"phase 15 (b) {name}: {len(native)} native host NMS calls, "
+              f"kept indices equal to the numpy loop's on {sum(same)} of "
+              f"them ({len(native) - fresh} against the numpy run's call "
+              f"on equal boxes, {fresh} recomputed; boxes "
+              f"{sorted({len(c[0]) for c in native})}, kept "
+              f"{min(len(c[3]) for c in native)}-"
+              f"{max(len(c[3]) for c in native)})")
+        if not (len(native) == HOST_PIXOR_FRAMES and all(same)):
+            raise AssertionError(f"phase 15 (b) {name}: native and numpy "
+                                 f"host NMS keep different boxes")
+
+
+def host_loader(card, tmp) -> None:
+    """Phase 15 (c): the accuracy gate's fixture (phase 9's) loaded
+    HOST_LOADER_PASSES times over a run with the numpy pcd reader and the
+    native parser, in turns, in evaluation (unshuffled) and training
+    (shuffled) mode: ms a frame; the unshuffled frames equal array for
+    array.  Then each fixture cloud read HOST_PARSE_READS times by each
+    parser alone: ms a cloud."""
+    import glob
+    import os
+
+    from hmvit_tpu_torch import prod_overfit as gate
+    from hmvit_tpu_torch.data import opv2v, pcd_io, pcd_native
+    from hmvit_tpu_torch.ops import host_build
+
+    args = gate.parse_args([])
+    _, lidar_range = gate.gate_config(args.grid)
+    root = os.path.join(tmp, "gate_fixture")
+    gate.write_fixture(root, args.grid, args.num_cavs, args.image_size,
+                       args.max_points)
+    params = gate.dataset_params(root, lidar_range, args.image_size)
+    readers = {"numpy": pcd_io.read_pcd_padded,
+               "native": pcd_native.read_pcd_padded}
+    real = opv2v.read_pcd_padded
+    for train in (False, True):
+        ms = {"numpy": [], "native": []}
+        frames = {}
+        for backend in ("numpy", "native", "native", "numpy"):
+            host_build.reset_counts()
+            ds = opv2v.HeteroCooperativeDataset(
+                params, train=train, max_points=args.max_points,
+                seed=args.seed)
+            opv2v.read_pcd_padded = readers[backend]
+            try:
+                for _ in range(HOST_LOADER_PASSES):
+                    for i in range(len(ds)):
+                        t0 = time.perf_counter()
+                        frame = ds[i]
+                        ms[backend].append((time.perf_counter() - t0) * 1e3)
+                        frames.setdefault(backend, []).append(frame)
+            finally:
+                opv2v.read_pcd_padded = real
+            # the native runs: every read by the parser (the numpy runs
+            # bypass the counter)
+            reads = host_build.calls(pcd_native.NAME)
+            want = HOST_LOADER_PASSES * len(ds) * args.num_cavs
+            if reads != {"native": want if backend == "native" else 0,
+                         "numpy": 0}:
+                raise AssertionError(f"phase 15 (c) {backend}: pcd reads "
+                                     f"{reads}")
+        equal = all(
+            all(np.array_equal(a[k], b[k]) for k in a if k != "object_ids")
+            for a, b in zip(frames["numpy"], frames["native"]))
+        mode = ("training (shuffled: each parser its own order)" if train
+                else "evaluation")
+        print(f"phase 15 (c) gate fixture loader, {mode}, {len(ds)} frames "
+              f"x {HOST_LOADER_PASSES} passes x 2 runs a reader: numpy pcd "
+              f"reader {np.median(ms['numpy']):.2f} ms a frame (median of "
+              f"{len(ms['numpy'])}; p95 {np.percentile(ms['numpy'], 95):.2f}"
+              f"), native parser {np.median(ms['native']):.2f} ms (p95 "
+              f"{np.percentile(ms['native'], 95):.2f}); frames equal "
+              f"{equal} on {card}")
+        if not train and not equal:
+            raise AssertionError("phase 15 (c): unshuffled frames differ "
+                                 "between the numpy and native readers")
+    clouds = sorted(glob.glob(os.path.join(root, "**", "*.pcd"),
+                              recursive=True))
+    parse = {"numpy": [], "native": []}
+    for _ in range(HOST_PARSE_READS):
+        for path in clouds:
+            for backend in parse:
+                t0 = time.perf_counter()
+                readers[backend](path, args.max_points + 4096)
+                parse[backend].append((time.perf_counter() - t0) * 1e3)
+    print(f"phase 15 (c) pcd parse alone, {len(clouds)} fixture clouds x "
+          f"{HOST_PARSE_READS}: numpy reader {np.median(parse['numpy']):.3f} "
+          f"ms a cloud (median; p95 {np.percentile(parse['numpy'], 95):.3f}), "
+          f"native parser {np.median(parse['native']):.3f} ms (p95 "
+          f"{np.percentile(parse['native'], 95):.3f}) on {card}")
+    if not clouds:
+        raise AssertionError("phase 15 (c): no fixture cloud found")
+
+
+def host_vis(run, card) -> None:
+    """Phase 15 (d): ``tools.inference --bf16 --save_vis --save_3d
+    --save_npy`` on phase 10's run directory: a BEV PNG a frame of the
+    range's shape, ``sequence.html`` with a frame a frame, and
+    ``vis_npy.render_npy_dir`` over the npy dumps."""
+    import os
+
+    from hmvit_tpu_torch.config import load_config
+    from hmvit_tpu_torch.data.codecs import read_png
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.tools import inference
+    from hmvit_tpu_torch.visualization import vis, vis_npy
+
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = inference.main(["--model_dir", run, "--synthetic",
+                          "--synthetic_frames", str(HOST_VIS_FRAMES),
+                          "--bf16", "--save_vis", "--save_3d", "--save_npy",
+                          "--max_frames", str(HOST_VIS_FRAMES), "--ap_mode",
+                          "iou"])
+    seconds = time.perf_counter() - t0
+    counts = cuda.launch_counts()
+    shape = vis.bev_shape(load_config("", model_dir=run)["preprocess"][
+        "cav_lidar_range"]) + (3,)
+    names = sorted(os.listdir(os.path.join(run, "vis")))
+    images = [read_png(os.path.join(run, "vis", n)) for n in names]
+    with open(os.path.join(run, "sequence.html")) as f:
+        frames = json.loads(f.read().split("FRAMES=")[1].split(", EDGES=")[0])
+    rendered = vis_npy.render_npy_dir(os.path.join(run, "npy"))
+    npy_shapes = {read_png(p).shape for p in rendered}
+    print(f"phase 15 (d) tools.inference hmvit_prod_serving --bf16 --save_vis "
+          f"--save_3d --save_npy: {HOST_VIS_FRAMES} frames in {seconds:.2f} "
+          f"s (e2e {res['e2e']['fps']} fps); PNGs {names} of "
+          f"{sorted({i.shape for i in images})}; sequence.html {len(frames)} "
+          f"frames ({[len(f['pts']) // 3 for f in frames]} points); "
+          f"render_npy_dir {len(rendered)} PNGs of {sorted(npy_shapes)}; "
+          f"launches {counts} on {card}")
+    if not (names == [f"{i:05d}.png" for i in range(HOST_VIS_FRAMES)]
+            and all(i.shape == shape and i.any() for i in images)
+            and len(frames) == HOST_VIS_FRAMES
+            and len(rendered) == HOST_VIS_FRAMES
+            and npy_shapes == {(1200, 1200, 3)}):
+        raise AssertionError("phase 15 (d): the visualization files are not "
+                             "as expected")
+
+
+def host_generator(card, tmp) -> None:
+    """Phase 15 (e): the hypes generator into a temporary directory, its
+    files byte-equal to the port's copies."""
+    import os
+
+    from hmvit_tpu_torch.config import generate_hypes
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "hypes")
+    t0 = time.perf_counter()
+    names = generate_hypes.generate(out)
+    seconds = time.perf_counter() - t0
+
+    def read(root, name):
+        with open(os.path.join(root, name), "rb") as f:
+            return f.read()
+
+    differ = [n for n in names
+              if read(out, n) != read(os.path.join(repo, HYPES), n)]
+    print(f"phase 15 (e) generate_hypes: {len(names)} files in {seconds:.2f} "
+          f"s, {len(names) - len(differ)} byte-equal to the port's copies")
+    if len(names) != HOST_HYPES_GENERATED or differ:
+        raise AssertionError(f"phase 15 (e): {len(names)} files, differing "
+                             f"{differ}")
+
+
+def host_phase(dev, card, run10) -> None:
+    """Phase 15 (see the module's docstring): the native host helpers,
+    visualization and the hypes generator."""
+    import tempfile
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase15_") as tmp:
+        host_nms_check(card)
+        host_pixor_serving(card, tmp)
+        host_loader(card, tmp)
+        host_vis(run10, card)
+        host_generator(card, tmp)
+    print(f"phase 15: {time.perf_counter() - t_start:.1f} s on {card}")
+
+
+
 def main() -> int:
+    import os
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3737,19 +4094,28 @@ def main() -> int:
     gate_counts = gate_phase(dev, card)
 
     # -- 10. the run-directory tools -----------------------------------------
-    run_dir_counts = run_dir_phase(dev, card)
+    kept = tempfile.mkdtemp(prefix="chip_smoke_run10_")
+    try:
+        run10 = os.path.join(kept, "hmvit_prod_serving")
+        run_dir_counts = run_dir_phase(dev, card, keep=run10)
 
-    # -- 11. every camera encoder of the zoo under HM-ViT ---------------------
-    zoo_counts = zoo_phase(dev, card)
+        # -- 11. every camera encoder of the zoo under HM-ViT -----------------
+        zoo_counts = zoo_phase(dev, card)
 
-    # -- 12. the fusion zoo ---------------------------------------------------
-    fusion_counts, keyed, k3 = fusion_zoo_phase(dev, card)
+        # -- 12. the fusion zoo -----------------------------------------------
+        fusion_counts, keyed, k3 = fusion_zoo_phase(dev, card)
 
-    # -- 13. the segmentation assemblies and the lidar zoo --------------------
-    seg_lidar_counts = seg_lidar_zoo_phase(dev, card)
+        # -- 13. the segmentation assemblies and the lidar zoo ----------------
+        seg_lidar_counts = seg_lidar_zoo_phase(dev, card)
 
-    # -- 14. a reference checkpoint converted and served ---------------------
-    twin_counts, twin_keyed = twin_phase(dev, card)
+        # -- 14. a reference checkpoint converted and served -----------------
+        twin_counts, twin_keyed = twin_phase(dev, card)
+
+        # -- 15. the host-side remainder: native helpers, visualization,
+        # hypes
+        host_phase(dev, card, run10)
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
 
     kernels = []
     for name, rec in record.items():

@@ -12,8 +12,10 @@ interlaced, with any of the five row filters (so it also reads what
 uint8: it may differ from OpenCV's fixed-point weights by one grey level.
 
 YAML: :func:`yaml_dump` writes what PyYAML's ``safe_dump`` writes for
-nested mappings (int and str keys, sorted), lists, floats, ints, bools,
-null and strings, in block style.  :func:`yaml_load` reads that block style,
+nested mappings (int and str keys, sorted unless ``sort_keys=False``),
+lists, floats, ints, bools, null and strings, in block style, with
+PyYAML's anchors and aliases for a list or dict held more than once.
+:func:`yaml_load` reads that block style,
 one-line flow sequences and mappings, quoted strings, comments and the
 ``!!python/tuple`` tag, and resolves plain scalars as PyYAML's
 ``SafeLoader`` does (YAML 1.1: ``yes`` is true, ``1e5`` is a string).
@@ -148,15 +150,27 @@ def read_png(path: str) -> np.ndarray:
     return out.reshape(h, w, c)
 
 
-def resize_bilinear(img: np.ndarray, size: int) -> np.ndarray:
-    """(H, W, C) uint8 -> (size, size, C) uint8 by ``cv2.resize``'s
-    ``INTER_LINEAR`` sampling; the image itself when it has that size."""
+def read_rgb(path: str) -> np.ndarray:
+    """A PNG as OpenCV reads it in colour, in RGB order (``cv2.imread`` ->
+    ``COLOR_BGR2RGB``): (H, W, 3) uint8, a grey file replicated to three
+    channels, an alpha channel dropped."""
+    img = read_png(path)
+    if img.shape[2] < 3:
+        img = np.repeat(img[:, :, :1], 3, axis=2)
+    return img[:, :, :3]
+
+
+def resize_bilinear(img: np.ndarray, size) -> np.ndarray:
+    """(H, W, C) uint8 -> (size, size, C), or (h, w, C) for ``size = (h,
+    w)``, uint8 by ``cv2.resize``'s ``INTER_LINEAR`` sampling; the image
+    itself when it has that size."""
+    out_h, out_w = (size, size) if np.ndim(size) == 0 else size
     h, w = img.shape[:2]
-    if (h, w) == (size, size):
+    if (h, w) == (out_h, out_w):
         return img
 
-    def taps(n_in):
-        x = (np.arange(size) + 0.5) * (n_in / size) - 0.5
+    def taps(n_in, n_out):
+        x = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
         x0 = np.floor(x)
         frac = x - x0
         x0 = x0.astype(np.int64)
@@ -165,8 +179,8 @@ def resize_bilinear(img: np.ndarray, size: int) -> np.ndarray:
         frac = np.where(x0 >= n_in - 1, 0.0, frac)
         return x0, np.minimum(x0 + 1, n_in - 1), frac
 
-    y0, y1, fy = taps(h)
-    x0, x1, fx = taps(w)
+    y0, y1, fy = taps(h, out_h)
+    x0, x1, fx = taps(w, out_w)
     f = img.astype(np.float64)
     rows = (f[y0] * (1.0 - fy)[:, None, None] + f[y1] * fy[:, None, None])
     out = (rows[:, x0] * (1.0 - fx)[None, :, None]
@@ -191,10 +205,7 @@ def read_grey(path: str) -> np.ndarray:
     (``cv2.imread`` -> ``cv2.cvtColor(..., COLOR_BGR2GRAY)``): a grey
     file replicated to three channels, an alpha channel dropped, then
     :func:`grey_of`."""
-    img = read_png(path)
-    if img.shape[2] < 3:
-        img = np.repeat(img[:, :, :1], 3, axis=2)
-    return grey_of(img[:, :, :3])
+    return grey_of(read_rgb(path))
 
 
 def resize_nearest(img: np.ndarray, size: int) -> np.ndarray:
@@ -615,46 +626,86 @@ def _dump_scalar(value) -> str:
     raise TypeError(f"yaml_dump: cannot write {type(value).__name__}")
 
 
-def _dump(value, indent: int, out: list, in_seq: bool):
-    """Append the block lines of a non-scalar ``value``."""
-    pad = " " * indent
-    if isinstance(value, dict):
-        try:
-            keys = sorted(value)
-        except TypeError:
-            keys = list(value)
-        for n, key in enumerate(keys):
-            lead = pad if not (in_seq and n == 0) else ""
-            _dump_entry(lead + _dump_scalar(key) + ":", value[key], indent,
-                        out, mapping=True)
-    else:
-        for n, item in enumerate(value):
-            lead = pad if not (in_seq and n == 0) else ""
-            _dump_entry(lead + "-", item, indent, out, mapping=False)
+class _Dumper:
+    """The block lines of one :func:`yaml_dump` call.  A list or dict
+    that the value holds more than once (by identity) is written as
+    PyYAML writes it: an anchor ``&idNNN`` where it first appears and an
+    alias ``*idNNN`` after.  The numbers follow PyYAML's
+    ``Serializer.anchor_node``: a walk over the value in writing order
+    numbers a node when it meets the node the second time."""
 
+    def __init__(self, root: dict, sort_keys: bool):
+        self.sort_keys = sort_keys
+        self.out: list = []
+        self.emitted: set = set()
+        self.anchors = self._number(root)
 
-def _dump_entry(head: str, value, indent: int, out: list, mapping: bool):
-    if isinstance(value, (dict, list)) and len(value) == 0:
-        out.append(f"{head} " + ("{}" if isinstance(value, dict) else "[]"))
-    elif isinstance(value, dict):
-        if mapping:
-            out.append(head)
-            _dump(value, indent + 2, out, False)
+    def keys(self, mapping: dict) -> list:
+        if self.sort_keys:
+            try:
+                return sorted(mapping)
+            except TypeError:
+                pass
+        return list(mapping)
+
+    def _number(self, root) -> dict:
+        seen: dict = {}  # id -> None, or the anchor once met twice
+        count = 0
+
+        def visit(node):
+            nonlocal count
+            if not isinstance(node, (dict, list)):
+                return
+            if id(node) in seen:
+                if seen[id(node)] is None:
+                    count += 1
+                    seen[id(node)] = f"id{count:03d}"
+                return
+            seen[id(node)] = None
+            for child in ([node[k] for k in self.keys(node)]
+                          if isinstance(node, dict) else node):
+                visit(child)
+
+        visit(root)
+        return {k: v for k, v in seen.items() if v is not None}
+
+    def block(self, value, indent: int, in_seq: bool):
+        """Append the block lines of a non-scalar ``value``."""
+        pad = " " * indent
+        if isinstance(value, dict):
+            for n, key in enumerate(self.keys(value)):
+                lead = pad if not (in_seq and n == 0) else ""
+                self.entry(lead + _dump_scalar(key) + ":", value[key],
+                           indent, mapping=True)
         else:
-            out.append(head + " ")
-            _dump(value, indent + 2, out, True)
-            _join_compact(out, head)
-    elif isinstance(value, list):
-        if mapping:
+            for n, item in enumerate(value):
+                lead = pad if not (in_seq and n == 0) else ""
+                self.entry(lead + "-", item, indent, mapping=False)
+
+    def entry(self, head: str, value, indent: int, mapping: bool):
+        out = self.out
+        if not isinstance(value, (dict, list)):
+            out.append(f"{head} {_dump_scalar(value)}")
+            return
+        anchor = self.anchors.get(id(value))
+        if anchor is not None:
+            if id(value) in self.emitted:
+                out.append(f"{head} *{anchor}")
+                return
+            self.emitted.add(id(value))
+            head = f"{head} &{anchor}"
+        if len(value) == 0:
+            out.append(f"{head} " + ("{}" if isinstance(value, dict)
+                                     else "[]"))
+        elif mapping or anchor is not None:
+            out.append(head)
             # PyYAML writes a mapping's sequence at the key's own column
-            out.append(head)
-            _dump(value, indent, out, False)
+            nested = mapping and isinstance(value, list)
+            self.block(value, indent if nested else indent + 2, False)
         else:
             out.append(head + " ")
-            _dump(value, indent + 2, out, True)
+            self.block(value, indent + 2, True)
             _join_compact(out, head)
-    else:
-        out.append(f"{head} {_dump_scalar(value)}")
 
 
 def _join_compact(out: list, head: str):
@@ -666,10 +717,11 @@ def _join_compact(out: list, head: str):
     out[idx:idx + 2] = [head + " " + out[idx + 1]]
 
 
-def yaml_dump(value: dict) -> str:
-    """Block-style YAML of a mapping (module docstring)."""
+def yaml_dump(value: dict, sort_keys: bool = True) -> str:
+    """Block-style YAML of a mapping (module docstring); ``sort_keys``
+    as PyYAML's (False: insertion order)."""
     if not isinstance(value, dict):
         raise TypeError("yaml_dump: a mapping at the top level")
-    out: list = []
-    _dump(value, 0, out, False)
-    return "\n".join(out) + "\n"
+    dumper = _Dumper(value, sort_keys)
+    dumper.block(value, 0, False)
+    return "\n".join(dumper.out) + "\n"

@@ -25,8 +25,11 @@ the rasters beside its yaml, as OpenCV reads them (the grey formula and
 the nearest resize of :mod:`.codecs`); :meth:`HeteroCooperativeDataset.
 seg_labels` gives the segmentation labels at a head's grid.
 
-Not ported yet: the inspection API (``get_sample``,
-``visualize_all_agents_bbx``; ROADMAP.md Queue 1 item 7).
+The inspection API: :meth:`HeteroCooperativeDataset.get_sample` gives one
+(scenario, timestamp) raw, the camera images as OpenCV reads them in
+RGB, and :meth:`~HeteroCooperativeDataset.visualize_all_agents_bbx`
+draws each agent's ground truth onto its cameras
+(:func:`hmvit_tpu_torch.utils.camera.draw_3d_boxes`).
 """
 from __future__ import annotations
 
@@ -40,9 +43,9 @@ import numpy as np
 from .. import COM_RANGE
 from ..utils import transforms as T
 from ..utils.boxes import corners_to_boxes, mask_boxes_outside_range_np
-from .codecs import read_grey, read_png, resize_bilinear, resize_nearest, \
+from .codecs import read_grey, read_rgb, resize_bilinear, resize_nearest, \
     yaml_load_file
-from .pcd_io import read_pcd_padded
+from .pcd_native import read_pcd_padded
 
 # ImageNet normalisation of the camera images (RGB)
 IMAGE_MEAN = (0.485, 0.456, 0.406)
@@ -142,10 +145,7 @@ def preprocess_image(path: str, size: int, mean, std) -> np.ndarray:
     ``mean`` and ``std``: OpenCV's colour read (grey replicated, alpha
     dropped) and ``INTER_LINEAR`` resize (:func:`.codecs.resize_bilinear`,
     the image itself when it already has the size)."""
-    img = read_png(path)
-    if img.shape[2] < 3:
-        img = np.repeat(img[:, :, :1], 3, axis=2)
-    img = resize_bilinear(img[:, :, :3], size).astype(np.float32) / 255.0
+    img = resize_bilinear(read_rgb(path), size).astype(np.float32) / 255.0
     return (img - np.asarray(mean)) / np.asarray(std)
 
 
@@ -498,6 +498,77 @@ class HeteroCooperativeDataset:
             sub["object_ids"] = frame.get("object_ids", [])
             subs.append(sub)
         return subs
+
+    def get_sample(self, scenario_idx: int, timestamp_idx: int) -> dict:
+        """One (scenario, timestamp) raw: an OrderedDict keyed by cav id
+        string, each entry with ``ego`` (the first CAV), ``lidar_pose``,
+        ``vehicles`` (the frame yaml's world-frame ground truth) and
+        ``camera_params`` = {camera{0..3}: {``camera_coords`` (the
+        camera's world pose), ``camera_extrinsic`` (camera -> this agent's
+        lidar frame, 4 x 4), ``camera_intrinsic`` (3 x 3), ``image_path``,
+        ``image`` (uint8 RGB, unresized; None where the file is
+        missing)}}.  The timestamp is the ego's ``timestamp_idx``-th,
+        the same for every CAV (a CAV without it is left out).  No
+        padding, no preprocessing: the inspection surface."""
+        _, cavs = self.scenarios[scenario_idx]
+        out = OrderedDict()
+        ego_frames = next(iter(cavs.values()))
+        ts = list(ego_frames.keys())[timestamp_idx]
+        for ci, (cav, frames) in enumerate(cavs.items()):
+            if ts not in frames:
+                continue
+            meta = load_frame_yaml(frames[ts]["yaml"])
+            pose = meta["lidar_pose"]
+            cam_params = OrderedDict()
+            for mi, cam_path in enumerate(frames[ts]["cameras"]):
+                cam_key = f"camera{mi}"
+                if cam_key not in meta:
+                    continue
+                cam_params[cam_key] = {
+                    "camera_coords": meta[cam_key]["cords"],
+                    "camera_extrinsic": T.pose_to_pose(
+                        meta[cam_key]["cords"], pose),
+                    "camera_intrinsic": np.asarray(
+                        meta[cam_key]["intrinsic"], np.float64),
+                    "image_path": cam_path,
+                    "image": (read_rgb(cam_path) if os.path.exists(cam_path)
+                              else None),
+                }
+            out[str(cav)] = {
+                "ego": ci == 0,
+                "lidar_pose": pose,
+                "vehicles": meta.get("vehicles", {}),
+                "camera_params": cam_params,
+            }
+        return out
+
+    def visualize_all_agents_bbx(self, sample: dict):
+        """Each agent's ground-truth boxes (in its own frame) drawn as 3D
+        wireframes onto its camera images.  Returns (draw_image_list,
+        cav_id_list): per CAV a list of (camera_key, drawn image or None)
+        pairs in camera order."""
+        from ..utils.boxes import boxes_to_corners_3d_np
+        from ..utils.camera import corners_to_camera, draw_3d_boxes
+
+        draw_image_list, cav_id_list = [], []
+        for cav_id, content in sample.items():
+            boxes = project_world_objects(
+                content["vehicles"], content["lidar_pose"],
+                self.lidar_range, self.order)
+            corners = (boxes_to_corners_3d_np(
+                np.stack(list(boxes.values())), self.order)
+                if boxes else np.zeros((0, 8, 3)))
+            drawn = []
+            for cam_key, cam in content["camera_params"].items():
+                if cam["image"] is None:
+                    drawn.append((cam_key, None))
+                    continue
+                uvd = corners_to_camera(corners, cam["camera_intrinsic"],
+                                        cam["camera_extrinsic"])
+                drawn.append((cam_key, draw_3d_boxes(cam["image"], uvd)))
+            draw_image_list.append(drawn)
+            cav_id_list.append(cav_id)
+        return draw_image_list, cav_id_list
 
     @staticmethod
     def collate_batch(frames: list) -> dict:

@@ -1,6 +1,7 @@
 """Minimal PCD reader / writer (the port's own copy of
 ``hmvit_tpu/data/pcd_io.py``), and the fixed-size padded read of the
-dataset (the numpy path of ``hmvit_tpu/data/pcd_native.py``).
+dataset's numpy path (:mod:`.pcd_native` reads through the native
+parser first).
 
 OPV2V point clouds store intensity either as a proper ``intensity`` field
 or packed into the red channel of an ``rgb`` field.  The parser handles
@@ -108,13 +109,10 @@ def read_pcd_padded(path: str, max_points: int, seed: int = 0,
                     shuffle: bool = False):
     """Parse a pcd into a fixed (max_points, 4) float32 buffer and its
     (max_points,) mask; ``shuffle`` permutes the points first with
-    ``numpy.random.default_rng(seed)``.
-
-    The JAX package binds a native parser (``native/libpcd_parser.so``)
-    where it builds, whose shuffle draws from the library's own
-    generator; the port reads with numpy only, as the JAX package does
-    where that library is absent.  Unshuffled reads are the same either
-    way; shuffled ones hold the same points in another order."""
+    ``numpy.random.default_rng(seed)``.  The numpy path of
+    :func:`hmvit_tpu_torch.data.pcd_native.read_pcd_padded`, which the
+    dataset reads through: unshuffled reads equal the native parser's,
+    shuffled ones hold the same points in another order."""
     pts = read_pcd(path)
     if shuffle:
         pts = pts[np.random.default_rng(seed).permutation(len(pts))]

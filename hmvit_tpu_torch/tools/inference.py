@@ -32,7 +32,7 @@ geometry, calibration and raw points to bfloat16.
         [--fusion_method intermediate|no|early|late] [--bf16]
         [--serving_buckets] [--ap_mode iou|distance|both]
         [--camera_to_lidar_ratio R] [--ego_mode m] [--synthetic]
-        [--max_frames N] [--save_npy] [--cpu]
+        [--max_frames N] [--save_npy] [--save_vis] [--save_3d] [--cpu]
 
 The detectors' outputs are read as the anchor heads' ``psm`` / ``rm``
 or the anchor-free PIXOR maps ``cls`` / ``reg`` (decoded by the
@@ -40,9 +40,16 @@ config's postprocessor; the PIXOR boxes' BEV corners lifted to 3-D for
 the evaluation).  A segmentation run directory (``seg_loss`` /
 ``vanilla_seg_loss``) is refused: the JAX tool evaluates detectors only.
 
+``--save_vis`` writes each frame's BEV image (the ego's points, the
+ground truth lime, the detections red) to ``model_dir/vis/%05d.png``,
+drawn in numpy (:mod:`hmvit_tpu_torch.visualization.vis`);
+``--save_3d`` writes every frame into one interactive viewer,
+``model_dir/sequence.html`` (:mod:`~hmvit_tpu_torch.visualization.
+viewer3d`); ``--save_npy`` the boxes as ``model_dir/npy/%04d_pred.npy``
+/ ``_gt.npy``.
+
 The flags are the JAX tool's, plus ``--cpu``.  ``--data_parallel`` (one
-card: ``parallel/``) raises, ROADMAP.md Queue 1 item 8; ``--save_vis``
-and ``--save_3d`` (visualization) raise, item 7.
+card: ``parallel/``) raises, ROADMAP.md Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -155,9 +162,6 @@ def main(argv=None):
     if args.data_parallel:
         raise SystemExit("--data_parallel: the sharded sweep (parallel/) is "
                          "not ported yet: ROADMAP.md Queue 1 item 8")
-    if args.save_vis or args.save_3d:
-        raise SystemExit("--save_vis / --save_3d: visualization is not "
-                         "ported yet: ROADMAP.md Queue 1 item 7")
 
     from concurrent.futures import ThreadPoolExecutor
 
@@ -171,6 +175,8 @@ def main(argv=None):
     from ..serving import GEOMETRY_KEYS
     from ..utils import evaluation as E
     from ..utils.boxes import boxes_to_corners_3d_np
+    from ..visualization.viewer3d import export_sequence_html
+    from ..visualization.vis import visualize_bev
     from .common import device_of, load_runnable, to_device, \
         write_synthetic
 
@@ -241,6 +247,10 @@ def main(argv=None):
     npy_dir = os.path.join(args.model_dir, "npy")
     if args.save_npy:
         os.makedirs(npy_dir, exist_ok=True)
+    vis_dir = os.path.join(args.model_dir, "vis")
+    if args.save_vis:
+        os.makedirs(vis_dir, exist_ok=True)
+    html_frames = []
 
     def produce(i):
         """Host decode and assembly of frame i (no device work)."""
@@ -302,7 +312,19 @@ def main(argv=None):
             np.save(os.path.join(npy_dir, f"{i:04d}_pred.npy"),
                     corners if corners is not None else np.zeros((0, 8, 3)))
             np.save(os.path.join(npy_dir, f"{i:04d}_gt.npy"), gt_corners)
+        if args.save_vis or args.save_3d:
+            points = frame["points"][0][frame["points_mask"][0] > 0]
+        if args.save_vis:
+            visualize_bev(points, corners, gt_corners,
+                          params["preprocess"]["cav_lidar_range"],
+                          save_path=os.path.join(vis_dir, f"{i:05d}.png"))
+        if args.save_3d:
+            html_frames.append({"points": points, "pred_corners": corners,
+                                "gt_corners": gt_corners, "scores": scores})
     prefetcher.shutdown()
+    if html_frames:
+        export_sequence_html(os.path.join(args.model_dir, "sequence.html"),
+                             html_frames)
 
     results = E.final_results(stat)
     if t_e2e is not None and n_frames > 1:

@@ -1,39 +1,66 @@
 """Greedy rotated NMS (port of ``hmvit_tpu/utils/nms.py``): on the host
-in numpy (:func:`nms_rotated`, the joint NMS across agents) and
-fixed-shape on the device (:func:`nms_rotated_device`)."""
+(:func:`nms_rotated`, the joint NMS across agents) by the native clipper
+or the numpy loop, and fixed-shape on the device
+(:func:`nms_rotated_device`)."""
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
+from ..ops import host_build
+from . import nms_native
 from .iou import rotated_iou_matrix, rotated_iou_matrix_np
 
+BACKENDS = ("auto", "native", "numpy")
 
-def nms_rotated(corners, scores, threshold: float,
-                top: int = 1000) -> np.ndarray:
-    """Greedy rotated NMS on the host: corners (N, 4, 2) or (N, 8, 3),
-    scores (N,).  Returns the kept indices in pick order (descending
-    score, at most ``top`` candidates), int32.
-
-    This is the JAX function's ``backend="numpy"`` loop.  Its default
-    backend binds a native clipper (``native/rotated_nms.cpp``) that
-    ``tests/test_native_nms.py`` holds to this loop's pick order; the port
-    does not bind it, so it has no ``backend`` argument."""
-    corners = np.asarray(corners)
-    scores = np.asarray(scores)
-    if corners.shape[0] == 0:
-        return np.array([], dtype=np.int32)
-    iou = rotated_iou_matrix_np(corners, corners)
-    ixs = scores.argsort()[::-1][:top]
+def nms_numpy(corners, scores, threshold: float, top: int = 1000):
+    """The numpy loop: descending score, ties by ascending index (the
+    native clipper's order), at most ``top`` candidates, each pick
+    suppressing the later candidates it overlaps by more than
+    ``threshold``.  Each pick's IoU row is computed against the
+    candidates still alive only (the values of the full matrix, far
+    fewer pairs)."""
+    corners = np.asarray(corners)[..., :4, :2]
+    ixs = np.argsort(-np.asarray(scores), kind="stable")[:top]
     pick = []
     while len(ixs) > 0:
-        i = ixs[0]
+        i, rest = ixs[0], ixs[1:]
         pick.append(i)
-        overlap = iou[i, ixs[1:]]
-        remove = np.where(overlap > threshold)[0] + 1
-        ixs = np.delete(ixs, remove)
-        ixs = np.delete(ixs, 0)
+        if len(rest) == 0:
+            break
+        overlap = rotated_iou_matrix_np(corners[i:i + 1], corners[rest])[0]
+        ixs = rest[~(overlap > threshold)]
     return np.array(pick, dtype=np.int32)
+
+
+def nms_rotated(corners, scores, threshold: float, top: int = 1000,
+                backend: str = "auto") -> np.ndarray:
+    """Greedy rotated NMS on the host: corners (N, 4, 2) or (N, 8, 3),
+    scores (N,).  Returns the kept indices in pick order (descending
+    score, ties by ascending index, at most ``top`` candidates), int32.
+
+    ``backend="auto"`` runs the native clipper (``utils/nms_native.py``)
+    when it builds and the numpy loop otherwise, with one warning naming
+    the compiler's error; ``"native"`` raises instead; ``"numpy"`` forces
+    the loop.  ``host_build.calls("rotated_nms")`` and ``seconds(...)``
+    count the calls each path served."""
+    corners = np.asarray(corners)
+    scores = np.asarray(scores)
+    if backend not in BACKENDS:
+        raise ValueError(f"nms backend {backend!r}, not one of {BACKENDS}")
+    t0 = time.perf_counter()
+    lib = None if backend == "numpy" else nms_native.library(
+        require=backend == "native")
+    if lib is None:
+        keep, served = nms_numpy(corners, scores, threshold, top), "numpy"
+    else:
+        keep = nms_native.nms_rotated_native(corners, scores, threshold, top,
+                                             require=True)
+        served = "native"
+    host_build.count(nms_native.NAME, served, time.perf_counter() - t0)
+    return keep
 
 
 def nms_rotated_device(corners, scores, threshold: float,

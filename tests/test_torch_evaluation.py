@@ -112,9 +112,10 @@ def test_host_nms_pick_order_equals_jax_numpy(threshold, seed):
     corners = jboxes.boxes_to_corners_3d(random_boxes(rng, 60, 8.0), "hwl")
     scores = rng.uniform(size=60).astype(np.float32)
     want = jnms(corners, scores, threshold, backend="numpy")
-    got = nms_rotated(corners, scores, threshold)
+    got = nms_rotated(corners, scores, threshold, backend="numpy")
     assert got.dtype == np.int32 and np.array_equal(got, want)
-    assert np.array_equal(nms_rotated(corners, scores, threshold, top=10),
-                          jnms(corners, scores, threshold, top=10,
-                               backend="numpy"))
-    assert nms_rotated(corners[:0], scores[:0], threshold).shape == (0,)
+    assert np.array_equal(
+        nms_rotated(corners, scores, threshold, top=10, backend="numpy"),
+        jnms(corners, scores, threshold, top=10, backend="numpy"))
+    assert nms_rotated(corners[:0], scores[:0], threshold,
+                       backend="numpy").shape == (0,)

@@ -152,11 +152,38 @@ def test_train_refuses_the_segmentation_task(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--data_parallel", "Queue 1 item 8"), ("--save_vis", "Queue 1 item 7"),
-    ("--save_3d", "Queue 1 item 7")])
+    ("--data_parallel", "Queue 1 item 8")])
 def test_inference_refuses_what_is_not_ported(run_dir, flag, item):
     with pytest.raises(SystemExit, match=item):
         inference.main(["--model_dir", run_dir, flag, *SMALL])
+
+
+@pytest.mark.parametrize("flag", ["--save_vis", "--save_3d"])
+def test_inference_writes_the_visualizations(run_dir, tmp_path, flag):
+    """``--save_vis``: one BEV PNG a frame, of the image shape of the
+    config's range; ``--save_3d``: ``sequence.html`` with one frame a
+    served frame.  Neither is written without its flag."""
+    from hmvit_tpu_torch.data.codecs import read_png
+    from hmvit_tpu_torch.visualization.vis import bev_shape
+
+    run = str(tmp_path / "run")
+    shutil.copytree(run_dir, run)
+    inference.main(["--model_dir", run, "--synthetic", "--synthetic_frames",
+                    "2", "--ap_mode", "iou", flag, *SMALL])
+    pngs = sorted(os.listdir(os.path.join(run, "vis"))) \
+        if os.path.isdir(os.path.join(run, "vis")) else []
+    html = os.path.join(run, "sequence.html")
+    if flag == "--save_vis":
+        assert pngs == ["00000.png", "00001.png"] and not os.path.exists(html)
+        shape = bev_shape(load_config(SMOKE)["preprocess"]["cav_lidar_range"])
+        for name in pngs:
+            img = read_png(os.path.join(run, "vis", name))
+            assert img.shape == (*shape, 3) and img.any()
+    else:
+        assert pngs == [] and os.path.exists(html)
+        text = open(html).read()
+        frames = json.loads(text.split("FRAMES=")[1].split(", EDGES=")[0])
+        assert len(frames) == 2 and all(len(f["pts"]) > 0 for f in frames)
 
 
 def test_tools_need_the_card_without_cpu(run_dir):
