@@ -295,7 +295,34 @@ Phases:
    PNG a frame of the range's shape, ``sequence.html`` with a frame a
    frame, ``vis_npy.render_npy_dir`` over the dumps; (e) the hypes
    generator into a temporary directory, its 73 files byte-equal to the
-   port's copies.  Any fallback to a numpy path fails the phase.
+   port's copies.  Any fallback to a numpy path fails the phase;
+16. parallelism on one card: (a) K1's destination-row window (the SP
+   island's: ``dest_row_start`` / ``dest_row_tiles``) at the production
+   shapes, 128^2 x 512, float32 and bfloat16, I = 4 and the ego launch,
+   nsh in ``SP_SHARDS``, on the serving, spread and 222nd-draw poses:
+   every window launch equal to the whole launch's rows bit for bit and
+   to the twin's window at phase 2's tolerances; the serving and ego
+   windows timed (one launch between CUDA events, median of 20) beside
+   the whole launch / nsh and the twin, with their bound from the source
+   bytes the window's taps read (``touched_source_bytes``) and the bytes
+   it writes; (b) the first local phase of ``PROD_CFG``'s fusion (bf16)
+   through the SP island once a shard (``HeteroWindowAttention.island``,
+   the gather the identity on the whole [K|V] already on the card), the
+   shards concatenated: equal to the unsharded phase bit for bit (or
+   within phase 2's bf16 stripe tolerance, the difference printed), the
+   K1 window and K2 launches counted from 0 and held to one a shard; (c)
+   a process group of one over loopback on NCCL: the SP entry itself,
+   ``parallel.make_spatial_eval`` on a ``make_hybrid_mesh(1)`` mesh, one
+   ``PROD_CFG`` bf16 request (the maps split over the model axis, the
+   island's [K|V] gathered over NCCL, K1's window, the ego map gathered
+   before the decoder), psm and rm equal to the unsharded forward bit for
+   bit (or within ``BF16_FORWARD_ATOL``, the difference printed), its K1
+   window launches counted from 0 (the kernels line's
+   ``pair_warp_window`` launches); ``tools.train --half --remat`` on
+   ``hmvit_prod_serving.yaml`` through the data-parallel path, its losses
+   equal to phase 10's, and ``tools.inference --bf16 --data_parallel`` on
+   phase 10's run directory, its AP equal to the plain ``--bf16`` run's;
+   the group destroyed after.
 
 The pair warp in float32 is held to its twin at ``FP32_ATOL`` on the
 serving and ego poses; on spread poses (the phase 2 case and
@@ -2232,11 +2259,11 @@ def serve_run_dir(run, cfg, dev, card, total, what, keyed=None):
     return res
 
 
-def run_dir_phase(dev, card, keep=None) -> dict:
+def run_dir_phase(dev, card, keep=None):
     """Phase 10 (see the module's docstring): the run-directory tools.
-    Returns each kernel's launches over the phase; with ``keep`` a copy
-    of the production-width run directory is left there (phase 15 serves
-    it)."""
+    Returns (each kernel's launches over the phase, the production-width
+    run's losses); with ``keep`` a copy of the production-width run
+    directory is left there (phases 15 and 16 serve it)."""
     import os
     import tempfile
 
@@ -2252,14 +2279,14 @@ def run_dir_phase(dev, card, keep=None) -> dict:
         cfg = dict(load_config(hypes)["model"]["args"], remat=True)
         want = train_launches(cfg)
         t0 = time.perf_counter()
-        run, losses, per_step = tools_train(
+        run, run10_losses, per_step = tools_train(
             hypes, ["--half", "--remat"], RUN_DIR_STEPS, want, tmp, total)
         print(f"tools.train hmvit_prod_serving --half --remat: "
               f"{RUN_DIR_STEPS} steps, {time.perf_counter() - t0:.2f} s with "
               f"the fixture, validation and checkpoint; "
               f"{1.0 / per_step:.3f} steps/s after the first; loss "
-              f"{[round(v, 4) for v in losses]}; launches a step {want} on "
-              f"{card}")
+              f"{[round(v, 4) for v in run10_losses]}; launches a step "
+              f"{want} on {card}")
         # (b) the run directory served: captured graphs per fleet bucket
         serve_run_dir(run, cfg, dev, card, total, "hmvit_prod_serving")
         if keep is not None:
@@ -2271,7 +2298,7 @@ def run_dir_phase(dev, card, keep=None) -> dict:
         print(f"tools.train smoke_hetero_tiny (cvt camera encoder): loss "
               f"{[round(v, 4) for v in losses]}, launches a step {want}")
     torch.cuda.empty_cache()
-    return total
+    return total, run10_losses
 
 
 def zoo_forwards(dev, card, total, names=tuple(ZOO_CAMERAS)) -> None:
@@ -3814,6 +3841,378 @@ def host_phase(dev, card, run10) -> None:
     print(f"phase 15: {time.perf_counter() - t_start:.1f} s on {card}")
 
 
+# -- phase 16: parallelism on one card ---------------------------------------
+
+# the spatial shards of the 128-row fusion map (32-row tiles: 2 or 4)
+SP_SHARDS = (2, 4)
+
+
+def touched_source_bytes(src, pair, mode, geo, receivers, start, tiles):
+    """The bytes of ``src`` that a destination-row window's taps read (a
+    source pixel whose tap weight is non-zero for some pixel of some
+    pair's window, counted once a typed map): the window's data-dependent
+    input.  From the twin's adjoint on a one-channel map of ones."""
+    import torch
+
+    from hmvit_tpu_torch.ops.fused_warp import pair_warp_xla
+
+    ones = torch.ones(*src.shape[:-1], 1, device=src.device,
+                      requires_grad=True)
+    with torch.enable_grad():
+        pair_warp_xla(ones, pair, mode, *geo, receivers,
+                      dest_row_start=start,
+                      dest_row_tiles=tiles).sum().backward()
+    return int((ones.grad != 0).sum()) * src.shape[-1] * src.element_size()
+
+
+def window_check(dev, card) -> dict:
+    """Phase 16 (a): K1's destination-row window at the production shapes
+    on the serving, ego, spread and 222nd-draw poses, both types: every
+    window launch equal to the whole launch's rows bit for bit and to the
+    twin's window at phase 2's tolerances; the serving and ego windows
+    timed (one launch between CUDA events, median of 20) beside the whole
+    launch / nsh and the twin's window, with their bound from the bytes
+    the window reads and writes.  Returns the kernels-line record of the
+    bf16 serving window at nsh = 2."""
+    import torch
+
+    from hmvit_tpu_torch import perf_lab
+    from hmvit_tpu_torch.ops import plain_ops
+    from hmvit_tpu_torch.ops.fused_warp import fused_pair_warp, \
+        pair_warp_launch
+    from hmvit_tpu_torch.serving import batch_to_device
+    from hmvit_tpu_torch.utils.precision import strict_fp32
+
+    lab = perf_lab.Lab(dev, perf_lab.PROD, iters=1)
+    serving = batch_to_device(prod_batch(0), dev, bf16=False)[
+        "pairwise_t_matrix"][:, :4, :4]
+    lab.gen.manual_seed(1000)
+    spread = lab.rand_pairwise(4, spread=120.0)
+    mode = torch.tensor([[1, 0, 1, 0]], device=dev)
+    src222, pair222 = (torch.as_tensor(a, device=dev) for a in draw_222())
+    cases = (
+        ("serving I=4", lambda: lab.randn(1, 2, 4, 128, 128, 512), serving,
+         mode, None, (0.4, 4)),
+        ("ego I=1", lambda: lab.randn(1, 1, 4, 128, 128, 512), serving,
+         torch.zeros_like(mode), 1, (0.4, 4)),
+        ("spread I=4", lambda: lab.randn(1, 2, 4, 128, 128, 512), spread,
+         mode, None, (0.4, 4)),
+        ("draw 222, 64^2 C=8", lambda: src222, pair222,
+         torch.zeros(1, 2, dtype=torch.long, device=dev), None, (1.0, 1.0)),
+    )
+    record = None
+    for label, make, pair, mode_, r, geo in cases:
+        src32 = make()
+        size = src32.shape[3]
+        for dt in (torch.float32, torch.bfloat16):
+            key = str(dt).split(".")[-1]
+            args = (src32.to(dt), pair, mode_, *geo, r)
+            launch, whole = pair_warp_launch(*args)
+            launch()
+            bound = (warp_fp32_bound(*args) if pair is spread
+                     and dt == torch.float32 else None)
+            tol = FP32_ATOL if dt == torch.float32 else BF16_ATOL["pair_warp"]
+            for nsh in SP_SHARDS:
+                tiles = size // 32 // nsh
+                if tiles == 0 or size % (32 * nsh):
+                    continue
+                errs = []
+                for s in range(nsh):
+                    rows = slice(s * tiles * 32, (s + 1) * tiles * 32)
+                    wl, win = pair_warp_launch(*args, dest_row_start=s * tiles,
+                                               dest_row_tiles=tiles)
+                    wl()
+                    with strict_fp32(), plain_ops():
+                        want = fused_pair_warp(*args, dest_row_start=s * tiles,
+                                               dest_row_tiles=tiles)
+                    torch.cuda.synchronize()
+                    if not torch.equal(win, whole[:, :, :, rows]):
+                        diff = float((win.float() - whole[:, :, :, rows]
+                                      .float()).abs().max())
+                        raise AssertionError(
+                            f"pair warp window [{label}, {key}, nsh {nsh}, "
+                            f"shard {s}]: differs from the whole launch's "
+                            f"rows (max|diff| {diff})")
+                    diff = (win.float() - want.float()).abs()
+                    if bound is not None:
+                        err = float((diff / bound[:, :, :, rows]).max())
+                        ok = err <= 1.0
+                    else:
+                        err = float(diff.max())
+                        ok = np.isfinite(err) and err <= tol
+                    if not ok:
+                        raise AssertionError(
+                            f"pair warp window [{label}, {key}, nsh {nsh}, "
+                            f"shard {s}]: against the twin's window {err}")
+                    errs.append(err)
+                what = ("of the derived bound" if bound is not None
+                        else f"max_abs_err (tol {tol})")
+                line = (f"  pair warp window [{label}, {key}, nsh {nsh}]: "
+                        f"{nsh} windows == the whole launch's rows bit for "
+                        f"bit; vs twin {max(errs):.3e} {what}")
+                if size == 128 and pair is serving:
+                    # the first shard's window, timed
+                    wl, win = pair_warp_launch(*args, dest_row_start=0,
+                                               dest_row_tiles=tiles)
+                    ms = time_ms(wl)
+                    whole_ms = time_ms(launch)
+                    with plain_ops():
+                        plain = time_ms(lambda: fused_pair_warp(
+                            *args, dest_row_start=0, dest_row_tiles=tiles))
+                    nbytes = (touched_source_bytes(args[0], pair, mode_, geo,
+                                                   r, 0, tiles)
+                              + win.numel() * win.element_size())
+                    b_ms, b_by = bound_of(nbytes, 0.0, key)
+                    line += (f"; {ms:.4f} ms a window vs whole {whole_ms:.4f}"
+                             f" / {nsh} = {whole_ms / nsh:.4f}, twin "
+                             f"{plain:.4f}; bound {b_ms:.4f} ms ({b_by}: "
+                             f"{nbytes / 1e6:.1f} MB read + written, "
+                             f"{b_ms / ms:.0%}) on {card}")
+                    if record is None and dt == torch.bfloat16:
+                        record = {"ms": ms, "plain_ms": plain,
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "library_ms": None,
+                                  "max_abs_err": max(errs), "nsh": nsh,
+                                  "case": label, "whole_ms": whole_ms}
+                print(line)
+            del whole, bound
+        del src32
+    torch.cuda.empty_cache()
+    return record
+
+
+def island_check(dev, card) -> dict:
+    """Phase 16 (b): the first local phase of ``PROD_CFG``'s fusion (bf16
+    serving model, fleet layout of the request) through the SP island
+    once a shard, nsh in SP_SHARDS, the gather the identity on the whole
+    [K|V] already on the card, the shards concatenated: equal to the
+    unsharded phase (K1 + K2) bit for bit.  Returns the island's K1
+    window and K2 launches (counted from 0 just before)."""
+    import torch
+
+    from hmvit_tpu_torch.models.hetero_fusion import pairwise_roi_mask
+    from hmvit_tpu_torch.models.hmvit import HMViT
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.ops.fused_warp import pair_warp_coefficients
+    from hmvit_tpu_torch.serving import PROD_CFG, batch_to_device, \
+        serving_config
+
+    model = init_parameters(HMViT(serving_config(PROD_CFG, bf16=True)), 0)
+    fusion = model.fusion.to(dev, torch.bfloat16).eval()
+    attn = fusion.HeteroFusionBlock_0.window_attn
+    batch = batch_to_device(prod_batch(0), dev, bf16=True)
+    mode = batch["mode"][:, :NUM_AGENTS].long()
+    agent_mask = batch["agent_mask"][:, :NUM_AGENTS].float()
+    pairwise = batch["pairwise_t_matrix"][:, :NUM_AGENTS, :NUM_AGENTS]
+    hw = (128, 128)
+    pair_mask = pairwise_roi_mask(pairwise, agent_mask, hw,
+                                  fusion.discrete_ratio,
+                                  fusion.downsample_rate)
+    coef = pair_warp_coefficients(pairwise, hw, fusion.discrete_ratio,
+                                  fusion.downsample_rate)
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = fusion.HeteroFusionBlock_0.window_norm(
+        torch.randn(1, NUM_AGENTS, *hw, 256, generator=g, device=dev), mode)
+    static = tuple(int(m) for m in mode[0])
+    launches = {}
+    with torch.no_grad():
+        want = attn(x, mode, pairwise, agent_mask, pair_mask, None, static,
+                    coef)
+        taus, _ = attn._variants(mode, static, NUM_AGENTS)
+        kv_whole = attn._typed_kv(x.to(attn.compute_dtype), mode, static,
+                                  taus)
+        for nsh in SP_SHARDS:
+            h_loc = hw[0] // nsh
+            cuda.reset_launches()
+            got = torch.cat([attn.island(
+                x[:, :, k * h_loc:(k + 1) * h_loc], mode, pairwise,
+                pair_mask, None, static, coef, k, nsh,
+                lambda kv: kv_whole) for k in range(nsh)], dim=2)
+            torch.cuda.synchronize()
+            launches[nsh] = {
+                "pair_warp_window": cuda.PAIR_WARP.launches_by_key.get(
+                    "window", 0),
+                "stripe_window_attention":
+                    cuda.STRIPE_WINDOW_ATTENTION.launches}
+            diff = float((got - want).abs().max())
+            same = torch.equal(got, want)
+            print(f"  SP island, nsh {nsh} (shards of {h_loc} rows), the "
+                  f"first local phase of PROD_CFG's fusion, bf16: == the "
+                  f"unsharded phase bit for bit {same} (max|diff| "
+                  f"{diff:.3e}); launches {launches[nsh]}")
+            if launches[nsh] != {"pair_warp_window": nsh,
+                                 "stripe_window_attention": nsh}:
+                raise AssertionError(f"SP island nsh {nsh}: launches "
+                                     f"{launches[nsh]}")
+            if not same and not diff <= BF16_ATOL["stripe_window_attention"]:
+                raise AssertionError(f"SP island nsh {nsh}: max|diff| {diff}"
+                                     f" against the unsharded phase")
+    del model, fusion, x, want, kv_whole, got
+    torch.cuda.empty_cache()
+    return {k: sum(v[k] for v in launches.values())
+            for k in ("pair_warp_window", "stripe_window_attention")}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spatial_entry(dev, card) -> dict:
+    """Phase 16 (c), inside the NCCL group of one: one ``PROD_CFG`` bf16
+    request through ``parallel.make_spatial_eval`` on a
+    ``make_hybrid_mesh(1)`` mesh (its one shard holds every row, so the
+    island's preconditions hold at 128^2 and its window is the whole map),
+    held to the unsharded forward of the same model.  Returns the K1
+    window and K2 launches of the SP request (counted from 0 just
+    before)."""
+    import warnings
+
+    import torch
+
+    from hmvit_tpu_torch import parallel
+    from hmvit_tpu_torch.models.hmvit import HMViT
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.ops import cuda
+    from hmvit_tpu_torch.serving import PROD_CFG, batch_to_device, \
+        serving_config
+
+    model = init_parameters(HMViT(serving_config(PROD_CFG, bf16=True)), 0)
+    model = model.to(dev, torch.bfloat16).eval()
+    batch = batch_to_device(prod_batch(0), dev, bf16=True)
+    mesh = parallel.make_hybrid_mesh(1)
+    fwd = parallel.make_spatial_eval(model, mesh)
+    with torch.no_grad():
+        want = model(batch)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = parallel.gather_batch(fwd(parallel.shard_batch(batch, mesh)),
+                                    mesh)
+    torch.cuda.synchronize()
+    launches = {"pair_warp_window": cuda.PAIR_WARP.launches_by_key.get(
+                    "window", 0),
+                "stripe_window_attention":
+                    cuda.STRIPE_WINDOW_ATTENTION.launches}
+    fallbacks = sorted({str(w.message) for w in caught})
+    print(f"  world of 1 (NCCL) parallel.make_spatial_eval, one PROD_CFG "
+          f"bf16 request: launches {launches}; warnings {fallbacks}")
+    if any("local" in m for m in fallbacks):
+        raise AssertionError(f"SP entry: a local phase left the island: "
+                             f"{fallbacks}")
+    if launches["pair_warp_window"] <= 0:
+        raise AssertionError("SP entry: K1's window never launched")
+    for key in ("psm", "rm"):
+        a, b = got[key].float(), want[key].float()
+        same = torch.equal(a, b)
+        diff = float((a - b).abs().max())
+        print(f"  SP entry {key} {tuple(a.shape)}: == the unsharded forward "
+              f"bit for bit {same} (max|diff| {diff:.3e}, tol "
+              f"{BF16_FORWARD_ATOL}) on {card}")
+        if not (torch.isfinite(a).all() and a.shape == b.shape
+                and (same or diff <= BF16_FORWARD_ATOL)):
+            raise AssertionError(f"SP entry {key}: max|diff| {diff} against "
+                                 f"the unsharded forward")
+    del model, want, got
+    torch.cuda.empty_cache()
+    return launches
+
+
+def world_of_one(dev, card, run10, run10_losses) -> dict:
+    """Phase 16 (c): a process group of one over loopback on NCCL: the SP
+    entry (:func:`spatial_entry`, whose launches this returns);
+    ``tools.train --half --remat`` on ``hmvit_prod_serving.yaml`` through
+    the data-parallel path, phase 10's ``RUN_DIR_STEPS`` steps (its
+    learning-rate schedule follows the steps of an epoch), every loss
+    equal to phase 10's undistributed run at the same seed;
+    ``tools.inference --bf16 --data_parallel`` on phase 10's run
+    directory, the AP and every frame's boxes equal to the plain
+    ``--bf16`` run's.  Both serve at score threshold 0 (random
+    weights put every score near the focal prior 0.01, under the
+    serving threshold, so at 0.27 both would keep no box: the device
+    decode then keeps its 512 best candidates a frame, NMS'd)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from hmvit_tpu_torch.config import load_config, save_config
+    from hmvit_tpu_torch.tools import inference
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        launches = spatial_entry(dev, card)
+        hypes = os.path.join(repo, HYPES, "hmvit_prod_serving.yaml")
+        cfg = dict(load_config(hypes)["model"]["args"], remat=True)
+        total = dict.fromkeys(KERNEL_META, 0)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p16_") as tmp:
+            t0 = time.perf_counter()
+            _, losses, _ = tools_train(hypes, ["--half", "--remat"],
+                                       RUN_DIR_STEPS, train_launches(cfg),
+                                       tmp, total)
+            print(f"  world of 1 (NCCL) tools.train --half --remat: "
+                  f"{RUN_DIR_STEPS} steps in "
+                  f"{time.perf_counter() - t0:.1f} s; "
+                  f"losses {[round(v, 6) for v in losses]}; == phase 10's "
+                  f"{losses == run10_losses}")
+            if losses != run10_losses:
+                raise AssertionError(f"world of 1: losses {losses} differ "
+                                     f"from phase 10's {run10_losses}")
+            res, boxes = {}, {}
+            for flags in ([], ["--data_parallel"]):
+                run = os.path.join(tmp, f"served{len(flags)}")
+                shutil.copytree(run10, run)
+                params = load_config("", model_dir=run)
+                params["postprocess"]["target_args"]["score_threshold"] = 0.0
+                save_config(params, os.path.join(run, "config.yaml"))
+                res[len(flags)] = inference.main(
+                    ["--model_dir", run, "--synthetic", "--synthetic_frames",
+                     str(RUN_DIR_FRAMES), "--bf16", "--max_frames",
+                     str(RUN_DIR_FRAMES), "--ap_mode", "iou", "--save_npy",
+                     *flags])["iou"]
+                boxes[len(flags)] = [
+                    np.load(os.path.join(run, "npy", f"{i:04d}_pred.npy"))
+                    for i in range(RUN_DIR_FRAMES)]
+            same = all(np.array_equal(a, b)
+                       for a, b in zip(boxes[0], boxes[1]))
+            print(f"  world of 1 (NCCL) tools.inference --bf16 "
+                  f"--data_parallel at score threshold 0: AP {res[1]} vs "
+                  f"plain {res[0]}; boxes a frame "
+                  f"{[len(b) for b in boxes[1]]}, equal bit for bit {same}")
+            if res[1] != res[0] or not same:
+                raise AssertionError("world of 1: --data_parallel AP "
+                                     f"{res[1]} or boxes differ from the "
+                                     f"plain run's {res[0]}")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parallel_phase(dev, card, run10, run10_losses) -> dict:
+    """Phase 16 (see the module's docstring), on phase 10's run directory
+    and losses.  Returns the kernels-line record of K1's window (its
+    launches from the SP entry of (c); the emulated island's of (b)
+    beside them)."""
+    t_start = time.perf_counter()
+    record = window_check(dev, card)
+    emulated = island_check(dev, card)
+    launches = world_of_one(dev, card, run10, run10_losses)
+    print(f"phase 16: {time.perf_counter() - t_start:.1f} s on {card}")
+    return dict(record, launches=launches["pair_warp_window"],
+                sp_stripe_launches=launches["stripe_window_attention"],
+                island_emulation_launches=emulated)
+
 
 def main() -> int:
     import os
@@ -4097,7 +4496,7 @@ def main() -> int:
     kept = tempfile.mkdtemp(prefix="chip_smoke_run10_")
     try:
         run10 = os.path.join(kept, "hmvit_prod_serving")
-        run_dir_counts = run_dir_phase(dev, card, keep=run10)
+        run_dir_counts, run10_losses = run_dir_phase(dev, card, keep=run10)
 
         # -- 11. every camera encoder of the zoo under HM-ViT -----------------
         zoo_counts = zoo_phase(dev, card)
@@ -4114,6 +4513,10 @@ def main() -> int:
         # -- 15. the host-side remainder: native helpers, visualization,
         # hypes
         host_phase(dev, card, run10)
+
+        # -- 16. parallelism on one card: K1's window, the SP island, a
+        # world of one on NCCL
+        window = parallel_phase(dev, card, run10, run10_losses)
     finally:
         shutil.rmtree(kept, ignore_errors=True)
 
@@ -4162,6 +4565,15 @@ def main() -> int:
                             n for key, n in twin_keyed.items()
                             if key[0] == t),
                         **rec["bfloat16"], "float32": rec["float32"]})
+    # K1's destination-row window: its launches on phase 16's SP entry
+    if window["launches"] <= 0:
+        raise AssertionError("pair_warp_window never launched in phase 16")
+    kernels.append({"name": "pair_warp_window", "route": "cuda",
+                    "source": KERNEL_META["pair_warp"][0],
+                    "replaces": "hmvit_tpu/ops/fused_warp.py:567 "
+                                "(pallas_pair_warp dest_row_start / "
+                                "dest_row_tiles, :455-456)",
+                    **window})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,11 @@
 // before pass 2, taps outside [0, size) contributing zero, the source
 // read transposed when the conditioning swap is set, identity pairs
 // copied, and pairs with non-finite coefficients written as zeros (the
-// taps live in warp_taps.cuh).
+// taps live in warp_taps.cuh).  pallas_pair_warp's destination-row
+// window (dest_row_start / dest_row_tiles: the spatial-partitioning
+// island computes only its shard's rows of every warped map, from the
+// whole source) is the tile kernel's row0 / rows: taps and the ROI skip
+// at global rows, stores at window rows.
 //
 // What bounds it on the H100: bytes.  At the serving shapes (16 pairs of
 // 128 x 128 x 512 bf16) the output is 268 MB and the typed source maps
@@ -88,17 +92,21 @@ constexpr int kTileThreads = 256;
 
 // coef rows (n, j, 8): m00 m01 tx v0 v1 ty_adj swap flag, where flag is
 // 0 = warp, 1 = identity copy, 2 = invalid pair (zeros).
+// The destination is the row window [row0, row0 + rows) of the map (the
+// whole map: 0, size): out holds (N, J, rows, size, c), and a pixel's taps
+// and the ROI skip are planned at its global row.
 // grid (B * J * strips * R); a map holds size * size * c < 2^31 elements.
 template <typename T>
 __global__ void __launch_bounds__(kTileThreads)
 pair_warp_kernel(const T* __restrict__ src, const float* __restrict__ coef,
                  const int* __restrict__ rtype, T* __restrict__ out, int nj,
-                 int ty_count, int n_recv, int size, int c) {
+                 int ty_count, int n_recv, int size, int c, int row0,
+                 int rows) {
   constexpr int V = 16 / (int)sizeof(T);  // channels a 16-byte vector
   __shared__ WarpTaps plans[kStripPix];
-  __shared__ int dst_pix[kStripPix];
+  __shared__ int src_pix[kStripPix];  // the pixel's own index in the map
   const int tiles_x = (size + kTileW - 1) / kTileW;
-  const int strips = tiles_x * ((size + kStripH - 1) / kStripH);
+  const int strips = tiles_x * ((rows + kStripH - 1) / kStripH);
   // block -> (b, j, strip, r), receivers fastest
   int rest = blockIdx.x;
   const int r = rest % n_recv;
@@ -109,8 +117,8 @@ pair_warp_kernel(const T* __restrict__ src, const float* __restrict__ coef,
   const int b = rest / nj;
   const int n = b * n_recv + r;
   const int sy = s / tiles_x;
-  const int x0 = (s - sy * tiles_x) * kTileW, y0 = sy * kStripH;
-  const int w = min(kTileW, size - x0), h = min(kStripH, size - y0);
+  const int x0 = (s - sy * tiles_x) * kTileW, y0 = row0 + sy * kStripH;
+  const int w = min(kTileW, size - x0), h = min(kStripH, row0 + rows - y0);
   const int pair = n * nj + j;
   const float* cf = coef + (long long)pair * 8;
   const bool seen = hm::tile_in_view(cf, x0, y0, w, h, size);
@@ -120,13 +128,14 @@ pair_warp_kernel(const T* __restrict__ src, const float* __restrict__ coef,
     WarpTaps plan = hm::plan_taps<T>(cf, x, y, size);
     if (!seen) plan.flag = 2;  // out of view: zeros, no reads
     plans[p] = plan;
-    dst_pix[p] = y * size + x;
+    src_pix[p] = y * size + x;
   }
   __syncthreads();
   const int npix = size * size;
   const T* map =
       src + ((long long)(b * ty_count + rtype[n]) * nj + j) * npix * c;
-  T* dst = out + (long long)pair * npix * c;
+  T* dst = out + (long long)pair * rows * size * c;
+  const int dst0 = row0 * size;  // the window's first pixel in the map
   const int cvecs = c / V;
   // lanes a pixel (all 32, or the pixel's vectors) and pixels a warp step
   const int lpp = min(cvecs, 32), pps = 32 / lpp;
@@ -135,8 +144,8 @@ pair_warp_kernel(const T* __restrict__ src, const float* __restrict__ coef,
   if (sub >= pps) return;
   for (int p = (threadIdx.x >> 5) * pps + sub; p < w * h; p += nwarps * pps) {
     const WarpTaps plan = plans[p];
-    const int self = dst_pix[p];
-    T* dp = dst + self * c;
+    const int self = src_pix[p];
+    T* dp = dst + (long long)(self - dst0) * c;
     for (int v = lane - sub * lpp; v < cvecs; v += 2 * lpp) {
       const int v2 = v + lpp;
       const hm::TapWords ta =
@@ -472,7 +481,10 @@ int slab_channels(int c, int size) {
 template <typename T>
 int launch_resident(const void* src, const void* coef, const void* rtype,
                     void* out, int n_pairs_recv, int nj, int ty_count,
-                    int n_recv, int size, int c, cudaStream_t s) {
+                    int n_recv, int size, int c, int row0, int rows,
+                    cudaStream_t s) {
+  // the whole map only: the destination-row window is the tile kernel's
+  if (row0 != 0 || rows != size) return (int)cudaErrorInvalidValue;
   const int slab_ch = slab_channels<T>(c, size);
   const int band = size / kCtas;
   const size_t staged = (size_t)band * size * slab_ch * sizeof(T);
@@ -530,24 +542,29 @@ int launch_resident(const void* src, const void* coef, const void* rtype,
 template <typename T>
 int launch_tile(const void* src, const void* coef, const void* rtype,
                 void* out, int n_pairs_recv, int nj, int ty_count, int n_recv,
-                int size, int c, cudaStream_t s) {
+                int size, int c, int row0, int rows, cudaStream_t s) {
   const long long strips = (long long)((size + kTileW - 1) / kTileW) *
-                           ((size + kStripH - 1) / kStripH);
+                           ((rows + kStripH - 1) / kStripH);
   const long long blocks = strips * n_pairs_recv * nj;
-  if ((long long)size * size * c >= (1ll << 31) || blocks >= (1ll << 31)) {
+  // the source map and the window are indexed in 32 bits
+  if ((long long)size * size * c >= (1ll << 31) || blocks >= (1ll << 31) ||
+      row0 < 0 || rows <= 0 || row0 + rows > size) {
     return (int)cudaErrorInvalidValue;
   }
   pair_warp_kernel<T><<<(unsigned)blocks, kTileThreads, 0, s>>>(
       static_cast<const T*>(src), static_cast<const float*>(coef),
       static_cast<const int*>(rtype), static_cast<T*>(out), nj, ty_count,
-      n_recv, size, c);
+      n_recv, size, c, row0, rows);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_previous(const void* src, const void* coef, const void* rtype,
                     void* out, int n_pairs_recv, int nj, int ty_count,
-                    int n_recv, int size, int c, cudaStream_t s) {
+                    int n_recv, int size, int c, int row0, int rows,
+                    cudaStream_t s) {
+  // the whole map only: the previous body is kept for timing
+  if (row0 != 0 || rows != size) return (int)cudaErrorInvalidValue;
   const long long total =
       (long long)n_pairs_recv * nj * size * size * (c >> 3);
   const int threads = 256;
@@ -560,12 +577,12 @@ int launch_previous(const void* src, const void* coef, const void* rtype,
 }
 
 typedef int (*Launch)(const void*, const void*, const void*, void*, int, int,
-                      int, int, int, int, cudaStream_t);
+                      int, int, int, int, int, int, cudaStream_t);
 
 int dispatch(Launch f32, Launch bf16, const void* src, const void* coef,
              const void* rtype, void* out, int dtype, int n_pairs_recv,
              int nj, int ty_count, int n_recv, int size, int size_w, int c,
-             void* stream) {
+             int row0, int rows, void* stream) {
   if (size != size_w || (c & 7) != 0 || n_recv <= 0 ||
       n_pairs_recv % n_recv != 0) {
     return (int)cudaErrorInvalidValue;
@@ -574,11 +591,11 @@ int dispatch(Launch f32, Launch bf16, const void* src, const void* coef,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return f32(src, coef, rtype, out, n_pairs_recv, nj, ty_count, n_recv,
-               size, c, s);
+               size, c, row0, rows, s);
   }
   if (dtype == 1) {
     return bf16(src, coef, rtype, out, n_pairs_recv, nj, ty_count, n_recv,
-                size, c, s);
+                size, c, row0, rows, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -586,30 +603,33 @@ int dispatch(Launch f32, Launch bf16, const void* src, const void* coef,
 }  // namespace
 
 // src (B, TY, J, S, S, C); coef (N, J, 8) f32; rtype (N,) i32;
-// out (N, J, S, S, C) with N = B * n_recv.  dtype 0 = f32, 1 = bf16.
+// out (N, J, rows, S, C) with N = B * n_recv: the destination rows
+// [row0, row0 + rows) (the whole map: 0, S; the SP island's shard: its
+// window of whole 32-row tiles).  dtype 0 = f32, 1 = bf16.
 extern "C" int hm_pair_warp(const void* src, const void* coef,
                             const void* rtype, void* out, int dtype,
                             int n_pairs_recv, int nj, int ty_count,
-                            int n_recv, int size, int size_w, int c,
-                            void* stream) {
+                            int n_recv, int size, int size_w, int c, int row0,
+                            int rows, void* stream) {
   return dispatch(launch_tile<float>, launch_tile<__nv_bfloat16>, src, coef,
                   rtype, out, dtype, n_pairs_recv, nj, ty_count, n_recv, size,
-                  size_w, c, stream);
+                  size_w, c, row0, rows, stream);
 }
 
-// The previous body of hm_pair_warp, for timing: the same arguments and
-// the same output bits.
+// The previous body of hm_pair_warp, for timing: the same arguments (the
+// whole map only: row0 0, rows S) and the same output bits.
 extern "C" int hm_pair_warp_previous(const void* src, const void* coef,
                                      const void* rtype, void* out, int dtype,
                                      int n_pairs_recv, int nj, int ty_count,
                                      int n_recv, int size, int size_w, int c,
-                                     void* stream) {
+                                     int row0, int rows, void* stream) {
   return dispatch(launch_previous<float>, launch_previous<__nv_bfloat16>, src,
                   coef, rtype, out, dtype, n_pairs_recv, nj, ty_count, n_recv,
-                  size, size_w, c, stream);
+                  size, size_w, c, row0, rows, stream);
 }
 
-// The resident variant: the same arguments and the same output bits.
+// The resident variant: the same arguments (the whole map only: row0 0,
+// rows S) and the same output bits.
 // size % 8 == 0, size <= 256, and a band of size / 8 rows of a slab of
 // at least 16 bytes a pixel (C % 8 == 0 in bf16, % 4 in fp32) fits
 // kMaxStageBytes: band * size * slab + 136 <= 75776 bytes (size <= 192
@@ -618,8 +638,8 @@ extern "C" int hm_pair_warp_resident(const void* src, const void* coef,
                                      const void* rtype, void* out, int dtype,
                                      int n_pairs_recv, int nj, int ty_count,
                                      int n_recv, int size, int size_w, int c,
-                                     void* stream) {
+                                     int row0, int rows, void* stream) {
   return dispatch(launch_resident<float>, launch_resident<__nv_bfloat16>, src,
                   coef, rtype, out, dtype, n_pairs_recv, nj, ty_count, n_recv,
-                  size, size_w, c, stream);
+                  size, size_w, c, row0, rows, stream);
 }

@@ -1,6 +1,5 @@
 """H3GAT — heterogeneous local-window + global-grid graph attention fusion
-(port of ``hmvit_tpu/models/hetero_fusion.py``, without its
-several-device spatial-partitioning island).
+(port of ``hmvit_tpu/models/hetero_fusion.py``).
 
 As in the JAX package: modality-typed parameters are stacked on a type
 axis, the relation transforms fold into the K/V projection per receiver
@@ -22,8 +21,20 @@ does (``use_pallas``, ``use_stripe``, ``use_fused_wa``):
 
 Kernel wrappers launch CUDA kernels on CUDA tensors and run their plain
 twins on CPU tensors.
+
+Under spatial partitioning (``sp=(mesh, axis)``, ``parallel.
+make_spatial_eval``) each rank holds its rows of the maps.  A local phase
+whose geometry meets the JAX package's island preconditions runs the
+island: the senders' folded [K|V] gathered on H, the pair-warp kernel's
+destination-row window of the rank's rows, the stripe kernel on them;
+any other phase (the grid phase by design) gathers the map, runs as
+unsharded and keeps its rows, with the JAX package's warning.  Under
+tensor parallelism each rank computes its share of the heads (the
+projections are split by ``parallel.shard_state_tp``).
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -40,6 +51,7 @@ from ..ops.window_attention import (
     fused_stripe_window_attention,
     plain_window_attention_xla,
 )
+from ..parallel.collectives import copy_to_model, gather_rows
 from ..utils.constants import device_constant
 from ..utils.precision import dot_f32
 from .layers import HeteroDense, HeteroFeedForward, HeteroLayerNorm
@@ -143,11 +155,33 @@ class HeteroWindowAttention(nn.Module):
         xavier_uniform_(self.relation_msg, gen)
         normal_(self.rel_pos_bias, 0.02, gen)
 
+    def _heads(self):
+        """(the heads this rank computes, the first of them): every head,
+        or under tensor parallelism the rank's share."""
+        heads = self.to_q.kernel.shape[-1] // self.dim_head
+        tp = self.to_q.tp
+        return heads, 0 if tp is None else tp.rank * heads
+
+    def _rank_heads(self, p, dim: int):
+        """``p`` (heads on ``dim``) cut to this rank's heads under tensor
+        parallelism, its gradient summed over ``model``; ``p`` itself
+        otherwise."""
+        tp = self.to_q.tp
+        if tp is None:
+            return p
+        heads, h0 = self._heads()
+        return copy_to_model(p, tp.group).narrow(dim, h0, heads)
+
     def _typed_kv(self, x, mode, static_modes, taus_used):
         """(B, TAU, L, H, W, 2C) = per receiver-type variant, each sender's
-        relation-transformed [K | V], accumulated in float32."""
+        relation-transformed [K | V], accumulated in float32 (C: this
+        rank's heads' channels)."""
         b, l, h, w, c = x.shape
-        heads, d = self.dim // self.dim_head, self.dim_head
+        d = self.dim_head
+        heads, _ = self._heads()
+        co = heads * d
+        rel_att = self._rank_heads(self.relation_att, 1)
+        rel_msg = self._rank_heads(self.relation_msg, 1)
         cdt = self.compute_dtype
         f32 = torch.float32
         ty_n = self.num_types
@@ -155,23 +189,25 @@ class HeteroWindowAttention(nn.Module):
         if static_modes is not None:
             # fold W_kv[ty] @ blockdiag_heads(R[tau*T+ty]) at the parameter
             # level and emit the [K|V] variants with one contraction
+            if self.to_k.tp is not None:
+                x = copy_to_model(x, self.to_k.tp.group)
             wk, bk = self.to_k(x, mode, return_params=True)
             wv, bv = self.to_v(x, mode, return_params=True)
             ra, rm = (torch.stack([r.reshape(ty_n, ty_n, heads, d, d)[t]
                                    for t in taus_used])
-                      for r in (self.relation_att, self.relation_msg))
+                      for r in (rel_att, rel_msg))
             ck = torch.einsum("yche,tyhDe->tychD",
                               wk.reshape(ty_n, c, heads, d), ra)
             cv = torch.einsum("yche,tyhDe->tychD",
                               wv.reshape(ty_n, c, heads, d), rm)
-            wkv = torch.cat([ck.reshape(ntau, ty_n, c, c),
-                             cv.reshape(ntau, ty_n, c, c)], dim=-1)
+            wkv = torch.cat([ck.reshape(ntau, ty_n, c, co),
+                             cv.reshape(ntau, ty_n, c, co)], dim=-1)
             cbk = torch.einsum("yhe,tyhDe->tyhD",
                                bk.reshape(ty_n, heads, d), ra)
             cbv = torch.einsum("yhe,tyhDe->tyhD",
                                bv.reshape(ty_n, heads, d), rm)
-            bkv = torch.cat([cbk.reshape(ntau, ty_n, c),
-                             cbv.reshape(ntau, ty_n, c)], dim=-1)
+            bkv = torch.cat([cbk.reshape(ntau, ty_n, co),
+                             cbv.reshape(ntau, ty_n, co)], dim=-1)
             # stacked slices, not a list index (which copies the index to
             # the device on every call)
             wsel = torch.stack([wkv[:, int(m)] for m in static_modes],
@@ -188,21 +224,21 @@ class HeteroWindowAttention(nn.Module):
             # per sender over every variant's columns
             prod = dot_f32(x.transpose(0, 1).reshape(l, b * h * w, c),
                            wsel.permute(1, 2, 0, 3).reshape(l, c, -1))
-            prod = prod.view(l, b, h, w, ntau, 2 * c).permute(1, 4, 0, 2, 3,
-                                                               5)
+            prod = prod.view(l, b, h, w, ntau, 2 * co).permute(1, 4, 0, 2,
+                                                                3, 5)
             return (prod + bias).to(cdt,
                                     memory_format=torch.contiguous_format)
         k = self.to_k(x, mode)
         v = self.to_v(x, mode)
         taus = device_constant(tuple(taus_used), torch.long, x.device)
         idx = taus[:, None, None] * ty_n + mode.long()[None]
-        rel = torch.stack([self.relation_att, self.relation_msg], dim=1)
+        rel = torch.stack([rel_att, rel_msg], dim=1)
         w_t = rel.to(cdt)[idx]  # (TAU, B, J, 2, heads, d, d)
         kvh = torch.stack([k, v], dim=-2).reshape(b, l, h, w, 2, heads, d)
         if not (x.is_cuda and cdt != f32):
             kv2 = torch.einsum("bjxyshe,tbjshde->btjxyshd", kvh.to(f32),
                                w_t.to(f32)).to(cdt)
-            return kv2.reshape(b, ntau, l, h, w, 2 * c)
+            return kv2.reshape(b, ntau, l, h, w, 2 * co)
         # the compute-dtype operands into a float32 product: a GEMM per
         # (batch, sender, K / V, head) over every variant's columns
         prod = dot_f32(
@@ -211,42 +247,66 @@ class HeteroWindowAttention(nn.Module):
         prod = prod.view(b, l, 2, heads, h, w, ntau, d).permute(
             0, 6, 1, 4, 5, 2, 3, 7)
         return prod.to(cdt, memory_format=torch.contiguous_format).reshape(
-            b, ntau, l, h, w, 2 * c)
+            b, ntau, l, h, w, 2 * co)
+
+    def _variants(self, mode, static_modes, r: int):
+        """(receiver types folded, each agent's variant index): with a
+        static layout only the types of the first r receivers (one
+        variant for the ego-only last phase)."""
+        if static_modes is None:
+            return tuple(range(self.num_types)), mode
+        taus_used = tuple(sorted({int(m) for m in static_modes[:r]}))
+        return taus_used, device_constant(
+            tuple(taus_used.index(int(m)) if int(m) in taus_used else 0
+                  for m in static_modes), torch.long,
+            mode.device)[None].expand(mode.shape)
+
+    def _mask_ij(self, pair_mask, r: int):
+        """(B, I, J, H, W) mask of each receiver's senders (its own map
+        masked out with ``exclude_self``)."""
+        l = pair_mask.shape[1]
+        mask_ij = pair_mask[:, :r].movedim(-1, 2)
+        if self.exclude_self:
+            eye = torch.eye(l, device=pair_mask.device)[:r][
+                None, :, :, None, None]
+            mask_ij = mask_ij * (1.0 - eye)
+        return mask_ij
+
+    def _bias_h(self, cdt):
+        """(heads, T, T) relative-position bias of this rank's heads."""
+        table = self._rank_heads(self.rel_pos_bias, 1)
+        return table[self.rel_index].permute(2, 0, 1).to(cdt)
 
     def forward(self, x, mode, pairwise, agent_mask, pair_mask=None,
                 receivers: int | None = None,
-                static_modes: tuple | None = None, warp_coef=None):
-        b, l, h, w, c = x.shape
+                static_modes: tuple | None = None, warp_coef=None,
+                sp=None):
+        """``sp=(mesh, axis)``: x holds this rank's rows of the maps, and
+        pair_mask / warp_coef are the whole maps' (see the module's
+        docstring); the message is this rank's rows."""
+        if sp is not None:
+            return self._spatial(x, mode, pairwise, agent_mask, pair_mask,
+                                 receivers, static_modes, warp_coef, sp)
+        b, l, h, w, _ = x.shape
         r = l if receivers is None else receivers
-        heads, d, win = self.dim // self.dim_head, self.dim_head, self.window
+        d, win = self.dim_head, self.window
+        heads, _ = self._heads()
+        c = heads * d  # this rank's heads' channels
         scale = d ** -0.5
         cdt = self.compute_dtype
         x = x.to(cdt)
         sm_r = static_modes[:r] if static_modes is not None else None
 
         q = self.to_q(x[:, :r], mode[:, :r], sm_r)
-        if sm_r is not None:
-            # fold only the receiver types present (one variant for the
-            # ego-only last phase)
-            taus_used = tuple(sorted({int(m) for m in sm_r}))
-            recv_variant = device_constant(
-                tuple(taus_used.index(int(m)) if int(m) in taus_used else 0
-                      for m in static_modes), torch.long,
-                x.device)[None].expand(mode.shape)
-        else:
-            taus_used = tuple(range(self.num_types))
-            recv_variant = mode
+        taus_used, recv_variant = self._variants(mode, static_modes, r)
         kv2 = self._typed_kv(x, mode, static_modes, taus_used)
 
         if pair_mask is None:
             pair_mask = pairwise_roi_mask(pairwise, agent_mask, (h, w),
                                           self.discrete_ratio,
                                           self.downsample_rate)
-        mask_ij = pair_mask[:, :r].movedim(-1, 2)  # (B, I, J, H, W)
-        if self.exclude_self:
-            eye = torch.eye(l, device=x.device)[:r][None, :, :, None, None]
-            mask_ij = mask_ij * (1.0 - eye)
-        bias_h = self.rel_pos_bias[self.rel_index].permute(2, 0, 1).to(cdt)
+        mask_ij = self._mask_ij(pair_mask, r)
+        bias_h = self._bias_h(cdt)
         qs = (q * scale).to(cdt)
         local = self.style == "local"
 
@@ -301,6 +361,78 @@ class HeteroWindowAttention(nn.Module):
                     qw, kvw[..., :c], kvw[..., c:], bias_h, mw, heads, d)
             out = _window_merge(out.reshape(b, r, nx, ny, t_tok, c), win,
                                 self.style, h, w)
+        out = self.to_out(out, mode[:, :r], sm_r)
+        return self.Dropout_0(out.to(torch.float32))
+
+    def _spatial(self, x, mode, pairwise, agent_mask, pair_mask, receivers,
+                 static_modes, warp_coef, sp):
+        """The phase on this rank's rows of the maps, sp = (mesh, axis): the
+        JAX package's island where its preconditions hold, else the
+        unsharded phase on the gathered map (with its warning)."""
+        from ..parallel.mesh import axis_group, axis_rank, axis_size
+
+        mesh, axis = sp
+        nsh, k = axis_size(mesh, axis), axis_rank(mesh, axis)
+        group = axis_group(mesh, axis)
+        h_loc, w = x.shape[2:4]
+        h, win = h_loc * nsh, self.window
+        rows = slice(k * h_loc, (k + 1) * h_loc)
+        island = (
+            self.use_pallas and self.use_stripe and self.style == "local"
+            and h == w and h % 32 == 0 and h >= 56 and h % nsh == 0
+            and (h // nsh) % 32 == 0 and (h // nsh) % win == 0)
+        if not island:
+            # the grid phase by design (its groups span every shard), a
+            # local phase when the geometry breaks a precondition
+            warnings.warn(
+                f"SP fallback: {self.style} attention phase at h={h}, "
+                f"w={w}, win={win}, shards={nsh} runs the unsharded path on "
+                "the gathered map, not the kernel island"
+                + ("" if self.style != "local"
+                   else " — local-phase island preconditions not met"),
+                stacklevel=2)
+            out = self.forward(gather_rows(x, 2, group), mode, pairwise,
+                               agent_mask, pair_mask, receivers,
+                               static_modes, warp_coef)
+            return out[:, :, rows]
+        return self.island(x, mode, pairwise, pair_mask, receivers,
+                           static_modes, warp_coef, k, nsh,
+                           lambda kv: gather_rows(kv, 3, group))
+
+    def island(self, x, mode, pairwise, pair_mask, receivers, static_modes,
+               warp_coef, k: int, nsh: int, gather):
+        """The JAX package's SP island on shard k of nsh: x (B, L, H / nsh,
+        W, C) the shard's rows, pair_mask and warp_coef the whole maps';
+        ``gather`` takes the shard's folded [K|V] (B, TAU, L, H / nsh, W,
+        2C) to every shard's (B, TAU, L, H, W, 2C).  Returns the shard's
+        rows of the message."""
+        b, l, h_loc, w, _ = x.shape
+        win = self.window
+        rows = slice(k * h_loc, (k + 1) * h_loc)
+        r = l if receivers is None else receivers
+        d = self.dim_head
+        heads, _ = self._heads()
+        c = heads * d
+        cdt = self.compute_dtype
+        x = x.to(cdt)
+        sm_r = static_modes[:r] if static_modes is not None else None
+        q = self.to_q(x[:, :r], mode[:, :r], sm_r)
+        taus_used, recv_variant = self._variants(mode, static_modes, r)
+        # rigid warps mix rows globally: every sender's whole map, then
+        # this shard's destination rows of every warp (K1's window)
+        kv2 = gather(self._typed_kv(x, mode, static_modes, taus_used))
+        tiles = h_loc // 32
+        kv_pair = fused_pair_warp(
+            kv2, pairwise, recv_variant, self.discrete_ratio,
+            self.downsample_rate, receivers, warp_coef,
+            dest_row_start=k * tiles, dest_row_tiles=tiles)
+        # windows never cross the shard edge (win | h_loc): K2 on the rows
+        mask_ij = self._mask_ij(pair_mask, r)[:, :, :, rows]
+        out = fused_stripe_window_attention(
+            (q * d ** -0.5).to(cdt).reshape(b * r, h_loc, w, c),
+            kv_pair.reshape(b * r, l, h_loc, w, 2 * c), self._bias_h(cdt),
+            mask_ij.reshape(b * r, l, h_loc, w).to(cdt), win, heads, d,
+        ).reshape(b, r, h_loc, w, c)
         out = self.to_out(out, mode[:, :r], sm_r)
         return self.Dropout_0(out.to(torch.float32))
 
@@ -366,13 +498,13 @@ class HeteroFusionBlock(nn.Module):
             self.SplitAttn_0 = SplitAttn(input_dim)
 
     def _phase(self, name, x, mode, pairwise, agent_mask, pair_mask,
-               receivers=None, static_modes=None, warp_coef=None):
+               receivers=None, static_modes=None, warp_coef=None, sp=None):
         r = x.shape[1] if receivers is None else receivers
         sm_r = static_modes[:r] if static_modes is not None else None
         x_n = getattr(self, f"{name}_norm")(x, mode)
         msg = getattr(self, f"{name}_attn")(
             x_n, mode, pairwise, agent_mask, pair_mask, receivers,
-            static_modes, warp_coef)
+            static_modes, warp_coef, sp)
         msg = msg * agent_mask[:, :r, None, None, None]
         x = x[:, :r] + msg
         ffn_in = getattr(self, f"{name}_ffn_norm")(x, mode[:, :r])
@@ -382,14 +514,17 @@ class HeteroFusionBlock(nn.Module):
 
     def forward(self, x, mode, pairwise, agent_mask, pair_mask=None,
                 receivers: int | None = None,
-                static_modes: tuple | None = None, warp_coef=None):
+                static_modes: tuple | None = None, warp_coef=None,
+                sp=None):
         """receivers restricts the block OUTPUT to the first I agents.
         In sequential mode the local phase stays full (the grid phase
         reads every agent's post-local features) and only the grid phase
         is restricted; in parallel mode both phases are.
         pair_mask and warp_coef are the frame's pose-only geometry;
         without them the block builds the mask and each warp its own
-        coefficients."""
+        coefficients.  ``sp``: x holds this rank's rows of the maps
+        (:meth:`HeteroWindowAttention.forward`); pair_mask and warp_coef
+        are then required, the whole maps'."""
         if pair_mask is None:
             pair_mask = pairwise_roi_mask(pairwise, agent_mask, x.shape[2:4],
                                           self.discrete_ratio,
@@ -397,12 +532,13 @@ class HeteroFusionBlock(nn.Module):
         if self.architect_mode == "parallel":
             return self.SplitAttn_0([
                 self._phase(name, x, mode, pairwise, agent_mask, pair_mask,
-                            receivers, static_modes, warp_coef)
+                            receivers, static_modes, warp_coef, sp)
                 for name in ("window", "grid")])
         x = self._phase("window", x, mode, pairwise, agent_mask, pair_mask,
-                        static_modes=static_modes, warp_coef=warp_coef)
+                        static_modes=static_modes, warp_coef=warp_coef,
+                        sp=sp)
         return self._phase("grid", x, mode, pairwise, agent_mask, pair_mask,
-                           receivers, static_modes, warp_coef)
+                           receivers, static_modes, warp_coef, sp)
 
 
 class HeteroFusion(nn.Module):
@@ -434,12 +570,19 @@ class HeteroFusion(nn.Module):
         self.mlp_head = HeteroFeedForward(blk["input_dim"], blk["input_dim"])
 
     def forward(self, x, mode, pairwise, agent_mask,
-                static_modes: tuple | None = None):
-        pair_mask = pairwise_roi_mask(pairwise, agent_mask, x.shape[2:4],
+                static_modes: tuple | None = None, sp=None):
+        """``sp=(mesh, axis)``: x holds this rank's rows of the maps (an
+        equal share of H over ``axis``), and so does the output."""
+        hw = tuple(x.shape[2:4])
+        if sp is not None:
+            from ..parallel.mesh import axis_size
+
+            hw = (hw[0] * axis_size(*sp), hw[1])
+        pair_mask = pairwise_roi_mask(pairwise, agent_mask, hw,
                                       self.discrete_ratio,
                                       self.downsample_rate)
         # the pair-warp kernel's geometry, shared by every warp of the frame
-        warp_coef = (pair_warp_coefficients(pairwise, x.shape[2:4],
+        warp_coef = (pair_warp_coefficients(pairwise, hw,
                                             self.discrete_ratio,
                                             self.downsample_rate)
                      if self.use_pallas and use_kernel(x) else None)
@@ -448,7 +591,7 @@ class HeteroFusion(nn.Module):
             x = self.HeteroFusionBlock_0(
                 x, mode, pairwise, agent_mask, pair_mask,
                 receivers=1 if (last and self.ego_only_last) else None,
-                static_modes=static_modes, warp_coef=warp_coef)
+                static_modes=static_modes, warp_coef=warp_coef, sp=sp)
         ego = self.mlp_head(x[:, :1], mode[:, :1],
                             static_modes[:1] if static_modes is not None
                             else None)

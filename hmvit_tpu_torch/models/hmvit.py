@@ -140,7 +140,7 @@ class HMViT(nn.Module):
     def forward(self, batch: dict, camera_bucket: int | None = None,
                 active_agents: int | None = None,
                 static_ego_modality: int | None = None,
-                static_modes: tuple | None = None):
+                static_modes: tuple | None = None, sp=None):
         """Serving shape buckets, as in the JAX model:
 
         - ``active_agents`` slices the agent axis to the first A slots;
@@ -157,6 +157,13 @@ class HMViT(nn.Module):
         None of them: both encoders on every slot, selected by mode (the
         training trace: each encoder's BatchNorm then sees every slot,
         the other modality's dummy rows included, as in the JAX model).
+
+        Spatial partitioning (``parallel.make_spatial_eval``): ``sp=(mesh,
+        axis)`` splits the per-agent maps' rows over ``axis`` where they
+        meet the fusion (an even split, ``parallel.row_shard``); the H3GAT
+        fusion runs on the rows (``models/hetero_fusion.py``), and the
+        fused ego map is gathered before the decoder, which runs whole.
+        A ``fusion_override`` fusion runs on the whole map.
         Returns {"psm": (B, A, H, W), "rm": (B, 7A, H, W)}."""
         if active_agents is not None:
             batch = {k: (v[:, :active_agents] if k in _SLICED else v)
@@ -239,7 +246,14 @@ class HMViT(nn.Module):
         if self.config.get("compression", 0):
             x = self.NaiveCompressor_0(x)
         h, w, c = x.shape[1:]
-        x = x.reshape(b, l, h, w, c) * agent_mask[:, :, None, None, None]
+        x = x.reshape(b, l, h, w, c)
+        fusion_sp = sp if sp is not None and not self.fusion_override \
+            else None
+        if fusion_sp is not None:
+            from ..parallel.mesh import row_shard
+
+            x = row_shard(*sp)(x)
+        x = x * agent_mask[:, :, None, None, None]
         if self.fusion_override:
             # never under remat, as in the JAX model
             kwargs = {}
@@ -253,7 +267,13 @@ class HMViT(nn.Module):
                                                   agent_mask, **kwargs)
         else:
             ego = stage("fusion", self.fusion, x, mode, pairwise, agent_mask,
-                        static_modes=static_modes)
+                        static_modes=static_modes, sp=fusion_sp)
+        if fusion_sp is not None:
+            # the decoder runs on the whole fused map
+            from ..parallel.collectives import gather_rows
+            from ..parallel.mesh import axis_group
+
+            ego = gather_rows(ego, 1, axis_group(*fusion_sp))
         dec = self.config["hetero_decoder"]
         if dec.get("compute_dtype"):
             ego = ego.to(DTYPES[dec["compute_dtype"]])

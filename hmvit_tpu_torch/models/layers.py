@@ -25,6 +25,12 @@ from ..nn import (
     uniform_,
     update_running_stats,
 )
+from ..parallel.collectives import (
+    all_reduce_sum,
+    copy_to_model,
+    data_group,
+    reduce_from_model,
+)
 
 
 class ConvBNReLU(nn.Module):
@@ -159,9 +165,9 @@ class MaskedBatchNorm(nn.Module):
     """Point-axis BatchNorm, eps 1e-3:
     ``(x - mean) * rsqrt(var + eps) * scale + bias``.  In eval mode mean
     and var are the running statistics; in train mode those of the rows
-    ``mask`` marks, in ``x``'s type (bfloat16 under half precision), the
-    variance in two passes, and the running statistics move by flax's
-    rule with momentum 0.99."""
+    ``mask`` marks (over the data axis under data parallelism), in ``x``'s
+    type (bfloat16 under half precision), the variance in two passes, and
+    the running statistics move by flax's rule with momentum 0.99."""
     flax_leaves = {"weight": ("params", "scale", "copy"),
                    "bias": ("params", "bias", "copy"),
                    "running_mean": ("batch_stats", "mean", "copy"),
@@ -187,10 +193,17 @@ class MaskedBatchNorm(nn.Module):
         mode only."""
         if self.training:
             m = mask[..., None].to(x.dtype)
-            denom = torch.clamp(m.sum(), min=1.0)
             axes = tuple(range(x.ndim - 1))
-            mean = (x * m).sum(axes) / denom
-            var = (((x - mean) ** 2) * m).sum(axes) / denom
+            group = data_group()
+
+            def total(v):
+                # under data parallelism the rows of every rank of the data
+                # axis (the JAX package's mean over a batch-sharded axis)
+                return v if group is None else all_reduce_sum(v, group)
+
+            denom = torch.clamp(total(m.sum()), min=1.0)
+            mean = total((x * m).sum(axes)) / denom
+            var = total((((x - mean) ** 2) * m).sum(axes)) / denom
             update_running_stats(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -206,18 +219,25 @@ def hetero_param_gather(params, mode):
 class HeteroDense(nn.Module):
     """Per-modality Dense: x (B, L, ..., din), mode (B, L) ->
     (B, L, ..., dout).  ``kernel`` (T, din, dout) and ``bias`` (T, dout)
-    keep the JAX layout (type axis first)."""
+    keep the JAX layout (type axis first).
+
+    Under tensor parallelism (``tp``, set by
+    ``parallel.shard_state_tp``) the layer holds its rank's slice: a
+    column-parallel one ``dout / mp`` outputs (identity forward, its input
+    gradient summed over ``model``), a row-parallel one ``din / mp`` inputs
+    (its partial products summed over ``model``, the bias added once
+    after the sum)."""
     flax_leaves = {"kernel": ("params", "kernel", "copy"),
                    "bias": ("params", "bias", "copy")}
 
     def __init__(self, din: int, features: int, num_types: int = 2,
                  use_bias: bool = True):
         super().__init__()
-        self.features = features
         self.num_types = num_types
         self.kernel = nn.Parameter(torch.empty(num_types, din, features))
         self.bias = (nn.Parameter(torch.zeros(num_types, features))
                      if use_bias else None)
+        self.tp = None
 
     def reset_parameters(self, gen):
         lim = 1.0 / math.sqrt(self.kernel.shape[1])
@@ -232,7 +252,10 @@ class HeteroDense(nn.Module):
         return_params: return ``(kernel, bias)`` without computing."""
         if return_params:
             return self.kernel, self.bias
-        t, feats = self.num_types, self.features
+        tp = self.tp
+        if tp is not None and tp.kind == "col":
+            x = copy_to_model(x, tp.group)
+        t, feats = self.num_types, self.kernel.shape[-1]
         if static_modes is not None:
             if len(static_modes) != x.shape[1]:
                 raise ValueError(f"static_modes {static_modes} vs "
@@ -240,23 +263,26 @@ class HeteroDense(nn.Module):
             kt = self.kernel.to(x.dtype)
             y = torch.stack([x[:, i] @ kt[int(m)]
                              for i, m in enumerate(static_modes)], dim=1)
-            if self.bias is not None:
-                b = torch.stack([self.bias[int(m)] for m in static_modes]
-                                ).to(x.dtype)
-                y = y + b.reshape(1, len(static_modes),
-                                  *(1,) * (x.ndim - 3), feats)
+        else:
+            din = x.shape[-1]
+            k2d = self.kernel.transpose(0, 1).reshape(din, t * feats).to(
+                x.dtype)
+            y_all = (x @ k2d).reshape(*x.shape[:-1], t, feats)
+            sel = F.one_hot(mode.long(), t).to(x.dtype)
+            sel = sel.reshape(*mode.shape, *(1,) * (x.ndim - 3), t, 1)
+            y = (y_all * sel).sum(dim=-2)
+        if tp is not None and tp.kind == "row":
+            y = reduce_from_model(y, tp.group)
+        if self.bias is None:
             return y
-        din = x.shape[-1]
-        k2d = self.kernel.transpose(0, 1).reshape(din, t * feats).to(x.dtype)
-        y_all = (x @ k2d).reshape(*x.shape[:-1], t, feats)
-        sel = F.one_hot(mode.long(), t).to(x.dtype)
-        sel = sel.reshape(*mode.shape, *(1,) * (x.ndim - 3), t, 1)
-        y = (y_all * sel).sum(dim=-2)
-        if self.bias is not None:
-            b = hetero_param_gather(self.bias, mode).to(x.dtype)
-            y = y + b.reshape(b.shape[0], b.shape[1], *(1,) * (y.ndim - 3),
-                              feats)
-        return y
+        if static_modes is not None:
+            b = torch.stack([self.bias[int(m)] for m in static_modes]
+                            ).to(x.dtype)
+            return y + b.reshape(1, len(static_modes), *(1,) * (x.ndim - 3),
+                                 feats)
+        b = hetero_param_gather(self.bias, mode).to(x.dtype)
+        return y + b.reshape(b.shape[0], b.shape[1], *(1,) * (y.ndim - 3),
+                             feats)
 
 
 class HeteroLayerNorm(nn.Module):
@@ -300,5 +326,7 @@ class HeteroFeedForward(nn.Module):
         self.Dropout_1 = Dropout(dropout)
 
     def forward(self, x, mode, static_modes: tuple | None = None):
-        h = self.Dropout_0(gelu(self.HeteroDense_0(x, mode, static_modes)))
+        tp = self.HeteroDense_0.tp
+        h = self.Dropout_0(gelu(self.HeteroDense_0(x, mode, static_modes)),
+                           None if tp is None else (tp.size, tp.rank))
         return self.Dropout_1(self.HeteroDense_1(h, mode, static_modes))

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn import Conv
+from ..parallel.collectives import global_mean
 from ..utils.boxes import boxes_to_corners_3d_np, points_in_rotated_box_mask
 
 
@@ -59,7 +60,7 @@ def seg_loss(output: dict, labels: dict, d_weights: float = 75.0,
         logp = F.log_softmax(logits, dim=-1)
         onehot = F.one_hot(target, logits.shape[-1]).to(logp.dtype)
         weights = torch.where(target > 0, pos_w, 1.0).to(logp.dtype)
-        loss = (-(onehot * logp).sum(-1) * weights).mean()
+        loss = global_mean(-(onehot * logp).sum(-1) * weights)
         parts[key] = loss
         total = total + loss
     parts["total_loss"] = total

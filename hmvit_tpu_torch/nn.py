@@ -31,9 +31,12 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+
+from .parallel.collectives import all_reduce_sum, data_group
 
 _SQRT2 = math.sqrt(2.0)
 # flax lecun_normal: truncated to +-2 std, rescaled by this constant so
@@ -277,7 +280,12 @@ class BatchNorm(nn.Module):
     (``use_fast_variance``: float32 ``E[x^2] - E[x]^2`` clamped at 0,
     biased), and the running statistics move by flax's rule
     ``ra = momentum * ra + (1 - momentum) * stat`` (PyTorch's
-    ``momentum`` is the complement, and its running variance unbiased)."""
+    ``momentum`` is the complement, and its running variance unbiased).
+    Under data parallelism (``parallel.collectives.data_parallel``) the
+    sums of x, x^2 and the count are summed over the data axis first, so
+    the statistics are the global batch's, as GSPMD's mean over a
+    batch-sharded axis is (``torch.nn.SyncBatchNorm`` computes another
+    form and does not run on the CPU)."""
     flax_leaves = {"weight": ("params", "scale", "copy"),
                    "bias": ("params", "bias", "copy"),
                    "running_mean": ("batch_stats", "mean", "copy"),
@@ -297,12 +305,26 @@ class BatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
+    def batch_stats(self, x):
+        """Train-mode (mean, var) over every axis but the last, in float32
+        from Σx, Σx² and the count (one vector, summed over the data axis
+        under data parallelism)."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        axes = tuple(range(x.ndim - 1))
+        count = torch.full((1,), x.numel() // x.shape[-1], dtype=xf.dtype,
+                           device=x.device)
+        sums = torch.cat([xf.sum(axes), (xf * xf).sum(axes), count])
+        group = data_group()
+        if group is not None:
+            sums = all_reduce_sum(sums, group)
+        c = x.shape[-1]
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+        return mean, var
+
     def forward(self, x):
         if self.training:
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mean, var = self.batch_stats(x)
             update_running_stats(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -382,7 +404,10 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x):
+    def forward(self, x, split: tuple[int, int] | None = None):
+        """``split=(size, rank)``: ``x`` is this rank's block of a tensor
+        whose last axis is split ``size`` ways (a column-parallel layer's
+        output under tensor parallelism)."""
         if not self.training or self.rate == 0.0:
             return x
         if self.rate == 1.0:
@@ -394,7 +419,22 @@ class Dropout(nn.Module):
                 "generator: run the forward under "
                 "hmvit_tpu_torch.nn.dropout_rng(generator)")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+        # the mask one process draws over the whole tensor (as GSPMD's
+        # draw is, whatever the sharding), of which this rank keeps its
+        # block: its rows of the batch split over the data axis, its
+        # columns of a split last axis
+        shape = list(x.shape)
+        group = data_group()
+        if group is not None:
+            shape[0] *= dist.get_world_size(group)
+        if split is not None:
+            shape[-1] *= split[0]
+        keep = torch.rand(shape, generator=gen, device=x.device) < keep_prob
+        if group is not None:
+            keep = keep.narrow(0, dist.get_rank(group) * x.shape[0],
+                               x.shape[0])
+        if split is not None:
+            keep = keep.narrow(-1, split[1] * x.shape[-1], x.shape[-1])
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

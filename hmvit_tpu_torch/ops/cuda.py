@@ -177,8 +177,8 @@ class Kernel:
             self.launches_by_key[key] = self.launches_by_key.get(key, 0) + 1
 
 
-PAIR_WARP = Kernel("hm_pair_warp", n_ptrs=4, n_ints=8)
-PAIR_WARP_RESIDENT = Kernel("hm_pair_warp_resident", n_ptrs=4, n_ints=8)
+PAIR_WARP = Kernel("hm_pair_warp", n_ptrs=4, n_ints=10)
+PAIR_WARP_RESIDENT = Kernel("hm_pair_warp_resident", n_ptrs=4, n_ints=10)
 STRIPE_WINDOW_ATTENTION = Kernel("hm_stripe_window_attention",
                                  n_ptrs=5, n_ints=9)
 PLAIN_WINDOW_ATTENTION = Kernel("hm_plain_window_attention",
@@ -207,7 +207,7 @@ SIMT_KERNELS = (STRIPE_WINDOW_ATTENTION_SIMT, PLAIN_WINDOW_ATTENTION_SIMT,
 # a pixel, no tile skip), with the same output bits: for timing the two
 # side by side and as the bit anchor of both pair-warp kernels on the
 # card, never on the serving path.
-PAIR_WARP_PREVIOUS = Kernel("hm_pair_warp_previous", n_ptrs=4, n_ints=8)
+PAIR_WARP_PREVIOUS = Kernel("hm_pair_warp_previous", n_ptrs=4, n_ints=10)
 # The previous body of the segmented max-scan (one thread per (row, 8
 # channels) looking back a row at a time), with the same output bits on
 # rows whose id is >= 0: for timing and as the on-card bit anchor, never

@@ -10,6 +10,11 @@ JAX package's oracle — for CPU tensors or under
 :func:`hmvit_tpu_torch.ops.plain_ops`.  Its backward recomputes through
 the plain twin.
 
+The tile kernel and the twin take the Pallas kernel's destination-row
+window (``dest_row_start`` / ``dest_row_tiles``: whole 32-row tiles of
+the output, the source read whole), which the spatial-partitioning
+island of ``models/hetero_fusion.py`` runs a shard's rows by.
+
 Both kernels, and the fused warp + attention kernel, skip what is out of
 a sender's view, as the Pallas kernels do, but by a conservative test
 (:func:`roi_tile_valid` here, ``tile_in_view`` in
@@ -131,23 +136,51 @@ def roi_tile_valid(coef, size: int, tile: int = 32):
     return rect_in_view(coef[..., None, None, :], x0, y0, w, h, size)
 
 
+# the unit of a destination-row window: the Pallas kernel's row tile
+WINDOW_TILE = 32
+
+
+def row_window(h: int, dest_row_start=None, dest_row_tiles=None):
+    """(first row, rows) of the destination-row window ``[dest_row_start,
+    dest_row_start + dest_row_tiles)`` of 32-row tiles on a map of h rows,
+    or (0, h) without one.  A window that runs past the map, or one on a
+    map whose h is not a multiple of 32, raises ValueError."""
+    if dest_row_start is None and dest_row_tiles is None:
+        return 0, h
+    if dest_row_start is None or dest_row_tiles is None:
+        raise ValueError("pair warp: dest_row_start and dest_row_tiles go "
+                         "together")
+    start, tiles = int(dest_row_start), int(dest_row_tiles)
+    if h % WINDOW_TILE or start < 0 or tiles <= 0 \
+            or start + tiles > h // WINDOW_TILE:
+        raise ValueError(f"pair warp: a window of {tiles} row tiles from "
+                         f"tile {start} does not fit a map of {h} rows "
+                         f"(whole tiles of {WINDOW_TILE} rows)")
+    return start * WINDOW_TILE, tiles * WINDOW_TILE
+
+
 def pair_warp_xla(src_typed, pairwise, mode, discrete_ratio,
-                  downsample_rate, num_receivers=None):
+                  downsample_rate, num_receivers=None, dest_row_start=None,
+                  dest_row_tiles=None):
     """Plain twin: type gather + separable warp.
 
     src_typed (B, TY, J, H, W, C); pairwise (B, L, L, 4, 4) with
     pairwise[b, j, i] mapping j's frame into i's; mode (B, L) receiver
-    variant.  Returns (B, I, J, H, W, C)."""
+    variant.  Returns (B, I, J, H_out, W, C): the whole map, or the rows
+    of the destination-row window (:func:`row_window`), sliced from the
+    whole warp."""
     bsz, _, l, h, w, ck = src_typed.shape
+    row0, rows = row_window(h, dest_row_start, dest_row_tiles)
     r = l if num_receivers is None else num_receivers
     bidx = torch.arange(bsz, device=src_typed.device)[:, None]
     typed = src_typed[bidx, mode[:, :r].long()]  # (B, I, J, H, W, C)
     t_ij = pairwise.transpose(1, 2)[:, :r]
-    return warp_bev_mxu(
+    out = warp_bev_mxu(
         typed.reshape(bsz * r, l, h, w, ck),
         t_ij.reshape(bsz * r, l, 4, 4),
         discrete_ratio, downsample_rate,
     ).reshape(bsz, r, l, h, w, ck)
+    return out if rows == h else out[:, :, :, row0:row0 + rows]
 
 
 # the resident variant's gate, the JAX package's rule on this card: a
@@ -172,17 +205,35 @@ def resolve_variant(variant: str, h: int, w: int) -> str:
     return "tile"
 
 
+def _check_window_variant(kind: str, windowed: bool):
+    if windowed and kind == "resident":
+        raise ValueError("pair warp: the resident kernel takes no "
+                         "destination-row window (ROADMAP.md Queue 2: K5's "
+                         "window); run the tile variant")
+
+
 def pair_warp_launch(src_typed, pairwise, mode, discrete_ratio,
                      downsample_rate, num_receivers=None, coef=None,
-                     variant: str = "auto", previous: bool = False):
+                     variant: str = "auto", previous: bool = False,
+                     dest_row_start=None, dest_row_tiles=None):
     """Validate and lay out one pair-warp launch: returns (launch, out)
-    where ``launch()`` runs the kernel into ``out`` (B, I, J, H, W, C).
-    ``coef`` is the frame's :func:`pair_warp_coefficients` of
+    where ``launch()`` runs the kernel into ``out`` (B, I, J, H_out, W,
+    C).  ``coef`` is the frame's :func:`pair_warp_coefficients` of
     ``pairwise``, or None to compute them here.  ``previous`` runs the
     tile kernel's previous body whatever the variant: for timing only, it
-    gives the same bits."""
+    gives the same bits.  ``dest_row_start`` / ``dest_row_tiles`` (host
+    ints; the tile kernel only) restrict the output to a destination-row
+    window (:func:`row_window`); its launches also count under the key
+    "window" (``cuda.PAIR_WARP.launches_by_key``)."""
     bsz, ty_count, l, h, w, ck = src_typed.shape
-    resident = resolve_variant(variant, h, w) == "resident" and not previous
+    row0, rows = row_window(h, dest_row_start, dest_row_tiles)
+    windowed = dest_row_tiles is not None
+    kind = resolve_variant(variant, h, w)
+    _check_window_variant(kind, windowed)
+    if windowed and previous:
+        raise ValueError("pair warp: the previous body takes no "
+                         "destination-row window")
+    resident = kind == "resident" and not previous
     kernel = (cuda.PAIR_WARP_PREVIOUS if previous
               else cuda.PAIR_WARP_RESIDENT if resident else cuda.PAIR_WARP)
     r = l if num_receivers is None else num_receivers
@@ -207,19 +258,23 @@ def pair_warp_launch(src_typed, pairwise, mode, discrete_ratio,
     torch._assert_async(((rtype >= 0) & (rtype < ty_count)).all(),
                         "pair warp: receiver variant out of range")
     src = src_typed.contiguous()
-    out = torch.empty((bsz, r, l, h, w, ck), dtype=src.dtype,
+    out = torch.empty((bsz, r, l, rows, w, ck), dtype=src.dtype,
                       device=src.device)
-    ints = [cuda.DTYPE_CODES[src.dtype], bsz * r, l, ty_count, r, h, w, ck]
-    return lambda: kernel.launch([src, coef, rtype, out], ints), out
+    ints = [cuda.DTYPE_CODES[src.dtype], bsz * r, l, ty_count, r, h, w, ck,
+            row0, rows]
+    key = "window" if windowed else None
+    return lambda: kernel.launch([src, coef, rtype, out], ints, key), out
 
 
 class _PairWarp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, src_typed, pairwise, mode, dr, ds, nr, coef, variant):
+    def forward(ctx, src_typed, pairwise, mode, dr, ds, nr, coef, variant,
+                start, tiles):
         ctx.save_for_backward(src_typed, pairwise, mode)
-        ctx.args = (dr, ds, nr)
+        ctx.args = (dr, ds, nr, start, tiles)
         launch, out = pair_warp_launch(src_typed, pairwise, mode, dr, ds, nr,
-                                       coef, variant)
+                                       coef, variant, dest_row_start=start,
+                                       dest_row_tiles=tiles)
         launch()
         return out
 
@@ -230,27 +285,35 @@ class _PairWarp(torch.autograd.Function):
             s = src.detach().requires_grad_()
             out = pair_warp_xla(s, pairwise, mode, *ctx.args)
             (gs,) = torch.autograd.grad(out, s, g)
-        return gs, None, None, None, None, None, None, None
+        return gs, None, None, None, None, None, None, None, None, None
 
 
 def fused_pair_warp(src_typed, pairwise, mode, discrete_ratio,
                     downsample_rate, num_receivers=None, coef=None,
-                    variant: str = "auto"):
+                    variant: str = "auto", dest_row_start=None,
+                    dest_row_tiles=None):
     """CUDA kernel forward (plain-twin backward) for CUDA tensors; the
     plain twin for CPU tensors and under ``plain_ops()``.  ``coef``, the
     frame's :func:`pair_warp_coefficients`, spares the kernel path its
     geometry; the plain twin derives its own from ``pairwise``.
     ``variant`` picks the kernel (:func:`resolve_variant`); both give
-    the same bits, and the twin is the same for both."""
+    the same bits, and the twin is the same for both.
+    ``dest_row_start`` / ``dest_row_tiles`` restrict the output to a
+    destination-row window (:func:`row_window`; host ints, the tile
+    kernel only: a window on the resident variant raises)."""
     kind = resolve_variant(variant, *src_typed.shape[3:5])
     b, _, j, h, w, c = src_typed.shape
+    _, rows = row_window(h, dest_row_start, dest_row_tiles)
+    _check_window_variant(kind, dest_row_tiles is not None)
     opcount.note("pair_warp_resident" if kind == "resident"
                  else "pair_warp", opcount.pair_warp_ops(
                      b * (j if num_receivers is None else num_receivers), j,
-                     h, w, c))
+                     rows, w, c))
     if use_kernel(src_typed):
         return _PairWarp.apply(src_typed, pairwise, mode, discrete_ratio,
-                               downsample_rate, num_receivers, coef, variant)
+                               downsample_rate, num_receivers, coef, variant,
+                               dest_row_start, dest_row_tiles)
     with opcount.hidden():
         return pair_warp_xla(src_typed, pairwise, mode, discrete_ratio,
-                             downsample_rate, num_receivers)
+                             downsample_rate, num_receivers, dest_row_start,
+                             dest_row_tiles)

@@ -36,7 +36,16 @@ points on a 512^2 pillar grid, PFN width 64:
   ``torch.profiler`` pass over 3 requests giving the device-busy ms and
   the device operations (kernels, copies, memsets) of each stage and of
   the frame, and the device-busy share of the frame.  It hooks the
-  model's stages to mark them; it changes no path.
+  model's stages to mark them; it changes no path;
+* ``batchnorm`` — ``nn.BatchNorm``'s train-mode statistics in their
+  present form (Σx, Σx² and the count in one vector, the form a data
+  group sums) against the former one (``mean`` reductions), on the
+  inputs every BatchNorm layer gets in one bfloat16 train step of the
+  production model (remat): the largest difference of mean and var in
+  ulps of the former, each layer's forward + backward in both forms
+  summed over the step, and the whole step (``make_train_step``,
+  ``half=True``, learning rate 0) with each form in turns (former,
+  present, present, former; ``min(--iters, 5)`` steps a turn).
 
 Times are CUDA-event medians of ``--iters`` calls of the wrapper (inputs
 on the card, pose geometry included), each line with the card's name and
@@ -47,6 +56,8 @@ size, whose times say nothing about the card.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import dataclasses
 import subprocess
 import sys
@@ -59,7 +70,7 @@ from .data.anchors import generate_anchor_grid
 from .data.synthetic import lidar_from_boxes, make_scene
 from .models.hmvit import HMViT
 from .models.pillar_encoder import PillarFeatureNet
-from .nn import DTYPES, init_parameters
+from .nn import DTYPES, BatchNorm, init_parameters
 from .ops import plain_ops
 from .ops.expand import (
     expand_rows_to_dense,
@@ -573,6 +584,131 @@ def stage_profile(lab: Lab):
             torch.cuda.empty_cache()
 
 
+def _stats_by_mean(self, x):
+    """``BatchNorm.batch_stats`` in its former form (``mean`` reductions),
+    the ``batchnorm`` stage's yardstick."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    axes = tuple(range(x.ndim - 1))
+    mean = xf.mean(axes)
+    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+    return mean, var
+
+
+@contextlib.contextmanager
+def _bn_form(former: bool):
+    """Every ``BatchNorm`` computes its statistics in the former form
+    within the block (``former``), else in the present one."""
+    present = BatchNorm.batch_stats
+    if former:
+        BatchNorm.batch_stats = _stats_by_mean
+    try:
+        yield
+    finally:
+        BatchNorm.batch_stats = present
+
+
+def _ulps(a, b) -> float:
+    """max |a - b| in units in the last place of b (float32)."""
+    mag = b.abs()
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    return float(((a - b).abs() / ulp).max())
+
+
+def stage_batchnorm(lab: Lab):
+    """The two forms of the train-mode statistics: their difference on the
+    step's BatchNorm inputs, their time per layer and per step."""
+    from . import bench
+    from .postprocess import AnchorPostprocessor
+    from .train.trainer import (
+        create_train_state,
+        labels_for_batch,
+        make_train_step,
+    )
+
+    on_card = lab.dev.type == "cuda"
+    if on_card:
+        cfg, request = copy.deepcopy(PROD_CFG), {}
+    else:
+        cfg = rehearsal_cfg()
+        request = dict(max_points=512, image_size=64, num_cams=2,
+                       lidar_range=cfg["lidar"]["lidar_range"])
+    cfg["remat"] = True
+    batch = request_batch(0, **request)
+    pp = AnchorPostprocessor({"anchor_args": anchor_args(cfg),
+                              "target_args": bench.TARGET_ARGS,
+                              "order": "hwl"})
+    labels = labels_for_batch(pp, generate_anchor_grid(anchor_args(cfg)),
+                              batch, lab.dev)
+    tb = batch_to_device(batch, lab.dev, bf16=False)
+    model = init_parameters(HMViT(cfg), seed=0).to(lab.dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.0)
+    step = make_train_step(model, opt, half=True)
+    state = create_train_state(model, opt)
+
+    def one_step():
+        step(state, tb, labels, bench.TRAIN_SEED)
+
+    # each layer's input in the step (its first pass; remat repeats it)
+    inputs, layers, hooks = {}, {}, []
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            layers[name] = mod
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, args, name=name: inputs.setdefault(
+                    name, args[0].detach().clone())))
+    with torch.enable_grad():
+        one_step()
+    for hook in hooks:
+        hook.remove()
+
+    worst = {"mean": 0.0, "var": 0.0}
+    ms = {True: 0.0, False: 0.0}
+    for name, x in inputs.items():
+        bn = copy.deepcopy(layers[name]).train()
+        # the step's bfloat16 parameters (half: cast from the masters)
+        for p in bn.parameters():
+            p.data = p.data.to(x.dtype)
+        with _bn_form(True):
+            former = bn.batch_stats(x)
+        present = bn.batch_stats(x)
+        for key, a, b in zip(("mean", "var"), present, former):
+            worst[key] = max(worst[key], _ulps(a, b))
+        xg = x.detach().requires_grad_()
+        g = torch.ones_like(x)
+        for form in (True, False):
+            with _bn_form(form), torch.enable_grad():
+                ms[form] += lab.time_ms(lambda: bn(xg).backward(g))
+    lab.report(f"batchnorm: {len(inputs)} BatchNorm layers in a bf16 train "
+               f"step; present vs former statistics: max {worst['mean']:.1f}"
+               f" ulp (mean), {worst['var']:.1f} ulp (var); forward + "
+               f"backward summed over the layers: {ms[False]:.4f} ms present"
+               f", {ms[True]:.4f} ms former")
+
+    iters = min(lab.iters, 5)
+    steps = {True: [], False: []}
+    with torch.enable_grad():
+        for form in (True, False, False, True):
+            with _bn_form(form):
+                one_step()
+                for _ in range(iters):
+                    if on_card:
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    one_step()
+                    if on_card:
+                        torch.cuda.synchronize()
+                    steps[form].append((time.perf_counter() - t0) * 1e3)
+    lab.report(f"batchnorm: the train step (host clock, card synchronised),"
+               f" median of {2 * iters} in turns: "
+               f"{np.median(steps[False]):.3f} ms present, "
+               f"{np.median(steps[True]):.3f} ms former "
+               f"(each turn's: present {[round(v, 3) for v in steps[False]]}"
+               f", former {[round(v, 3) for v in steps[True]]})")
+    del model, opt, step, state, inputs
+    if on_card:
+        torch.cuda.empty_cache()
+
+
 STAGES = {
     "attn": lambda lab: [stage_attn_typed(lab, dtype)
                          for dtype in (torch.float32, torch.bfloat16)],
@@ -586,6 +722,7 @@ STAGES = {
     "expand": stage_expand,
     "lidar": stage_lidar,
     "profile": stage_profile,
+    "batchnorm": stage_batchnorm,
 }
 
 

@@ -17,14 +17,16 @@ HOST_KEYS = ("object_ids", "to_ego")
 
 
 def device_of(cpu: bool, tool: str) -> torch.device:
-    """The CPU when ``cpu``, else the first CUDA device (SystemExit
-    without one: the tools run on the card unless asked for the CPU)."""
+    """The CPU when ``cpu``, else the process's CUDA device: the launcher's
+    ``LOCAL_RANK`` (``torchrun``), the first card without one (SystemExit
+    without a card: the tools run on the card unless asked for the
+    CPU)."""
     if cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise SystemExit(f"{tool}: no CUDA device (pass --cpu to run on the "
                          f"CPU)")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
 
 
 def write_synthetic(params: dict, prefix: str, max_points: int,

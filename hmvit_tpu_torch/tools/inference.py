@@ -48,8 +48,15 @@ drawn in numpy (:mod:`hmvit_tpu_torch.visualization.vis`);
 viewer3d`); ``--save_npy`` the boxes as ``model_dir/npy/%04d_pred.npy``
 / ``_gt.npy``.
 
-The flags are the JAX tool's, plus ``--cpu``.  ``--data_parallel`` (one
-card: ``parallel/``) raises, ROADMAP.md Queue 1 item 8.
+``--data_parallel`` (intermediate fusion only, as in the JAX tool)
+spreads the frames over the processes of ``torchrun --nproc_per_node N
+-m hmvit_tpu_torch.tools.inference ... --data_parallel`` (or of a
+process group already made; alone, a world of one): each rank runs one
+frame of every N, the outputs are gathered (``parallel.gather_batch``)
+and rank 0 decodes and evaluates every frame, the padding of the last
+round dropped; every rank returns the results.  It times no frames.
+
+The flags are the JAX tool's, plus ``--cpu``.
 """
 from __future__ import annotations
 
@@ -159,16 +166,14 @@ class GraphServing:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data_parallel: the sharded sweep (parallel/) is "
-                         "not ported yet: ROADMAP.md Queue 1 item 8")
+    if args.data_parallel and args.fusion_method != "intermediate":
+        raise SystemExit("--data_parallel supports intermediate fusion only")
 
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
     from ..config import load_config
-    from ..data.codecs import yaml_dump
     from ..data.opv2v import HeteroCooperativeDataset
     from ..models.hmvit import HMViT
     from ..postprocess import build_postprocessor
@@ -252,6 +257,22 @@ def main(argv=None):
         os.makedirs(vis_dir, exist_ok=True)
     html_frames = []
 
+    def score(i, frame, corners, scores):
+        """Accumulate frame i's detections; returns its ground truth."""
+        gt_mask = frame["object_bbx_mask"] > 0
+        gt_corners = boxes_to_corners_3d_np(
+            frame["object_bbx_center"][gt_mask], pp.order)
+        E.accumulate_frame(corners, scores, gt_corners, stat)
+        if args.save_npy:
+            np.save(os.path.join(npy_dir, f"{i:04d}_pred.npy"),
+                    corners if corners is not None else np.zeros((0, 8, 3)))
+            np.save(os.path.join(npy_dir, f"{i:04d}_gt.npy"), gt_corners)
+        return gt_corners
+
+    if args.data_parallel:
+        return data_parallel_eval(args, dataset, model, prepare, pp, anchors,
+                                  stat, score, n_frames, dev)
+
     def produce(i):
         """Host decode and assembly of frame i (no device work)."""
         frame = dataset[i]
@@ -304,14 +325,7 @@ def main(argv=None):
             frame_ms.append((now - t_prev) * 1e3)
             t_prev = now
 
-        gt_mask = frame["object_bbx_mask"] > 0
-        gt_corners = boxes_to_corners_3d_np(
-            frame["object_bbx_center"][gt_mask], pp.order)
-        E.accumulate_frame(corners, scores, gt_corners, stat)
-        if args.save_npy:
-            np.save(os.path.join(npy_dir, f"{i:04d}_pred.npy"),
-                    corners if corners is not None else np.zeros((0, 8, 3)))
-            np.save(os.path.join(npy_dir, f"{i:04d}_gt.npy"), gt_corners)
+        gt_corners = score(i, frame, corners, scores)
         if args.save_vis or args.save_3d:
             points = frame["points"][0][frame["points_mask"][0] > 0]
         if args.save_vis:
@@ -346,6 +360,13 @@ def main(argv=None):
         print(json.dumps({"graph_captures": len(graphs.captures),
                           "capture_s": [c["capture_s"]
                                         for c in graphs.captures]}))
+    return report(args, results)
+
+
+def report(args, results: dict) -> dict:
+    """Print the AP table and write ``eval.yaml``; returns ``results``."""
+    from ..data.codecs import yaml_dump
+
     if "iou" in results:
         print("AP@0.3 is %.3f\nAP@0.5 is %.3f\nAP@0.7 is %.3f"
               % (results["iou"]["ap_30"], results["iou"]["ap_50"],
@@ -356,6 +377,53 @@ def main(argv=None):
     with open(os.path.join(args.model_dir, "eval.yaml"), "w") as f:
         f.write(yaml_dump(results))
     return results
+
+
+def data_parallel_eval(args, dataset, model, prepare, pp, anchors, stat,
+                       score, n_frames, dev) -> dict:
+    """``--data_parallel``: rounds of one frame a rank (the last round
+    padded with its last frame, whose outputs are dropped), the outputs
+    gathered to every rank, rank 0 scoring the real frames; the results
+    broadcast, so every rank returns them."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import gather_batch, init_from_env, make_mesh
+    from ..utils import evaluation as E
+
+    joined = not dist.is_initialized() and init_from_env(dev)
+    mesh = make_mesh() if dist.is_initialized() else None
+    world = dist.get_world_size() if mesh is not None else 1
+    rank = dist.get_rank() if mesh is not None else 0
+    for start in range(0, n_frames, world):
+        idxs = list(range(start, min(start + world, n_frames)))
+        mine = idxs[min(rank, len(idxs) - 1)]
+        frame = dataset[mine]
+        with torch.no_grad():
+            out = model(prepare(dataset.collate_batch([frame])))
+        out = detection_view(out)
+        if mesh is not None:
+            # gathered in float32 (exact; gloo takes no bfloat16)
+            dtypes = {k: v.dtype for k, v in out.items()}
+            out = {k: v.to(dtypes[k]) for k, v in gather_batch(
+                {k: v.float() for k, v in out.items()}, mesh).items()}
+        if rank != 0:
+            continue
+        for k, i in enumerate(idxs):
+            fr = frame if i == mine else dataset[i]
+            corners, scores = pp.post_process(
+                {"ego": {"transformation_matrix": np.eye(4),
+                         "anchor_box": anchors, "no_post_projection": True}},
+                {"ego": {key: v[k:k + 1] for key, v in out.items()}})
+            score(i, fr, lift_corners(corners), scores)
+    results = [E.final_results(stat) if rank == 0 else None]
+    if mesh is not None:
+        dist.broadcast_object_list(results, src=0)
+    if joined:
+        dist.destroy_process_group()
+    if rank != 0:
+        return results[0]
+    return report(args, results[0])
 
 
 if __name__ == "__main__":

@@ -14,7 +14,16 @@ host loads the next batch on a thread (its frames decoded by a pool of
     python -m hmvit_tpu_torch.tools.train --hypes_yaml <cfg.yaml>
         [--model_dir d] [--synthetic] [--epoches N] [--steps_per_epoch N]
         [--max_points P] [--batch_size B] [--half] [--remat] [--bucketed]
-        [--cpu]
+        [--mp N] [--cpu]
+
+Launched by ``torchrun --nproc_per_node N -m hmvit_tpu_torch.tools.train
+...`` (or under any process group already made), one process a card (the
+CPU with ``--cpu``, over gloo): data parallelism spans the world, and
+``--mp N`` makes it a (world / N, N) mesh whose ``model`` axis splits the
+fusion trunk (``hmvit_tpu_torch/parallel``).  Every rank reads the same
+batches and takes its shard; rank 0 writes the metrics, the
+configuration and the checkpoints (tensor-parallel slices gathered: the
+single-process layout).
 
 The flags are the JAX tool's, plus ``--cpu`` (run on the CPU, where every
 kernel wrapper runs its plain twin; without it the tool runs on the
@@ -22,8 +31,7 @@ card).  A segmentation config (loss ``vanilla_seg_loss`` / ``seg_loss``)
 trains its BEV heads on the map ground truth (``dataset.seg_labels`` at
 the heads' grid, read from one eval forward) with ``seg_loss``'s class
 weights ``d_weights`` / ``s_weights``; an anchor-free one (PIXOR) on its
-label map.  Differences: one card, so ``--mp`` above 1 (tensor
-parallelism, ``parallel/``) raises, ROADMAP.md Queue 1 item 8; the
+label map.  Differences: the
 scalars go to ``metrics.jsonl`` every
 10 steps, not to TensorBoard; the dataset's draws come from ``--seed``
 (the JAX dataset draws fresh entropy); and a resume restores the
@@ -58,7 +66,9 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=0,
                    help="override train_params.batch_size")
     p.add_argument("--mp", type=int, default=1,
-                   help="tensor-parallel degree (not ported: one card)")
+                   help="tensor-parallel degree: the processes form a "
+                        "(world / mp, mp) mesh, the fusion trunk split over "
+                        "mp (parallel/mesh.py shard_state_tp)")
     p.add_argument("--num_workers", type=int, default=4,
                    help="threads decoding a batch's frames")
     p.add_argument("--bucketed", action="store_true",
@@ -94,16 +104,18 @@ def main(argv=None, on_step=None):
     """Train; returns the run directory.  ``on_step(epoch, step,
     metrics)``, when given, is called after every train step."""
     args = parse_args(argv)
-    if args.mp > 1:
-        raise SystemExit("--mp: tensor parallelism (parallel/) is not ported "
-                         "yet: ROADMAP.md Queue 1 item 8")
 
     from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
 
     from ..config import load_config, save_config
     from ..data.opv2v import HeteroCooperativeDataset
     from ..models.zoo import build_model
     from ..nn import init_parameters
+    from ..parallel import (init_from_env, make_hybrid_mesh, make_mesh,
+                            replicate_state, shard_batch, shard_state_tp)
+    from ..parallel.mesh import axis_size
     from ..postprocess import build_postprocessor
     from ..train.checkpointing import find_last_step, restore_checkpoint, \
         save_checkpoint
@@ -114,6 +126,16 @@ def main(argv=None, on_step=None):
     from .common import device_of, to_device, write_synthetic
 
     dev = device_of(args.cpu, "tools.train")
+    joined = not dist.is_initialized() and init_from_env(dev)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    mp = max(1, args.mp)
+    if world % mp:
+        raise SystemExit(
+            f"--mp {mp}: the fusion trunk splits over mp processes, and "
+            f"{world} do not divide by it; launch a multiple of {mp} with "
+            f"`torchrun --nproc_per_node {mp} -m hmvit_tpu_torch.tools.train "
+            f"...`")
     params = load_config(args.hypes_yaml, model_dir=args.model_dir or None)
     if args.epoches:
         params["train_params"]["epoches"] = args.epoches
@@ -125,7 +147,8 @@ def main(argv=None, on_step=None):
     run_dir = args.model_dir or os.path.join(
         "runs", f"{params['name']}_{time.strftime('%Y%m%d_%H%M%S')}")
     os.makedirs(run_dir, exist_ok=True)
-    save_config(params, os.path.join(run_dir, "config.yaml"))
+    if lead:
+        save_config(params, os.path.join(run_dir, "config.yaml"))
 
     dataset = HeteroCooperativeDataset(params, train=True,
                                        max_points=args.max_points,
@@ -165,6 +188,20 @@ def main(argv=None, on_step=None):
         restore_checkpoint(ckpt_dir, state, last)
         start_epoch = last
         print(f"resumed from epoch {last}")
+    mesh = None
+    if dist.is_initialized():
+        # batch over 'data', the fusion trunk over 'model' with --mp
+        mesh = make_hybrid_mesh(mp) if mp > 1 else make_mesh()
+        state = (shard_state_tp if mp > 1 else replicate_state)(state, mesh)
+        dp = axis_size(mesh, "data")
+        if batch_size % dp:
+            raise SystemExit(
+                f"batch_size {batch_size} must be a multiple of the "
+                f"data-parallel degree {dp} (processes {world} / mp {mp}); "
+                "pass --batch_size or adjust train_params.batch_size")
+        if args.bucketed and (dp > 1 or mp > 1):
+            raise SystemExit("--bucketed is a single-card step "
+                             "specialization; drop it under dp/mp sharding")
 
     loss_fn, loss_kwargs = build_loss(params.get("loss", {}))
     seg_task = params.get("loss", {}).get("core_method", "") in SEG_LOSSES
@@ -241,11 +278,14 @@ def main(argv=None, on_step=None):
                                                 idxs_for(step + 1))
                 batch = to_device(batch, dev)
                 labels = {k: v.to(dev) for k, v in labels.items()}
+                if mesh is not None:
+                    batch = shard_batch(batch, mesh)
+                    labels = shard_batch(labels, mesh)
                 state, metrics = train_step(state, batch, labels,
                                             args.seed + 1)
                 if on_step is not None:
                     on_step(epoch, step, metrics)
-                if step % 10 == 0:
+                if step % 10 == 0 and lead:
                     rec = {"epoch": epoch, "step": step,
                            "lr": float(schedule(state.step)),
                            **{k: float(v) for k, v in metrics.items()}}
@@ -266,8 +306,10 @@ def main(argv=None, on_step=None):
                     vl = make_labels(vb, dev)
                     m = eval_step(state, to_device(vb, dev), vl)
                     val_losses.append(float(m["total_loss"]))
-                print(f"[epoch {epoch}] val_loss={np.mean(val_losses):.4f} "
-                      f"({time.time() - t_ep:.1f}s/epoch)", flush=True)
+                if lead:
+                    print(f"[epoch {epoch}] val_loss="
+                          f"{np.mean(val_losses):.4f} "
+                          f"({time.time() - t_ep:.1f}s/epoch)", flush=True)
 
             if epoch % save_freq == 0:
                 save_checkpoint(ckpt_dir, epoch + 1, state)
@@ -276,7 +318,10 @@ def main(argv=None, on_step=None):
     prefetcher.shutdown()
     if frame_pool is not None:
         frame_pool.shutdown()
-    print(f"training done -> {run_dir}")
+    if joined:
+        dist.destroy_process_group()
+    if lead:
+        print(f"training done -> {run_dir}")
     return run_dir
 
 

@@ -3,7 +3,9 @@
 directory per step holding ``torch.save`` of the model's and the
 optimizer's state dicts and the step; resume finds the last step; a
 pretrained encoder's state-dict entries can be grafted into a fusion
-model's (staged training)."""
+model's (staged training).  A state that steps under a mesh writes the
+single-process layout: its tensor-parallel slices gathered, rank 0
+writing."""
 from __future__ import annotations
 
 import os
@@ -15,13 +17,27 @@ STATE_FILE = "state.pt"
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
-    """Write ``state`` to ``ckpt_dir/<step>/``; returns that directory."""
+    """Write ``state`` to ``ckpt_dir/<step>/``; returns that directory.
+    Under a mesh every rank calls it (the tensor-parallel slices are
+    gathered) and rank 0 writes."""
     path = os.path.join(ckpt_dir, str(int(step)))
-    os.makedirs(path, exist_ok=True)
-    torch.save({"step": int(state.step),
-                "model": state.model.state_dict(),
-                "opt": state.opt.state_dict()},
-               os.path.join(path, STATE_FILE))
+    mesh = getattr(state, "mesh", None)
+    if mesh is None:
+        model_sd, opt_sd, writer = (state.model.state_dict(),
+                                    state.opt.state_dict(), True)
+    else:
+        import torch.distributed as dist
+
+        from ..parallel.mesh import full_optimizer_state, full_state_dict
+
+        model_sd, opt_sd = full_state_dict(state), full_optimizer_state(state)
+        writer = dist.get_rank() == 0
+    if writer:
+        os.makedirs(path, exist_ok=True)
+        torch.save({"step": int(state.step), "model": model_sd,
+                    "opt": opt_sd}, os.path.join(path, STATE_FILE))
+    if mesh is not None:
+        dist.barrier()
     return path
 
 

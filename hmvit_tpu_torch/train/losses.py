@@ -7,12 +7,19 @@ weighted smooth-L1 regression (beta 1/9) with the sin-difference angle
 encoding.  ``voxel_net_loss`` and ``pixor_loss`` are the other two
 families, and ``seg_loss`` (``models/seg_head.py``) the segmentation one;
 ``build_loss`` picks one from a hypes loss block.
+
+Under data parallelism (``parallel.collectives.data_parallel``) each
+rank's loss is its term of the global loss: every normaliser is the
+global one (the batch, the positive counts, the pixels), as GSPMD's
+reductions over a batch-sharded axis are, so the train step sums the
+ranks' gradients.
 """
 from __future__ import annotations
 
 import torch
 
 from ..models.seg_head import seg_loss
+from ..parallel.collectives import global_batch, global_mean, global_sum
 
 
 def sigmoid_focal_loss(logits, targets, weights, alpha=0.25, gamma=2.0):
@@ -59,13 +66,15 @@ def voxel_net_loss(output, labels, alpha=1.5, beta=1.0):
     eps = 1e-6
     pos_loss = -torch.log(prob + eps) * pos
     neg_loss = -torch.log(1.0 - prob + eps) * neg
-    conf = (alpha * pos_loss.sum() / torch.clamp(pos.sum(), min=1.0)
-            + beta * neg_loss.sum() / torch.clamp(neg.sum(), min=1.0)) / b
+    n_pos = torch.clamp(global_sum(pos.sum()), min=1.0)
+    n_neg = torch.clamp(global_sum(neg.sum()), min=1.0)
+    b_all = global_batch(b)
+    conf = (alpha * pos_loss.sum() / n_pos
+            + beta * neg_loss.sum() / n_neg) / b_all
     rm_flat = rm.permute(0, 2, 3, 1).reshape(b, -1, 7)
     targets = labels["targets"].reshape(b, -1, 7)
-    reg = weighted_smooth_l1(rm_flat, targets,
-                             pos / torch.clamp(pos.sum(), min=1.0))
-    reg_loss = reg.sum() / b
+    reg = weighted_smooth_l1(rm_flat, targets, pos / n_pos)
+    reg_loss = reg.sum() / b_all
     total = conf + reg_loss
     return total, {"conf_loss": conf, "reg_loss": reg_loss,
                    "total_loss": total}
@@ -81,8 +90,8 @@ def pixor_loss(output, labels, alpha=1.0, beta=1.0):
     z, loc_p = output["cls"], output["reg"]
     bce = (torch.clamp(z, min=0.0) - z * cls_t
            + torch.log1p(torch.exp(-torch.abs(z))))
-    cls_loss = bce.mean()
-    pos = cls_t.sum()
+    cls_loss = global_mean(bce)
+    pos = global_sum(cls_t.sum())
     ad = torch.abs(cls_t * (loc_p - loc_t))
     sl1 = torch.where(ad < 1.0, 0.5 * ad * ad, ad - 0.5).sum()
     reg_loss = torch.where(pos > 0, sl1 / torch.clamp(pos, min=1.0), sl1)
@@ -98,6 +107,7 @@ def point_pillar_loss(output, labels, cls_weight=1.0, reg_weight=2.0):
     "reg_loss", "total_loss"})."""
     psm, rm = output["psm"], output["rm"]
     b = psm.shape[0]
+    b_all = global_batch(b)
     cls_labels = labels["pos_equal_one"].reshape(b, -1)
     positives = cls_labels > 0
     pos_normalizer = torch.clamp(positives.sum(dim=1, keepdim=True),
@@ -107,12 +117,12 @@ def point_pillar_loss(output, labels, cls_weight=1.0, reg_weight=2.0):
     cls_preds = psm.permute(0, 2, 3, 1).reshape(b, -1, 1)
     conf = sigmoid_focal_loss(cls_preds, cls_labels[..., None],
                               cls_weights[..., None])
-    conf_loss = conf.sum() / b * cls_weight
+    conf_loss = conf.sum() / b_all * cls_weight
     rm_flat = rm.permute(0, 2, 3, 1).reshape(b, -1, 7)
     targets = labels["targets"].reshape(b, -1, 7)
     rm_sin, tgt_sin = add_sin_difference(rm_flat, targets)
     reg = weighted_smooth_l1(rm_sin, tgt_sin, reg_weights)
-    reg_loss = reg.sum() / b * reg_weight
+    reg_loss = reg.sum() / b_all * reg_weight
     total = conf_loss + reg_loss
     return total, {"conf_loss": conf_loss, "reg_loss": reg_loss,
                    "total_loss": total}

@@ -13,6 +13,14 @@ before the loss.  The optimizer updates the float32 masters.
 
 Dropout draws from a generator seeded from (seed, step), the
 counterpart of ``jax.random.fold_in(rng, state.step)``.
+
+A state that steps under a mesh (``parallel.replicate_state`` /
+``shard_state_tp``) takes its rank's shard of the batch: the forward
+and loss run under ``parallel.collectives.data_parallel`` (global
+batch statistics and normalisers), the gradients are summed over the
+``data`` axis, the reported loss is the global one, and every rank
+draws from the one (seed, step) generator the whole tensor's dropout
+mask, of which it keeps its block: the masks are the single process's.
 """
 from __future__ import annotations
 
@@ -22,9 +30,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..nn import dropout_rng
+from ..parallel.collectives import data_parallel
 from .losses import point_pillar_loss
 
 
@@ -32,10 +42,14 @@ from .losses import point_pillar_loss
 class TrainState:
     """The step count, the model (float32 master parameters and running
     statistics) and its optimizer; a train step updates all three in
-    place."""
+    place.  ``mesh``: the device mesh the state steps under (None: this
+    process alone); ``tp_axes``: the split axis of each tensor-parallel
+    parameter by name."""
     step: int
     model: nn.Module
     opt: torch.optim.Optimizer
+    mesh: object = None
+    tp_axes: dict = dataclasses.field(default_factory=dict)
 
 
 def create_train_state(model: nn.Module,
@@ -44,10 +58,31 @@ def create_train_state(model: nn.Module,
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The dropout generator of one step: seeded from (seed, step)."""
+    """The dropout generator of one step: seeded from (seed, step).  Every
+    rank of a mesh draws from the same one: a mask is drawn over the
+    whole tensor and each rank keeps its block (``nn.Dropout``)."""
     mixed = np.random.SeedSequence([int(seed), int(step)]).generate_state(
         1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(mixed))
+
+
+def _data_axis(state):
+    """The data group of a state that steps under a mesh, else None."""
+    if state.mesh is None:
+        return None
+    from ..parallel.mesh import axis_group
+
+    return axis_group(state.mesh, "data")
+
+
+def _sum_over(tensors, group):
+    """Sum ``tensors`` in place over ``group``, as one flat buffer."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    flat = _flatten_dense_tensors(tensors)
+    dist.all_reduce(flat, group=group)
+    for t, v in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
+        t.copy_(v)
 
 
 def _to_bf16(tensors: dict) -> dict:
@@ -88,7 +123,9 @@ def _make_train_step(model, opt, loss_fn, loss_kwargs, half, schedule,
         model.train()
         model.zero_grad(set_to_none=True)
         batch_in = _to_bf16(batch) if half else batch
-        with dropout_rng(step_generator(seed, state.step, device)):
+        group = _data_axis(state)
+        with dropout_rng(step_generator(seed, state.step, device)), \
+                data_parallel(group):
             if half:
                 params = _to_bf16(dict(model.named_parameters()))
                 out = torch.func.functional_call(model, params, (batch_in,),
@@ -101,13 +138,17 @@ def _make_train_step(model, opt, loss_fn, loss_kwargs, half, schedule,
         for p in trained:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        parts = {k: v.detach() for k, v in parts.items()}
+        if group is not None:
+            _sum_over([p.grad for p in trained], group)
+            _sum_over(list(parts.values()), group)
         if schedule is not None:
             lr = schedule(state.step)
             for group in opt.param_groups:
                 group["lr"] = lr
         opt.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in parts.items()}
+        return state, parts
 
     return step
 
@@ -131,6 +172,13 @@ def make_bucketed_train_step(model, opt, loss_fn: Callable = point_pillar_loss,
                                 schedule, camera_bucket=n_cam)
 
     def dispatch(state, batch, labels, seed: int = 0):
+        group = _data_axis(state)
+        if state.tp_axes or (group is not None
+                             and dist.get_world_size(group) > 1):
+            raise ValueError("the bucketed step is a single-card "
+                             "specialization: each rank would pick its own "
+                             "camera count; step under dp / mp with "
+                             "make_train_step")
         # the active camera agents: one host read of mode and agent_mask
         mode = torch.as_tensor(batch["mode"]).cpu()
         active = torch.as_tensor(batch["agent_mask"]).cpu() > 0

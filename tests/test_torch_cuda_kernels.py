@@ -289,6 +289,50 @@ def test_new_pair_warp_kernels_equal_previous_body(dev, poses, size, c):
                 assert err <= TOL[dtype], err
 
 
+@pytest.mark.parametrize("size", [64, 96, 128])
+@pytest.mark.parametrize("poses", ["co-located", "spread", "draw222"])
+def test_pair_warp_window_equals_the_whole_launch(dev, poses, size):
+    """K1's destination-row window (the SP island's): every window of
+    whole 32-row tiles equals the whole launch's rows bit for bit, in both
+    types, for every receiver and the ego alone, and the twin's window
+    within the pair warp's tolerance (identity pairs: the sender's map);
+    the launches count under the key "window"."""
+    pair_np, geo = _poses(poses)
+    pair = torch.as_tensor(pair_np, device=dev)
+    l = pair.shape[1]
+    g = torch.Generator(device=dev).manual_seed(size)
+    coef = pair_warp_coefficients(pair, (size, size), *geo)
+    n_t = size // 32
+    windows = [(s, t) for t in range(1, n_t + 1) for s in range(n_t - t + 1)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for r in (1, l):
+            src = torch.randn(1, 2, l, size, size, 64, generator=g,
+                              device=dev).to(dtype)
+            mode = torch.randint(0, 2, (1, l), generator=g, device=dev)
+            args = (src, pair, mode, *geo, r)
+            whole = fused_pair_warp(*args)
+            ident = (coef[:, :r, :, 7] == 1)[..., None, None, None]
+            typed = src[0][mode[0, :r]][None]
+            before = cuda.PAIR_WARP.launches_by_key.get("window", 0)
+            for start, tiles in windows:
+                rows = slice(start * 32, (start + tiles) * 32)
+                win = fused_pair_warp(*args, dest_row_start=start,
+                                      dest_row_tiles=tiles)
+                with plain_ops():
+                    want = fused_pair_warp(*args, dest_row_start=start,
+                                           dest_row_tiles=tiles)
+                torch.cuda.synchronize()
+                assert win.shape == (1, r, l, tiles * 32, size, 64)
+                assert torch.equal(win, whole[:, :, :, rows]), \
+                    (dtype, r, start, tiles)
+                want = torch.where(ident, typed[..., rows, :, :].float(),
+                                   torch.nan_to_num(want.float(), nan=0.0))
+                err = float((win.float() - want).abs().max())
+                assert err <= TOL[dtype], (dtype, r, start, tiles, err)
+            assert cuda.PAIR_WARP.launches_by_key["window"] == \
+                before + len(windows)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("j,d,t", [(1, 32, 64), (3, 16, 16), (5, 32, 64)])
 def test_typed_window_attention_kernel(dev, dtype, j, d, t):

@@ -208,18 +208,20 @@ def warp_walk(npx, cvecs):
     return torch.tensor(done).T
 
 
-def tile_kernel_emulation(src, coef, rtype, n_recv):
+def tile_kernel_emulation(src, coef, rtype, n_recv, row0=0, rows=None):
     """pair_warp_kernel: blocks (b, j, strip, r) in grid order, each
     planning its strip's pixels (zeros out of view), then its warps'
-    walk (:func:`warp_walk`).  Every output element is written exactly
-    once (checked)."""
+    walk (:func:`warp_walk`), over the destination rows [row0, row0 +
+    rows) (the whole map by default; the output holds those rows).
+    Every output element is written exactly once (checked)."""
     bsz, ty, nj, size, _, c = src.shape
+    rows = size if rows is None else rows
     n_pairs = coef.shape[0]
-    out = torch.full((n_pairs, nj, size, size, c), float("nan"))
+    out = torch.full((n_pairs, nj, rows, size, c), float("nan"))
     flat = out.view(-1)
     written = torch.zeros(flat.numel(), dtype=torch.int64)
     tiles_x = -(-size // TILE_W)
-    strips = tiles_x * -(-size // STRIP_H)
+    strips = tiles_x * -(-rows // STRIP_H)
     cvecs = c // V
     for block in range(bsz * nj * strips * n_recv):
         rest = block
@@ -228,8 +230,8 @@ def tile_kernel_emulation(src, coef, rtype, n_recv):
         j, b = rest % nj, rest // nj
         n = b * n_recv + r
         sy = s // tiles_x
-        x0, y0 = (s - sy * tiles_x) * TILE_W, sy * STRIP_H
-        w, h = min(TILE_W, size - x0), min(STRIP_H, size - y0)
+        x0, y0 = (s - sy * tiles_x) * TILE_W, row0 + sy * STRIP_H
+        w, h = min(TILE_W, size - x0), min(STRIP_H, row0 + rows - y0)
         cf = coef[n, j]
         seen = bool(pfw.rect_in_view(cf, x0, y0, w, h, size))
         p = torch.arange(w * h)
@@ -246,8 +248,8 @@ def tile_kernel_emulation(src, coef, rtype, n_recv):
             vec_plan,
             lambda q: amap[q[..., None], ch[:, None] + torch.arange(V)],
             dst_pix[pi])
-        at = (((n * nj + j) * size * size + dst_pix[pi]) * c + ch)[:, None] \
-            + torch.arange(V)
+        at = (((n * nj + j) * rows * size + dst_pix[pi] - row0 * size) * c
+              + ch)[:, None] + torch.arange(V)
         flat[at] = vals
         written[at] += 1
     assert bool((written == 1).all())

@@ -1,7 +1,8 @@
 """The port's stage-timing entry point, ``hmvit_tpu_torch.perf_lab``:
 its CPU rehearsal drives every stage (fusion, segmented scan, expansion,
-lidar, and the per-stage profile of the serving frame on a model of the
-production structure at test widths) through the kernels' plain twins at
+lidar, the per-stage profile of the serving frame and the BatchNorm
+statistics' two forms in a train step, on a model of the production
+structure at test widths) through the kernels' plain twins at
 a tiny size (the stages' own
 bit-for-bit assertions hold there too), it
 refuses to run without a CUDA device unless ``--cpu`` is given, and an
@@ -20,7 +21,8 @@ def _one_thread():
 
 @pytest.mark.parametrize("stage,lines", [
     ("attn", 2), ("pairwarp", 2), ("pairwarp_res", 6), ("fused_wa", 3),
-    ("segscan", 2), ("expand", 4), ("lidar", 4), ("profile", 14)])
+    ("segscan", 2), ("expand", 4), ("lidar", 4), ("profile", 14),
+    ("batchnorm", 2)])
 def test_cpu_rehearsal_runs_stage(stage, lines, capsys):
     assert perf_lab.main(["--cpu", "--iters", "1", stage]) == 0
     out = capsys.readouterr().out.strip().splitlines()
@@ -50,9 +52,9 @@ def test_stages_cover_the_production_shapes():
     assert (s.grid, s.points, s.pfn, s.clouds, s.expand_rows) == (
         512, 30000, 64, 2, 40000)
     assert s.voxel_size == pytest.approx((0.4, 0.4, 4.0))
-    assert sorted(perf_lab.STAGES) == ["attn", "expand", "fused_wa", "lidar",
-                                       "pairwarp", "pairwarp_res", "profile",
-                                       "segscan"]
+    assert sorted(perf_lab.STAGES) == ["attn", "batchnorm", "expand",
+                                       "fused_wa", "lidar", "pairwarp",
+                                       "pairwarp_res", "profile", "segscan"]
 
 
 def test_profile_stage_reports_every_stage_of_both_servers(capsys):

@@ -131,9 +131,11 @@ def test_serving_buckets_give_the_plain_forward_boxes(run_dir, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mp", "2"], "Queue 1 item 8"),
+    (["--mp", "2"], "torchrun --nproc_per_node 2"),
 ])
 def test_train_refuses_what_is_not_ported(argv, item, tmp_path):
+    """``--mp 2`` in a world of one process: the fusion trunk cannot
+    split, and the message names the launcher that makes the processes."""
     with pytest.raises(SystemExit, match=item):
         train.main(["--hypes_yaml", SMOKE, "--model_dir",
                     str(tmp_path / "r"), *argv, *SMALL])
@@ -151,11 +153,60 @@ def test_train_refuses_the_segmentation_task(tmp_path):
                     *SMALL])
 
 
-@pytest.mark.parametrize("flag,item", [
-    ("--data_parallel", "Queue 1 item 8")])
-def test_inference_refuses_what_is_not_ported(run_dir, flag, item):
-    with pytest.raises(SystemExit, match=item):
-        inference.main(["--model_dir", run_dir, flag, *SMALL])
+@pytest.mark.parametrize("flag", ["--data_parallel"])
+def test_inference_refuses_what_is_not_ported(run_dir, flag, tmp_path):
+    """``--data_parallel`` in a world of one process serves the frames one
+    a round and gives the serial run's AP (it refused before the port of
+    ``parallel/``); it takes intermediate fusion only."""
+    results = {}
+    for flags in ([], [flag]):
+        run = str(tmp_path / f"run{len(flags)}")
+        shutil.copytree(run_dir, run)
+        results[len(flags)] = inference.main(
+            ["--model_dir", run, "--synthetic", "--max_frames", "2",
+             *flags, *SMALL])
+    assert results[1]["iou"] == results[0]["iou"]
+    assert results[1]["distance"] == results[0]["distance"]
+    with pytest.raises(SystemExit, match="intermediate fusion only"):
+        inference.main(["--model_dir", run_dir, flag, "--fusion_method",
+                        "late", *SMALL])
+
+
+def torchrun(module, *argv):
+    """``torchrun --standalone --nproc_per_node 2 -m module argv`` (gloo on
+    the CPU): its output, after a zero exit."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", module, *argv],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return proc.stdout
+
+
+def test_two_ranks_train_mp2_and_serve_data_parallel(run_dir, tmp_path):
+    """Two gloo processes under the launcher: ``tools.train --mp 2`` (the
+    fusion trunk split over both) writes a checkpoint in the
+    single-process layout, and ``tools.inference --data_parallel`` on it
+    gives the serial run's AP."""
+    run = str(tmp_path / "mp2")
+    out = torchrun("hmvit_tpu_torch.tools.train", "--hypes_yaml", SMOKE,
+                   "--model_dir", run, "--synthetic", "--epoches", "1",
+                   "--steps_per_epoch", "2", "--mp", "2", *SMALL)
+    assert out.count("training done") == 1  # rank 0 reports
+    saved = torch.load(os.path.join(run, "ckpt", "1", "state.pt"),
+                       weights_only=True)
+    single = torch.load(os.path.join(run_dir, "ckpt", "1", "state.pt"),
+                        weights_only=True)
+    assert {k: v.shape for k, v in saved["model"].items()} == \
+        {k: v.shape for k, v in single["model"].items()}
+    assert saved["step"] == 2
+    torchrun("hmvit_tpu_torch.tools.inference", "--model_dir", run,
+             "--synthetic", "--max_frames", "3", "--data_parallel", *SMALL)
+    shared = yaml_load_file(os.path.join(run, "eval.yaml"))
+    serial = inference.main(["--model_dir", run, "--synthetic",
+                             "--max_frames", "3", *SMALL])
+    assert shared["iou"] == serial["iou"]
 
 
 @pytest.mark.parametrize("flag", ["--save_vis", "--save_3d"])
