@@ -99,8 +99,10 @@ Phases:
 7. run the typed-attention (float32 and bfloat16), resident-warp,
    segmented-scan, expansion and lidar stages of
    ``hmvit_tpu_torch.perf_lab`` — the entry point that reaches the typed,
-   resident and scan kernels — and count their launches, those of the
-   typed kernel's tensor-core body apart;
+   resident and scan kernels, and the resident kernel's destination-row
+   windows — and count their launches, those of the typed kernel's
+   tensor-core body apart and the resident windows' (the kernels line's
+   ``pair_warp_resident_window`` launches);
 8. train on the card: the training configuration of ``bench.py
    --train`` (``dict(PROD_CFG, remat=True)``: the same fleet and widths,
    the run-both trace, ``drop_out`` 0) on request 0 with its anchor
@@ -296,21 +298,28 @@ Phases:
    frame, ``vis_npy.render_npy_dir`` over the dumps; (e) the hypes
    generator into a temporary directory, its 73 files byte-equal to the
    port's copies.  Any fallback to a numpy path fails the phase;
-16. parallelism on one card: (a) K1's destination-row window (the SP
-   island's: ``dest_row_start`` / ``dest_row_tiles``) at the production
-   shapes, 128^2 x 512, float32 and bfloat16, I = 4 and the ego launch,
-   nsh in ``SP_SHARDS``, on the serving, spread and 222nd-draw poses:
-   every window launch equal to the whole launch's rows bit for bit and
-   to the twin's window at phase 2's tolerances; the serving and ego
-   windows timed (one launch between CUDA events, median of 20) beside
-   the whole launch / nsh and the twin, with their bound from the source
-   bytes the window's taps read (``touched_source_bytes``) and the bytes
-   it writes; (b) the first local phase of ``PROD_CFG``'s fusion (bf16)
-   through the SP island once a shard (``HeteroWindowAttention.island``,
-   the gather the identity on the whole [K|V] already on the card), the
-   shards concatenated: equal to the unsharded phase bit for bit (or
-   within phase 2's bf16 stripe tolerance, the difference printed), the
-   K1 window and K2 launches counted from 0 and held to one a shard; (c)
+16. parallelism on one card: (a) the destination-row window (the SP
+   island's: ``dest_row_start`` / ``dest_row_tiles``) of K1 and of K5
+   (``variant="resident"``) at the production shapes, 128^2 x 512,
+   float32 and bfloat16, I = 4 and the ego launch, nsh in
+   ``SP_SHARDS``, on the serving, spread and 222nd-draw poses: every
+   window launch equal to the same kernel's whole launch's rows bit for
+   bit and to the twin's window at phase 2's tolerances; the serving
+   windows (K1 also the ego's) timed (one launch between CUDA events,
+   median of 20) beside the whole launch / nsh and the twin, with their
+   bound from the source bytes the window's taps read
+   (``touched_source_bytes``) and the bytes it writes; the seconds each
+   kernel's windows took printed; (b) the first local phase of
+   ``PROD_CFG``'s fusion (bf16) through the SP island once a shard
+   (``HeteroWindowAttention.island``, the gather the identity on the
+   whole [K|V] already on the card), the shards concatenated: equal to
+   the unsharded phase bit for bit (or within phase 2's bf16 stripe
+   tolerance, the difference printed), the K1 window and K2 launches
+   counted from 0 and held to one a shard; then the phase over 3 shards
+   of 43 rows, the last padded (``HeteroWindowAttention.sharded``: rows
+   that do not split evenly), which must take the fallback with the JAX
+   package's warning and equal the unsharded phase bit for bit, its
+   padding rows zeros, its seconds printed; (c)
    a process group of one over loopback on NCCL: the SP entry itself,
    ``parallel.make_spatial_eval`` on a ``make_hybrid_mesh(1)`` mesh, one
    ``PROD_CFG`` bf16 request (the maps split over the model axis, the
@@ -3866,14 +3875,15 @@ def touched_source_bytes(src, pair, mode, geo, receivers, start, tiles):
 
 
 def window_check(dev, card) -> dict:
-    """Phase 16 (a): K1's destination-row window at the production shapes
-    on the serving, ego, spread and 222nd-draw poses, both types: every
-    window launch equal to the whole launch's rows bit for bit and to the
-    twin's window at phase 2's tolerances; the serving and ego windows
+    """Phase 16 (a): the destination-row window of K1 (the tile kernel)
+    and of K5 (the resident kernel) at the production shapes on the
+    serving, ego, spread and 222nd-draw poses, both types: every window
+    launch equal to the same kernel's whole launch's rows bit for bit and
+    to the twin's window at phase 2's tolerances; the serving windows
     timed (one launch between CUDA events, median of 20) beside the whole
     launch / nsh and the twin's window, with their bound from the bytes
-    the window reads and writes.  Returns the kernels-line record of the
-    bf16 serving window at nsh = 2."""
+    the window reads and writes.  Returns each kernel's kernels-line
+    record of its bf16 serving window at nsh = 2, by variant."""
     import torch
 
     from hmvit_tpu_torch import perf_lab
@@ -3900,18 +3910,21 @@ def window_check(dev, card) -> dict:
         ("draw 222, 64^2 C=8", lambda: src222, pair222,
          torch.zeros(1, 2, dtype=torch.long, device=dev), None, (1.0, 1.0)),
     )
-    record = None
-    for label, make, pair, mode_, r, geo in cases:
+    records, seconds = {}, {}
+    for variant, label, make, pair, mode_, r, geo in (
+            (v, *c) for v in ("tile", "resident") for c in cases):
+        t0 = time.perf_counter()
         src32 = make()
         size = src32.shape[3]
+        name = "pair_warp" if variant == "tile" else "pair_warp_resident"
         for dt in (torch.float32, torch.bfloat16):
             key = str(dt).split(".")[-1]
             args = (src32.to(dt), pair, mode_, *geo, r)
-            launch, whole = pair_warp_launch(*args)
+            launch, whole = pair_warp_launch(*args, variant=variant)
             launch()
             bound = (warp_fp32_bound(*args) if pair is spread
                      and dt == torch.float32 else None)
-            tol = FP32_ATOL if dt == torch.float32 else BF16_ATOL["pair_warp"]
+            tol = FP32_ATOL if dt == torch.float32 else BF16_ATOL[name]
             for nsh in SP_SHARDS:
                 tiles = size // 32 // nsh
                 if tiles == 0 or size % (32 * nsh):
@@ -3919,7 +3932,8 @@ def window_check(dev, card) -> dict:
                 errs = []
                 for s in range(nsh):
                     rows = slice(s * tiles * 32, (s + 1) * tiles * 32)
-                    wl, win = pair_warp_launch(*args, dest_row_start=s * tiles,
+                    wl, win = pair_warp_launch(*args, variant=variant,
+                                               dest_row_start=s * tiles,
                                                dest_row_tiles=tiles)
                     wl()
                     with strict_fp32(), plain_ops():
@@ -3930,7 +3944,7 @@ def window_check(dev, card) -> dict:
                         diff = float((win.float() - whole[:, :, :, rows]
                                       .float()).abs().max())
                         raise AssertionError(
-                            f"pair warp window [{label}, {key}, nsh {nsh}, "
+                            f"{name} window [{label}, {key}, nsh {nsh}, "
                             f"shard {s}]: differs from the whole launch's "
                             f"rows (max|diff| {diff})")
                     diff = (win.float() - want.float()).abs()
@@ -3942,17 +3956,19 @@ def window_check(dev, card) -> dict:
                         ok = np.isfinite(err) and err <= tol
                     if not ok:
                         raise AssertionError(
-                            f"pair warp window [{label}, {key}, nsh {nsh}, "
+                            f"{name} window [{label}, {key}, nsh {nsh}, "
                             f"shard {s}]: against the twin's window {err}")
                     errs.append(err)
                 what = ("of the derived bound" if bound is not None
                         else f"max_abs_err (tol {tol})")
-                line = (f"  pair warp window [{label}, {key}, nsh {nsh}]: "
+                line = (f"  {name} window [{label}, {key}, nsh {nsh}]: "
                         f"{nsh} windows == the whole launch's rows bit for "
                         f"bit; vs twin {max(errs):.3e} {what}")
-                if size == 128 and pair is serving:
+                if size == 128 and pair is serving and (
+                        variant == "tile" or r is None):
                     # the first shard's window, timed
-                    wl, win = pair_warp_launch(*args, dest_row_start=0,
+                    wl, win = pair_warp_launch(*args, variant=variant,
+                                               dest_row_start=0,
                                                dest_row_tiles=tiles)
                     ms = time_ms(wl)
                     whole_ms = time_ms(launch)
@@ -3968,17 +3984,21 @@ def window_check(dev, card) -> dict:
                              f"{plain:.4f}; bound {b_ms:.4f} ms ({b_by}: "
                              f"{nbytes / 1e6:.1f} MB read + written, "
                              f"{b_ms / ms:.0%}) on {card}")
-                    if record is None and dt == torch.bfloat16:
-                        record = {"ms": ms, "plain_ms": plain,
-                                  "bound_ms": b_ms, "bound_by": b_by,
-                                  "library_ms": None,
-                                  "max_abs_err": max(errs), "nsh": nsh,
-                                  "case": label, "whole_ms": whole_ms}
+                    if variant not in records and dt == torch.bfloat16:
+                        records[variant] = {
+                            "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": None,
+                            "max_abs_err": max(errs), "nsh": nsh,
+                            "case": label, "whole_ms": whole_ms}
                 print(line)
             del whole, bound
         del src32
+        seconds[variant] = seconds.get(variant, 0.0) + (time.perf_counter()
+                                                        - t0)
     torch.cuda.empty_cache()
-    return record
+    print(f"  phase 16 (a): the tile windows {seconds['tile']:.1f} s, the "
+          f"resident windows {seconds['resident']:.1f} s on {card}")
+    return records
 
 
 def island_check(dev, card) -> dict:
@@ -3986,8 +4006,14 @@ def island_check(dev, card) -> dict:
     serving model, fleet layout of the request) through the SP island
     once a shard, nsh in SP_SHARDS, the gather the identity on the whole
     [K|V] already on the card, the shards concatenated: equal to the
-    unsharded phase (K1 + K2) bit for bit.  Returns the island's K1
-    window and K2 launches (counted from 0 just before)."""
+    unsharded phase (K1 + K2) bit for bit; then the same phase over 3
+    shards (``HeteroWindowAttention.sharded``, 43 rows a shard, 1 of
+    padding: the rows do not split evenly), which must take the fallback
+    (the JAX package's warning) and equal the unsharded phase bit for
+    bit.  Returns the island's K1 window and K2 launches (counted from 0
+    just before)."""
+    import warnings
+
     import torch
 
     from hmvit_tpu_torch.models.hetero_fusion import pairwise_roi_mask
@@ -3995,6 +4021,7 @@ def island_check(dev, card) -> dict:
     from hmvit_tpu_torch.nn import init_parameters
     from hmvit_tpu_torch.ops import cuda
     from hmvit_tpu_torch.ops.fused_warp import pair_warp_coefficients
+    from hmvit_tpu_torch.parallel.mesh import shard_of_rows, shard_rows
     from hmvit_tpu_torch.serving import PROD_CFG, batch_to_device, \
         serving_config
 
@@ -4048,7 +4075,32 @@ def island_check(dev, card) -> dict:
             if not same and not diff <= BF16_ATOL["stripe_window_attention"]:
                 raise AssertionError(f"SP island nsh {nsh}: max|diff| {diff}"
                                      f" against the unsharded phase")
-    del model, fusion, x, want, kv_whole, got
+        # rows that do not split evenly: ceil(128 / 3) = 43 a shard
+        t0 = time.perf_counter()
+        nsh = 3
+        h_loc = shard_rows(hw[0], nsh)
+        x_pad = shard_of_rows(x, 0, nsh * h_loc)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            parts = [attn.sharded(
+                shard_of_rows(x, k, h_loc), mode, pairwise, agent_mask,
+                pair_mask, None, static, coef, k, nsh, hw[0],
+                lambda t, dim: x_pad) for k in range(nsh)]
+        got = torch.cat(parts, dim=2)
+        torch.cuda.synchronize()
+        fallbacks = sorted({str(w.message) for w in caught})
+        same = torch.equal(got[:, :, :hw[0]], want)
+        padding = float(got[:, :, hw[0]:].abs().max())
+        print(f"  SP nsh 3 (shards of {h_loc} rows, the last padded), the "
+              f"first local phase: == the unsharded phase bit for bit "
+              f"{same}, padding rows max|.| {padding}; warnings "
+              f"{fallbacks}; {time.perf_counter() - t0:.1f} s on {card}")
+        if not (same and padding == 0.0 and len(fallbacks) == 1 and
+                "island preconditions not met" in fallbacks[0]):
+            raise AssertionError(f"SP nsh 3: the fallback differs from the "
+                                 f"unsharded phase ({same}, {padding}) or "
+                                 f"did not warn ({fallbacks})")
+    del model, fusion, x, want, kv_whole, got, x_pad, parts
     torch.cuda.empty_cache()
     return {k: sum(v[k] for v in launches.values())
             for k in ("pair_warp_window", "stripe_window_attention")}
@@ -4205,13 +4257,14 @@ def parallel_phase(dev, card, run10, run10_losses) -> dict:
     launches from the SP entry of (c); the emulated island's of (b)
     beside them)."""
     t_start = time.perf_counter()
-    record = window_check(dev, card)
+    records = window_check(dev, card)
     emulated = island_check(dev, card)
     launches = world_of_one(dev, card, run10, run10_losses)
     print(f"phase 16: {time.perf_counter() - t_start:.1f} s on {card}")
-    return dict(record, launches=launches["pair_warp_window"],
+    return dict(records["tile"], launches=launches["pair_warp_window"],
                 sp_stripe_launches=launches["stripe_window_attention"],
-                island_emulation_launches=emulated)
+                island_emulation_launches=emulated,
+                resident=records["resident"])
 
 
 def main() -> int:
@@ -4481,6 +4534,9 @@ def main() -> int:
     perf_lab.run_stages(["attn", "pairwarp_res"], dev, iters=5)
     perf_lab.run_stages(["segscan", "expand", "lidar"], dev, iters=20)
     path_counts["perf_lab"] = cuda.launch_counts()
+    # K5's destination-row windows of the pairwarp_res stage
+    resident_window_launches = cuda.PAIR_WARP_RESIDENT.launches_by_key.get(
+        "window", 0)
     path_bodies["perf_lab"] = cuda.attention_body_launches()
     print(f"launches during the perf_lab stages: {path_counts['perf_lab']}; "
           f"attention launches by body: {path_bodies['perf_lab']}")
@@ -4568,12 +4624,25 @@ def main() -> int:
     # K1's destination-row window: its launches on phase 16's SP entry
     if window["launches"] <= 0:
         raise AssertionError("pair_warp_window never launched in phase 16")
+    resident = window.pop("resident")
     kernels.append({"name": "pair_warp_window", "route": "cuda",
                     "source": KERNEL_META["pair_warp"][0],
                     "replaces": "hmvit_tpu/ops/fused_warp.py:567 "
                                 "(pallas_pair_warp dest_row_start / "
                                 "dest_row_tiles, :455-456)",
                     **window})
+    # K5's destination-row window: its launches on phase 7's pairwarp_res
+    # stage (the resident kernel's path)
+    if resident_window_launches <= 0:
+        raise AssertionError("pair_warp_resident_window never launched in "
+                             "phase 7")
+    kernels.append({"name": "pair_warp_resident_window", "route": "cuda",
+                    "source": KERNEL_META["pair_warp_resident"][0],
+                    "replaces": "hmvit_tpu/ops/fused_warp.py:541 "
+                                "(pallas_pair_warp variant='resident', "
+                                "dest_row_start / dest_row_tiles, :505-512)",
+                    "launches": resident_window_launches,
+                    **resident})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

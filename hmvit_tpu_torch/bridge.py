@@ -35,33 +35,31 @@ import torch
 from torch import nn
 
 
+# each conversion's axes: port axis i holds flax axis PORT_AXES[kind][i]
+# ("copy": the same axes)
+PORT_AXES = {"dense": (1, 0), "conv": (3, 2, 0, 1),
+             "conv3d": (4, 3, 0, 1, 2), "conv_transpose": (2, 3, 0, 1)}
+
+
 def _convert(arr: np.ndarray, kind: str) -> np.ndarray:
     if kind == "copy":
         return arr
-    if kind == "dense":
-        return arr.T
-    if kind == "conv":
-        return arr.transpose(3, 2, 0, 1)
-    if kind == "conv3d":
-        return arr.transpose(4, 3, 0, 1, 2)
-    if kind == "conv_transpose":
-        return arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
-    raise ValueError(f"unknown conversion {kind!r}")
+    if kind not in PORT_AXES:
+        raise ValueError(f"unknown conversion {kind!r}")
+    arr = arr.transpose(PORT_AXES[kind])
+    # a transposed convolution's taps are flipped as well
+    return arr[:, :, ::-1, ::-1] if kind == "conv_transpose" else arr
 
 
 def _unconvert(arr: np.ndarray, kind: str) -> np.ndarray:
     """The inverse of :func:`_convert`."""
     if kind == "copy":
         return arr
-    if kind == "dense":
-        return arr.T
-    if kind == "conv":
-        return arr.transpose(2, 3, 1, 0)
-    if kind == "conv3d":
-        return arr.transpose(2, 3, 4, 1, 0)
+    if kind not in PORT_AXES:
+        raise ValueError(f"unknown conversion {kind!r}")
     if kind == "conv_transpose":
-        return arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
-    raise ValueError(f"unknown conversion {kind!r}")
+        arr = arr[:, :, ::-1, ::-1]
+    return arr.transpose(np.argsort(PORT_AXES[kind]))
 
 
 def _flax_source(model: nn.Module, key: str) -> tuple[tuple, str]:

@@ -69,6 +69,11 @@
 // (grid x), so L2 sees each pixel's row of channels read and written by
 // neighbouring clusters.  Identity and invalid pairs, and pairs with no
 // 32 x 32 tile in view (the Pallas kernel's pvalid), skip the staging.
+// The destination-row window (row0 / rows, as the tile kernel's) is
+// pallas_pair_warp(variant="resident")'s: pvalid over the window's tiles
+// only, every band still staged (a window row's taps may lie anywhere in
+// the source), each block computing the window's pixels whose taps lie in
+// its band; taps at global rows, stores at window rows.
 // What bounds it: bytes, moved in slab-wide pieces (32 bytes a pixel, 1
 // KB apart), which device memory serves more slowly than the tile
 // kernel's 512-byte lines; the staging pass comes on top of the tile
@@ -303,13 +308,17 @@ __device__ __forceinline__ TapRow tap_row(const float* __restrict__ cf,
 
 // grid (kCtas * slabs, pairs), clusters of kCtas blocks along x; dynamic
 // shared memory: a band of band * size pixels of slab_ch channels, the
-// band's mbarrier, alignment slack.  A staged pair's pixels are split by
-// where their taps lie: block `rank` computes the pixels whose taps' row
-// (TapRow) falls in its own band (rows off the map at either end go to
-// the first and last band), so nearly every tap is read from the block's
-// own shared memory and only those across a band edge from a neighbour's;
-// the pixels whose taps lie off the map are zeros, written by the block
-// whose destination band holds them.  Lanes walk the destination along
+// band's mbarrier, alignment slack.  The destination is the row window
+// [row0, row0 + rows) (the whole map: 0, size): out holds (N, J, rows,
+// size, c), and the window's pixels are cut into kCtas equal runs, the
+// destination share of each block (a band of rows for the whole map).  A
+// staged pair's pixels are split by where their taps lie: block `rank`
+// computes the window's pixels whose taps' row (TapRow) falls in its own
+// band (rows off the map at either end go to the first and last band), so
+// nearly every tap is read from the block's own shared memory and only
+// those across a band edge from a neighbour's; the pixels whose taps lie
+// off the map are zeros, written by the block whose destination share
+// holds them.  Lanes walk the destination along
 // x' (along y' under the swap) so that neighbouring lanes read
 // neighbouring source pixels of one row, not one column (4 KB apart: the
 // same shared-memory banks).
@@ -320,7 +329,7 @@ pair_warp_resident_kernel(const __grid_constant__ CUtensorMap tmap,
                           const float* __restrict__ coef,
                           const int* __restrict__ rtype, T* __restrict__ out,
                           int nj, int ty_count, int n_recv, int size, int c,
-                          int slab_ch) {
+                          int slab_ch, int row0, int rows) {
   constexpr int V = 16 / (int)sizeof(T);
   extern __shared__ uint4 smem_words[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -340,13 +349,14 @@ pair_warp_resident_kernel(const __grid_constant__ CUtensorMap tmap,
   const int npix = size * size;
   const float* cf = coef + (long long)pair * 8;
   const float flag = cf[7];
-  // the Pallas kernel's pvalid: a warp pair with any 32 x 32 tile in view
+  // the Pallas kernel's pvalid: a warp pair with any 32 x 32 tile of the
+  // window in view
   const int tiles = size / hm::kRoiTile;
   const int tile = threadIdx.x;
   const bool staged = __syncthreads_or(
-      flag <= 0.5f && tile < tiles * tiles &&
+      flag <= 0.5f && tile < tiles * (rows / hm::kRoiTile) &&
       hm::tile_in_view(cf, (tile % tiles) * hm::kRoiTile,
-                       (tile / tiles) * hm::kRoiTile, hm::kRoiTile,
+                       row0 + (tile / tiles) * hm::kRoiTile, hm::kRoiTile,
                        hm::kRoiTile, size));
   if (staged) {
     if (threadIdx.x == 0) mbar_init(bar);
@@ -367,16 +377,19 @@ pair_warp_resident_kernel(const __grid_constant__ CUtensorMap tmap,
   const float inv_band_pix = 1.f / (float)band_pix;
   const float fsize = (float)size;
   const T* gmap = src + (long long)map * npix * c + slab * slab_ch;
-  T* dst = out + (long long)pair * npix * c + slab * slab_ch;
-  const int y_lo = rank * band;
+  const int dst0 = row0 * size;  // the window's first pixel in the map
+  T* dst = out + (long long)pair * rows * size * c + slab * slab_ch;
+  // this block's destination share: pixels [q_lo, q_hi) of the window
+  const int wpix = rows * size;
+  const int q_lo = dst0 + rank * (wpix / kCtas);
+  const int q_hi = dst0 + (rank + 1) * (wpix / kCtas);
   if (!staged) {
-    // an identity copy from device memory, or zeros: the destination band
-    for (int q = warp * ppw + sub; q < band_pix; q += nwarps * ppw) {
-      const int pix = y_lo * size + q;
+    // an identity copy from device memory, or zeros: the destination share
+    for (int pix = q_lo + warp * ppw + sub; pix < q_hi; pix += nwarps * ppw) {
       const int y = div_small(pix, size, inv_size);
       WarpTaps plan = hm::plan_taps<T>(cf, pix - y * size, y, size);
       if (flag <= 0.5f) plan.flag = 2;  // no tile in view
-      *reinterpret_cast<uint4*>(dst + pix * c + ch) =
+      *reinterpret_cast<uint4*>(dst + (pix - dst0) * c + ch) =
           hm::warp_vec16<T>(plan, gmap + ch, c, pix);
     }
   } else {
@@ -402,7 +415,11 @@ pair_warp_resident_kernel(const __grid_constant__ CUtensorMap tmap,
     const float hi =
         (rank == kCtas - 1 ? fsize + tr.reach : (float)((rank + 1) * band)) +
         0.01f;
-    for (int o = warp; o < size; o += nwarps) {  // a line of the walk
+    // the lines of the walk (rows of the window along x', every column
+    // under the swap) and, under the swap, the window's rows of a line
+    const int o_lo = along_x ? row0 : 0, o_hi = along_x ? row0 + rows : size;
+    const int i_lo = along_x ? 0 : row0, i_hi = along_x ? size : row0 + rows;
+    for (int o = o_lo + warp; o < o_hi; o += nwarps) {
       const float base =
           __fadd_rn(__fmul_rn(along_x ? tr.b : tr.a, (float)o), tr.c0);
       float fa = 0.f, fb = fsize - 1.f;
@@ -413,22 +430,22 @@ pair_warp_resident_kernel(const __grid_constant__ CUtensorMap tmap,
       } else if (!(base >= lo && base < hi)) {
         fb = -1.f;
       }
-      const int ia = (int)fminf(fa, fsize), ib = (int)fmaxf(fb, -1.f);
+      const int ia = max((int)fminf(fa, fsize), i_lo);
+      const int ib = min((int)fmaxf(fb, -1.f), i_hi - 1);
       for (int i = ia + sub; i <= ib; i += ppw) {
         const int x = along_x ? i : o, y = along_x ? o : i;
         if (src_block(x, y) != rank) continue;
         const int pix = y * size + x;
         const WarpTaps plan = hm::plan_taps<T>(cf, x, y, size);
-        *reinterpret_cast<uint4*>(dst + pix * c + ch) =
+        *reinterpret_cast<uint4*>(dst + (pix - dst0) * c + ch) =
             hm::warp_vec16<T>(plan, load, pix);
       }
     }
-    // the destination band's pixels whose taps lie off the map
-    for (int q = warp * ppw + sub; q < band_pix; q += nwarps * ppw) {
-      const int pix = y_lo * size + q;
+    // the destination share's pixels whose taps lie off the map
+    for (int pix = q_lo + warp * ppw + sub; pix < q_hi; pix += nwarps * ppw) {
       const int y = div_small(pix, size, inv_size);
       if (src_block(pix - y * size, y) < 0) {
-        *reinterpret_cast<uint4*>(dst + pix * c + ch) =
+        *reinterpret_cast<uint4*>(dst + (pix - dst0) * c + ch) =
             make_uint4(0u, 0u, 0u, 0u);  // +0: what the taps give
       }
     }
@@ -483,13 +500,15 @@ int launch_resident(const void* src, const void* coef, const void* rtype,
                     void* out, int n_pairs_recv, int nj, int ty_count,
                     int n_recv, int size, int c, int row0, int rows,
                     cudaStream_t s) {
-  // the whole map only: the destination-row window is the tile kernel's
-  if (row0 != 0 || rows != size) return (int)cudaErrorInvalidValue;
   const int slab_ch = slab_channels<T>(c, size);
   const int band = size / kCtas;
   const size_t staged = (size_t)band * size * slab_ch * sizeof(T);
   const size_t bytes = staged + 8 + kAlign;
+  // the whole map (0, size) or a window of whole 32-row tiles
+  const bool window = row0 != 0 || rows != size;
   if (slab_ch == 0 || size % kCtas != 0 || size > 256 ||
+      row0 < 0 || rows <= 0 || row0 + rows > size ||
+      (window && (row0 % hm::kRoiTile != 0 || rows % hm::kRoiTile != 0)) ||
       (long long)size * size * c >= (1ll << 31) ||
       c / slab_ch * kCtas > 65535 ||
       n_pairs_recv * nj > 65535) {
@@ -534,7 +553,8 @@ int launch_resident(const void* src, const void* coef, const void* rtype,
   err = cudaLaunchKernelEx(&cfg, kernel, tmap, static_cast<const T*>(src),
                            static_cast<const float*>(coef),
                            static_cast<const int*>(rtype), static_cast<T*>(out),
-                           nj, ty_count, n_recv, size, c, slab_ch);
+                           nj, ty_count, n_recv, size, c, slab_ch, row0,
+                           rows);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -628,8 +648,8 @@ extern "C" int hm_pair_warp_previous(const void* src, const void* coef,
                   size, size_w, c, row0, rows, stream);
 }
 
-// The resident variant: the same arguments (the whole map only: row0 0,
-// rows S) and the same output bits.
+// The resident variant: the same arguments and the same output bits
+// (row0 and rows whole 32-row tiles).
 // size % 8 == 0, size <= 256, and a band of size / 8 rows of a slab of
 // at least 16 bytes a pixel (C % 8 == 0 in bf16, % 4 in fp32) fits
 // kMaxStageBytes: band * size * slab + 136 <= 75776 bytes (size <= 192

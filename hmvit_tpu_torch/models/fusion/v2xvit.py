@@ -18,6 +18,7 @@ from ...nn import Dense, LayerNorm, gelu, normal_, xavier_uniform_
 from ...ops import use_kernel
 from ...ops.warp import roi_and_agent_mask, warp_bev_nhwc
 from ...ops.window_attention import fused_plain_window_attention
+from ...parallel.collectives import gather_from_model, split_to_model
 from ..hetero_fusion import SplitAttn, _window_merge, _window_split, \
     relative_position_index
 from ..layers import HeteroDense, HeteroFeedForward, HeteroLayerNorm, \
@@ -28,7 +29,10 @@ class HGTCavAttention(nn.Module):
     """Per-pixel typed attention across the agents (window size 1):
     q W_att[pair] . k over the senders J, masked where the sender's map
     is out of view, softmax over J, and the messages v W_msg[pair]
-    summed; the products in float32."""
+    summed; the products in float32.  Under tensor parallelism (JAX's
+    rules split ``to_q`` / ``to_k`` / ``to_v`` by columns and ``to_out``
+    by rows) every rank gathers the projections to whole heads, attends
+    on every head and hands ``to_out`` its channels of the message."""
 
     def __init__(self, dim: int, heads: int = 8, num_types: int = 2):
         super().__init__()
@@ -52,7 +56,11 @@ class HGTCavAttention(nn.Module):
         heads, d = self.heads, self.dim // self.heads
         f32 = torch.float32
 
+        tp = self.to_q.tp
+
         def split(z):
+            if tp is not None:
+                z = gather_from_model(z, -1, tp.group)
             return z.reshape(b, l, h, w, heads, d).to(f32)
 
         qh = split(self.to_q(x, mode) * d ** -0.5)
@@ -66,7 +74,10 @@ class HGTCavAttention(nn.Module):
         attn = torch.softmax(sim, dim=2)  # over the senders
         v_msg = torch.einsum("bijnde,bjhwne->bijhwnd", w_msg, vh)
         out = torch.einsum("bijhwn,bijhwnd->bihwnd", attn, v_msg)
-        return self.to_out(out.reshape(b, l, h, w, heads * d), mode)
+        out = out.reshape(b, l, h, w, heads * d)
+        if tp is not None:
+            out = split_to_model(out, -1, tp.group)
+        return self.to_out(out, mode)
 
 
 class WindowSelfAttention(nn.Module):

@@ -22,15 +22,20 @@ does (``use_pallas``, ``use_stripe``, ``use_fused_wa``):
 Kernel wrappers launch CUDA kernels on CUDA tensors and run their plain
 twins on CPU tensors.
 
-Under spatial partitioning (``sp=(mesh, axis)``, ``parallel.
-make_spatial_eval``) each rank holds its rows of the maps.  A local phase
-whose geometry meets the JAX package's island preconditions runs the
-island: the senders' folded [K|V] gathered on H, the pair-warp kernel's
-destination-row window of the rank's rows, the stripe kernel on them;
-any other phase (the grid phase by design) gathers the map, runs as
-unsharded and keeps its rows, with the JAX package's warning.  Under
-tensor parallelism each rank computes its share of the heads (the
-projections are split by ``parallel.shard_state_tp``).
+Under spatial partitioning (``sp=(mesh, axis, h)``, ``parallel.
+make_spatial_eval``) each rank holds its rows of the maps of h rows
+(``parallel.mesh.shard_rows``; where h does not split evenly the last
+shards end in zero rows).  A local phase whose geometry meets the JAX
+package's island preconditions runs the island: the senders' folded
+[K|V] gathered on H, the pair-warp kernel's destination-row window of the
+rank's rows, the stripe kernel on them; any other phase (the grid phase
+by design, every phase of an uneven split) gathers the map, crops it to h,
+runs as unsharded and keeps its rows, with the JAX package's warning.
+Under tensor parallelism the projections are split by
+``parallel.shard_state_tp`` (JAX's layout) and each rank computes its
+share of the heads; where the heads do not split over ``model`` (GSPMD
+splits within a head) each rank gathers the projections to whole heads,
+attends on every head and hands ``to_out`` its channels of the message.
 """
 from __future__ import annotations
 
@@ -51,7 +56,12 @@ from ..ops.window_attention import (
     fused_stripe_window_attention,
     plain_window_attention_xla,
 )
-from ..parallel.collectives import copy_to_model, gather_rows
+from ..parallel.collectives import (
+    copy_to_model,
+    gather_from_model,
+    gather_rows,
+    split_to_model,
+)
 from ..utils.constants import device_constant
 from ..utils.precision import dot_f32
 from .layers import HeteroDense, HeteroFeedForward, HeteroLayerNorm
@@ -155,22 +165,56 @@ class HeteroWindowAttention(nn.Module):
         xavier_uniform_(self.relation_msg, gen)
         normal_(self.rel_pos_bias, 0.02, gen)
 
+    def _split_heads(self):
+        """The tensor-parallel role under which each rank computes its
+        share of the heads, or None: without TP, and where the heads do
+        not split over ``model`` (:meth:`_gathered`)."""
+        tp = self.to_q.tp
+        if tp is None or (self.dim // self.dim_head) % tp.size:
+            return None
+        return tp
+
+    def _gathered(self):
+        """The tensor-parallel role under which the heads do not split
+        over ``model``, or None: the projections, split by columns as in
+        JAX's layout, are then gathered to whole heads on every rank."""
+        tp = self.to_q.tp
+        return None if tp is None or self._split_heads() else tp
+
     def _heads(self):
         """(the heads this rank computes, the first of them): every head,
-        or under tensor parallelism the rank's share."""
+        or where the heads split under tensor parallelism the rank's
+        share."""
+        tp = self._split_heads()
+        if tp is None:
+            return self.dim // self.dim_head, 0
         heads = self.to_q.kernel.shape[-1] // self.dim_head
-        tp = self.to_q.tp
-        return heads, 0 if tp is None else tp.rank * heads
+        return heads, tp.rank * heads
 
     def _rank_heads(self, p, dim: int):
-        """``p`` (heads on ``dim``) cut to this rank's heads under tensor
-        parallelism, its gradient summed over ``model``; ``p`` itself
-        otherwise."""
-        tp = self.to_q.tp
+        """``p`` (heads on ``dim``) cut to this rank's heads where the heads
+        split under tensor parallelism, its gradient summed over
+        ``model``; ``p`` itself otherwise."""
+        tp = self._split_heads()
         if tp is None:
             return p
         heads, h0 = self._heads()
         return copy_to_model(p, tp.group).narrow(dim, h0, heads)
+
+    def _project(self, layer, x, mode, static_modes=None):
+        """A q / k / v projection: this rank's heads' channels, or the
+        whole heads where the heads do not split (:meth:`_gathered`)."""
+        y = layer(x, mode, static_modes)
+        tp = self._gathered()
+        return y if tp is None else gather_from_model(y, -1, tp.group)
+
+    def _out(self, out, mode, static_modes):
+        """``to_out`` on the message of this rank's heads, or on its
+        channels of the whole message where the heads do not split."""
+        tp = self._gathered()
+        if tp is not None:
+            out = split_to_model(out, -1, tp.group)
+        return self.to_out(out, mode, static_modes)
 
     def _typed_kv(self, x, mode, static_modes, taus_used):
         """(B, TAU, L, H, W, 2C) = per receiver-type variant, each sender's
@@ -189,10 +233,16 @@ class HeteroWindowAttention(nn.Module):
         if static_modes is not None:
             # fold W_kv[ty] @ blockdiag_heads(R[tau*T+ty]) at the parameter
             # level and emit the [K|V] variants with one contraction
-            if self.to_k.tp is not None:
-                x = copy_to_model(x, self.to_k.tp.group)
             wk, bk = self.to_k(x, mode, return_params=True)
             wv, bv = self.to_v(x, mode, return_params=True)
+            tp = self._gathered()
+            if tp is not None:
+                # the block-diagonal fold needs whole heads: every rank's
+                # columns of W_k / W_v, the same fold on every rank
+                wk, bk, wv, bv = (gather_from_model(t, -1, tp.group)
+                                  for t in (wk, bk, wv, bv))
+            elif self.to_k.tp is not None:
+                x = copy_to_model(x, self.to_k.tp.group)
             ra, rm = (torch.stack([r.reshape(ty_n, ty_n, heads, d, d)[t]
                                    for t in taus_used])
                       for r in (rel_att, rel_msg))
@@ -228,8 +278,8 @@ class HeteroWindowAttention(nn.Module):
                                                                 3, 5)
             return (prod + bias).to(cdt,
                                     memory_format=torch.contiguous_format)
-        k = self.to_k(x, mode)
-        v = self.to_v(x, mode)
+        k = self._project(self.to_k, x, mode)
+        v = self._project(self.to_v, x, mode)
         taus = device_constant(tuple(taus_used), torch.long, x.device)
         idx = taus[:, None, None] * ty_n + mode.long()[None]
         rel = torch.stack([rel_att, rel_msg], dim=1)
@@ -281,9 +331,9 @@ class HeteroWindowAttention(nn.Module):
                 receivers: int | None = None,
                 static_modes: tuple | None = None, warp_coef=None,
                 sp=None):
-        """``sp=(mesh, axis)``: x holds this rank's rows of the maps, and
-        pair_mask / warp_coef are the whole maps' (see the module's
-        docstring); the message is this rank's rows."""
+        """``sp=(mesh, axis, h)``: x holds this rank's rows of the maps of
+        h rows, and pair_mask / warp_coef are the whole maps' (see the
+        module's docstring); the message is this rank's rows."""
         if sp is not None:
             return self._spatial(x, mode, pairwise, agent_mask, pair_mask,
                                  receivers, static_modes, warp_coef, sp)
@@ -297,7 +347,7 @@ class HeteroWindowAttention(nn.Module):
         x = x.to(cdt)
         sm_r = static_modes[:r] if static_modes is not None else None
 
-        q = self.to_q(x[:, :r], mode[:, :r], sm_r)
+        q = self._project(self.to_q, x[:, :r], mode[:, :r], sm_r)
         taus_used, recv_variant = self._variants(mode, static_modes, r)
         kv2 = self._typed_kv(x, mode, static_modes, taus_used)
 
@@ -320,7 +370,7 @@ class HeteroWindowAttention(nn.Module):
                 d, self.discrete_ratio, self.downsample_rate, receivers,
                 warp_coef).reshape(b, r, h, w, c)
             return self.Dropout_0(
-                self.to_out(out, mode[:, :r], sm_r).to(torch.float32))
+                self._out(out, mode[:, :r], sm_r).to(torch.float32))
 
         # sender j's [K|V] in receiver i's variant, warped into i's frame
         if self.use_pallas:
@@ -361,43 +411,56 @@ class HeteroWindowAttention(nn.Module):
                     qw, kvw[..., :c], kvw[..., c:], bias_h, mw, heads, d)
             out = _window_merge(out.reshape(b, r, nx, ny, t_tok, c), win,
                                 self.style, h, w)
-        out = self.to_out(out, mode[:, :r], sm_r)
+        out = self._out(out, mode[:, :r], sm_r)
         return self.Dropout_0(out.to(torch.float32))
 
     def _spatial(self, x, mode, pairwise, agent_mask, pair_mask, receivers,
                  static_modes, warp_coef, sp):
-        """The phase on this rank's rows of the maps, sp = (mesh, axis): the
-        JAX package's island where its preconditions hold, else the
-        unsharded phase on the gathered map (with its warning)."""
+        """The phase on this rank's rows of the maps, sp = (mesh, axis, h)
+        (:meth:`sharded` over the axis's process group)."""
         from ..parallel.mesh import axis_group, axis_rank, axis_size
 
-        mesh, axis = sp
-        nsh, k = axis_size(mesh, axis), axis_rank(mesh, axis)
+        mesh, axis, h = sp
         group = axis_group(mesh, axis)
+        return self.sharded(x, mode, pairwise, agent_mask, pair_mask,
+                            receivers, static_modes, warp_coef,
+                            axis_rank(mesh, axis), axis_size(mesh, axis), h,
+                            lambda t, dim: gather_rows(t, dim, group))
+
+    def sharded(self, x, mode, pairwise, agent_mask, pair_mask, receivers,
+                static_modes, warp_coef, k: int, nsh: int, h: int, gather):
+        """The phase on shard k of nsh of maps of h rows: x (B, L, ceil(h /
+        nsh), W, C) the shard's rows (past h: padding), pair_mask and
+        warp_coef the whole maps'; ``gather(t, dim)`` joins every shard's
+        ``t`` along ``dim``.  The JAX package's island where its
+        preconditions hold (:meth:`island`), else the unsharded phase on
+        the gathered map cropped to h, with the JAX package's warning.
+        Returns the shard's rows of the message (past h: zeros)."""
         h_loc, w = x.shape[2:4]
-        h, win = h_loc * nsh, self.window
-        rows = slice(k * h_loc, (k + 1) * h_loc)
+        win = self.window
         island = (
             self.use_pallas and self.use_stripe and self.style == "local"
             and h == w and h % 32 == 0 and h >= 56 and h % nsh == 0
             and (h // nsh) % 32 == 0 and (h // nsh) % win == 0)
-        if not island:
-            # the grid phase by design (its groups span every shard), a
-            # local phase when the geometry breaks a precondition
-            warnings.warn(
-                f"SP fallback: {self.style} attention phase at h={h}, "
-                f"w={w}, win={win}, shards={nsh} runs the unsharded path on "
-                "the gathered map, not the kernel island"
-                + ("" if self.style != "local"
-                   else " — local-phase island preconditions not met"),
-                stacklevel=2)
-            out = self.forward(gather_rows(x, 2, group), mode, pairwise,
-                               agent_mask, pair_mask, receivers,
-                               static_modes, warp_coef)
-            return out[:, :, rows]
-        return self.island(x, mode, pairwise, pair_mask, receivers,
-                           static_modes, warp_coef, k, nsh,
-                           lambda kv: gather_rows(kv, 3, group))
+        if island:
+            return self.island(x, mode, pairwise, pair_mask, receivers,
+                               static_modes, warp_coef, k, nsh,
+                               lambda kv: gather(kv, 3))
+        # the grid phase by design (its groups span every shard), a local
+        # phase when the geometry breaks a precondition
+        warnings.warn(
+            f"SP fallback: {self.style} attention phase at h={h}, "
+            f"w={w}, win={win}, shards={nsh} runs the unsharded path on "
+            "the gathered map, not the kernel island"
+            + ("" if self.style != "local"
+               else " — local-phase island preconditions not met"),
+            stacklevel=3)
+        from ..parallel.mesh import shard_of_rows
+
+        out = self.forward(gather(x, 2)[:, :, :h], mode, pairwise,
+                           agent_mask, pair_mask, receivers, static_modes,
+                           warp_coef)
+        return shard_of_rows(out, k, h_loc)
 
     def island(self, x, mode, pairwise, pair_mask, receivers, static_modes,
                warp_coef, k: int, nsh: int, gather):
@@ -416,7 +479,7 @@ class HeteroWindowAttention(nn.Module):
         cdt = self.compute_dtype
         x = x.to(cdt)
         sm_r = static_modes[:r] if static_modes is not None else None
-        q = self.to_q(x[:, :r], mode[:, :r], sm_r)
+        q = self._project(self.to_q, x[:, :r], mode[:, :r], sm_r)
         taus_used, recv_variant = self._variants(mode, static_modes, r)
         # rigid warps mix rows globally: every sender's whole map, then
         # this shard's destination rows of every warp (K1's window)
@@ -433,7 +496,7 @@ class HeteroWindowAttention(nn.Module):
             kv_pair.reshape(b * r, l, h_loc, w, 2 * c), self._bias_h(cdt),
             mask_ij.reshape(b * r, l, h_loc, w).to(cdt), win, heads, d,
         ).reshape(b, r, h_loc, w, c)
-        out = self.to_out(out, mode[:, :r], sm_r)
+        out = self._out(out, mode[:, :r], sm_r)
         return self.Dropout_0(out.to(torch.float32))
 
 
@@ -571,13 +634,10 @@ class HeteroFusion(nn.Module):
 
     def forward(self, x, mode, pairwise, agent_mask,
                 static_modes: tuple | None = None, sp=None):
-        """``sp=(mesh, axis)``: x holds this rank's rows of the maps (an
-        equal share of H over ``axis``), and so does the output."""
-        hw = tuple(x.shape[2:4])
-        if sp is not None:
-            from ..parallel.mesh import axis_size
-
-            hw = (hw[0] * axis_size(*sp), hw[1])
+        """``sp=(mesh, axis, h)``: x holds this rank's rows over ``axis`` of
+        the maps of h rows (``parallel.mesh.shard_rows``, padded past h),
+        and so does the output."""
+        hw = tuple(x.shape[2:4]) if sp is None else (sp[2], x.shape[3])
         pair_mask = pairwise_roi_mask(pairwise, agent_mask, hw,
                                       self.discrete_ratio,
                                       self.downsample_rate)

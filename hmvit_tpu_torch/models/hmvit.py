@@ -160,9 +160,11 @@ class HMViT(nn.Module):
 
         Spatial partitioning (``parallel.make_spatial_eval``): ``sp=(mesh,
         axis)`` splits the per-agent maps' rows over ``axis`` where they
-        meet the fusion (an even split, ``parallel.row_shard``); the H3GAT
-        fusion runs on the rows (``models/hetero_fusion.py``), and the
-        fused ego map is gathered before the decoder, which runs whole.
+        meet the fusion (``parallel.row_shard``: ceil(H / shards) rows a
+        shard, an uneven split padded with zero rows); the H3GAT fusion
+        runs on the rows (``models/hetero_fusion.py``), and the fused ego
+        map is gathered, cropped to H, before the decoder, which runs
+        whole.
         A ``fusion_override`` fusion runs on the whole map.
         Returns {"psm": (B, A, H, W), "rm": (B, 7A, H, W)}."""
         if active_agents is not None:
@@ -247,7 +249,7 @@ class HMViT(nn.Module):
             x = self.NaiveCompressor_0(x)
         h, w, c = x.shape[1:]
         x = x.reshape(b, l, h, w, c)
-        fusion_sp = sp if sp is not None and not self.fusion_override \
+        fusion_sp = (*sp, h) if sp is not None and not self.fusion_override \
             else None
         if fusion_sp is not None:
             from ..parallel.mesh import row_shard
@@ -273,7 +275,7 @@ class HMViT(nn.Module):
             from ..parallel.collectives import gather_rows
             from ..parallel.mesh import axis_group
 
-            ego = gather_rows(ego, 1, axis_group(*fusion_sp))
+            ego = gather_rows(ego, 1, axis_group(*sp))[:, :h]
         dec = self.config["hetero_decoder"]
         if dec.get("compute_dtype"):
             ego = ego.to(DTYPES[dec["compute_dtype"]])

@@ -36,7 +36,12 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from .parallel.collectives import all_reduce_sum, data_group
+from .parallel.collectives import (
+    all_reduce_sum,
+    copy_to_model,
+    data_group,
+    gather_from_model,
+)
 
 _SQRT2 = math.sqrt(2.0)
 # flax lecun_normal: truncated to +-2 std, rescaled by this constant so
@@ -145,7 +150,14 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` on the last axis; weight ``(out, in)``."""
+    """flax ``nn.Dense`` on the last axis; weight ``(out, in)``.
+
+    Under tensor parallelism (``tp``, set by ``parallel.shard_state_tp``
+    where the JAX package's rules split the flax kernel's columns) the
+    layer holds its rank's rows of ``weight``, its ``dout / mp`` outputs:
+    it computes them (its input gradient summed over ``model``) and
+    gathers every rank's over ``model``, as GSPMD does, before the whole
+    bias (replicated, as JAX's rules leave a 1-D leaf) is added."""
     flax_leaves = {"weight": ("params", "kernel", "dense"),
                    "bias": ("params", "bias", "copy")}
 
@@ -153,6 +165,7 @@ class Dense(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(dout, din))
         self.bias = nn.Parameter(torch.zeros(dout)) if use_bias else None
+        self.tp = None
 
     def reset_parameters(self, gen):
         lecun_normal_(self.weight, self.weight.shape[1], gen)
@@ -162,7 +175,12 @@ class Dense(nn.Module):
     def forward(self, x):
         dt = promote(x, self.weight, self.bias)
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        tp = self.tp
+        if tp is None:
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        x = copy_to_model(x.to(dt), tp.group)
+        y = gather_from_model(F.linear(x, self.weight.to(dt)), -1, tp.group)
+        return y if b is None else y + b
 
 
 class Conv(nn.Module):

@@ -10,10 +10,11 @@ JAX package's oracle — for CPU tensors or under
 :func:`hmvit_tpu_torch.ops.plain_ops`.  Its backward recomputes through
 the plain twin.
 
-The tile kernel and the twin take the Pallas kernel's destination-row
+Both kernels and the twin take the Pallas kernels' destination-row
 window (``dest_row_start`` / ``dest_row_tiles``: whole 32-row tiles of
 the output, the source read whole), which the spatial-partitioning
-island of ``models/hetero_fusion.py`` runs a shard's rows by.
+island of ``models/hetero_fusion.py`` runs a shard's rows by (its
+variant is ``auto``, the tile kernel, as in the JAX package).
 
 Both kernels, and the fused warp + attention kernel, skip what is out of
 a sender's view, as the Pallas kernels do, but by a conservative test
@@ -205,13 +206,6 @@ def resolve_variant(variant: str, h: int, w: int) -> str:
     return "tile"
 
 
-def _check_window_variant(kind: str, windowed: bool):
-    if windowed and kind == "resident":
-        raise ValueError("pair warp: the resident kernel takes no "
-                         "destination-row window (ROADMAP.md Queue 2: K5's "
-                         "window); run the tile variant")
-
-
 def pair_warp_launch(src_typed, pairwise, mode, discrete_ratio,
                      downsample_rate, num_receivers=None, coef=None,
                      variant: str = "auto", previous: bool = False,
@@ -222,14 +216,14 @@ def pair_warp_launch(src_typed, pairwise, mode, discrete_ratio,
     ``pairwise``, or None to compute them here.  ``previous`` runs the
     tile kernel's previous body whatever the variant: for timing only, it
     gives the same bits.  ``dest_row_start`` / ``dest_row_tiles`` (host
-    ints; the tile kernel only) restrict the output to a destination-row
-    window (:func:`row_window`); its launches also count under the key
-    "window" (``cuda.PAIR_WARP.launches_by_key``)."""
+    ints) restrict the output to a destination-row window
+    (:func:`row_window`) of either kernel; its launches also count under
+    the key "window" (``cuda.PAIR_WARP.launches_by_key``,
+    ``cuda.PAIR_WARP_RESIDENT.launches_by_key``)."""
     bsz, ty_count, l, h, w, ck = src_typed.shape
     row0, rows = row_window(h, dest_row_start, dest_row_tiles)
     windowed = dest_row_tiles is not None
     kind = resolve_variant(variant, h, w)
-    _check_window_variant(kind, windowed)
     if windowed and previous:
         raise ValueError("pair warp: the previous body takes no "
                          "destination-row window")
@@ -299,12 +293,11 @@ def fused_pair_warp(src_typed, pairwise, mode, discrete_ratio,
     ``variant`` picks the kernel (:func:`resolve_variant`); both give
     the same bits, and the twin is the same for both.
     ``dest_row_start`` / ``dest_row_tiles`` restrict the output to a
-    destination-row window (:func:`row_window`; host ints, the tile
-    kernel only: a window on the resident variant raises)."""
+    destination-row window (:func:`row_window`; host ints, either
+    kernel)."""
     kind = resolve_variant(variant, *src_typed.shape[3:5])
     b, _, j, h, w, c = src_typed.shape
     _, rows = row_window(h, dest_row_start, dest_row_tiles)
-    _check_window_variant(kind, dest_row_tiles is not None)
     opcount.note("pair_warp_resident" if kind == "resident"
                  else "pair_warp", opcount.pair_warp_ops(
                      b * (j if num_receivers is None else num_receivers), j,

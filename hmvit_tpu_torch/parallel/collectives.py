@@ -2,7 +2,7 @@
 as autograd functions (the JAX package gets them from GSPMD; here they
 are written out).
 
-Three kinds, by what the backward must do:
+Four kinds, by what the backward must do:
 
 * :func:`all_reduce_sum` over the ``data`` axis: forward and backward
   both sum, since every data rank's loss is a term of the global loss
@@ -12,7 +12,14 @@ Three kinds, by what the backward must do:
   parameter each tensor-parallel rank uses a slice of);
 * :func:`reduce_from_model`: sum forward, identity backward (the output
   of a row-parallel layer: downstream of it every ``model`` rank computes
-  the same loss, so its gradient is already whole).
+  the same loss, so its gradient is already whole);
+* :func:`gather_from_model`: the all-gather of every rank's slice
+  forward, this rank's slice of the gradient backward (the output of a
+  column-parallel layer gathered where the next operation needs whole
+  rows: downstream of it every rank computes the same, so the gradient
+  is whole on every rank); :func:`split_to_model` is its inverse, a
+  replicated tensor cut to this rank's slice with its gradient summed
+  (the input of a row-parallel layer).
 
 :func:`data_parallel` installs the data group that BatchNorm and the
 losses read (:func:`data_group`); the step sums the parameter
@@ -75,6 +82,18 @@ class _CopyToModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_rows(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, k = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return g.chunk(n, dim=ctx.dim)[k].contiguous(), None, None
+
+
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -100,6 +119,20 @@ def copy_to_model(x, group):
 def reduce_from_model(x, group):
     """Sum over ``group``; the gradient passes through."""
     return _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x, dim: int, group):
+    """Every rank's equal slice of ``x`` along ``dim`` joined in rank
+    order; the gradient is cut back to this rank's slice."""
+    return _GatherFromModel.apply(x, dim, group)
+
+
+def split_to_model(x, dim: int, group):
+    """This rank's equal slice of the replicated ``x`` along ``dim``; the
+    gradient of ``x`` is summed over ``group`` (each rank's covers its
+    own slice)."""
+    n, k = dist.get_world_size(group), dist.get_rank(group)
+    return copy_to_model(x, group).chunk(n, dim=dim)[k]
 
 
 def global_sum(x):

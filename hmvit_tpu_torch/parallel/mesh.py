@@ -15,17 +15,22 @@ GSPMD insert the collectives, the port writes them out
   over it;
 * tensor parallelism: JAX's Megatron layout of the fusion trunk
   (:func:`tp_spec_for_path`, the same rules on the port's state-dict
-  names) splits each rank's ``HeteroDense`` weights, and the layers
-  reduce over ``model`` themselves (``models/layers.py``);
+  names, read in flax's layout) splits each rank's ``HeteroDense``
+  weights, and the layers reduce over ``model`` themselves
+  (``models/layers.py``); a plain ``Dense`` the rules match (the
+  reference twins' ``to_q`` / ``to_k`` / ``to_v``) holds its columns and
+  gathers its output (``nn.py``); an attention whose heads do not split
+  over ``model`` gathers its projections to whole heads
+  (``models/hetero_fusion.py``);
 * spatial parallelism (:func:`make_spatial_eval`): the per-agent maps'
-  rows split over an axis, the fusion's local phases run K1's
+  rows split over an axis (padded with zero rows where they do not split
+  evenly, as GSPMD pads), the fusion's local phases run K1's
   destination-row window and K2 on each shard
   (``models/hetero_fusion.py``).
 """
 from __future__ import annotations
 
 import os
-import warnings
 
 import torch
 import torch.distributed as dist
@@ -139,11 +144,29 @@ def _keystr(path: str) -> str:
     return "".join(f"['{part}']" for part in path.split("."))
 
 
-def tp_spec_for_path(path: str, shape, mp: int) -> tuple:
+def tp_spec_for_path(path: str, shape, mp: int, kind: str) -> tuple:
     """The partition spec of one leaf under the fusion-trunk TP layout, as
     a tuple (JAX's ``PartitionSpec``: None for a whole axis, "model" for a
-    split one; () replicated).  ``path`` is a state-dict name (or a
-    ``keystr``); anything not matched stays replicated."""
+    split one; () replicated), on the port's axes.  ``path`` is a
+    state-dict name (or a ``keystr``), ``shape`` the port's shape and
+    ``kind`` the bridge's conversion of the leaf (its layer's
+    ``flax_leaves``: a ``Dense`` weight is flax's kernel transposed):
+    JAX's rules read the flax leaf's shape and their spec is carried back
+    to the port's axes.  Anything not matched stays replicated."""
+    from ..bridge import PORT_AXES
+
+    if kind == "copy":
+        return _flax_spec(path, tuple(shape), mp)
+    axes = PORT_AXES[kind]
+    flax_shape = [0] * len(shape)
+    for i, a in enumerate(axes):
+        flax_shape[a] = shape[i]
+    spec = _flax_spec(path, tuple(flax_shape), mp)
+    return tuple(spec[a] for a in axes) if spec else ()
+
+
+def _flax_spec(path: str, shape, mp: int) -> tuple:
+    """JAX's ``tp_spec_for_path`` on a flax leaf's shape."""
     path = _keystr(path)
     if "norm" in path or len(shape) < 2:
         return ()
@@ -168,22 +191,35 @@ def _split_axis(spec: tuple):
     return spec.index("model") if "model" in spec else None
 
 
-def tp_shard_tree(tree: dict, mesh: DeviceMesh) -> dict:
+def _leaf_kind(owner, leaf: str) -> str:
+    """The bridge's conversion of ``owner``'s parameter ``leaf``."""
+    return getattr(owner, "flax_leaves", {}).get(leaf, (None, None,
+                                                        "copy"))[2]
+
+
+def _owner(model, name: str):
+    """The module holding state-dict entry ``name``, and the leaf's name."""
+    mod, _, leaf = name.rpartition(".")
+    return (model.get_submodule(mod) if mod else model), leaf
+
+
+def tp_shard_tree(tree: dict, mesh: DeviceMesh, model) -> dict:
     """This rank's slice of every leaf of ``tree`` (a dict of tensors by
-    state-dict name) under its TP spec (the whole leaf when no rule
-    matches)."""
+    ``model``'s state-dict names) under its TP spec (the whole leaf when
+    no rule matches)."""
     mp, k = axis_size(mesh, "model"), axis_rank(mesh, "model")
     out = {}
     for name, x in tree.items():
-        axis = _split_axis(tp_spec_for_path(name, tuple(x.shape), mp))
+        axis = _split_axis(tp_spec_for_path(
+            name, tuple(x.shape), mp, _leaf_kind(*_owner(model, name))))
         out[name] = x if axis is None else x.chunk(mp, dim=axis)[k]
     return out
 
 
 class TensorParallel:
-    """A ``HeteroDense``'s role under TP: ``kind`` "col" (outputs split)
-    or "row" (inputs split), over ``group`` of ``size`` ranks, this one
-    ``rank``."""
+    """A ``HeteroDense``'s or ``Dense``'s role under TP: ``kind`` "col"
+    (outputs split) or "row" (inputs split), over ``group`` of ``size``
+    ranks, this one ``rank``."""
 
     def __init__(self, kind: str, group, size: int, rank: int):
         self.kind, self.group, self.size, self.rank = kind, group, size, rank
@@ -191,42 +227,43 @@ class TensorParallel:
 
 def shard_state_tp(state, mesh: DeviceMesh):
     """Hybrid DP x TP placement of a train state: the state replicated
-    from rank 0, then each fusion-trunk weight (and its AdamW moments)
-    cut to this rank's slice over ``model`` by :func:`tp_spec_for_path`,
-    and each split ``HeteroDense`` told its role; everything else
-    replicated.  ``state.tp_axes`` records the split axis by name (the
-    checkpoint gathers them back)."""
-    from ..models.hetero_fusion import HeteroWindowAttention
+    from rank 0, then each weight JAX's rules split (the fusion trunk's
+    ``HeteroDense``, a plain ``Dense`` named ``to_q`` / ``to_k`` /
+    ``to_v``; and its AdamW moments) cut to this rank's slice over
+    ``model`` by :func:`tp_spec_for_path`, and each split layer told its
+    role; everything else replicated.  ``state.tp_axes`` records the
+    split axis by name (the checkpoint gathers them back).  A matched leaf
+    of any other layer raises: nothing that JAX splits stays quietly
+    replicated."""
     from ..models.layers import HeteroDense
+    from ..nn import Dense
 
     replicate_state(state, mesh)
     mp, k = axis_size(mesh, "model"), axis_rank(mesh, "model")
     group = axis_group(mesh, "model")
     model, axes = state.model, {}
     for name, p in model.named_parameters():
-        axis = _split_axis(tp_spec_for_path(name, tuple(p.shape), mp))
+        owner, leaf = _owner(model, name)
+        axis = _split_axis(tp_spec_for_path(name, tuple(p.shape), mp,
+                                            _leaf_kind(owner, leaf)))
         if axis is None:
             continue
-        owner = model.get_submodule(name.rpartition(".")[0])
-        if not isinstance(owner, HeteroDense):
-            warnings.warn(f"TP: {name} matches a tensor-parallel rule but "
-                          f"is not a HeteroDense weight; it stays "
-                          f"replicated", stacklevel=2)
-            continue
-        if name.endswith(".kernel"):
+        if isinstance(owner, HeteroDense) and leaf == "kernel":
             owner.tp = TensorParallel("col" if axis == p.ndim - 1 else "row",
                                       group, mp, k)
+        elif isinstance(owner, Dense) and leaf == "weight" and axis == 0:
+            owner.tp = TensorParallel("col", group, mp, k)
+        elif not isinstance(owner, HeteroDense):
+            raise NotImplementedError(
+                f"TP: {name} ({type(owner).__name__}) matches a "
+                f"tensor-parallel rule on axis {axis}, which the port's "
+                f"layer cannot split")
         axes[name] = axis
         with torch.no_grad():
             p.data = p.data.chunk(mp, dim=axis)[k].clone()
         for moment in state.opt.state.get(p, {}).values():
             if torch.is_tensor(moment) and moment.ndim == p.ndim:
                 moment.data = moment.data.chunk(mp, dim=axis)[k].clone()
-    for name, mod in model.named_modules():
-        if isinstance(mod, HeteroWindowAttention) and mod.to_q.tp and \
-                (mod.dim // mod.dim_head) % mp:
-            raise ValueError(f"TP: {name} has {mod.dim // mod.dim_head} "
-                             f"heads, which do not split over mp={mp}")
     state.tp_axes = axes
     return state
 
@@ -236,11 +273,23 @@ def audit_tp_sharding(model, mp: int):
     longer matching the rules).  INTENT comes from the structure, not from
     the rule names: every rank-3 ``HeteroDense`` kernel under the fusion
     trunk with an mp-divisible din or dout (of its whole shape) is meant
-    to be split.  Returns (split names, silent misses)."""
+    to be split, and so is every plain ``Dense`` that the rules match
+    (the reference twins' projections).  Returns (split names, silent
+    misses)."""
     from ..models.layers import HeteroDense
+    from ..nn import Dense
 
     hit, miss = [], []
     for name, mod in model.named_modules():
+        if isinstance(mod, Dense):
+            shape = list(mod.weight.shape)
+            if mod.tp is not None:
+                shape[0] *= mod.tp.size
+            if "model" in tp_spec_for_path(f"{name}.weight", shape, mp,
+                                           "dense"):
+                (hit if mod.tp is not None else miss).append(
+                    f"{name}.weight")
+            continue
         if not isinstance(mod, HeteroDense) or "fusion" not in \
                 name.split("."):
             continue
@@ -307,25 +356,36 @@ def make_sharded_eval(model, mesh: DeviceMesh):
     return _forward_under(model, lambda batch: model(batch))
 
 
+def shard_rows(h: int, nsh: int) -> int:
+    """The rows of each of nsh shards of a map of h rows: ceil(h / nsh),
+    the last shards padded as GSPMD pads an uneven split."""
+    return -(-h // nsh)
+
+
+def shard_of_rows(x, k: int, h_loc: int):
+    """Shard k's rows [k h_loc, (k + 1) h_loc) of (B, L, H, ...) maps, the
+    rows past H zeros."""
+    part = x[:, :, k * h_loc:(k + 1) * h_loc]
+    pad = h_loc - part.shape[2]
+    if pad == 0:
+        return part
+    return torch.cat([part, part.new_zeros(*part.shape[:2], pad,
+                                           *part.shape[3:])], dim=2)
+
+
 def row_shard(mesh: DeviceMesh, axis: str = "model"):
-    """The spatial split: (B, L, H, W, C) maps -> this rank's equal share
-    of their rows over ``axis``."""
+    """The spatial split: (B, L, H, W, C) maps -> this rank's share of
+    their rows over ``axis``, :func:`shard_rows` rows, the rows past H
+    zeros."""
     nsh, k = axis_size(mesh, axis), axis_rank(mesh, axis)
-
-    def shard(x):
-        h = x.shape[2]
-        if h % nsh:
-            raise ValueError(f"SP: a map of {h} rows does not split into "
-                             f"{nsh} equal shards")
-        return x[:, :, k * (h // nsh):(k + 1) * (h // nsh)]
-
-    return shard
+    return lambda x: shard_of_rows(x, k, shard_rows(x.shape[2], nsh))
 
 
 def make_spatial_eval(model, mesh: DeviceMesh, axis: str = "model"):
     """Spatially partitioned batched inference (SP): ``fwd(batch)`` on this
-    rank's data shard, with the per-agent BEV maps' rows (H) split evenly
-    over ``axis`` (:func:`row_shard`).  The fusion's local phases run on
+    rank's data shard, with the per-agent BEV maps' rows (H) split over
+    ``axis`` (:func:`row_shard`; an uneven split pads with zero rows, which
+    every consumer crops).  The fusion's local phases run on
     each shard as the JAX package's island does (the senders' folded K/V
     gathered on H, K1's destination-row window, K2 on the shard's rows);
     a phase the island does not take gathers the map, runs as unsharded

@@ -13,7 +13,9 @@ points on a 512^2 pillar grid, PFN width 64:
 * ``pairwarp`` — the pair-warp tile kernel, L = 4 and 5, bfloat16;
 * ``pairwarp_res`` — the resident pair-warp kernel beside the tile
   kernel, (L, receivers) = (4, all), (5, all), (4, 1); the outputs must
-  be equal bit for bit;
+  be equal bit for bit; then the resident kernel's destination-row
+  windows (the SP shards of 2 and 4 of the 128-row map), L = 4, every
+  window equal to the whole launch's rows bit for bit (untimed);
 * ``fused_wa`` — the fused warp + attention kernel beside the pair warp
   followed by the stripe attention kernel, L = 4, L = 4 with one
   receiver, L = 5; equal bit for bit;
@@ -240,6 +242,32 @@ def stage_pairwarp_res(lab: Lab, l: int, r: int | None):
             f"resident pair warp differs from the tile kernel at L={l} "
             f"R={r or l}: max|diff| "
             f"{float((res.float() - tile.float()).abs().max())}")
+
+
+def stage_pairwarp_res_window(lab: Lab):
+    """The resident kernel's destination-row windows at L = 4, the SP
+    shards of 2 and 4 of the map: every shard's window equal to the whole
+    launch's rows bit for bit (``chip_smoke.py``'s window check times
+    them)."""
+    s = lab.shapes
+    kv = lab.randn(1, 2, 4, s.hw, s.hw, 2 * s.c, dtype=torch.bfloat16)
+    pair = lab.rand_pairwise(4)
+    mode = (torch.arange(4, device=lab.dev) % 2)[None]
+    args = (kv, pair, mode, 0.4, 4.0)
+    whole = fused_pair_warp(*args, variant="resident")
+    for nsh in (2, 4):
+        tiles = s.hw // 32 // nsh
+        if tiles == 0 or s.hw % (32 * nsh):
+            continue
+        for k in range(nsh):
+            win = fused_pair_warp(*args, variant="resident",
+                                  dest_row_start=k * tiles,
+                                  dest_row_tiles=tiles)
+            rows = slice(k * tiles * 32, (k + 1) * tiles * 32)
+            if not torch.equal(win, whole[:, :, :, rows]):
+                raise AssertionError(
+                    f"resident pair warp window {k} of {nsh} differs from "
+                    f"the whole launch's rows")
 
 
 def stage_fused_wa(lab: Lab, dtype=torch.bfloat16, l: int = 4,
@@ -715,7 +743,8 @@ STAGES = {
     "pairwarp": lambda lab: [stage_pairwarp(lab, torch.bfloat16, l)
                              for l in (4, 5)],
     "pairwarp_res": lambda lab: [stage_pairwarp_res(lab, l, r)
-                                 for l, r in ((4, None), (5, None), (4, 1))],
+                                 for l, r in ((4, None), (5, None), (4, 1))]
+    + [stage_pairwarp_res_window(lab)],
     "fused_wa": lambda lab: [stage_fused_wa(lab, torch.bfloat16, l, r)
                              for l, r in ((4, None), (4, 1), (5, None))],
     "segscan": stage_segscan,

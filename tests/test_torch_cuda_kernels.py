@@ -291,12 +291,15 @@ def test_new_pair_warp_kernels_equal_previous_body(dev, poses, size, c):
 
 @pytest.mark.parametrize("size", [64, 96, 128])
 @pytest.mark.parametrize("poses", ["co-located", "spread", "draw222"])
-def test_pair_warp_window_equals_the_whole_launch(dev, poses, size):
-    """K1's destination-row window (the SP island's): every window of
-    whole 32-row tiles equals the whole launch's rows bit for bit, in both
-    types, for every receiver and the ego alone, and the twin's window
-    within the pair warp's tolerance (identity pairs: the sender's map);
-    the launches count under the key "window"."""
+@pytest.mark.parametrize("variant", ["tile", "resident"])
+def test_pair_warp_window_equals_the_whole_launch(dev, variant, poses, size):
+    """The destination-row window of K1 (the SP island's) and of K5 (the
+    resident kernel's): every window of whole 32-row tiles equals the
+    whole launch's rows of the same kernel bit for bit, in both types, for
+    every receiver and the ego alone, and the twin's window within the
+    pair warp's tolerance (identity pairs: the sender's map); the
+    launches count under the key "window"."""
+    kernel = cuda.PAIR_WARP if variant == "tile" else cuda.PAIR_WARP_RESIDENT
     pair_np, geo = _poses(poses)
     pair = torch.as_tensor(pair_np, device=dev)
     l = pair.shape[1]
@@ -310,13 +313,14 @@ def test_pair_warp_window_equals_the_whole_launch(dev, poses, size):
                               device=dev).to(dtype)
             mode = torch.randint(0, 2, (1, l), generator=g, device=dev)
             args = (src, pair, mode, *geo, r)
-            whole = fused_pair_warp(*args)
+            whole = fused_pair_warp(*args, variant=variant)
             ident = (coef[:, :r, :, 7] == 1)[..., None, None, None]
             typed = src[0][mode[0, :r]][None]
-            before = cuda.PAIR_WARP.launches_by_key.get("window", 0)
+            before = kernel.launches_by_key.get("window", 0)
             for start, tiles in windows:
                 rows = slice(start * 32, (start + tiles) * 32)
-                win = fused_pair_warp(*args, dest_row_start=start,
+                win = fused_pair_warp(*args, variant=variant,
+                                      dest_row_start=start,
                                       dest_row_tiles=tiles)
                 with plain_ops():
                     want = fused_pair_warp(*args, dest_row_start=start,
@@ -329,7 +333,7 @@ def test_pair_warp_window_equals_the_whole_launch(dev, poses, size):
                                    torch.nan_to_num(want.float(), nan=0.0))
                 err = float((win.float() - want).abs().max())
                 assert err <= TOL[dtype], (dtype, r, start, tiles, err)
-            assert cuda.PAIR_WARP.launches_by_key["window"] == \
+            assert kernel.launches_by_key["window"] == \
                 before + len(windows)
 
 

@@ -307,10 +307,12 @@ def src_block(tr, x, y, size):
     return torch.where(near, blk.clamp(0, CLUSTER - 1), -1)
 
 
-def walk_lines(tr, rank, size, along_x):
+def walk_lines(tr, rank, size, along_x, row0=0, rows=None):
     """The candidate pixels (x, y) of block `rank`'s walk: for each line o
     of the walk, the interval where the taps' row lies in the block's
-    rows (widened by 0.01 and a pixel), clipped to the map."""
+    rows (widened by 0.01 and a pixel), clipped to the map and to the
+    destination rows [row0, row0 + rows)."""
+    rows = size if rows is None else rows
     a, b, c0, reach = tr
     band = size // CLUSTER
     inner = a if along_x else b
@@ -318,7 +320,9 @@ def walk_lines(tr, rank, size, along_x):
     hi = (size + reach if rank == CLUSTER - 1
           else f32((rank + 1) * band)) + 0.01
     xs, ys = [], []
-    for o in range(size):
+    lines = range(row0, row0 + rows) if along_x else range(size)
+    i_lo, i_hi = (0, size) if along_x else (row0, row0 + rows)
+    for o in lines:
         base = (b if along_x else a) * o + c0
         fa, fb = 0.0, size - 1.0
         if inner != 0:
@@ -327,38 +331,49 @@ def walk_lines(tr, rank, size, along_x):
             fb = min(fb, float(torch.ceil(torch.maximum(e1, e2))) + 1.0)
         elif not lo <= base < hi:
             fb = -1.0
-        i = torch.arange(int(min(fa, size)), int(max(fb, -1.0)) + 1)
+        ia = max(int(min(fa, size)), i_lo)
+        i = torch.arange(ia, max(ia, min(int(max(fb, -1.0)), i_hi - 1) + 1))
         xs.append(i if along_x else torch.full_like(i, o))
         ys.append(torch.full_like(i, o) if along_x else i)
     return torch.cat(xs), torch.cat(ys)
 
 
-def resident_kernel_emulation(src, coef, rtype, n_recv):
-    """pair_warp_resident_kernel: clusters (pair, slab).  In a staged pair
-    block `rank` holds source rows [rank * band, (rank + 1) * band) of the
-    slab in its shared memory and computes the pixels whose taps' row
-    falls there (each tap read from the block that owns its source row);
-    the pixels whose taps lie off the map are zeros, written by the block
-    of their destination band.  Pairs not staged: the destination band
-    from device memory (a copy) or zeros."""
+def resident_kernel_emulation(src, coef, rtype, n_recv, row0=0, rows=None):
+    """pair_warp_resident_kernel: clusters (pair, slab), over the
+    destination rows [row0, row0 + rows) (the whole map by default; the
+    output holds those rows), whose pixels are cut into CLUSTER equal
+    runs, each block's destination share.  A pair is staged when a 32 x
+    32 tile of those rows is in view.  In a staged pair block `rank` holds
+    source rows [rank * band, (rank + 1) * band) of the slab in its shared
+    memory and computes the destination pixels whose taps' row falls
+    there (each tap read from the block that owns its source row); the
+    pixels whose taps lie off the map are zeros, written by the block of
+    their destination share.  Pairs not staged: the destination share
+    from device memory (a copy) or zeros.  Returns (the output, the taps
+    read from another block's band, each pair's staging flag)."""
     bsz, ty, nj, size, _, c = src.shape
+    rows = size if rows is None else rows
     n_pairs = coef.shape[0] * nj
     slab_ch = slab_channels(c, size)
     band = size // CLUSTER
     band_pix = band * size
+    share = rows * size // CLUSTER
     svecs = slab_ch // V
-    out = torch.full((n_pairs, size, size, c), float("nan"))
+    out = torch.full((n_pairs, rows, size, c), float("nan"))
     flat = out.view(-1)
     written = torch.zeros(flat.numel(), dtype=torch.int64)
     tiles = size // 32
     remote = 0
+    staged_pairs = []
     for pair in range(n_pairs):
         n, j = pair // nj, pair % nj
         b = n // n_recv
         cf = coef[n, j]
         amap = src[b, int(rtype[n]), j].reshape(size * size, c)
         staged = bool(cf[7] <= 0.5) and bool(
-            pfw.roi_tile_valid(cf, size)[:tiles, :tiles].any())
+            pfw.roi_tile_valid(cf, size)[:tiles, row0 // 32:(row0 + rows)
+                                         // 32].any())
+        staged_pairs.append(staged)
         tr = tap_row(cf, size)
         for slab in range(c // slab_ch):
             bands = torch.stack([
@@ -366,7 +381,7 @@ def resident_kernel_emulation(src, coef, rtype, n_recv):
                      slab * slab_ch:(slab + 1) * slab_ch].reshape(-1)
                 for rank in range(CLUSTER)])
             for rank in range(CLUSTER):
-                pix = rank * band_pix + torch.arange(band_pix)
+                pix = row0 * size + rank * share + torch.arange(share)
                 y = div_small(pix, size)
                 x = pix - y * size
                 assert torch.equal(y, pix // size)
@@ -377,7 +392,8 @@ def resident_kernel_emulation(src, coef, rtype, n_recv):
                         plan = (*plan[:3], 2)
                     jobs.append((x, y, plan, "device"))
                 else:
-                    cx, cy = walk_lines(tr, rank, size, bool(cf[6] <= 0.5))
+                    cx, cy = walk_lines(tr, rank, size, bool(cf[6] <= 0.5),
+                                        row0, rows)
                     mine = src_block(tr, cx, cy, size) == rank
                     cx, cy = cx[mine], cy[mine]
                     jobs.append((cx, cy, plan_taps(cf, cx, cy, size),
@@ -406,12 +422,13 @@ def resident_kernel_emulation(src, coef, rtype, n_recv):
                                              local[:, None]
                                              + torch.arange(V)]
                             vals = warp_vectors(plan, load, jpix)
-                        at = ((pair * size * size + jpix) * c
+                        at = ((pair * rows * size + jpix - row0 * size) * c
                               + ch)[:, None] + torch.arange(V)
                         flat[at] = vals
                         written[at] += 1
     assert bool((written == 1).all())
-    return out.reshape(coef.shape[0], nj, size, size, c), remote
+    return out.reshape(coef.shape[0], nj, rows, size, c), remote, \
+        staged_pairs
 
 
 EMULATED = {
@@ -459,7 +476,7 @@ def test_kernel_index_maps_reproduce_the_twin(case):
                else resident_kernel_emulation)
     got = emulate(t(src), coef, rtype, 3)
     if kind == "resident":
-        got, remote = got
+        got, remote, _ = got
         assert remote > 0  # some taps are read across a band edge
     want = torch.where(torch.isnan(want), 0.0, want)  # invalid -> zeros
     want = want.reshape(3, 3, size, size, c)

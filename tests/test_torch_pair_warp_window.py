@@ -1,21 +1,29 @@
-"""The pair warp's destination-row window (K1's SP mode), on the CPU.
+"""The pair warp's destination-row window (the SP mode of K1 and K5), on
+the CPU.
 
 ``pallas_pair_warp(..., dest_row_start, dest_row_tiles)`` computes only
 the rows ``[start, start + tiles) * 32`` of every warped map, reading
 the whole source: the spatial-partitioning island's shard of the warp.
 The port carries it in the plain twin (the whole warp, sliced), the
-wrapper and the tile kernel (``csrc/pair_warp.cu``: ``row0`` / ``rows``).
+wrapper, the tile kernel and the resident kernel (``csrc/pair_warp.cu``:
+``row0`` / ``rows``).
 
 * The twin's window against the Pallas kernel's window in interpret mode
-  and the JAX oracle's rows, at h = 64 and 96, 1-3 tiles, every receiver
-  and the ego alone, float32 at 1e-4 (the pair warp's bar).
+  (the tile body, and the resident body with ``variant="resident"``) and
+  the JAX oracle's rows, at h = 64 and 96, 1-3 tiles, every receiver and
+  the ego alone, float32 at 1e-4 (the pair warp's bar).
 * The window equals the whole twin's rows bit for bit, and so does the
   emulation of the tile kernel's window (``tile_kernel_emulation`` of
   ``test_torch_pair_warp_roi.py``: planned at global rows, stored at
   window rows) on the spread poses and the 222nd draw, where the Pallas
   kernel's own skip zeroes a tile of the window that the oracle fills.
+* The emulation of the resident kernel's window
+  (``resident_kernel_emulation``: the Pallas kernel's ``pvalid`` over
+  the window's tiles, every band staged, stores at window rows) on the
+  same draws: a pair is skipped iff no tile of the window is in view,
+  and the window equals the whole twin's rows bit for bit.
 * A window past the map, on a map whose h is not a multiple of 32, half
-  given, or on the resident kernel raises ``ValueError``; the operation
+  given, or on the previous body raises ``ValueError``; the operation
   count covers the window's rows only.
 """
 import jax.numpy as jnp
@@ -26,7 +34,11 @@ import torch
 from hmvit_tpu.ops import fused_warp as jfw
 from hmvit_tpu_torch.ops import fused_warp as pfw
 from hmvit_tpu_torch.ops import opcount
-from test_torch_pair_warp_roi import spread_draws, tile_kernel_emulation
+from test_torch_pair_warp_roi import (
+    resident_kernel_emulation,
+    spread_draws,
+    tile_kernel_emulation,
+)
 from torch_parity import close, rigid_pairwise, t
 
 WARP_ATOL = 1e-4  # the pair warp's bar (ROADMAP.md "Tolerances")
@@ -51,15 +63,30 @@ WINDOWS = [(64, 1, 1), (96, 1, 2), (96, 0, 3)]
 @pytest.mark.parametrize("h,start,tiles", WINDOWS)
 @pytest.mark.parametrize("receivers", [None, 1])
 def test_window_matches_pallas_window_and_oracle(h, start, tiles, receivers):
+    window_case(h, start, tiles, receivers, "auto")
+
+
+@pytest.mark.parametrize("h,start,tiles", WINDOWS)
+@pytest.mark.parametrize("receivers", [None, 1])
+def test_resident_window_matches_pallas_resident_window(h, start, tiles,
+                                                        receivers):
+    """K5's window: the port's ``variant="resident"`` window against the
+    Pallas resident body's window in interpret mode."""
+    window_case(h, start, tiles, receivers, "resident")
+
+
+def window_case(h, start, tiles, receivers, variant):
     src, pair, mode = case(h + start + tiles, h)
+    assert pfw.resolve_variant(variant, h, h) == (
+        "tile" if variant == "auto" else variant)
     got = pfw.fused_pair_warp(t(src), t(pair), t(mode), 1.0, 1.0, receivers,
-                              dest_row_start=start,
+                              variant=variant, dest_row_start=start,
                               dest_row_tiles=tiles).numpy()
     pallas = np.asarray(jfw.pallas_pair_warp(
         jnp.asarray(src), jnp.asarray(pair), jnp.asarray(mode), 1.0, 1.0,
         interpret=True, num_receivers=receivers,
         dest_row_start=jnp.asarray([start], jnp.int32),
-        dest_row_tiles=tiles))
+        dest_row_tiles=tiles, variant=variant))
     oracle = np.asarray(jfw.pair_warp_xla(
         jnp.asarray(src), jnp.asarray(pair), jnp.asarray(mode), 1.0, 1.0,
         receivers))[:, :, :, start * 32:(start + tiles) * 32]
@@ -143,20 +170,87 @@ def test_window_outside_the_map_raises(h, start, tiles):
                              dest_row_start=start, dest_row_tiles=tiles)
 
 
-def test_window_half_given_resident_and_previous_raise():
+@pytest.mark.parametrize("what", ["half given", "resident", "previous"])
+def test_window_half_given_resident_and_previous_raise(what):
+    """A half-given window and a window on the previous body raise; a
+    window on the resident variant runs (K5's window) and gives the tile
+    variant's window."""
     src, pair, mode = case(0, 64, l=2)
     args = (t(src), t(pair), t(mode), 1.0, 1.0)
-    with pytest.raises(ValueError, match="go together"):
-        pfw.fused_pair_warp(*args, dest_row_start=0)
-    with pytest.raises(ValueError, match="Queue 2"):
-        pfw.fused_pair_warp(*args, variant="resident", dest_row_start=0,
-                            dest_row_tiles=1)
-    with pytest.raises(ValueError, match="Queue 2"):
-        pfw.pair_warp_launch(*args, variant="resident", dest_row_start=0,
-                             dest_row_tiles=1)
-    with pytest.raises(ValueError, match="previous body"):
-        pfw.pair_warp_launch(*args, previous=True, dest_row_start=0,
-                             dest_row_tiles=1)
+    if what == "half given":
+        with pytest.raises(ValueError, match="go together"):
+            pfw.fused_pair_warp(*args, dest_row_start=0)
+        with pytest.raises(ValueError, match="go together"):
+            pfw.pair_warp_launch(*args, variant="resident",
+                                 dest_row_tiles=1)
+    elif what == "resident":
+        got = pfw.fused_pair_warp(*args, variant="resident",
+                                  dest_row_start=1, dest_row_tiles=1)
+        want = pfw.fused_pair_warp(*args, variant="tile", dest_row_start=1,
+                                   dest_row_tiles=1)
+        assert got.shape == (1, 2, 2, 32, 64, 8)
+        assert torch.equal(got, want)
+        _, out = pfw.pair_warp_launch(*args, variant="resident",
+                                      dest_row_start=1, dest_row_tiles=1)
+        assert out.shape == got.shape
+    else:
+        with pytest.raises(ValueError, match="previous body"):
+            pfw.pair_warp_launch(*args, previous=True, dest_row_start=0,
+                                 dest_row_tiles=1)
+
+
+@pytest.mark.parametrize("size,start,tiles", [(64, 1, 1), (96, 1, 2),
+                                              (96, 0, 1)])
+def test_resident_window_emulation_on_spread_draws(size, start, tiles):
+    """The resident kernel's window, emulated on 20 spread draws: the
+    pairs it skips are those with no 32 x 32 tile of the window in view
+    (JAX's ``pvalid`` over the window's tiles), among them pairs that
+    the whole map stages, and every window equals the whole twin's rows
+    bit for bit."""
+    src, pair = spread_draws(20, seed=5, size=size)
+    mode = np.zeros((20, 2), np.int32)
+    row0, rows = start * 32, tiles * 32
+    full = pfw.pair_warp_xla(t(src), t(pair), t(mode), 1.0, 1.0)
+    window_skips = whole_skips = 0
+    for d in range(len(src)):
+        coef, rtype = pfw._prep_affines(t(pair[d:d + 1]), t(mode[d:d + 1]),
+                                        (size, size), 1.0, 1.0)
+        win, _, staged = resident_kernel_emulation(t(src[d:d + 1]), coef,
+                                                   rtype, 2, row0, rows)
+        valid = pfw.roi_tile_valid(coef, size)
+        for n in range(2):
+            for j in range(2):
+                in_view = bool(valid[n, j, :, start:start + tiles].any())
+                warp = bool(coef[n, j, 7] == 0)
+                assert staged[n * 2 + j] == (warp and in_view)
+                window_skips += warp and not in_view
+                whole_skips += warp and not bool(valid[n, j].any())
+        twin = torch.where(torch.isnan(full[d]), 0.0, full[d])
+        for n in range(2):  # identity pairs: the kernel copies the map
+            twin[n, n] = t(src)[d, 0, n]
+        assert torch.equal(win, twin[:, :, row0:row0 + rows])
+    assert window_skips > whole_skips, (window_skips, whole_skips)
+
+
+def test_resident_window_emulation_on_draw_222():
+    """The 222nd draw through the resident kernel's window emulation:
+    (receiver 1, sender 0) is staged (its window tiles are in view by the
+    port's conservative test), and the window keeps the oracle's values
+    where the Pallas tile kernel's own skip zeroes them."""
+    src, pair = spread_draws(222)
+    src, pair = src[-1:], pair[-1:]
+    mode = np.zeros((1, 2), np.int32)
+    coef, rtype = pfw._prep_affines(t(pair), t(mode), (64, 64), 1.0, 1.0)
+    win, _, staged = resident_kernel_emulation(t(src), coef, rtype, 2, 32,
+                                               32)
+    assert staged[2]  # pair (1, 0)
+    want = pfw.fused_pair_warp(t(src), t(pair), t(mode), 1.0, 1.0,
+                               variant="resident", dest_row_start=1,
+                               dest_row_tiles=1)[0].clone()
+    for n in range(2):
+        want[n, n] = t(src)[0, 0, n, 32:64]
+    assert torch.equal(win, want)
+    assert float(win[1, 0, 0, 0].abs().max()) > 0.01
 
 
 def test_window_counts_its_rows_and_backpropagates():

@@ -15,6 +15,8 @@ import torch
 import torch.distributed as dist
 
 from hmvit_tpu_torch import parallel
+from hmvit_tpu_torch.parallel.collectives import gather_rows
+from hmvit_tpu_torch.parallel.mesh import axis_group, full_state_dict
 from hmvit_tpu_torch.data.synthetic import make_hetero_batch
 from hmvit_tpu_torch.models.hmvit import HMViT
 from hmvit_tpu_torch.nn import init_parameters
@@ -73,6 +75,26 @@ ISLAND_CFG = {
 # message and both FFN layers, the first on a column-split hidden under TP)
 DROPOUT_CFG = copy.deepcopy(TINY_CFG)
 DROPOUT_CFG["hetero_fusion"]["hetero_fusion_block"]["drop_out"] = 0.1
+
+# the tiny configuration at 48 channels: 3 heads of 16, which do not split
+# over mp = 2 (the channels, 24 a rank, do)
+HEADS3_CFG = copy.deepcopy(TINY_CFG)
+HEADS3_CFG["lidar"]["shrink_header"]["dim"] = [48]
+HEADS3_CFG["camera"]["out_dim"] = 48
+HEADS3_CFG["hetero_fusion"]["hetero_fusion_block"].update(input_dim=48,
+                                                          mlp_dim=48)
+HEADS3_CFG["hetero_decoder"].update(input_dim=48, num_ch_dec=[48])
+
+# the tiny configuration with the FAX reference twin as camera encoder: its
+# to_q / to_k / to_v are plain Dense layers (32 -> 2 heads of 8), whose
+# flax kernels JAX's rules split by columns
+FAX_REF_CFG = copy.deepcopy(TINY_CFG)
+FAX_REF_CFG["camera"].update(encoder="fax_ref", heads=2, dim_head=8,
+                             middle=[1, 1])
+
+# the tiny configuration with V2X-ViT as the fusion: its HGT attention's
+# typed to_q / to_k / to_v / to_out match JAX's rules
+V2XVIT_CFG = dict(TINY_CFG, fusion_override="v2xvit")
 
 
 def make_batch(batch_size, seed=0):
@@ -161,10 +183,47 @@ def layout_data(rank, world, store_dir, out):
     dist.destroy_process_group()
 
 
+def _tp_step(mesh, out, name, cfg, steps):
+    """A fresh DP x TP state over ``mesh``; ``steps`` steps of this rank's
+    shard, warnings recorded: losses, the split leaves, the audit, and the
+    state dict and gradients after the first step gathered to the single
+    layout; then the eval forward of frame 0 (one a data rank) with and
+    without its ``static_modes`` (the fusion's static [K|V] fold)."""
+    model, opt, schedule, batch, labels = setup(cfg=cfg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state = parallel.shard_state_tp(create_train_state(model, opt), mesh)
+        step = make_train_step(model, opt, schedule=schedule)
+        b, lab = parallel.shard_batch(batch, mesh), \
+            parallel.shard_batch(labels, mesh)
+        losses = train(state, step, b, lab, 1)
+        group = axis_group(mesh, "model")
+        grads = {n: (gather_rows(p.grad, state.tp_axes[n], group)
+                     if n in state.tp_axes else p.grad.clone())
+                 for n, p in model.named_parameters()}
+        after = {k: v.clone() for k, v in full_state_dict(state).items()}
+        losses += train(state, step, b, lab, steps - 1)
+    hit, miss = parallel.audit_tp_sharding(model, 2)
+    frame = parallel.shard_batch({k: v[:1].repeat(2, *(1,) * (v.ndim - 1))
+                                  for k, v in batch.items()}, mesh)
+    static = tuple(int(m) for m in frame["mode"][0])
+    model.eval()
+    with torch.no_grad():
+        folded = model(frame, static_modes=static)
+        plain = model(frame)
+    _save(out, name, {"losses": losses, "after": after, "grads": grads,
+                      "tp_axes": dict(state.tp_axes), "hit": hit,
+                      "miss": miss, "folded": folded, "plain": plain,
+                      "warnings": sorted({str(w.message) for w in caught})})
+    return state
+
+
 def layout_hybrid(rank, world, store_dir, out):
     """World 4: the 4-rank DP step; a (2, 2) DP x TP mesh: 3 steps, the
-    audit, the gathered checkpoint, a step with dropout; spatial eval over
-    its model axis on the tiny and the island configurations."""
+    audit, the gathered checkpoint, a step with dropout, 2 steps at 3 heads
+    and 2 steps with the FAX reference twin (its gathered checkpoint), a
+    step with the V2X-ViT fusion; spatial eval over its model axis on the
+    tiny and the island configurations."""
     _init(rank, world, store_dir)
     _dp_steps(parallel.make_mesh(), out, "dp4", 1)
 
@@ -190,6 +249,12 @@ def layout_hybrid(rank, world, store_dir, out):
     _save(out, "hybrid", {"losses": losses, "split": split, "still": still,
                           "hit": hit, "miss": miss})
 
+    _tp_step(mesh, out, "heads3", HEADS3_CFG, 2)
+    state = _tp_step(mesh, out, "fax_ref", FAX_REF_CFG, 2)
+    save_checkpoint(os.path.join(out, "ckpt_fax_ref"), 2, state)
+
+    _tp_step(mesh, out, "v2xvit_tp", V2XVIT_CFG, 1)
+
     for name, cfg, frames, seed in (("spatial_tiny", TINY_CFG, 8, 0),
                                     ("spatial_island", ISLAND_CFG, 4, 3)):
         model = init_parameters(HMViT(cfg), 4)
@@ -202,4 +267,20 @@ def layout_hybrid(rank, world, store_dir, out):
         _save(out, name, {"out": got,
                           "warnings": sorted({str(w.message)
                                               for w in caught})})
+    dist.destroy_process_group()
+
+
+def layout_uneven(rank, world, store_dir, out):
+    """World 3, a (1, 3) mesh: spatial eval of the tiny configuration over
+    3 shards of its 16-row fusion map (6, 6 and 4 rows and 2 of padding)."""
+    _init(rank, world, store_dir)
+    mesh = parallel.make_hybrid_mesh(mp=3)
+    model = init_parameters(HMViT(TINY_CFG), 4)
+    fwd = parallel.make_spatial_eval(model, mesh)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = fwd(parallel.shard_batch(make_batch(8), mesh))
+    _save(out, "spatial_uneven", {
+        "out": parallel.gather_batch(got, mesh),
+        "warnings": sorted({str(w.message) for w in caught})})
     dist.destroy_process_group()
