@@ -2014,7 +2014,7 @@ def train_phase(dev, card) -> dict:
                 raise AssertionError(f"bench {' '.join(flags)}: no rate, "
                                      f"MFU or peak memory: {record}")
             if traced:
-                from hmvit_tpu_torch.ops import TWIN_BACKWARD
+                from hmvit_tpu_torch.tracing import TWIN_BACKWARD
                 from hmvit_tpu_torch.tools.profile import summarize
 
                 print("bench --train: device time of one traced step by "

@@ -16,11 +16,17 @@ once and a replay counts nothing.  Each bucket keeps the counts of its
 capture (``launches`` by kernel, ``bodies``: the attention kernels' by
 body), what every replay of it launches; the server keeps its own
 replay count (:attr:`CompiledServer.replays`).
+
+Tracing (:mod:`hmvit_tpu_torch.tracing`): a bucket captured with the
+tracer on is a twin of the one captured off (its key says so), whose
+graphs hold the stage marks as event-record nodes; a replay of it keeps
+each stage's device time.  Off, the graphs have no such node.
 """
 from __future__ import annotations
 
 import torch
 
+from . import tracing
 from .ops import cuda
 from .postprocess import decode_detections_device
 
@@ -33,10 +39,12 @@ WARMUP = 3
 
 def _bucket_key(request: dict, hints: dict) -> tuple:
     """What a graph is specialised to: the hints and every input's shape
-    and type (the batch size among them)."""
+    and type (the batch size among them); with the tracer on, also that
+    (its graphs hold the stage marks' event nodes)."""
     shapes = tuple((k, tuple(v.shape), v.dtype)
                    for k, v in sorted(request.items()))
-    return tuple(hints.get(k) for k in HINT_KEYS) + shapes
+    key = tuple(hints.get(k) for k in HINT_KEYS) + shapes
+    return key + ("traced",) if tracing.active() else key
 
 
 def _require_cuda(request: dict, what: str):
@@ -48,9 +56,11 @@ def _require_cuda(request: dict, what: str):
 
 def _detect(out, anchors, transform):
     """Decode + NMS of each frame of a batch: [(corners, scores, valid)]."""
-    return [decode_detections_device(out["psm"][i:i + 1],
-                                     out["rm"][i:i + 1], anchors, transform)
-            for i in range(out["psm"].shape[0])]
+    with tracing.mark("decode_nms", out["psm"]):
+        return [decode_detections_device(out["psm"][i:i + 1],
+                                         out["rm"][i:i + 1], anchors,
+                                         transform)
+                for i in range(out["psm"].shape[0])]
 
 
 class _Bucket:
@@ -75,9 +85,11 @@ class _Bucket:
         self.detect_graph = torch.cuda.CUDAGraph()
         try:
             with torch.no_grad():
-                with torch.cuda.graph(self.forward_graph):
+                with tracing.gather_marks() as self.forward_marks, \
+                        torch.cuda.graph(self.forward_graph):
                     self.out = model(self.inputs, **self.hints)
-                with torch.cuda.graph(self.detect_graph):
+                with tracing.gather_marks() as self.detect_marks, \
+                        torch.cuda.graph(self.detect_graph):
                     self.det = _detect(self.out, anchors, transform)
         except RuntimeError as err:
             raise RuntimeError(
@@ -143,14 +155,16 @@ class CompiledServer:
     def load(self, request: dict, hints: dict | None = None) -> _Bucket:
         """Copy ``request`` into its bucket's static inputs (capturing the
         bucket first if it is new)."""
-        b = self.bucket(request, self.hints if hints is None else hints)
-        for k, v in request.items():
-            b.inputs[k].copy_(v, non_blocking=True)
+        with tracing.span("serve.load"):
+            b = self.bucket(request, self.hints if hints is None else hints)
+            for k, v in request.items():
+                b.inputs[k].copy_(v, non_blocking=True)
         return b
 
     def replay_forward(self, b: _Bucket) -> dict:
         """Replay the forward alone (the part ``bench.py`` times)."""
-        b.forward_graph.replay()
+        with tracing.span("serve.replay"):
+            tracing.replay(b.forward_graph, b.forward_marks)
         self.replays += 1
         return b.out
 
@@ -159,5 +173,6 @@ class CompiledServer:
         valid)] a frame), the bucket's static tensors (see the class)."""
         b = self.load(request, hints)
         self.replay_forward(b)
-        b.detect_graph.replay()
+        with tracing.span("serve.replay"):
+            tracing.replay(b.detect_graph, b.detect_marks)
         return b.out, b.det

@@ -19,6 +19,7 @@ from .cvt_ref import CVTRefCameraEncoder
 from .fax import FAXCameraEncoder
 from .fax_ref import FAXRefCameraEncoder
 from .fusion import make_fusion
+from .. import tracing
 from ..nn import DTYPES, remat
 from .hetero_fusion import HeteroFusion
 from .layers import DetectionHead, NaiveCompressor, NaiveDecoder
@@ -166,6 +167,8 @@ class HMViT(nn.Module):
         map is gathered, cropped to H, before the decoder, which runs
         whole.
         A ``fusion_override`` fusion runs on the whole map.
+        With the tracer on (:mod:`hmvit_tpu_torch.tracing`), the lidar,
+        camera, fusion and decoder stages are marked.
         Returns {"psm": (B, A, H, W), "rm": (B, 7A, H, W)}."""
         if active_agents is not None:
             batch = {k: (v[:, :active_agents] if k in _SLICED else v)
@@ -188,9 +191,10 @@ class HMViT(nn.Module):
                   else frozenset())
 
         def stage(name, module, *args, **kwargs):
-            if name in stages:
-                return remat(module, *args, **kwargs)
-            return module(*args, **kwargs)
+            with tracing.mark(name, mode):
+                if name in stages:
+                    return remat(module, *args, **kwargs)
+                return module(*args, **kwargs)
 
         def run_lidar(p, m):
             return stage("lidar", self.lidar_encoder, p, m)
@@ -265,8 +269,9 @@ class HMViT(nn.Module):
                         f"fusion_override {self.fusion_override!r} takes the "
                         f"batch's prior_encoding, which it lacks")
                 kwargs["prior_encoding"] = batch["prior_encoding"]
-            ego = getattr(self, self.fusion_name)(x, mode, pairwise,
-                                                  agent_mask, **kwargs)
+            with tracing.mark("fusion", mode):
+                ego = getattr(self, self.fusion_name)(x, mode, pairwise,
+                                                      agent_mask, **kwargs)
         else:
             ego = stage("fusion", self.fusion, x, mode, pairwise, agent_mask,
                         static_modes=static_modes, sp=fusion_sp)
@@ -279,5 +284,7 @@ class HMViT(nn.Module):
         dec = self.config["hetero_decoder"]
         if dec.get("compute_dtype"):
             ego = ego.to(DTYPES[dec["compute_dtype"]])
-        psm, rm = self.HeteroDecoder_0(ego, mode[:, 0], static_ego_modality)
+        with tracing.mark("decoder", mode):
+            psm, rm = self.HeteroDecoder_0(ego, mode[:, 0],
+                                           static_ego_modality)
         return {"psm": psm.permute(0, 3, 1, 2), "rm": rm.permute(0, 3, 1, 2)}

@@ -3,8 +3,8 @@ wrapper that launches it for CUDA tensors and runs the kernel's plain
 PyTorch twin for CPU tensors.  :func:`plain_ops` forces the twins on
 CUDA tensors too — the comparison hook for tests and ``chip_smoke.py``,
 never a fallback.  A kernel's backward is its twin's recompute, inside a
-profiler range :func:`twin_backward` names (``tools/profile.py
---ranges`` rolls the device time up by it)."""
+profiler range :func:`hmvit_tpu_torch.tracing.twin_backward` names
+(``tools/profile.py --ranges`` rolls the device time up by it)."""
 from __future__ import annotations
 
 import contextlib
@@ -27,13 +27,3 @@ def use_kernel(x) -> bool:
     """True when ``x`` lies on a CUDA device and :func:`plain_ops` is off."""
     return bool(x.is_cuda) and not _PLAIN.get()
 
-
-TWIN_BACKWARD = "twin_backward:"
-
-
-def twin_backward(kernel: str):
-    """Profiler range around the backward of ``kernel``'s wrapper: its
-    plain twin's forward recompute and backward."""
-    import torch
-
-    return torch.profiler.record_function(TWIN_BACKWARD + kernel)

@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda, opcount, twin_backward, use_kernel
+from . import cuda, opcount, use_kernel
+from ..tracing import twin_backward
 from .shear_warp import _affine_coefficients, _pixel_affine, warp_bev_mxu
 from .warp import centered_affine, discretize_transform
 

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda, opcount, twin_backward, use_kernel
+from . import cuda, opcount, use_kernel
+from ..tracing import twin_backward
 from .fused_warp import _prep_affines, pair_warp_xla
 from .window_attention import (
     _recompute_grads,

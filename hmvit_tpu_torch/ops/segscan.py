@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda, twin_backward, use_kernel
+from . import cuda, use_kernel
+from ..tracing import twin_backward
 from .voxelize import segmented_scan
 
 

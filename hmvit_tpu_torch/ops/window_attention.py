@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from . import cuda, opcount, twin_backward, use_kernel
+from . import cuda, opcount, use_kernel
+from ..tracing import twin_backward
 
 
 def plain_window_attention_xla(q, k, v, bias, mask, heads: int,

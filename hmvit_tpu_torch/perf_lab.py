@@ -34,11 +34,11 @@ points on a 512^2 pillar grid, PFN width 64:
 * ``profile`` — the production bfloat16 server, split and
   ``use_fused_wa``: ms/frame of ``--iters`` requests (host clock, card
   synchronised) and ms per stage (lidar encoder, camera encoder, fusion,
-  decoder, decode + NMS; CUDA events at the stage's ends), then one
-  ``torch.profiler`` pass over 3 requests giving the device-busy ms and
-  the device operations (kernels, copies, memsets) of each stage and of
-  the frame, and the device-busy share of the frame.  It hooks the
-  model's stages to mark them; it changes no path;
+  decoder, decode + NMS; the program's stage marks, read with the
+  tracer on), then one ``torch.profiler`` pass over 3 requests giving
+  the device-busy ms and the device operations (kernels, copies,
+  memsets) of each stage's span and of the frame, and the device-busy
+  share of the frame;
 * ``batchnorm`` — ``nn.BatchNorm``'s train-mode statistics in their
   present form (Σx, Σx² and the count in one vector, the form a data
   group sums) against the former one (``mean`` reductions), on the
@@ -47,7 +47,19 @@ points on a 512^2 pillar grid, PFN width 64:
   ulps of the former, each layer's forward + backward in both forms
   summed over the step, and the whole step (``make_train_step``,
   ``half=True``, learning rate 0) with each form in turns (former,
-  present, present, former; ``min(--iters, 5)`` steps a turn).
+  present, present, former; ``min(--iters, 5)`` steps a turn);
+* ``tracer`` — what the program's tracer (``tracing.py``) reads, and
+  what it costs: on the production bfloat16 graph server, the device ms
+  a frame between each stage's marks in the replayed graphs against the
+  device-busy and host-to-device ms of 8 profiled frames, the spans and
+  syncs a frame, and the frame's host ms with the tracer off and on in
+  turns; on the production train step (``bench --train``'s, the numpy
+  request copied each step), the step's host ms off and on in turns
+  without the profiler, then a device-only trace of 2 steps with the
+  tracer on, placed on the spans' clock by ``tracing.anchor()``: the
+  device-idle ms under each outermost phase span (``request``,
+  ``train.forward``, ``train.backward``, ``train.optimizer``) and the
+  spans and syncs a step.
 
 Times are CUDA-event medians of ``--iters`` calls of the wrapper (inputs
 on the card, pose geometry included), each line with the card's name and
@@ -61,13 +73,16 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from . import tracing
 from .data.anchors import generate_anchor_grid
 from .data.synthetic import lidar_from_boxes, make_scene
 from .models.hmvit import HMViT
@@ -87,7 +102,6 @@ from .ops.window_attention import (
     fused_stripe_window_attention,
     fused_window_attention,
 )
-from .postprocess import decode_detections_device
 from .serving import (
     PROD_CFG,
     anchor_args,
@@ -454,10 +468,10 @@ def rehearsal_cfg() -> dict:
     return cfg
 
 
-# the stages of a frame: attribute of HMViT -> name in the report
-MODEL_STAGES = {"lidar_encoder": "lidar encoder",
-                "camera_encoder": "camera encoder", "fusion": "fusion",
-                "HeteroDecoder_0": "decoder"}
+# the stages of a frame: the program's stage mark -> name in the report
+MODEL_STAGES = {"lidar": "lidar encoder", "camera": "camera encoder",
+                "fusion": "fusion", "decoder": "decoder",
+                "decode_nms": "decode + NMS"}
 PROFILED_FRAMES = 3
 
 
@@ -481,39 +495,37 @@ def _busy_us(intervals):
     return busy
 
 
+def _serving_case(lab: Lab):
+    """(config, bf16, request shape, anchors, transform): the production
+    bfloat16 server on the card; without one, the rehearsal model in
+    float32 on requests at its widths."""
+    if lab.dev.type == "cuda":
+        cfg, bf16, shape = PROD_CFG, True, {}
+    else:
+        cfg, bf16 = rehearsal_cfg(), False
+        shape = dict(max_points=512, image_size=64, num_cams=2,
+                     lidar_range=cfg["lidar"]["lidar_range"])
+    anchors = torch.as_tensor(generate_anchor_grid(anchor_args(cfg), "hwl"),
+                              dtype=torch.float32, device=lab.dev)
+    return cfg, bf16, shape, anchors, torch.eye(4, device=lab.dev)
+
+
 def stage_profile(lab: Lab):
     """ms/frame and ms per stage without the profiler, then one profiler
     pass per server: the device-busy time and the device operations of
-    each stage and of the frame."""
+    each stage and of the frame.  The stages are the program's own marks
+    (:mod:`hmvit_tpu_torch.tracing`): on the card a stage's time runs
+    between its two CUDA events, here between its host span's ends."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    from .graph_server import _detect
 
     on_card = lab.dev.type == "cuda"
-    if on_card:
-        cfg, bf16, request = PROD_CFG, True, {}
-    else:
-        cfg, bf16 = rehearsal_cfg(), False
-        request = dict(max_points=512, image_size=64, num_cams=2,
-                       lidar_range=cfg["lidar"]["lidar_range"])
-    batches = [request_batch(seed, **request) for seed in range(3)]
+    cfg, bf16, shape, anchors, eye = _serving_case(lab)
+    batches = [request_batch(seed, **shape) for seed in range(3)]
     hints = serving_hints(batches[0]["mode"][0], 4)
     requests = [batch_to_device(b, lab.dev, bf16) for b in batches]
-    anchors = torch.as_tensor(generate_anchor_grid(anchor_args(cfg), "hwl"),
-                              dtype=torch.float32, device=lab.dev)
-    eye = torch.eye(4, device=lab.dev)
-    decode_name = "decode + NMS"
-    stage_names = (*MODEL_STAGES.values(), decode_name)
-
-    def now():
-        """A mark on the device's timeline (the host's without a card)."""
-        if not on_card:
-            return time.perf_counter()
-        mark = torch.cuda.Event(enable_timing=True)
-        mark.record()
-        return mark
-
-    def ms_between(a, b):
-        return a.elapsed_time(b) if on_card else (b - a) * 1e3
 
     activities = [ProfilerActivity.CPU]
     if on_card:
@@ -525,38 +537,27 @@ def stage_profile(lab: Lab):
             HMViT(serving_config(cfg, bf16=bf16, **knobs)), seed=0)
         model = (model.to(lab.dev, torch.bfloat16) if bf16
                  else model.to(lab.dev)).eval()
-        marks, open_spans, hooks = [], [], []
-
-        def enter(stage):
-            open_spans.append((record_function("stage: " + stage), stage,
-                               now()))
-            open_spans[-1][0].__enter__()
-
-        def leave():
-            span, stage, start = open_spans.pop()
-            span.__exit__(None, None, None)
-            marks.append((stage, start, now()))
-
-        for attr, stage in MODEL_STAGES.items():
-            module = getattr(model, attr)
-            hooks += [
-                module.register_forward_pre_hook(
-                    lambda m, args, kwargs, stage=stage: enter(stage),
-                    with_kwargs=True),
-                module.register_forward_hook(lambda m, args, out: leave())]
 
         def frame(i):
             """One request; its ms on the host clock and per stage."""
-            marks.clear()
-            t0 = time.perf_counter()
-            out = model(requests[i % len(requests)], **hints)
-            enter(decode_name)
-            decode_detections_device(out["psm"], out["rm"], anchors, eye)
-            leave()
+            with tracing.on() as tracer:
+                t0 = time.perf_counter()
+                _detect(model(requests[i % len(requests)], **hints),
+                        anchors, eye)
+                if on_card:
+                    torch.cuda.synchronize()
+                total = (time.perf_counter() - t0) * 1e3
+            record = tracer.collect()
+            stages = dict.fromkeys(MODEL_STAGES, 0.0)
             if on_card:
-                torch.cuda.synchronize()
-            total = (time.perf_counter() - t0) * 1e3
-            return total, {stage: ms_between(a, b) for stage, a, b in marks}
+                for s in record["stages"]:
+                    stages[s["name"]] += s["ms"]
+            else:
+                for s in record["spans"]:
+                    if s["name"] in stages:
+                        stages[s["name"]] += (s["end_us"] - s["start_us"]) \
+                            * 1e-3
+            return total, stages
 
         frames = [frame(i) for i in range(2 + lab.iters)][2:]  # 2 warm-ups
         totals = [total for total, _ in frames]
@@ -569,30 +570,27 @@ def stage_profile(lab: Lab):
             for i in range(PROFILED_FRAMES):
                 frame(i)
         window_ms = (time.perf_counter() - t0) * 1e3
-        for hook in hooks:
-            hook.remove()
         events = prof.events()
         # what ran on the card: kernels, copies and memsets, not the
-        # stage marks the tracer mirrors onto the device's timeline
+        # stage spans the tracer mirrors onto the device's timeline
         device = [e for e in events if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation]
         rows = {}
         for e in events:
-            if e.device_type == DeviceType.CPU and \
-                    e.name.startswith("stage: "):
-                row = rows.setdefault(e.name[len("stage: "):], [0.0, 0])
+            if e.device_type == DeviceType.CPU and e.name in MODEL_STAGES:
+                row = rows.setdefault(e.name, [0.0, 0])
                 dev_us, count = _subtree_kernels(e)
                 row[0] += dev_us / 1e3
                 row[1] += count
         per = 1.0 / PROFILED_FRAMES
-        for stage in stage_names:
+        for stage, label in MODEL_STAGES.items():
             stage_ms = float(np.median([st[stage] for _, st in frames]))
             dev_ms, count = rows.get(stage, (0.0, 0))
             dev_txt = (f"device busy {dev_ms * per:.2f} ms in "
                        f"{count * per:.0f} device operations a frame under "
                        f"the profiler" if device
                        else "device-busy time not measured")
-            lab.report(f"profile [{server}] {stage}: median {stage_ms:.2f} "
+            lab.report(f"profile [{server}] {label}: median {stage_ms:.2f} "
                        f"ms/frame between its first and last operation, no "
                        f"profiler; {dev_txt}")
         if device:
@@ -610,6 +608,252 @@ def stage_profile(lab: Lab):
         del model
         if on_card:
             torch.cuda.empty_cache()
+
+
+TRACER_FRAMES = 16  # a tracer pass over served frames
+BUSY_FRAMES = 8  # the profiled frames busy and h2d time are read over
+TRACED_STEPS = 2  # the train steps of the traced stretch
+PHASES = ("request", "train.forward", "train.backward", "train.optimizer")
+
+
+def _chrome_trace(prof) -> dict:
+    """The profiler's session exported as a chrome trace."""
+    from .tools.profile import load_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        return load_trace(path)
+
+
+def _device_ops(trace: dict) -> list[dict]:
+    """The kernels, copies and memsets of a chrome trace."""
+    from .tools.profile import DEVICE_CATEGORIES
+
+    return [ev for ev in trace.get("traceEvents", [])
+            if ev.get("ph") == "X" and ev.get("cat") in DEVICE_CATEGORIES]
+
+
+def span_table(spans: list[dict], first_unit: int = 0) -> dict:
+    """{name: [ms, self ms, syncs]} summed over the spans of the frames or
+    steps from ``first_unit`` on (self: less what its child spans
+    cover)."""
+    table = {}
+    for s, own in zip(spans, tracing.self_us(spans)):
+        if s["unit"] >= first_unit:
+            row = table.setdefault(s["name"], [0.0, 0.0, 0])
+            row[0] += (s["end_us"] - s["start_us"]) * 1e-3
+            row[1] += own * 1e-3
+            row[2] += s["syncs"]
+    return table
+
+
+def idle_by_phase(spans: list[dict], offset_us: float, device: list,
+                  first_unit: int = 0, phases=PHASES) -> dict:
+    """{phase: device-idle us while it was the outermost open phase span}
+    and ``"all"``, every idle us from the first phase span's start to the
+    last device operation's end, over the steps from ``first_unit`` on.
+    ``offset_us``: the trace's clock less the spans' (the anchor's);
+    ``device``: (start, end) us of the device's operations on the
+    trace's clock."""
+    def outermost(s):
+        p = s["parent"]
+        while p is not None:
+            if spans[p]["name"] in phases:
+                return False
+            p = spans[p]["parent"]
+        return True
+
+    read = [(s["name"], s["start_us"] + offset_us, s["end_us"] + offset_us)
+            for s in spans if s["name"] in phases
+            and s["unit"] >= first_unit and outermost(s)]
+    out = dict.fromkeys(phases, 0.0)
+    out["all"] = 0.0
+    if not read or not device:
+        return out
+    edge = min(a for _, a, _ in read)
+    for a, b in sorted(device):
+        if a > edge:
+            out["all"] += a - edge
+            for phase, s, e in read:
+                out[phase] += max(0.0, min(a, e) - max(edge, s))
+        edge = max(edge, b)
+    return out
+
+
+def _on_cost(one, turns, reps: int, sync) -> tuple[float, float]:
+    """Median host ms of ``one()`` with the tracer off and on, run in
+    ``turns`` ("off" / "on") of ``reps`` calls, the card synchronised
+    around each call."""
+    ms = {"off": [], "on": []}
+    for turn in turns:
+        with tracing.on() if turn == "on" else contextlib.nullcontext():
+            for i in range(reps):
+                sync()
+                t0 = time.perf_counter()
+                one(i)
+                sync()
+                ms[turn].append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms["off"])), float(np.median(ms["on"]))
+
+
+def _table_text(table: dict, per: int, names) -> str:
+    return ", ".join(
+        f"{name} {table[name][0] / per:.3f} / {table[name][1] / per:.3f} ms"
+        f" / {table[name][2] / per:g} syncs" for name in names
+        if name in table)
+
+
+def stage_tracer(lab: Lab):
+    """What the program's tracer (:mod:`hmvit_tpu_torch.tracing`) reads
+    on the production server and train step, and what it costs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import bench
+    from .graph_server import CompiledServer, _detect
+
+    on_card = lab.dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg, bf16, shape, anchors, eye = _serving_case(lab)
+    frames = TRACER_FRAMES if on_card else 2
+    batches = [request_batch(seed, **shape) for seed in range(4)]
+    hints = serving_hints(batches[0]["mode"][0], 4)
+    model = init_parameters(HMViT(serving_config(cfg, bf16=bf16)), seed=0)
+    model = (model.to(lab.dev, torch.bfloat16) if bf16
+             else model.to(lab.dev)).eval()
+    if on_card:
+        server = CompiledServer(model, hints, batch_to_device(
+            batches[0], lab.dev, bf16), anchors, eye)
+
+        def detect(request):
+            return server(request)[1]
+    else:  # no graphs without a card: the eager frame they capture
+        def detect(request):
+            return _detect(model(request, **hints), anchors, eye)
+
+    def frame(i):
+        """A served frame: numpy request to boxes on the host."""
+        request = batch_to_device(batches[i % len(batches)], lab.dev, bf16)
+        return [(c.cpu(), s.cpu(), v.cpu()) for c, s, v in detect(request)]
+
+    for i in range(len(batches)):
+        frame(i)
+    with tracing.on():  # the traced twin of the bucket is captured
+        frame(0)
+    sync()
+    if on_card:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(BUSY_FRAMES):
+                frame(i)
+            sync()
+        ops = _device_ops(_chrome_trace(prof))
+        busy = _busy_us([(ev["ts"], ev["ts"] + ev["dur"]) for ev in ops]) \
+            * 1e-3 / BUSY_FRAMES
+        h2d = sum(ev["dur"] for ev in ops if ev["cat"] == "gpu_memcpy"
+                  and "htod" in ev["name"].lower()) * 1e-3 / BUSY_FRAMES
+    with tracing.on() as tracer:
+        first = tracer.unit + 1
+        for i in range(frames):
+            frame(i)
+    record = tracer.collect()
+    if on_card:
+        stages = dict.fromkeys(MODEL_STAGES, 0.0)
+        for s in record["stages"]:
+            if s["graph"] and s["unit"] >= first:
+                stages[s["name"]] += s["ms"] / frames
+        total = sum(stages.values())
+        lab.report(
+            f"tracer [serve] device ms a frame between each stage's marks "
+            f"in the replayed graphs, {frames} frames: " + " / ".join(
+                f"{name} {ms:.3f}" for name, ms in stages.items())
+            + f" (sum {total:.3f}); device busy {busy:.3f} ms and "
+            f"host-to-device copies {h2d:.3f} ms a frame over "
+            f"{BUSY_FRAMES} profiled frames, tracer off: stages + copies "
+            f"= {100.0 * (total + h2d) / busy:.1f}% of busy")
+    else:
+        lab.report("tracer [serve] graph stage ms: not measured (no "
+                   "graphs or device without a card)")
+    table = span_table(record["spans"], first)
+    lab.report(f"tracer [serve] spans a frame (ms / self ms / syncs), "
+               f"{frames} frames: " + _table_text(
+                   table, frames, ("request", "serve.load", "serve.replay",
+                                   *MODEL_STAGES))
+               + f"; syncs outside any span "
+               f"{record['syncs_outside'] / frames:g} a frame")
+    off, on = _on_cost(frame, ("off", "on", "on", "off", "off", "on"),
+                       len(batches), sync)
+    lab.report(f"tracer [serve] a frame, request to boxes on the host "
+               f"(host clock): median {off:.3f} ms tracer off, {on:.3f} ms "
+               f"on ({100.0 * (on / off - 1):+.1f}%), turns off / on / on "
+               f"/ off / off / on of {len(batches)} frames")
+    del model, detect, frame
+    if on_card:
+        del server
+        torch.cuda.empty_cache()
+
+    args = argparse.Namespace(cpu=not on_card, stem_s2d=False,
+                              no_remat=False, remat_stages=None, batch=1,
+                              bucketed=False)
+    with torch.enable_grad():
+        state, step, _, labels = bench.build_train(args, lab.dev)
+        batch = request_batch(0, num_agents=bench.NUM_AGENTS, **shape)
+
+        def one(_=0):
+            step(state, batch_to_device(batch, lab.dev, False), labels,
+                 bench.TRAIN_SEED)
+
+        for _ in range(2):
+            one()
+        off, on = _on_cost(one, ("off", "on", "on", "off"),
+                           min(lab.iters, 5), sync)
+        lab.report(f"tracer [train] a step, numpy request to the update "
+                   f"(host clock, no profiler): median {off:.3f} ms tracer "
+                   f"off, {on:.3f} ms on ({100.0 * (on / off - 1):+.1f}%), "
+                   f"turns off / on / on / off of {min(lab.iters, 5)} steps")
+        profiler = (profile(activities=[ProfilerActivity.CUDA]) if on_card
+                    else contextlib.nullcontext())
+        with tracing.on() as tracer, profiler as prof:
+            one()  # not read: a session's first kernels can miss its trace
+            sync()
+            first = tracer.unit + 1
+            t0 = time.perf_counter()
+            for _ in range(TRACED_STEPS):
+                one()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3 / TRACED_STEPS
+            tracing.anchor()
+    record = tracer.collect()
+    if on_card:
+        trace = _chrome_trace(prof)
+        offset = tracing.trace_offset_us(trace, record["anchors"][0])
+        idle = idle_by_phase(
+            record["spans"], offset,
+            [(ev["ts"], ev["ts"] + ev["dur"]) for ev in _device_ops(trace)],
+            first)
+        covered = sum(idle[p] for p in PHASES)
+        lab.report(
+            f"tracer [train] device-idle ms a step by the outermost phase "
+            f"open, device-only trace of {TRACED_STEPS} steps with the "
+            f"tracer on ({wall:.3f} ms a step): " + " / ".join(
+                f"{p} {idle[p] * 1e-3 / TRACED_STEPS:.3f}" for p in PHASES)
+            + f" of {idle['all'] * 1e-3 / TRACED_STEPS:.3f} idle "
+            f"({100.0 * covered / max(idle['all'], 1e-9):.1f}% covered)")
+    else:
+        lab.report("tracer [train] device-idle ms by phase: not measured "
+                   "(no device trace without a card)")
+    table = span_table(record["spans"], first)
+    lab.report(f"tracer [train] spans a step (ms / self ms / syncs), "
+               f"{TRACED_STEPS} steps: " + _table_text(
+                   table, TRACED_STEPS, PHASES)
+               + f"; syncs outside any span {record['syncs_outside']:g}")
+    del state, step
+    if on_card:
+        torch.cuda.empty_cache()
 
 
 def _stats_by_mean(self, x):
@@ -752,6 +996,7 @@ STAGES = {
     "lidar": stage_lidar,
     "profile": stage_profile,
     "batchnorm": stage_batchnorm,
+    "tracer": stage_tracer,
 }
 
 

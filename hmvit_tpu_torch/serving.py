@@ -10,6 +10,8 @@ import copy
 import numpy as np
 import torch
 
+from . import tracing
+
 PROD_RANGE = [-102.4, -102.4, -3.0, 102.4, 102.4, 1.0]
 
 # The production model (the port's copy of ``bench.py``'s ``PROD_CFG``):
@@ -140,11 +142,13 @@ def anchor_args(cfg: dict) -> dict:
 
 def batch_to_device(batch, device, bf16: bool):
     """numpy batch -> tensors on ``device``; with ``bf16``, every float32
-    array but the geometry in bfloat16."""
+    array but the geometry in bfloat16.  With the tracer on, the
+    ``request`` span, which starts the next frame or step id."""
     out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.asarray(v)).to(device)
-        if bf16 and t.dtype == torch.float32 and k not in GEOMETRY_KEYS:
-            t = t.to(torch.bfloat16)
-        out[k] = t
+    with tracing.span("request", new_unit=True):
+        for k, v in batch.items():
+            t = torch.from_numpy(np.asarray(v)).to(device)
+            if bf16 and t.dtype == torch.float32 and k not in GEOMETRY_KEYS:
+                t = t.to(torch.bfloat16)
+            out[k] = t
     return out

@@ -23,7 +23,7 @@ overlap are counted each in full.
 launched inside each profiler range whose name starts with PREFIX (a
 ``torch.profiler.record_function``): ``--ranges twin_backward:`` gives
 the device time of the kernels' plain-twin backward
-(:func:`hmvit_tpu_torch.ops.twin_backward`) by kernel and class.  A
+(:func:`hmvit_tpu_torch.tracing.twin_backward`) by kernel and class.  A
 device operation belongs to a range when the host call that launched it
 (the runtime event of the same correlation id) lies inside the range on
 the same thread.

@@ -14,6 +14,11 @@ before the loss.  The optimizer updates the float32 masters.
 Dropout draws from a generator seeded from (seed, step), the
 counterpart of ``jax.random.fold_in(rng, state.step)``.
 
+With the tracer on (:mod:`hmvit_tpu_torch.tracing`) a step opens three
+spans: ``train.forward`` (the bf16 casts, the forward, the loss),
+``train.backward`` and ``train.optimizer`` (the zero-filled gradients,
+the data-parallel sum, the update).
+
 A state that steps under a mesh (``parallel.replicate_state`` /
 ``shard_state_tp``) takes its rank's shard of the batch: the forward
 and loss run under ``parallel.collectives.data_parallel`` (global
@@ -33,6 +38,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from .. import tracing
 from ..nn import dropout_rng
 from ..parallel.collectives import data_parallel
 from .losses import point_pillar_loss
@@ -122,31 +128,35 @@ def _make_train_step(model, opt, loss_fn, loss_kwargs, half, schedule,
         device = next(model.parameters()).device
         model.train()
         model.zero_grad(set_to_none=True)
-        batch_in = _to_bf16(batch) if half else batch
         group = _data_axis(state)
         with dropout_rng(step_generator(seed, state.step, device)), \
                 data_parallel(group):
-            if half:
-                params = _to_bf16(dict(model.named_parameters()))
-                out = torch.func.functional_call(model, params, (batch_in,),
-                                                 apply_kwargs)
-                out = {k: v.to(torch.float32) for k, v in out.items()}
-            else:
-                out = model(batch_in, **apply_kwargs)
-            total, parts = loss_fn(out, labels, **loss_kwargs)
-            total.backward()
-        for p in trained:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        parts = {k: v.detach() for k, v in parts.items()}
-        if group is not None:
-            _sum_over([p.grad for p in trained], group)
-            _sum_over(list(parts.values()), group)
-        if schedule is not None:
-            lr = schedule(state.step)
-            for group in opt.param_groups:
-                group["lr"] = lr
-        opt.step()
+            with tracing.span("train.forward"):
+                batch_in = _to_bf16(batch) if half else batch
+                if half:
+                    params = _to_bf16(dict(model.named_parameters()))
+                    out = torch.func.functional_call(model, params,
+                                                     (batch_in,),
+                                                     apply_kwargs)
+                    out = {k: v.to(torch.float32) for k, v in out.items()}
+                else:
+                    out = model(batch_in, **apply_kwargs)
+                total, parts = loss_fn(out, labels, **loss_kwargs)
+            with tracing.span("train.backward"):
+                total.backward()
+        with tracing.span("train.optimizer"):
+            for p in trained:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            parts = {k: v.detach() for k, v in parts.items()}
+            if group is not None:
+                _sum_over([p.grad for p in trained], group)
+                _sum_over(list(parts.values()), group)
+            if schedule is not None:
+                lr = schedule(state.step)
+                for group in opt.param_groups:
+                    group["lr"] = lr
+            opt.step()
         state.step += 1
         return state, parts
 

@@ -1,7 +1,8 @@
 """The port's stage-timing entry point, ``hmvit_tpu_torch.perf_lab``:
 its CPU rehearsal drives every stage (fusion, segmented scan, expansion,
-lidar, the per-stage profile of the serving frame and the BatchNorm
-statistics' two forms in a train step, on a model of the production
+lidar, the per-stage profile of the serving frame, the BatchNorm
+statistics' two forms in a train step and the program's tracer over
+served frames and train steps, on a model of the production
 structure at test widths) through the kernels' plain twins at
 a tiny size (the stages' own
 bit-for-bit assertions hold there too), it
@@ -22,7 +23,7 @@ def _one_thread():
 @pytest.mark.parametrize("stage,lines", [
     ("attn", 2), ("pairwarp", 2), ("pairwarp_res", 6), ("fused_wa", 3),
     ("segscan", 2), ("expand", 4), ("lidar", 4), ("profile", 14),
-    ("batchnorm", 2)])
+    ("batchnorm", 2), ("tracer", 6)])
 def test_cpu_rehearsal_runs_stage(stage, lines, capsys):
     assert perf_lab.main(["--cpu", "--iters", "1", stage]) == 0
     out = capsys.readouterr().out.strip().splitlines()
@@ -54,7 +55,8 @@ def test_stages_cover_the_production_shapes():
     assert s.voxel_size == pytest.approx((0.4, 0.4, 4.0))
     assert sorted(perf_lab.STAGES) == ["attn", "batchnorm", "expand",
                                        "fused_wa", "lidar", "pairwarp",
-                                       "pairwarp_res", "profile", "segscan"]
+                                       "pairwarp_res", "profile", "segscan",
+                                       "tracer"]
 
 
 def test_profile_stage_reports_every_stage_of_both_servers(capsys):
@@ -96,6 +98,51 @@ def test_profile_helpers():
     a, b = chip_smoke.prod_batch(1), request_batch(1)
     assert sorted(a) == sorted(b)
     assert all((a[k] == b[k]).all() for k in a)
+
+
+def span(name, start, end, unit, parent=None, syncs=0):
+    return {"name": name, "start_us": float(start), "end_us": float(end),
+            "unit": unit, "parent": parent, "syncs": syncs}
+
+
+def test_idle_by_outermost_phase():
+    """Idle device time falls to the outermost phase span open over it,
+    on the trace's clock (the spans' + the anchor's offset), from the
+    first read step on."""
+    # host clock + 1000 = trace clock; one step: request [0, 10), forward
+    # [10, 40) with a stage span inside, backward [40, 70) with a twin's
+    # range inside, optimizer [70, 90); device busy [5, 12), [20, 45),
+    # [60, 95): idle [0, 5) request, [12, 20) forward, [45, 60) backward
+    spans = [span("request", -900, -890, 0, syncs=7),  # a step not read
+             span("request", 0, 10, 1), span("train.forward", 10, 40, 1),
+             span("camera", 12, 30, 1, parent=2),
+             span("train.backward", 40, 70, 1),
+             span("twin_backward:pair_warp", 45, 60, 1, parent=4),
+             span("train.optimizer", 70, 90, 1, syncs=2)]
+    device = [(1020.0, 1045.0), (1005.0, 1012.0), (1060.0, 1095.0)]
+    assert perf_lab.idle_by_phase(spans, 1000.0, device, 1) == {
+        "request": 5.0, "train.forward": 8.0, "train.backward": 15.0,
+        "train.optimizer": 0.0, "all": 28.0}
+    # a phase span nested in another is not the outermost: not charged
+    nested = spans + [span("request", 14, 16, 1, parent=2)]
+    assert perf_lab.idle_by_phase(nested, 1000.0, device, 1)["request"] \
+        == 5.0
+    # the unread step's idle counts once it is read
+    assert perf_lab.idle_by_phase(spans, 1000.0, device, 0)["all"] > 28.0
+    assert perf_lab.idle_by_phase(spans, 1000.0, [], 1)["all"] == 0.0
+
+
+def test_span_table_sums_time_self_time_and_syncs():
+    spans = [span("request", 0, 100, 0, syncs=5),  # a frame not read
+             span("request", 1000, 1300, 1, syncs=12),
+             span("train.forward", 1300, 2300, 1, syncs=1),
+             span("camera", 1400, 1900, 1, parent=2),
+             span("request", 3000, 3500, 2, syncs=12)]
+    table = perf_lab.span_table(spans, first_unit=1)
+    assert table["request"] == pytest.approx([0.8, 0.8, 24])
+    assert table["train.forward"] == pytest.approx([1.0, 0.5, 1])
+    assert table["camera"] == pytest.approx([0.5, 0.5, 0])
+    assert perf_lab.span_table(spans)["request"][2] == 29
 
 
 def test_dense_clouds_fill_runs_up_to_the_cap():
