@@ -50,7 +50,13 @@ Phases:
    the dense and long-run cases' times under ``dense_`` and
    ``long_run_``); the expansions' library call is ``torch.zeros`` +
    ``index_copy_`` (the scan has none), and each
-   expansion kernel's time is printed over it as a ratio.  These
+   expansion kernel's time is printed over it as a ratio.  The
+   multi-scale deformable attention kernel (the port's own, no Pallas
+   counterpart) is held to its twin at the ``bevformer_ref`` cell's two
+   launches (``DEFORM_CASES``) in float32 (``DEFORM_F32_TOL``) and
+   bfloat16 (and within half an output ulp of the float32 twin), and
+   timed in both types beside the twin and its bound; no library call
+   computes it.  These
    kernels run for less time than their host launch takes, so for them
    and their library call the script also reads the device time alone
    (``device_ms``: 20 calls captured in a CUDA graph and replayed) as
@@ -179,7 +185,8 @@ Phases:
    VoVNet-19 / 39, ``compression: 2``, and the reference twins
    ``fax_ref``, ``cvt_ref`` and ``bevformer_ref``), float32: the kernels'
    forward against ``plain_ops()`` (which launches nothing) within
-   ``FORWARD_ATOL``, the launches a served frame's, and the forward
+   ``FORWARD_ATOL``, the launches a served frame's (``bevformer_ref``:
+   the deformable attention kernel twice a layer), and the forward
    captured in a CUDA graph (``CompiledServer``) equal to the eager one
    bit for bit; the twins' plain forward also against the same model's
    CPU forward within ``SEG_LIDAR_ATOL`` of scale; (d) the deformable
@@ -229,7 +236,7 @@ Phases:
    ``PixorIntermediate``, ``second_intermediate``), weights from seed
    0, float32 with TF32 off on the card against the same model's CPU
    forward: every output within ``SEG_LIDAR_ATOL`` over max(1, max
-   |x|), no launch of any of the nine kernels; (b) ``tools.train
+   |x|), no launch of any of the ten kernels; (b) ``tools.train
    --synthetic --half`` at published widths (``SEG_LIDAR_TRAIN``, 3 steps
    each: ``opcamera/cvt.yaml`` with the map ground truth of
    ``add_data_extension``, ``opcamera/corpbevt.yaml``,
@@ -259,8 +266,9 @@ Phases:
    bit for bit, and convert -> export -> convert bit for bit (decoder
    conv biases non-zero); (b) ``tools.inference --bf16
    --serving_buckets`` on the run directory, as phase 10 (b): fps, p50 /
-   p95, each bucket's launches a frame held (K1 4, K2 2, K3 2 and every
-   other kernel 0), each stage's output type on one frame and the peak
+   p95, each bucket's launches a frame held (K1 4, K2 2, K3 2,
+   ``ms_deform_attn`` 6 with a camera agent and 0 without, every other
+   kernel 0), each stage's output type on one frame and the peak
    device memory printed (the run's few frames hold the buckets'
    captures), then one bucket served ``TWIN_STEADY_FRAMES`` more times
    after its capture: the steady p50 / p95; (c) one frame graph == eager
@@ -273,8 +281,10 @@ Phases:
    with ``bevformer_ref`` (the standalone ``RefBEVFormerDetector``) at
    the smoke widths: written in the reference's names by the port's
    exporters, converted by the CLI (bit for bit), served by
-   ``tools.inference --bf16`` (AP not held, fps, no launch).  The
-   kernels line gains ``reference_twin_launches`` (the rows of K3 at
+   ``tools.inference --bf16`` (AP not held, fps, the deformable
+   attention kernel's launches only).  The kernels line gains
+   ``reference_twin_launches`` (``ms_deform_attn``'s record counts its
+   launches from this phase; the rows of K3 at
    V2X-ViT's windows: the phase's launches at that T); the phase prints
    its length;
 15. the host-side remainder (no kernel of its own; the kernels line is
@@ -408,7 +418,11 @@ BF16_ATOL = {"pair_warp": 0.0625, "pair_warp_resident": 0.0625,
              "stripe_window_attention": 0.0313,
              "plain_window_attention": 0.0313,
              "typed_window_attention": 0.0313,
-             "warp_window_attention": 0.125}
+             "warp_window_attention": 0.125,
+             # the bf16 twin rounds wx and each lerp step to bf16, the
+             # kernel keeps them in float32 (held to the float32 twin
+             # within half an output ulp besides)
+             "ms_deform_attn": 0.0625}
 # full float32 forward, kernels vs plain twins: kernel rounding noise
 # (~1e-6 relative) carried through the decoder
 FORWARD_ATOL = 2e-3
@@ -598,6 +612,10 @@ KERNEL_META = {
                     "hmvit_tpu/ops/expand.py:30"),
     "expand_rows_v2": ("hmvit_tpu_torch/csrc/expand.cu",
                        "hmvit_tpu/ops/expand.py:122"),
+    # the port's own kernel: the JAX package leaves this to XLA gathers
+    "ms_deform_attn": ("hmvit_tpu_torch/csrc/ms_deform_attn.cu",
+                       "hmvit_tpu/ops/sampling.py:48 (XLA gathers, no "
+                       "Pallas kernel)"),
 }
 
 # kernels whose bfloat16 launches run on the tensor cores (their float32
@@ -613,7 +631,8 @@ KERNEL_PATH = {"pair_warp": "split", "stripe_window_attention": "split",
                "pair_warp_resident": "perf_lab",
                "typed_window_attention": "perf_lab",
                "segmented_max_scan": "perf_lab",
-               "expand_rows": "expand_v1", "expand_rows_v2": "expand_v2"}
+               "expand_rows": "expand_v1", "expand_rows_v2": "expand_v2",
+               "ms_deform_attn": "reference_twin"}
 
 # published peaks of one H100 SXM (dense): device memory bytes/s, and
 # operations/s by input type (bf16 on the tensor cores, float32 outside)
@@ -1558,6 +1577,115 @@ def check_lidar_kernels(dev, points, points_mask):
     return record
 
 
+# multi-scale deformable attention (csrc/ms_deform_attn.cu) at the
+# BEVFormer twin's launches in the hmvit_bevformer_ref cell: (value (B, K,
+# H, D), locations (B, Q, H, L, P, 2), levels).  "sca": the spatial
+# cross-attention (2 camera agents x 4 cameras on the 16^2 C5 map), "tsa":
+# the temporal self-attention (the 2-slot queue of 2 agents on the 128^2
+# BEV); 3 of each a frame
+DEFORM_CASES = {"sca": ((8, 256, 8, 32), (8, 16384, 8, 1, 8, 2), [(16, 16)]),
+                "tsa": ((4, 16384, 8, 32), (4, 16384, 8, 1, 4, 2),
+                        [(128, 128)])}
+# float32 kernel vs twin: the same arithmetic, the gemv's other order
+DEFORM_F32_TOL = 1e-5
+
+
+def deform_inputs(dev, value_shape, loc_shape, dtype, seed=0, lo=-0.1,
+                  hi=1.1):
+    """Seeded value, float32 locations in [lo, hi] with exact edges (0 and
+    1: the taps outside read zero) and far-outside points, and weights
+    normalised over (L, P)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    value = torch.randn(value_shape, generator=gen, device=dev).to(dtype)
+    loc = torch.rand(loc_shape, generator=gen, device=dev) * (hi - lo) + lo
+    flat = loc.view(-1, 2)
+    n = flat.shape[0]
+    flat[0:n:7] = 0.0
+    flat[1:n:11] = 1.0
+    flat[2:n:13, 0] = 1.0
+    flat[3:n:17] = torch.tensor([-3.0, 5.0], device=dev)
+    flat[4:n:19, 1] = -1e-3
+    b, q, h, l, p = loc_shape[:5]
+    logits = torch.randn((b, q, h, l * p), generator=gen, device=dev)
+    w = torch.softmax(logits, -1).reshape(b, q, h, l, p).to(dtype)
+    return value, loc, w
+
+
+def check_deform_kernel(dev):
+    """Phase 2, multi-scale deformable attention: at the BEVFormer twin's
+    two launches (``DEFORM_CASES``), in float32 (the cell's type but for
+    the first temporal self-attention) and bfloat16, the kernel against
+    its twin (float32 within ``DEFORM_F32_TOL``, bfloat16 within phase 2's
+    tolerance and within half an output ulp of the float32 twin on the
+    same operands); the kernel alone (``ms``, and ``device_ms`` from a
+    CUDA graph of 20), the wrapper and the twin timed, and the bound: the
+    locations and weights read, the value once and the output written
+    once, at the memory rate.  No single library call computes it."""
+    import torch
+
+    from hmvit_tpu_torch.ops import cuda, plain_ops
+    from hmvit_tpu_torch.ops.sampling import (
+        ms_deform_attn,
+        ms_deform_attn_launch,
+        ms_deform_attn_xla,
+    )
+    from hmvit_tpu_torch.utils.precision import strict_fp32
+
+    rec = None
+    for case, (value_shape, loc_shape, shapes) in DEFORM_CASES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            key = "float32" if dt == torch.float32 else "bfloat16"
+            value, loc, w = deform_inputs(dev, value_shape, loc_shape, dt)
+            before = cuda.MS_DEFORM_ATTN.launches
+            with strict_fp32():
+                got = ms_deform_attn(value, shapes, loc, w)
+                with plain_ops():
+                    want = ms_deform_attn(value, shapes, loc, w)
+                    want32 = ms_deform_attn_xla(value.float(), shapes, loc,
+                                                w.float())
+            torch.cuda.synchronize()
+            if cuda.MS_DEFORM_ATTN.launches != before + 1:
+                raise AssertionError(f"ms_deform_attn {case} {key}: the "
+                                     f"kernel did not launch")
+            err = float((got.float() - want.float()).abs().max())
+            ulp = float(((got.float() - want32).abs()
+                         / (want32.abs() * 2.0 ** -8 + 1e-5)).max())
+            tol = DEFORM_F32_TOL if key == "float32" else \
+                BF16_ATOL["ms_deform_attn"]
+            print(f"  ms_deform_attn [{case}, {key}]: max_abs_err "
+                  f"{err:.3e} (tol {tol}); against the float32 twin "
+                  f"{ulp:.3f} of half an output ulp")
+            if not err <= tol or (key == "bfloat16" and not ulp <= 1.0):
+                raise AssertionError(f"ms_deform_attn {case} {key}: kernel "
+                                     f"vs twin {err}, {ulp} of half an ulp")
+            launch, out = ms_deform_attn_launch(value, shapes, loc, w)
+            k_ms = time_ms(launch)
+            k_dev = device_ms(launch)
+            w_ms = time_ms(lambda: ms_deform_attn(value, shapes, loc, w))
+            with strict_fp32(), plain_ops():
+                p_ms = time_ms(lambda: ms_deform_attn(value, shapes, loc,
+                                                      w))
+            # operations: per output element and point the three lerps
+            # (6 products, 3 sums) and the weighted sum (2)
+            b_ms, b_by = bound_ms((value, loc, w), out,
+                                  11.0 * out.numel() * loc[0, 0, 0].numel()
+                                  / 2, key)
+            print(f"  ms_deform_attn [{case}, {key}]: kernel {k_ms:.4f} ms "
+                  f"(device {k_dev:.4f}), wrapper {w_ms:.4f} ms, plain twin "
+                  f"{p_ms:.4f} ms, library call none, bound {b_ms:.4f} ms "
+                  f"({b_by}, {100 * b_ms / k_dev:.0f}% of device)")
+            timed = {"ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            if rec is None:  # the cross-attention in float32 heads it
+                rec = dict(timed, cases={})
+            rec["cases"][f"{case} {key}"] = dict(timed, max_abs_err=err)
+            del value, loc, w, got, want, want32, launch, out
+            torch.cuda.empty_cache()
+    return {"ms_deform_attn": rec}
+
+
 def frame_line(rows) -> str:
     """Median, min and max ms/frame of (forward ms, decode + NMS ms)
     rows, and the medians of the two parts."""
@@ -1727,6 +1855,8 @@ TRAIN_BENCH_RUNS = (("--train",), ("--train", "--no_remat"),
                     ("--train", "--bucketed"))
 TRAIN_KERNELS = ("pair_warp", "stripe_window_attention",
                  "plain_window_attention")
+# the kernels a served frame of the bevformer_ref twin launches
+TWIN_KERNELS = TRAIN_KERNELS + ("ms_deform_attn",)
 
 
 def train_launches(cfg: dict) -> dict:
@@ -1750,6 +1880,8 @@ def train_launches(cfg: dict) -> dict:
                 "stripe_window_attention": iters * fusion,
                 "plain_window_attention": iters * fusion}
     want["plain_window_attention"] += camera * camera_attention_layers(cfg)
+    if deform_launches(cfg):
+        want["ms_deform_attn"] = camera * deform_launches(cfg)
     return want
 
 
@@ -1781,6 +1913,8 @@ def model_launches(model_cfg: dict) -> dict:
     want = fusion_launches(fusions.get(name))
     if "camera" in args and name not in zoo._LIDAR_FUSIONS:
         want["plain_window_attention"] += camera_attention_layers(args)
+        if deform_launches(args):
+            want["ms_deform_attn"] = deform_launches(args)
     return want
 
 
@@ -1796,6 +1930,17 @@ def camera_attention_layers(cfg: dict) -> int:
     return cam.get("num_layers", 3)
 
 
+def deform_launches(cfg: dict) -> int:
+    """The camera encoder's multi-scale deformable attentions
+    (``ms_deform_attn`` launches) a forward: one a temporal
+    self-attention and one a spatial cross-attention of each layer of the
+    ``bevformer_ref`` twin, none in any other camera encoder."""
+    cam = cfg.get("camera", {})
+    if cam.get("encoder") != "bevformer_ref":
+        return 0
+    return 2 * cam.get("num_layers", 3)
+
+
 def serving_launches(cfg: dict, cameras: int) -> dict:
     """The kernels one served frame launches (eval mode, serving hints):
     a forward's, without the camera encoder's when the fleet has no
@@ -1803,6 +1948,8 @@ def serving_launches(cfg: dict, cameras: int) -> dict:
     want = train_launches(dict(cfg, remat=False))
     if cameras == 0:
         want["plain_window_attention"] -= camera_attention_layers(cfg)
+        if "ms_deform_attn" in want:
+            want["ms_deform_attn"] = 0
     return want
 
 
@@ -3398,7 +3545,8 @@ def twin_wrapper(dev, card, tmp, total) -> None:
     """(d) ``bevformer_wrapper`` with ``bevformer_ref`` (the standalone
     RefBEVFormerDetector) at the smoke widths: a reference-named file
     written by the port's exporters -> the convert CLI -> bit for bit ->
-    ``tools.inference --bf16`` serves it (its plain forward)."""
+    ``tools.inference --bf16`` serves it (its plain forward: the
+    deformable attention kernel's launches only)."""
     import os
 
     import torch
@@ -3454,13 +3602,17 @@ def twin_wrapper(dev, card, tmp, total) -> None:
           f"{iou['ap_50']:.4f} / {iou['ap_70']:.4f} (not held); e2e "
           f"{e2e['fps']} fps over {e2e['frames']} frames, p50 "
           f"{e2e['p50_ms']} ms, p95 {e2e['p95_ms']} ms; launches "
-          f"{sum(counts.values())} on {card}")
+          f"{ {k: n for k, n in counts.items() if n} } on {card}")
     if not same:
         raise AssertionError("phase 14 (d): the restored state_dict differs "
                              "from the exported model's")
-    if any(counts.values()) or not all(
+    want = dict.fromkeys(counts, 0)
+    want["ms_deform_attn"] = TWIN_WRAPPER_FRAMES * deform_launches(
+        {"camera": TWIN_WRAPPER_CAMERA})
+    if counts != want or not all(
             np.isfinite(iou[k]) for k in ("ap_30", "ap_50", "ap_70")):
-        raise AssertionError(f"phase 14 (d): launches {counts}, AP {iou}")
+        raise AssertionError(f"phase 14 (d): launches {counts}, expected "
+                             f"{want}; AP {iou}")
 
 
 def twin_phase(dev, card):
@@ -3497,7 +3649,8 @@ def twin_phase(dev, card):
         del model
         # (b) tools.inference --bf16 --serving_buckets on the run
         # directory: captured graphs, launches a frame held (K1 4, K2 2,
-        # K3 2, every other kernel 0), one frame graph == eager (c)
+        # K3 2, ms_deform_attn 6 with a camera agent, every other kernel
+        # 0), one frame graph == eager (c)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         res = serve_run_dir(run, margs, dev, card, total,
@@ -3505,7 +3658,7 @@ def twin_phase(dev, card):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for b in res["serving"]["buckets"]:
             other = {k: n for k, n in b["launches"].items()
-                     if k not in TRAIN_KERNELS and n}
+                     if k not in TWIN_KERNELS and n}
             if other:
                 raise AssertionError(f"phase 14 bucket {b['hints']}: "
                                      f"launches {other}, expected none")
@@ -3531,7 +3684,7 @@ def twin_phase(dev, card):
         # (d) the standalone detector, converted and served
         twin_wrapper(dev, card, tmp, total)
     for kernel, n in total.items():
-        if kernel not in TRAIN_KERNELS and n:
+        if kernel not in TWIN_KERNELS and n:
             raise AssertionError(f"phase 14: {kernel} launched {n} times, "
                                  f"expected none")
     torch.cuda.empty_cache()
@@ -4311,6 +4464,7 @@ def main() -> int:
     record.update(check_lidar_kernels(
         dev, geo["points"][0, :NUM_AGENTS][is_lidar],
         geo["points_mask"][0, :NUM_AGENTS][is_lidar]))
+    record.update(check_deform_kernel(dev))
     for name, spread in check_spread_draws(dev).items():
         record[name]["spread_draws"] = spread
     torch.cuda.empty_cache()
@@ -4336,7 +4490,7 @@ def main() -> int:
                     "plain_window_attention": 5, "warp_window_attention": 0,
                     "pair_warp_resident": 0, "typed_window_attention": 0,
                     "segmented_max_scan": 0, "expand_rows": 0,
-                    "expand_rows_v2": 0}
+                    "expand_rows_v2": 0, "ms_deform_attn": 0}
     per_request = {
         "split": split_counts,
         "fused_wa": dict(split_counts, pair_warp=2, stripe_window_attention=0,
@@ -4576,6 +4730,7 @@ def main() -> int:
     finally:
         shutil.rmtree(kept, ignore_errors=True)
 
+    path_counts["reference_twin"] = twin_counts
     kernels = []
     for name, rec in record.items():
         launches = path_counts[KERNEL_PATH[name]][name]

@@ -28,8 +28,11 @@ they are:
   computes in float32, by promotion, as the flax module does).
 
 The deformable sampling is :func:`hmvit_tpu_torch.ops.sampling.
-ms_deform_attn` (plain PyTorch gathers: XLA in JAX, no Pallas kernel).
-The geometry is float32 and written out elementwise (never TF32).
+ms_deform_attn`: on the card the port's own CUDA kernel
+(``csrc/ms_deform_attn.cu``, one pass, nothing intermediate in device
+memory; XLA gathers in JAX, which has no Pallas kernel here), on the CPU
+its plain twin.  The geometry is float32 and written out elementwise
+(never TF32).
 """
 from __future__ import annotations
 
@@ -119,9 +122,12 @@ def point_sampling(ref_3d, pc_range, l2i, img_hw):
 
 def _deform(value, hw, loc, weights):
     """:func:`ms_deform_attn` on one level, the weights in the value's
-    promoted type (``jnp.einsum`` promotes its operands)."""
+    promoted type (``jnp.einsum`` promotes its operands), every operand
+    contiguous as the kernel takes it (a reshape of a permuted tensor may
+    be a strided view)."""
     dt = promote(value, weights)
-    return ms_deform_attn(value.to(dt), [hw], loc, weights.to(dt))
+    return ms_deform_attn(value.to(dt).contiguous(), [hw], loc.contiguous(),
+                          weights.to(dt).contiguous())
 
 
 class RefTemporalSelfAttention(nn.Module):

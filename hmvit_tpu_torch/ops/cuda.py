@@ -190,6 +190,7 @@ WARP_WINDOW_ATTENTION = Kernel("hm_warp_window_attention",
 SEGMENTED_MAX_SCAN = Kernel("hm_segmented_max_scan", n_ptrs=3, n_ints=4)
 EXPAND_ROWS = Kernel("hm_expand_rows", n_ptrs=4, n_ints=2)
 EXPAND_ROWS_V2 = Kernel("hm_expand_rows_v2", n_ptrs=4, n_ints=2)
+MS_DEFORM_ATTN = Kernel("hm_ms_deform_attn", n_ptrs=4, n_ints=16)
 # The fp32 CUDA-core form of the four attention kernels for bfloat16
 # operands that the entry points above send to the tensor cores: for
 # timing the two side by side, never on the serving path.
@@ -222,7 +223,8 @@ KERNELS = {"pair_warp": PAIR_WARP,
            "typed_window_attention": TYPED_WINDOW_ATTENTION,
            "segmented_max_scan": SEGMENTED_MAX_SCAN,
            "expand_rows": EXPAND_ROWS,
-           "expand_rows_v2": EXPAND_ROWS_V2}
+           "expand_rows_v2": EXPAND_ROWS_V2,
+           "ms_deform_attn": MS_DEFORM_ATTN}
 
 
 # in the order the library counts them

@@ -84,7 +84,8 @@ def hand_written_kernel(name: str) -> str | None:
              "segmented_max_scan_previous"),
             (r"segmented_max_scan_(carry_)?kernel", "segmented_max_scan"),
             (r"expand_slice_kernel<\s*true", "expand_rows_v2"),
-            (r"expand_slice_kernel<\s*false", "expand_rows")):
+            (r"expand_slice_kernel<\s*false", "expand_rows"),
+            (r"ms_deform_attn_kernel", "ms_deform_attn")):
         if re.search(pattern, name):
             return kernel
     return None

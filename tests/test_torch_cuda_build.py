@@ -1,7 +1,7 @@
 """The kernel build's bookkeeping, as far as a machine without nvcc can
 check it: the library's name is keyed by every ``.cu`` source AND every
 ``.cuh`` header (an edited header must never load a stale library), the
-nine kernels are registered with their C symbols, each source defines the
+ten kernels are registered with their C symbols, each source defines the
 symbols it is registered under, and no launcher takes a host tensor.
 A source without an entry point of its own (the tensor-core kernels of
 the stripe, plain and typed window attention) must be reached from the
@@ -29,6 +29,7 @@ KERNELS = {
     "segmented_max_scan": ("hm_segmented_max_scan", "segscan.cu"),
     "expand_rows": ("hm_expand_rows", "expand.cu"),
     "expand_rows_v2": ("hm_expand_rows_v2", "expand.cu"),
+    "ms_deform_attn": ("hm_ms_deform_attn", "ms_deform_attn.cu"),
 }
 
 # sources launched through another source's C entry points: source ->
@@ -107,7 +108,7 @@ def test_kernel_registered_with_its_symbol_and_source(name):
 
 
 def test_registry_is_exactly_the_nine_kernels():
-    assert sorted(cuda.KERNELS) == sorted(KERNELS) and len(KERNELS) == 9
+    assert sorted(cuda.KERNELS) == sorted(KERNELS) and len(KERNELS) == 10
     assert {src for _, src in KERNELS.values()} | set(INNER_SOURCES) == {
         p.name for p in cuda.CSRC_DIR.glob("*.cu")}
     cuda.reset_launches()

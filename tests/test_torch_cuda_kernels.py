@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import DEFORM_CASES, DEFORM_F32_TOL, deform_inputs
 from hmvit_tpu_torch.ops import cuda, plain_ops
 from hmvit_tpu_torch.ops.expand import (
     expand_rows_to_dense,
@@ -25,6 +26,11 @@ from hmvit_tpu_torch.ops.fused_warp import (
 from hmvit_tpu_torch.ops.fused_warp_attention import (
     fused_warp_window_attention,
     warp_window_attention_launch,
+)
+from hmvit_tpu_torch.ops.sampling import (
+    ms_deform_attn,
+    ms_deform_attn_launch,
+    ms_deform_attn_xla,
 )
 from hmvit_tpu_torch.ops.segscan import (
     fused_segmented_max_scan,
@@ -987,3 +993,132 @@ def test_cap_free_path_on_the_card(dev):
     assert torch.isfinite(grid_bf16.float()).all()
     filled = (grid_cpu != 0).any(dim=-1)
     assert not ((grid_bf16 != 0).any(dim=-1).cpu() & ~filled).any()
+
+
+def _check_deform(value, shapes, loc, w):
+    """Kernel against the twin in the operands' type, and in bfloat16 also
+    against the float32 twin on the same operands (the kernel keeps
+    float32 inside): within half an output ulp."""
+    dtype = value.dtype
+    before = cuda.MS_DEFORM_ATTN.launches
+    with strict_fp32():
+        got = ms_deform_attn(value, shapes, loc, w)
+        with plain_ops():
+            want = ms_deform_attn(value, shapes, loc, w)
+            want32 = ms_deform_attn_xla(value.float(), shapes, loc,
+                                        w.float())
+    torch.cuda.synchronize()
+    assert cuda.MS_DEFORM_ATTN.launches == before + 1
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        assert err <= DEFORM_F32_TOL, err
+    else:
+        assert err <= TOL[dtype], err
+        excess = ((got.float() - want32).abs()
+                  - (want32.abs() * 2.0 ** -8 + 1e-5))
+        assert float(excess.max()) <= 0.0, float(excess.max())
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(DEFORM_CASES))
+def test_ms_deform_attn_kernel_at_the_cell_shapes(dev, dtype, case):
+    value_shape, loc_shape, shapes = DEFORM_CASES[case]
+    value, loc, w = deform_inputs(dev, value_shape, loc_shape, dtype)
+    _check_deform(value, shapes, loc, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d,points", [(3, 48, 20), (8, 32, 4),
+                                            (1, 7, 1)])
+def test_ms_deform_attn_kernel_on_two_levels_and_edges(dev, dtype, heads, d,
+                                                       points):
+    """mmcv's multi-level contract (2 levels of other sizes), rows that do
+    not fill a block, a channel chunk left partly idle and more points
+    than one staging round; every tap outside both maps reads zero."""
+    shapes = [(6, 9), (3, 5)]
+    k = sum(h * w for h, w in shapes)
+    value, loc, w = deform_inputs(dev, (2, k, heads, d),
+                                  (2, 37, heads, 2, points, 2), dtype,
+                                  seed=1, lo=-0.3, hi=1.3)
+    got = _check_deform(value, shapes, loc, w)
+    # a query whose every point lies outside both maps
+    loc[0, 0] = torch.tensor([1.5, -0.5], device=dev)
+    got = _check_deform(value, shapes, loc, w)
+    assert not got[0, 0].any()
+
+
+def test_ms_deform_attn_gradients_equal_the_twins(dev):
+    value, loc, w = deform_inputs(dev, (2, 56, 4, 32), (2, 64, 4, 2, 3, 2),
+                                  torch.float32, seed=2)
+    shapes = [(7, 6), (2, 7)]
+    grads = []
+    for plain in (False, True):
+        leaves = [x.clone().requires_grad_() for x in (value, loc, w)]
+        with strict_fp32():
+            if plain:
+                with plain_ops():
+                    out = ms_deform_attn(leaves[0], shapes, *leaves[1:])
+            else:
+                out = ms_deform_attn(leaves[0], shapes, *leaves[1:])
+            out.square().sum().backward()
+        grads.append([x.grad for x in leaves])
+    for g_kernel, g_plain in zip(*grads):
+        assert float((g_kernel - g_plain).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ms_deform_attn_captured_graph_equals_eager(dev, dtype):
+    value_shape, loc_shape, shapes = DEFORM_CASES["sca"]
+    value, loc, w = deform_inputs(dev, value_shape, loc_shape, dtype)
+    eager = ms_deform_attn(value, shapes, loc, w)
+    launch, out = ms_deform_attn_launch(value, shapes, loc, w)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        launch()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ms_deform_attn(value, shapes, loc, w)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert torch.equal(out, eager)
+
+
+def test_ms_deform_attn_launches_per_bevformer_ref_frame(dev):
+    """One eager frame of HMViT with ``encoder: bevformer_ref`` (3 layers)
+    and a camera agent: one launch per temporal self-attention and one
+    per spatial cross-attention, 6."""
+    import copy
+    import os
+
+    import chip_smoke
+    from hmvit_tpu_torch.config import load_config
+    from hmvit_tpu_torch.data.synthetic import make_hetero_batch
+    from hmvit_tpu_torch.models.hmvit import HMViT
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.serving import batch_to_device, serving_hints
+
+    params = load_config(os.path.join(chip_smoke.HYPES,
+                                      "smoke_hetero_tiny.yaml"))
+    cfg = copy.deepcopy(params["model"]["args"])
+    camera = dict(chip_smoke.ZOO_CAMERAS["bevformer_ref"][0], num_layers=3)
+    cfg["camera"] = dict(cfg["camera"], **camera)
+    batch, _ = make_hetero_batch(
+        seed=3, max_cav=2, num_agents=2, max_points=512, image_size=64,
+        num_cams=4, camera_ratio=0.5, ego_mode="lidar",
+        lidar_range=params["preprocess"]["cav_lidar_range"])
+    batch["mode"][:, :2] = (1, 0)  # a lidar ego and a camera agent
+    tb = batch_to_device(batch, dev, bf16=False)
+    hints = serving_hints(batch["mode"][0], 2)
+    model = init_parameters(HMViT(cfg), seed=0).to(dev)
+    before = cuda.MS_DEFORM_ATTN.launches
+    with torch.no_grad():
+        model(tb, **hints)
+    torch.cuda.synchronize()
+    assert cuda.MS_DEFORM_ATTN.launches - before == 6

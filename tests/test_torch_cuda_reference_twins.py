@@ -5,7 +5,8 @@ graph equal to the eager forward and the card's plain forward within
 ``chip_smoke.SEG_LIDAR_ATOL`` of the CPU's; a smoke-width flagship with
 ``bevformer_ref`` converted from a reference-named file by the CLI and
 held card against CPU; the standalone ``RefBEVFormerDetector``
-converted and served.  It needs an NVIDIA GPU and nvcc and skips
+converted and served (the deformable attention kernel's launches
+only).  It needs an NVIDIA GPU and nvcc and skips
 elsewhere; the card's machine has no JAX, so run it there without the
 suite's conftest: ``python -m pytest
 tests/test_torch_cuda_reference_twins.py -q -m gpu --noconftest``.
@@ -35,11 +36,15 @@ def test_hmvit_twins_on_the_card(dev):
     total = dict.fromkeys(chip_smoke.KERNEL_META, 0)
     chip_smoke.zoo_forwards(dev, torch.cuda.get_device_name(0), total,
                             names=chip_smoke.ZOO_TWINS)
-    # the smoke fusion's launches only (one H3GAT iteration: 2 warps, a
-    # stripe and a grid-phase attention a forward); no twin launches one
+    # the smoke fusion's launches (one H3GAT iteration: 2 warps, a
+    # stripe and a grid-phase attention a forward); no twin launches one,
+    # and the BEVFormer twin's deformable attention its own kernel twice
+    # a layer
     n = len(chip_smoke.ZOO_TWINS)
     assert (total["pair_warp"], total["stripe_window_attention"],
             total["plain_window_attention"]) == (2 * n, n, n)
+    camera = chip_smoke.ZOO_CAMERAS["bevformer_ref"][0]
+    assert total["ms_deform_attn"] == 2 * camera["num_layers"]
 
 
 def test_converted_flagship_card_vs_cpu(dev, tmp_path):
@@ -63,4 +68,7 @@ def test_converted_wrapper_served(dev, tmp_path):
     total = dict.fromkeys(chip_smoke.KERNEL_META, 0)
     chip_smoke.twin_wrapper(dev, torch.cuda.get_device_name(0),
                             str(tmp_path), total)
-    assert not any(total.values())
+    want = dict.fromkeys(total, 0)
+    want["ms_deform_attn"] = (chip_smoke.TWIN_WRAPPER_FRAMES * 2
+                              * chip_smoke.TWIN_WRAPPER_CAMERA["num_layers"])
+    assert total == want

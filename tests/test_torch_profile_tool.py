@@ -85,6 +85,8 @@ def test_op_class():
      "segmented_max_scan"),
     ("void hm::expand_slice_kernel<false, uint4>()", "expand_rows"),
     ("void hm::expand_slice_kernel<true, uint4>()", "expand_rows_v2"),
+    ("void (anonymous namespace)::ms_deform_attn_kernel<float>()",
+     "ms_deform_attn"),
     (CONV, None), (ADD, None)])
 def test_hand_written_kernel_names(name, kernel):
     assert hand_written_kernel(name) == kernel
