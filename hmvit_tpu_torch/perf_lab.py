@@ -59,7 +59,13 @@ points on a 512^2 pillar grid, PFN width 64:
   tracer on, placed on the spans' clock by ``tracing.anchor()``: the
   device-idle ms under each outermost phase span (``request``,
   ``train.forward``, ``train.backward``, ``train.optimizer``) and the
-  spans and syncs a step.
+  spans and syncs a step; then the FAX twin's sub-stages (the
+  production model with the benchmark's ``hmvit_fax_ref`` camera block
+  on a fleet of 4 camera agents): the device ms a replayed frame
+  between each sub-stage's marks (``camera.trunk``,
+  ``camera.cross_view.0`` / ``.1``, ``camera.self_attn``,
+  ``camera.decoder``) against the ``camera`` mark, and an eager pass's
+  spans, syncs and ``fax.score_elems`` a frame.
 
 Times are CUDA-event medians of ``--iters`` calls of the wrapper (inputs
 on the card, pose geometry included), each line with the card's name and
@@ -611,6 +617,17 @@ def stage_profile(lab: Lab):
 
 
 TRACER_FRAMES = 16  # a tracer pass over served frames
+# the camera block of the benchmark's ``hmvit_fax_ref`` configuration:
+# the released FAX twin at its published widths
+FAX_REF_CAMERA = {"encoder": "fax_ref", "dim": 128, "bev_size": 32,
+                  "out_dim": 256, "decoder_layers": 2, "img_size": 512,
+                  "backbone": "resnet34", "id_pick": [2, 3],
+                  "middle": [2, 2], "heads": 4, "dim_head": 32, "window": 4,
+                  "bev_range": 100.0}
+# the FAX twin's marks inside ``camera``, in the order they run
+FAX_MARKS = (tracing.CAMERA_TRUNK, tracing.CAMERA_CROSS_VIEW + "0",
+             tracing.CAMERA_CROSS_VIEW + "1", tracing.CAMERA_SELF_ATTN,
+             tracing.CAMERA_DECODER)
 BUSY_FRAMES = 8  # the profiled frames busy and h2d time are read over
 TRACED_STEPS = 2  # the train steps of the traced stretch
 PHASES = ("request", "train.forward", "train.backward", "train.optimizer")
@@ -852,6 +869,81 @@ def stage_tracer(lab: Lab):
                    table, TRACED_STEPS, PHASES)
                + f"; syncs outside any span {record['syncs_outside']:g}")
     del state, step
+    if on_card:
+        torch.cuda.empty_cache()
+    _fax_tracer(lab)
+
+
+def _fax_tracer(lab: Lab):
+    """The FAX twin's sub-stages on a fleet of 4 camera agents (the
+    production model with :data:`FAX_REF_CAMERA`; here its rehearsal
+    widths): the device ms a replayed frame between each of
+    :data:`FAX_MARKS` against the ``camera`` mark, then an eager pass's
+    spans, syncs and ``fax.score_elems`` a frame."""
+    from .graph_server import CompiledServer
+
+    on_card = lab.dev.type == "cuda"
+    cfg, bf16, shape, anchors, eye = _serving_case(lab)
+    camera = (FAX_REF_CAMERA if on_card else
+              dict(FAX_REF_CAMERA, dim=32, bev_size=4, out_dim=64, heads=2,
+                   dim_head=16))
+    batches = [request_batch(seed, **shape) for seed in range(4)]
+    for b in batches:
+        b["mode"][:, :4] = 0  # every agent a camera rig, the ego too
+    hints = serving_hints(batches[0]["mode"][0], 4)
+    model = init_parameters(
+        HMViT(serving_config(dict(cfg, camera=camera), bf16=bf16)), seed=0)
+    model = (model.to(lab.dev, torch.bfloat16) if bf16
+             else model.to(lab.dev)).eval().requires_grad_(False)
+
+    def request(i):
+        return batch_to_device(batches[i % len(batches)], lab.dev, bf16)
+
+    if on_card:
+        frames = TRACER_FRAMES
+        server = CompiledServer(model, hints, request(0), anchors, eye)
+        for i in range(len(batches)):
+            server(request(i))
+        with tracing.on():  # the traced twin of the bucket is captured
+            server(request(0))
+        with tracing.on() as tracer:
+            first = tracer.unit + 1
+            for i in range(frames):
+                server(request(i))
+        ms = {}
+        for s in tracer.collect()["stages"]:
+            if s["graph"] and s["unit"] >= first:
+                ms[s["name"]] = ms.get(s["name"], 0.0) + s["ms"] / frames
+        total = sum(ms[name] for name in FAX_MARKS)
+        lab.report(
+            f"tracer [serve fax_ref] device ms a frame between each mark in "
+            f"the replayed graphs, {frames} frames of 4 camera agents: "
+            f"camera {ms['camera']:.3f} = " + " / ".join(
+                f"{name} {ms[name]:.3f}" for name in FAX_MARKS)
+            + f" (sum {total:.3f}, {100.0 * total / ms['camera']:.1f}% of "
+            f"camera); fusion {ms['fusion']:.3f}, decoder "
+            f"{ms['decoder']:.3f}, decode_nms {ms['decode_nms']:.3f}")
+        del server
+    else:
+        lab.report("tracer [serve fax_ref] graph sub-stage ms: not measured "
+                   "(no graphs or device without a card)")
+    eager = 2
+    with torch.no_grad():
+        model(request(0), **hints)  # the grids and device constants made
+        with tracing.on() as tracer:
+            first = tracer.unit + 1
+            for i in range(eager):
+                model(request(i), **hints)
+            if on_card:
+                torch.cuda.synchronize()
+    spans = [s for s in tracer.collect()["spans"] if s["unit"] >= first]
+    elems = sum(s["counts"].get(tracing.FAX_SCORE_ELEMS, 0)
+                for s in spans) / eager
+    lab.report(f"tracer [serve fax_ref] eager spans a frame (ms / self ms / "
+               f"syncs), {eager} frames: " + _table_text(
+                   span_table(spans), eager, ("camera", *FAX_MARKS))
+               + f"; {tracing.FAX_SCORE_ELEMS} {elems:g} a frame")
+    del model
     if on_card:
         torch.cuda.empty_cache()
 

@@ -26,6 +26,10 @@ tracer on for a block and yields the :class:`Tracer` that records it:
 - **syncs**: ``torch.cuda.set_sync_debug_mode("warn")``, each warning
   counted against the innermost open span (restored, with the warning
   filters, when the block ends);
+- **counters** (:func:`count`): a named number the host works out from
+  shapes (it reads nothing back), added to the innermost open span's
+  ``counts``; made where the host runs the code (an eager pass or a
+  capture), never by a graph's replay;
 - **the clock**: :func:`anchor` times a few device synchronisations
   between clock reads; :func:`trace_offset_us` finds their runtime
   events in an exported profiler trace and gives the offset from the
@@ -48,6 +52,16 @@ ANCHOR_CALL = "cudaDeviceSynchronize"
 ANCHOR_SYNCS = 3
 ANCHOR_PAUSE_S = 5e-4
 RUNTIME_CATEGORIES = ("cuda_runtime", "cuda_driver")
+# the FAX twin's marks inside ``camera`` (``models/fax_ref.py``): the
+# ResNet trunk, each image scale's cross-view block (its bottlenecks and
+# downsample included; the scale's index appended), the full-map
+# self-attention, and ``out_proj`` + ``NaiveDecoder``
+CAMERA_TRUNK = "camera.trunk"
+CAMERA_CROSS_VIEW = "camera.cross_view."
+CAMERA_SELF_ATTN = "camera.self_attn"
+CAMERA_DECODER = "camera.decoder"
+# counter: the float32 attention-score elements each FAX attention makes
+FAX_SCORE_ELEMS = "fax.score_elems"
 
 _NULL = contextlib.nullcontext()
 _ACTIVE: Tracer | None = None
@@ -77,6 +91,16 @@ def mark(name: str, like):
     if _ACTIVE is None:
         return _NULL
     return _Mark(_ACTIVE, name, bool(like.is_cuda))
+
+
+def count(name: str, n: int):
+    """Add ``n`` to counter ``name`` of the innermost open span (outside
+    any span: :attr:`Tracer.counts_outside`); nothing when off."""
+    t = _ACTIVE
+    if t is None:
+        return
+    counts = t.spans[t.open[-1]]["counts"] if t.open else t.counts_outside
+    counts[name] = counts.get(name, 0) + n
 
 
 def twin_backward(kernel: str):
@@ -221,6 +245,7 @@ class Tracer:
         self.stages: list[dict] = []
         self.anchors: list[tuple] = []
         self.syncs_outside = 0
+        self.counts_outside: dict[str, int] = {}
         self.unit = 0
         self.open: list[int] = []
         self.gathering: list | None = None
@@ -267,7 +292,8 @@ class Tracer:
     def collect(self) -> dict:
         """Everything recorded so far, the device's stage times read
         (waits for the device): ``spans``, ``stages`` ({unit, name, ms,
-        graph: from a replay}), ``anchors``, ``syncs_outside``."""
+        graph: from a replay}), ``anchors``, ``syncs_outside``,
+        ``counts_outside``."""
         if (self.pending or self.eager) and torch.cuda.is_available():
             torch.cuda.synchronize()
         for key in list(self.pending):
@@ -278,7 +304,8 @@ class Tracer:
         self.eager.clear()
         return {"spans": list(self.spans), "stages": list(self.stages),
                 "anchors": list(self.anchors),
-                "syncs_outside": self.syncs_outside}
+                "syncs_outside": self.syncs_outside,
+                "counts_outside": dict(self.counts_outside)}
 
 
 class _Span:
@@ -297,7 +324,7 @@ class _Span:
         t.spans.append({"name": self.name, "start_us": clock_us(),
                         "end_us": None,
                         "parent": t.open[-1] if t.open else None,
-                        "unit": t.unit, "syncs": 0})
+                        "unit": t.unit, "syncs": 0, "counts": {}})
         t.open.append(self.index)
         return self
 

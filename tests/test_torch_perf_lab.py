@@ -23,7 +23,7 @@ def _one_thread():
 @pytest.mark.parametrize("stage,lines", [
     ("attn", 2), ("pairwarp", 2), ("pairwarp_res", 6), ("fused_wa", 3),
     ("segscan", 2), ("expand", 4), ("lidar", 4), ("profile", 14),
-    ("batchnorm", 2), ("tracer", 6)])
+    ("batchnorm", 2), ("tracer", 8)])
 def test_cpu_rehearsal_runs_stage(stage, lines, capsys):
     assert perf_lab.main(["--cpu", "--iters", "1", stage]) == 0
     out = capsys.readouterr().out.strip().splitlines()
