@@ -52,20 +52,21 @@ points on a 512^2 pillar grid, PFN width 64:
   what it costs: on the production bfloat16 graph server, the device ms
   a frame between each stage's marks in the replayed graphs against the
   device-busy and host-to-device ms of 8 profiled frames, the spans and
-  syncs a frame, and the frame's host ms with the tracer off and on in
-  turns; on the production train step (``bench --train``'s, the numpy
-  request copied each step), the step's host ms off and on in turns
-  without the profiler, then a device-only trace of 2 steps with the
-  tracer on, placed on the spans' clock by ``tracing.anchor()``: the
-  device-idle ms under each outermost phase span (``request``,
-  ``train.forward``, ``train.backward``, ``train.optimizer``) and the
-  spans and syncs a step; then the FAX twin's sub-stages (the
-  production model with the benchmark's ``hmvit_fax_ref`` camera block
-  on a fleet of 4 camera agents): the device ms a replayed frame
-  between each sub-stage's marks (``camera.trunk``,
-  ``camera.cross_view.0`` / ``.1``, ``camera.self_attn``,
-  ``camera.decoder``) against the ``camera`` mark, and an eager pass's
-  spans, syncs and ``fax.score_elems`` a frame.
+  syncs a frame with the ``request`` span's ``request.host_cast_bytes``
+  and ``request.pageable_bytes``, and the frame's host ms with the
+  tracer off and on in turns; on the production train step (``bench
+  --train``'s, the numpy request copied each step), the step's host ms
+  off and on in turns without the profiler, then a device-only trace of
+  2 steps with the tracer on, placed on the spans' clock by
+  ``tracing.anchor()``: the device-idle ms under each outermost phase
+  span (``request``, ``train.forward``, ``train.backward``,
+  ``train.optimizer``) and the spans and syncs a step; then the FAX
+  twin's sub-stages (the production model with the benchmark's
+  ``hmvit_fax_ref`` camera block on a fleet of 4 camera agents): the
+  device ms a replayed frame between each sub-stage's marks
+  (``camera.trunk``, ``camera.cross_view.0`` / ``.1``,
+  ``camera.self_attn``, ``camera.decoder``) against the ``camera`` mark,
+  and an eager pass's spans, syncs and ``fax.score_elems`` a frame.
 
 Times are CUDA-event medians of ``--iters`` calls of the wrapper (inputs
 on the card, pose geometry included), each line with the card's name and
@@ -796,12 +797,18 @@ def stage_tracer(lab: Lab):
         lab.report("tracer [serve] graph stage ms: not measured (no "
                    "graphs or device without a card)")
     table = span_table(record["spans"], first)
+    counts = {name: sum(s["counts"].get(name, 0) for s in record["spans"]
+                        if s["unit"] >= first) / frames
+              for name in (tracing.REQUEST_HOST_CAST_BYTES,
+                           tracing.REQUEST_PAGEABLE_BYTES)}
     lab.report(f"tracer [serve] spans a frame (ms / self ms / syncs), "
                f"{frames} frames: " + _table_text(
                    table, frames, ("request", "serve.load", "serve.replay",
                                    *MODEL_STAGES))
                + f"; syncs outside any span "
-               f"{record['syncs_outside'] / frames:g} a frame")
+               f"{record['syncs_outside'] / frames:g} a frame; "
+               + ", ".join(f"{name} {n:g}" for name, n in counts.items())
+               + " a frame")
     off, on = _on_cost(frame, ("off", "on", "on", "off", "off", "on"),
                        len(batches), sync)
     lab.report(f"tracer [serve] a frame, request to boxes on the host "

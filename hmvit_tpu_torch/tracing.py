@@ -62,6 +62,11 @@ CAMERA_SELF_ATTN = "camera.self_attn"
 CAMERA_DECODER = "camera.decoder"
 # counter: the float32 attention-score elements each FAX attention makes
 FAX_SCORE_ELEMS = "fax.score_elems"
+# counters of the ``request`` span (``serving.batch_to_device``): the
+# bfloat16 bytes the host cast (pinned on a card), the bytes copied as
+# they are (pageable)
+REQUEST_HOST_CAST_BYTES = "request.host_cast_bytes"
+REQUEST_PAGEABLE_BYTES = "request.pageable_bytes"
 
 _NULL = contextlib.nullcontext()
 _ACTIVE: Tracer | None = None

@@ -20,7 +20,7 @@ from hmvit_tpu.data import anchors as janchors
 from hmvit_tpu.data import synthetic as jsynthetic
 from hmvit_tpu.utils import boxes as jboxes
 from hmvit_tpu.utils import transforms as jtransforms
-from hmvit_tpu_torch import serving
+from hmvit_tpu_torch import serving, tracing
 from hmvit_tpu_torch.data import anchors, synthetic
 from hmvit_tpu_torch.utils import boxes, transforms
 from tiny_cfg import ANCHOR_ARGS, RANGE
@@ -130,6 +130,111 @@ def test_serving_hints_and_bf16_batch():
     assert tb["points"].dtype == torch.float32  # geometry stays float32
     assert tb["camera"].dtype == torch.bfloat16
     assert tb["mode"].dtype == torch.int32
+
+
+def _rne_bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 bits, rounded to nearest, ties to even (numpy;
+    no NaN in ``x``)."""
+    u = x.view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def _every_high_half(low: int) -> np.ndarray:
+    """Every float32 whose low 16 bits are ``low`` and whose exponent is
+    not all ones."""
+    high = np.arange(1 << 16, dtype=np.uint32)
+    high = high[(high >> 7) & 0xFF != 0xFF]
+    return ((high << 16) | low).view(np.float32)
+
+
+def _host_cast_case(name: str) -> np.ndarray:
+    rng = np.random.default_rng(26)
+    bits = {
+        "ties": lambda: _every_high_half(0x8000).view(np.uint32),
+        "beside_ties": lambda: np.concatenate(
+            [_every_high_half(0x7FFF), _every_high_half(0x8001)]
+        ).view(np.uint32),
+        "subnormals": lambda: np.concatenate([
+            np.array([1, 0x7FFF, 0x8000, 0x8001, 0x18000, 0x7FFFFF],
+                     np.uint32),
+            rng.integers(1, 0x800000, 100_000, dtype=np.uint32)]) | (
+                rng.integers(0, 2, 100_006, dtype=np.uint32) << 31),
+        "zeros_and_infs": lambda: np.array(
+            [0, 0x80000000, 0x7F800000, 0xFF800000], np.uint32),
+        "largest_finite": lambda: np.array(
+            [0x7F7FFFFF, 0x7F7F8000, 0x7F7F7FFF, 0x7F7E8000, 0x7F7F0000,
+             0xFF7FFFFF, 0xFF7F8000, 0xFF7F7FFF], np.uint32),
+        "random_bits": lambda: rng.integers(0, 1 << 32, 1_100_000,
+                                            dtype=np.uint32),
+        "nan": lambda: np.array(
+            [0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FFFFFFF, 0xFF800001,
+             0x7F808000, 0x3F800000], np.uint32),
+    }[name]()
+    return bits.view(np.float32)
+
+
+@pytest.mark.parametrize("case", ["ties", "beside_ties", "subnormals",
+                                  "zeros_and_infs", "largest_finite",
+                                  "random_bits", "nan"])
+def test_host_cast_rounds_to_nearest_even(case):
+    """The bfloat16 server's host cast against numpy's round to nearest
+    even, bit for bit; a NaN stays a NaN."""
+    x = _host_cast_case(case)
+    got = serving._host_cast(x, torch.device("cpu"))
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    nan = np.isnan(x)
+    assert torch.isnan(got[torch.from_numpy(nan)]).all()
+    bits = got.view(torch.int16).numpy().view(np.uint16)
+    assert np.array_equal(bits[~nan], _rne_bf16_bits(x[~nan]))
+    if case == "random_bits":
+        assert nan.any() and (~nan).sum() > 1_000_000
+
+
+def _former_batch_to_device(batch, device, bf16):
+    """``batch_to_device`` before the host cast: every array across as it
+    is, the cast on ``device``."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.asarray(v)).to(device)
+        if bf16 and t.dtype == torch.float32 and \
+                k not in serving.GEOMETRY_KEYS:
+            t = t.to(torch.bfloat16)
+        out[k] = t
+    return out
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_batch_to_device_on_cpu_matches_former(bf16):
+    batch, _ = synthetic.make_hetero_batch(
+        seed=4, max_cav=5, num_agents=4, max_points=512, image_size=32,
+        num_cams=2, lidar_range=RANGE)
+    got = serving.batch_to_device(batch, torch.device("cpu"), bf16)
+    want = _former_batch_to_device(batch, torch.device("cpu"), bf16)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+    assert (got["camera"].dtype == torch.bfloat16) is bf16
+    assert got["points"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_request_span_counts_cast_and_pageable_bytes(bf16):
+    batch, _ = synthetic.make_hetero_batch(
+        seed=5, max_cav=5, num_agents=4, max_points=256, image_size=16,
+        num_cams=2, lidar_range=RANGE)
+    cast = [k for k, v in batch.items() if bf16 and np.asarray(v).dtype
+            == np.float32 and k not in serving.GEOMETRY_KEYS]
+    with tracing.on() as tracer:
+        serving.batch_to_device(batch, torch.device("cpu"), bf16)
+    (span,) = [s for s in tracer.collect()["spans"]
+               if s["name"] == "request"]
+    counts = span["counts"]
+    assert counts.get(tracing.REQUEST_HOST_CAST_BYTES, 0) == sum(
+        2 * np.asarray(batch[k]).size for k in cast)
+    assert counts[tracing.REQUEST_PAGEABLE_BYTES] == sum(
+        np.asarray(v).nbytes for k, v in batch.items() if k not in cast)
+    assert ("camera" in cast) is bf16 and "points" not in cast
 
 
 @pytest.mark.parametrize("kwargs", [
