@@ -97,11 +97,7 @@ Phases:
    ``csrc`` names) must be each server's per-request counts; time 20
    graph frames per server in turns with 20 eager ones (eager, graph,
    graph, eager, in blocks of 10) and print median, min and max
-   ms/frame beside phase 5's; then run ``python -m
-   hmvit_tpu_torch.bench`` (split, ``--fused_wa``, ``--expand v1``,
-   ``--expand v2``), print its JSON line, and roll the split and
-   ``--fused_wa`` runs' traces up by class
-   (``hmvit_tpu_torch.tools.profile``);
+   ms/frame beside phase 5's;
 7. run the typed-attention (float32 and bfloat16), resident-warp,
    segmented-scan, expansion and lidar stages of
    ``hmvit_tpu_torch.perf_lab`` — the entry point that reaches the typed,
@@ -129,11 +125,10 @@ Phases:
    remat recompute), each > 0; (c) remat off vs on (float32):
    within (a)'s tolerance, ``max_memory_allocated`` of both printed; (d)
    five bfloat16 AdamW steps on the one batch: the loss finite and
-   falling; (e) ``python -m hmvit_tpu_torch.bench --train``, ``--train
-   --no_remat`` and ``--train --bucketed``, each JSON line printed with
-   the card's name and power limit, the first traced and rolled up by
-   ``hmvit_tpu_torch.tools.profile`` (by class, and the plain twins'
-   backward by kernel: ``--ranges twin_backward:``);
+   falling; (e) one bfloat16 step bucketed on the camera count
+   (``make_bucketed_train_step``) and one without remat: each loss
+   finite, each launch count (b)'s rule, the loss without remat within
+   ``TRAIN_BF16_LOSS_TOL`` of the step's with remat;
 9. the accuracy gate's path (``hmvit_tpu_torch.prod_overfit``) at
    production shapes: (a) write the mini-OPV2V fixture (1 scenario, 4
    CAVs, 2 frames, 512^2 images, 16 384 points, vehicles 8 m apart in
@@ -197,8 +192,9 @@ Phases:
    ``S2D_TOL`` where the JAX package sets that bar (ResNet-18 stage 1,
    2 x 64^2) and on the stem's own output at 4 x 512^2, the ResNet-50
    stage-1 output at 512^2 printed beside a float64 forward (not held);
-   then ``python -m hmvit_tpu_torch.bench`` and ``--stem_s2d``, both
-   frames/s printed.  The phase prints its length;
+   the production bfloat16 server with the s2d stem, captured by
+   ``CompiledServer``, on request 0 against the plain stem's float32
+   forward, within ``BF16_VS_FP32_ATOL``.  The phase prints its length;
 12. the fusion zoo: (a) HMViT of ``smoke_hetero_tiny.yaml`` with each
    fusion of ``ZOO_FUSIONS`` as its ``fusion_override`` (F-Cooper,
    attention, DiscoNet, V2VNet, SwapFusion, V2X-ViT with the batch's
@@ -958,7 +954,7 @@ def check_kernels(dev, pairwise, agent_mask):
 
     def attention_ops(n, j, typed=False):
         """Multiply-adds counted as 2 (``opcount.attention_ops``, the
-        FLOP count of ``hmvit_tpu_torch.bench`` too)."""
+        FLOP count of ``hmvit_tpu_torch.tools.performance`` too)."""
         return opcount.attention_ops(n, nwin, t, j, heads, d, typed)
 
     def sdpa(qw, kw, vw, bias_, mw):
@@ -1812,47 +1808,6 @@ def eager_frame(model, b, hints, anchors, eye):
     return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
 
 
-# the benchmark entry's runs: flags, and whether to trace (BENCH_TRACE_DIR)
-BENCH_RUNS = ((), ("--fused_wa",), ("--expand", "v1"), ("--expand", "v2"))
-TRACED_BENCH_RUNS = ((), ("--fused_wa",))
-
-
-def run_bench(card):
-    """``python -m hmvit_tpu_torch.bench`` on each of BENCH_RUNS; its JSON
-    line printed; the split and ``--fused_wa`` runs traced and their
-    traces rolled up by ``hmvit_tpu_torch.tools.profile``."""
-    import os
-    import tempfile
-
-    for flags in BENCH_RUNS:
-        with tempfile.TemporaryDirectory() as trace_dir:
-            env = dict(os.environ)
-            if flags in TRACED_BENCH_RUNS:
-                env["BENCH_TRACE_DIR"] = trace_dir
-            res = subprocess.run(
-                [sys.executable, "-m", "hmvit_tpu_torch.bench", *flags],
-                capture_output=True, text=True, env=env, timeout=600)
-            if res.returncode != 0:
-                raise AssertionError(f"bench {' '.join(flags)} failed "
-                                     f"({res.returncode}):\n{res.stderr}")
-            record = json.loads(res.stdout.strip().splitlines()[-1])
-            print(f"bench {' '.join(flags) or '(split)'}: "
-                  f"{json.dumps(record)}")
-            if record.get("mfu") is None or not record["value"] > 0:
-                raise AssertionError(f"bench {' '.join(flags)}: no mfu or "
-                                     f"no rate on {card}: {record}")
-            if flags in TRACED_BENCH_RUNS:
-                from hmvit_tpu_torch.bench import TRACED_REPLAYS
-                from hmvit_tpu_torch.tools.profile import summarize
-
-                print(f"bench {' '.join(flags) or '(split)'}: device time "
-                      f"of {TRACED_REPLAYS} traced replays by class "
-                      f"(hmvit_tpu_torch.tools.profile):")
-                summarize(trace_dir, top=15, frames=TRACED_REPLAYS)
-
-
-TRAIN_BENCH_RUNS = (("--train",), ("--train", "--no_remat"),
-                    ("--train", "--bucketed"))
 TRAIN_KERNELS = ("pair_warp", "stripe_window_attention",
                  "plain_window_attention")
 # the kernels a served frame of the bevformer_ref twin launches
@@ -1957,12 +1912,10 @@ def train_phase(dev, card) -> dict:
     """Phase 8 (see the module's docstring); returns the launches of one
     bfloat16 train step, every kernel's."""
     import copy
-    import os
-    import tempfile
 
     import torch
 
-    from hmvit_tpu_torch import bench
+    from hmvit_tpu_torch import perf_lab
     from hmvit_tpu_torch.data.anchors import generate_anchor_grid
     from hmvit_tpu_torch.models.hmvit import HMViT
     from hmvit_tpu_torch.nn import init_parameters
@@ -1973,6 +1926,7 @@ def train_phase(dev, card) -> dict:
     from hmvit_tpu_torch.train.trainer import (
         create_train_state,
         labels_for_batch,
+        make_bucketed_train_step,
         make_train_step,
     )
     from hmvit_tpu_torch.utils.precision import strict_fp32
@@ -1983,7 +1937,7 @@ def train_phase(dev, card) -> dict:
         "float32"
     batch = prod_batch(0)
     pp = AnchorPostprocessor({"anchor_args": anchor_args(cfg),
-                              "target_args": bench.TARGET_ARGS,
+                              "target_args": perf_lab.TARGET_ARGS,
                               "order": "hwl"})
     labels = labels_for_batch(pp, generate_anchor_grid(anchor_args(cfg)),
                               batch, dev)
@@ -1995,13 +1949,13 @@ def train_phase(dev, card) -> dict:
     base = {True: init_parameters(HMViT(cfg), seed=0),
             False: init_parameters(HMViT(cfg32), seed=0)}
 
-    def grads_of(half: bool, plain: bool, remat=True):
+    def grads_of(half: bool, plain: bool, remat=True, make=make_train_step):
         """One step from a clone of the weights: (loss, grads on the card,
         launches, peak GB, seconds, attention launches by body)."""
         model = copy.deepcopy(base[half]).to(dev)
         model.config = dict(model.config, remat=remat)
         opt = torch.optim.SGD(model.parameters(), lr=0.0)
-        step = make_train_step(model, opt, half=half)
+        step = make(model, opt, half=half)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cuda.reset_launches()
@@ -2009,7 +1963,7 @@ def train_phase(dev, card) -> dict:
         with (plain_ops() if plain else contextlib.nullcontext()), \
                 (contextlib.nullcontext() if half else strict_fp32()):
             _, parts = step(create_train_state(model, opt), tb, labels,
-                            bench.TRAIN_SEED)
+                            perf_lab.TRAIN_SEED)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         out = (float(parts["total_loss"]),
@@ -2114,6 +2068,7 @@ def train_phase(dev, card) -> dict:
         runs[name] = kern
         del plain
     counts = runs["bf16"][2]
+    bf16_loss = runs["bf16"][0]
     # (c) remat off vs on, float32
     off = grads_of(False, plain=False, remat=False)
     print(f"train step fp32: max_memory_allocated remat on "
@@ -2126,47 +2081,42 @@ def train_phase(dev, card) -> dict:
     torch.cuda.empty_cache()
     # (d) five bf16 AdamW steps on the one batch
     model = copy.deepcopy(base[True]).to(dev)
-    opt = torch.optim.AdamW(model.parameters(), lr=bench.TRAIN_LR,
-                            weight_decay=bench.TRAIN_WEIGHT_DECAY,
-                            eps=bench.TRAIN_EPS)
+    opt = torch.optim.AdamW(model.parameters(), lr=perf_lab.TRAIN_LR,
+                            weight_decay=perf_lab.TRAIN_WEIGHT_DECAY,
+                            eps=perf_lab.TRAIN_EPS)
     step = make_train_step(model, opt, half=True)
     state = create_train_state(model, opt)
     losses = []
     for _ in range(TRAIN_STEPS):
-        state, parts = step(state, tb, labels, bench.TRAIN_SEED)
+        state, parts = step(state, tb, labels, perf_lab.TRAIN_SEED)
         losses.append(float(parts["total_loss"]))
     print(f"train: {TRAIN_STEPS} bf16 AdamW steps on request 0: loss "
           f"{[round(v, 5) for v in losses]}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"train: the loss does not fall: {losses}")
-    del model, opt, step, state, base
+    del model, opt, step, state
     torch.cuda.empty_cache()
-    # (e) the training bench
-    for flags in TRAIN_BENCH_RUNS:
-        with tempfile.TemporaryDirectory() as trace_dir:
-            env = dict(os.environ)
-            traced = flags == TRAIN_BENCH_RUNS[0]
-            if traced:
-                env["BENCH_TRACE_DIR"] = trace_dir
-            res = subprocess.run(
-                [sys.executable, "-m", "hmvit_tpu_torch.bench", *flags],
-                capture_output=True, text=True, env=env, timeout=600)
-            if res.returncode != 0:
-                raise AssertionError(f"bench {' '.join(flags)} failed "
-                                     f"({res.returncode}):\n{res.stderr}")
-            record = json.loads(res.stdout.strip().splitlines()[-1])
-            print(f"bench {' '.join(flags)}: {json.dumps(record)} on {card}")
-            if record.get("train_mfu") is None or not record["value"] > 0 \
-                    or not record.get("hbm_peak_gb"):
-                raise AssertionError(f"bench {' '.join(flags)}: no rate, "
-                                     f"MFU or peak memory: {record}")
-            if traced:
-                from hmvit_tpu_torch.tracing import TWIN_BACKWARD
-                from hmvit_tpu_torch.tools.profile import summarize
-
-                print("bench --train: device time of one traced step by "
-                      "class (hmvit_tpu_torch.tools.profile, ms/step):")
-                summarize(trace_dir, top=15, frames=1, ranges=TWIN_BACKWARD)
+    # (e) bfloat16: the step bucketed on the camera count, and the step
+    # without remat (its loss that of the step with remat)
+    for name, make, remat in (("bucketed", make_bucketed_train_step, True),
+                              ("remat off", make_train_step, False)):
+        got = grads_of(True, plain=False, remat=remat, make=make)
+        launches = train_launches(dict(cfg, remat=remat))
+        print(f"train step bf16 {name}: loss {got[0]:.6f} (run-both, remat "
+              f"on: {bf16_loss:.6f}), {got[4]:.2f} s, peak {got[3]:.2f} GB; "
+              f"launches {got[2]} on {card}")
+        if not np.isfinite(got[0]):
+            raise AssertionError(f"train step bf16 {name}: loss {got[0]}")
+        if {k: got[2][k] for k in launches} != launches:
+            raise AssertionError(f"train step bf16 {name}: launches "
+                                 f"{got[2]}, expected {launches}")
+        if name == "remat off" and \
+                abs(got[0] - bf16_loss) > TRAIN_BF16_LOSS_TOL * abs(bf16_loss):
+            raise AssertionError(f"train step bf16 remat off: loss {got[0]} "
+                                 f"vs {bf16_loss} with remat")
+        del got
+    del base
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2587,12 +2537,25 @@ def s2d_check(dev, card) -> None:
     ``tests/test_resnet.py``) and on the stem's own output at the
     production shape (4 x 512^2); the ResNet-50 stage-1 output at 512^2
     printed beside a float64 forward of both (not held: three bottleneck
-    blocks amplify the stems' float32 rounding); then ``python -m
-    hmvit_tpu_torch.bench`` and ``--stem_s2d``, both frames/s printed."""
+    blocks amplify the stems' float32 rounding); then the production
+    bfloat16 server with the s2d stem, captured by ``CompiledServer``, on
+    request 0 against the float32 forward of the plain stem on the same
+    weights, held within ``BF16_VS_FP32_ATOL`` as phase 3 holds the
+    plain-stem server."""
     import torch
 
+    from hmvit_tpu_torch.data.anchors import generate_anchor_grid
+    from hmvit_tpu_torch.graph_server import CompiledServer
+    from hmvit_tpu_torch.models.hmvit import HMViT
     from hmvit_tpu_torch.models.resnet import ResNetEncoder, s2d_stem
     from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.serving import (
+        PROD_CFG,
+        anchor_args,
+        batch_to_device,
+        serving_config,
+        serving_hints,
+    )
     from hmvit_tpu_torch.utils.precision import strict_fp32
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2634,19 +2597,43 @@ def s2d_check(dev, card) -> None:
               f"max |x| {float(ref.abs().max()):.3f}")
     del enc, x, plain, outs, ref
     torch.cuda.empty_cache()
-    fps = {}
-    for flags in ((), ("--stem_s2d",)):
-        res = subprocess.run(
-            [sys.executable, "-m", "hmvit_tpu_torch.bench", *flags],
-            capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise AssertionError(f"bench {' '.join(flags)} failed "
-                                 f"({res.returncode}):\n{res.stderr}")
-        record = json.loads(res.stdout.strip().splitlines()[-1])
-        fps[" ".join(flags) or "plain stem"] = record["value"]
-        if not record["value"] > 0:
-            raise AssertionError(f"bench {' '.join(flags)}: {record}")
-    print(f"phase 11 bench frames/s: {fps} on {card}")
+    batch = prod_batch(0)
+    hints = serving_hints(batch["mode"][0], NUM_AGENTS)
+    s2d_cfg = dict(PROD_CFG, camera=dict(PROD_CFG["camera"], stem_s2d=True))
+    model = init_parameters(HMViT(serving_config(PROD_CFG, bf16=False)), 0)
+    with torch.no_grad(), strict_fp32():
+        want = model.to(dev).eval()(batch_to_device(batch, dev, bf16=False),
+                                    **hints)
+    del model
+    model = init_parameters(HMViT(serving_config(s2d_cfg, bf16=True)), 0)
+    model = model.to(dev, torch.bfloat16).eval()
+    anchors = torch.as_tensor(
+        generate_anchor_grid(anchor_args(PROD_CFG), "hwl"),
+        dtype=torch.float32, device=dev)
+    request = batch_to_device(batch, dev, bf16=True)
+    server = CompiledServer(model, hints, request, anchors,
+                            torch.eye(4, device=dev))
+    out, (det,) = server(request)
+    torch.cuda.synchronize()
+    logit = float((out["psm"].float() - want["psm"]).abs().max())
+    for key, fn in (("psm", torch.sigmoid), ("rm", lambda z: z)):
+        a, b = fn(out[key].float()), fn(want[key].float())
+        scale = max(1.0, float(b.abs().max())) if key == "rm" else 1.0
+        err = float((a - b).abs().max()) / scale
+        print(f"phase 11 bf16 server with the s2d stem vs the fp32 plain "
+              f"stem, {'sigmoid(psm)' if key == 'psm' else 'rm / scale'}: "
+              f"max {err:.3e} (tol {BF16_VS_FP32_ATOL[key]})"
+              + (f"; psm logits {logit:.3e} (tol "
+                 f"{BF16_VS_FP32_ATOL['logit']}); {int(det[2].sum())} "
+                 f"boxes kept on {card}" if key == "psm" else ""))
+        if not (np.isfinite(err) and err <= BF16_VS_FP32_ATOL[key]):
+            raise AssertionError(f"phase 11: the s2d server's {key} differs "
+                                 f"from the fp32 plain stem: {err}")
+    if not logit <= BF16_VS_FP32_ATOL["logit"]:
+        raise AssertionError(f"phase 11: the s2d server's psm logits differ "
+                             f"from the fp32 plain stem: {logit}")
+    del server, model, want, out, det
+    torch.cuda.empty_cache()
 
 
 def zoo_phase(dev, card) -> dict:
@@ -4681,7 +4668,6 @@ def main() -> int:
                 per_request, card)
     del servers, requests, eager
     torch.cuda.empty_cache()
-    run_bench(card)
 
     # -- 7. the lab stages: typed, resident and scan kernels, lidar paths ----
     cuda.reset_launches()

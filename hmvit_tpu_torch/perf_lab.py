@@ -1,6 +1,6 @@
 """Stage-level timing of the kernels on the card (counterpart of the
 fusion, lidar and expansion stages of the JAX package's ``perf_lab.py``)
-and a per-stage profile of the serving frame.
+and what the program's tracer reads on a served frame and a train step.
 
     python -m hmvit_tpu_torch.perf_lab [stage ...] [--iters N] [--cpu]
 
@@ -31,33 +31,16 @@ points on a 512^2 pillar grid, PFN width 64:
 * ``lidar`` — ``PillarFeatureNet`` alone, bfloat16 features, on two
   clouds of 30 000 in-range points: ``scatter_variant`` False, "v1",
   "v2", and the default route with the scan kernel; equal bit for bit;
-* ``profile`` — the production bfloat16 server, split and
-  ``use_fused_wa``: ms/frame of ``--iters`` requests (host clock, card
-  synchronised) and ms per stage (lidar encoder, camera encoder, fusion,
-  decoder, decode + NMS; the program's stage marks, read with the
-  tracer on), then one ``torch.profiler`` pass over 3 requests giving
-  the device-busy ms and the device operations (kernels, copies,
-  memsets) of each stage's span and of the frame, and the device-busy
-  share of the frame;
-* ``batchnorm`` — ``nn.BatchNorm``'s train-mode statistics in their
-  present form (Σx, Σx² and the count in one vector, the form a data
-  group sums) against the former one (``mean`` reductions), on the
-  inputs every BatchNorm layer gets in one bfloat16 train step of the
-  production model (remat): the largest difference of mean and var in
-  ulps of the former, each layer's forward + backward in both forms
-  summed over the step, and the whole step (``make_train_step``,
-  ``half=True``, learning rate 0) with each form in turns (former,
-  present, present, former; ``min(--iters, 5)`` steps a turn);
 * ``tracer`` — what the program's tracer (``tracing.py``) reads, and
   what it costs: on the production bfloat16 graph server, the device ms
   a frame between each stage's marks in the replayed graphs against the
   device-busy and host-to-device ms of 8 profiled frames, the spans and
   syncs a frame with the ``request`` span's ``request.host_cast_bytes``
   and ``request.pageable_bytes``, and the frame's host ms with the
-  tracer off and on in turns; on the production train step (``bench
-  --train``'s, the numpy request copied each step), the step's host ms
-  off and on in turns without the profiler, then a device-only trace of
-  2 steps with the tracer on, placed on the spans' clock by
+  tracer off and on in turns; on the production train step
+  (:func:`_train_case`, the numpy request copied each step), the step's
+  host ms off and on in turns without the profiler, then a device-only
+  trace of 2 steps with the tracer on, placed on the spans' clock by
   ``tracing.anchor()``: the device-idle ms under each outermost phase
   span (``request``, ``train.forward``, ``train.backward``,
   ``train.optimizer``) and the spans and syncs a step; then the FAX
@@ -78,7 +61,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import copy
 import dataclasses
 import os
 import subprocess
@@ -94,7 +76,7 @@ from .data.anchors import generate_anchor_grid
 from .data.synthetic import lidar_from_boxes, make_scene
 from .models.hmvit import HMViT
 from .models.pillar_encoder import PillarFeatureNet
-from .nn import DTYPES, BatchNorm, init_parameters
+from .nn import DTYPES, init_parameters
 from .ops import plain_ops
 from .ops.expand import (
     expand_rows_to_dense,
@@ -453,7 +435,7 @@ def stage_lidar(lab: Lab, dtype_name: str = "bfloat16"):
 def rehearsal_cfg() -> dict:
     """The production model's structure at widths a CPU runs in seconds
     (64^2 pillars, 16^2 x 64 BEV, window 4, 4 heads of 16, 2 cameras of
-    64^2): for the ``--cpu`` rehearsal of the profile stage."""
+    64^2): for the ``--cpu`` rehearsal of the tracer stage."""
     cfg = serving_config(PROD_CFG, bf16=False)
     rng = [-20.48, -20.48, -3.0, 20.48, 20.48, 1.0]
     lidar = cfg["lidar"]
@@ -479,18 +461,6 @@ def rehearsal_cfg() -> dict:
 MODEL_STAGES = {"lidar": "lidar encoder", "camera": "camera encoder",
                 "fusion": "fusion", "decoder": "decoder",
                 "decode_nms": "decode + NMS"}
-PROFILED_FRAMES = 3
-
-
-def _subtree_kernels(event):
-    """(device us, device operations) launched from a host event and
-    everything below it."""
-    us = sum(k.duration for k in event.kernels)
-    count = len(event.kernels)
-    for child in event.cpu_children:
-        child_us, child_count = _subtree_kernels(child)
-        us, count = us + child_us, count + child_count
-    return us, count
 
 
 def _busy_us(intervals):
@@ -517,104 +487,47 @@ def _serving_case(lab: Lab):
     return cfg, bf16, shape, anchors, torch.eye(4, device=lab.dev)
 
 
-def stage_profile(lab: Lab):
-    """ms/frame and ms per stage without the profiler, then one profiler
-    pass per server: the device-busy time and the device operations of
-    each stage and of the frame.  The stages are the program's own marks
-    (:mod:`hmvit_tpu_torch.tracing`): on the card a stage's time runs
-    between its two CUDA events, here between its host span's ends."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# the production train step of the root ``bench.py::train_main``
+# (tests/test_torch_data.py holds them equal): AdamW at 2e-4 with optax's
+# defaults, its dropout key and the anchor targets of its postprocessor
+TRAIN_LR, TRAIN_WEIGHT_DECAY, TRAIN_EPS = 2e-4, 1e-4, 1e-8
+TRAIN_SEED = 1
+TARGET_ARGS = {"pos_threshold": 0.6, "neg_threshold": 0.45,
+               "score_threshold": 0.27}
 
-    from .graph_server import _detect
 
-    on_card = lab.dev.type == "cuda"
-    cfg, bf16, shape, anchors, eye = _serving_case(lab)
-    batches = [request_batch(seed, **shape) for seed in range(3)]
-    hints = serving_hints(batches[0]["mode"][0], 4)
-    requests = [batch_to_device(b, lab.dev, bf16) for b in batches]
+def _train_case(lab: Lab):
+    """(state, step, request, labels): ``dict(PROD_CFG, remat=True)``
+    with AdamW, the bfloat16 train step (``half=True``) and request 0 in
+    numpy with its anchor labels on the card; without one, the rehearsal
+    model with the fusion in bfloat16 as in PROD_CFG, on a request at its
+    widths."""
+    from .postprocess import AnchorPostprocessor
+    from .train.trainer import (
+        create_train_state,
+        labels_for_batch,
+        make_train_step,
+    )
 
-    activities = [ProfilerActivity.CPU]
-    if on_card:
-        activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities):  # the tracer's one-off set-up
-            torch.zeros(8, device=lab.dev).sum().item()
-    for server, knobs in (("split", {}), ("use_fused_wa", {"fused_wa": True})):
-        model = init_parameters(
-            HMViT(serving_config(cfg, bf16=bf16, **knobs)), seed=0)
-        model = (model.to(lab.dev, torch.bfloat16) if bf16
-                 else model.to(lab.dev)).eval()
-
-        def frame(i):
-            """One request; its ms on the host clock and per stage."""
-            with tracing.on() as tracer:
-                t0 = time.perf_counter()
-                _detect(model(requests[i % len(requests)], **hints),
-                        anchors, eye)
-                if on_card:
-                    torch.cuda.synchronize()
-                total = (time.perf_counter() - t0) * 1e3
-            record = tracer.collect()
-            stages = dict.fromkeys(MODEL_STAGES, 0.0)
-            if on_card:
-                for s in record["stages"]:
-                    stages[s["name"]] += s["ms"]
-            else:
-                for s in record["spans"]:
-                    if s["name"] in stages:
-                        stages[s["name"]] += (s["end_us"] - s["start_us"]) \
-                            * 1e-3
-            return total, stages
-
-        frames = [frame(i) for i in range(2 + lab.iters)][2:]  # 2 warm-ups
-        totals = [total for total, _ in frames]
-        median_ms = float(np.median(totals))
-        lab.report(f"profile [{server}] {lab.iters} requests, no profiler: "
-                   f"median {median_ms:.2f} ms/frame (min {min(totals):.2f}, "
-                   f"max {max(totals):.2f})")
-        t0 = time.perf_counter()
-        with profile(activities=activities) as prof:
-            for i in range(PROFILED_FRAMES):
-                frame(i)
-        window_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.events()
-        # what ran on the card: kernels, copies and memsets, not the
-        # stage spans the tracer mirrors onto the device's timeline
-        device = [e for e in events if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation]
-        rows = {}
-        for e in events:
-            if e.device_type == DeviceType.CPU and e.name in MODEL_STAGES:
-                row = rows.setdefault(e.name, [0.0, 0])
-                dev_us, count = _subtree_kernels(e)
-                row[0] += dev_us / 1e3
-                row[1] += count
-        per = 1.0 / PROFILED_FRAMES
-        for stage, label in MODEL_STAGES.items():
-            stage_ms = float(np.median([st[stage] for _, st in frames]))
-            dev_ms, count = rows.get(stage, (0.0, 0))
-            dev_txt = (f"device busy {dev_ms * per:.2f} ms in "
-                       f"{count * per:.0f} device operations a frame under "
-                       f"the profiler" if device
-                       else "device-busy time not measured")
-            lab.report(f"profile [{server}] {label}: median {stage_ms:.2f} "
-                       f"ms/frame between its first and last operation, no "
-                       f"profiler; {dev_txt}")
-        if device:
-            busy_ms = per * _busy_us([(e.time_range.start, e.time_range.end)
-                                      for e in device]) / 1e3
-            busy_txt = (f"device busy {busy_ms:.2f} ms/frame in "
-                        f"{len(device) * per:.0f} device operations = "
-                        f"{100.0 * busy_ms / median_ms:.1f}% of the median "
-                        f"frame without the profiler")
-        else:
-            busy_txt = "device-busy share not measured"
-        lab.report(f"profile [{server}] {PROFILED_FRAMES} requests under "
-                   f"the profiler: {window_ms * per:.2f} ms/frame; "
-                   f"{busy_txt}")
-        del model
-        if on_card:
-            torch.cuda.empty_cache()
+    if lab.dev.type == "cuda":
+        cfg, shape = PROD_CFG, {}
+    else:
+        cfg = rehearsal_cfg()
+        cfg["hetero_fusion"]["hetero_fusion_block"]["compute_dtype"] = \
+            PROD_CFG["hetero_fusion"]["hetero_fusion_block"]["compute_dtype"]
+        shape = dict(max_points=512, image_size=64, num_cams=2,
+                     lidar_range=cfg["lidar"]["lidar_range"])
+    cfg = dict(cfg, remat=True)
+    request = request_batch(0, **shape)
+    pp = AnchorPostprocessor({"anchor_args": anchor_args(cfg),
+                              "target_args": TARGET_ARGS, "order": "hwl"})
+    labels = labels_for_batch(pp, generate_anchor_grid(anchor_args(cfg)),
+                              request, lab.dev)
+    model = init_parameters(HMViT(cfg), seed=0).to(lab.dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR,
+                            weight_decay=TRAIN_WEIGHT_DECAY, eps=TRAIN_EPS)
+    return (create_train_state(model, opt),
+            make_train_step(model, opt, half=True), request, labels)
 
 
 TRACER_FRAMES = 16  # a tracer pass over served frames
@@ -727,7 +640,6 @@ def stage_tracer(lab: Lab):
     on the production server and train step, and what it costs."""
     from torch.profiler import ProfilerActivity, profile
 
-    from . import bench
     from .graph_server import CompiledServer, _detect
 
     on_card = lab.dev.type == "cuda"
@@ -820,16 +732,12 @@ def stage_tracer(lab: Lab):
         del server
         torch.cuda.empty_cache()
 
-    args = argparse.Namespace(cpu=not on_card, stem_s2d=False,
-                              no_remat=False, remat_stages=None, batch=1,
-                              bucketed=False)
     with torch.enable_grad():
-        state, step, _, labels = bench.build_train(args, lab.dev)
-        batch = request_batch(0, num_agents=bench.NUM_AGENTS, **shape)
+        state, step, batch, labels = _train_case(lab)
 
         def one(_=0):
             step(state, batch_to_device(batch, lab.dev, False), labels,
-                 bench.TRAIN_SEED)
+                 TRAIN_SEED)
 
         for _ in range(2):
             one()
@@ -955,130 +863,6 @@ def _fax_tracer(lab: Lab):
         torch.cuda.empty_cache()
 
 
-def _stats_by_mean(self, x):
-    """``BatchNorm.batch_stats`` in its former form (``mean`` reductions),
-    the ``batchnorm`` stage's yardstick."""
-    xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    axes = tuple(range(x.ndim - 1))
-    mean = xf.mean(axes)
-    var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
-    return mean, var
-
-
-@contextlib.contextmanager
-def _bn_form(former: bool):
-    """Every ``BatchNorm`` computes its statistics in the former form
-    within the block (``former``), else in the present one."""
-    present = BatchNorm.batch_stats
-    if former:
-        BatchNorm.batch_stats = _stats_by_mean
-    try:
-        yield
-    finally:
-        BatchNorm.batch_stats = present
-
-
-def _ulps(a, b) -> float:
-    """max |a - b| in units in the last place of b (float32)."""
-    mag = b.abs()
-    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
-    return float(((a - b).abs() / ulp).max())
-
-
-def stage_batchnorm(lab: Lab):
-    """The two forms of the train-mode statistics: their difference on the
-    step's BatchNorm inputs, their time per layer and per step."""
-    from . import bench
-    from .postprocess import AnchorPostprocessor
-    from .train.trainer import (
-        create_train_state,
-        labels_for_batch,
-        make_train_step,
-    )
-
-    on_card = lab.dev.type == "cuda"
-    if on_card:
-        cfg, request = copy.deepcopy(PROD_CFG), {}
-    else:
-        cfg = rehearsal_cfg()
-        request = dict(max_points=512, image_size=64, num_cams=2,
-                       lidar_range=cfg["lidar"]["lidar_range"])
-    cfg["remat"] = True
-    batch = request_batch(0, **request)
-    pp = AnchorPostprocessor({"anchor_args": anchor_args(cfg),
-                              "target_args": bench.TARGET_ARGS,
-                              "order": "hwl"})
-    labels = labels_for_batch(pp, generate_anchor_grid(anchor_args(cfg)),
-                              batch, lab.dev)
-    tb = batch_to_device(batch, lab.dev, bf16=False)
-    model = init_parameters(HMViT(cfg), seed=0).to(lab.dev)
-    opt = torch.optim.SGD(model.parameters(), lr=0.0)
-    step = make_train_step(model, opt, half=True)
-    state = create_train_state(model, opt)
-
-    def one_step():
-        step(state, tb, labels, bench.TRAIN_SEED)
-
-    # each layer's input in the step (its first pass; remat repeats it)
-    inputs, layers, hooks = {}, {}, []
-    for name, mod in model.named_modules():
-        if isinstance(mod, BatchNorm):
-            layers[name] = mod
-            hooks.append(mod.register_forward_pre_hook(
-                lambda m, args, name=name: inputs.setdefault(
-                    name, args[0].detach().clone())))
-    with torch.enable_grad():
-        one_step()
-    for hook in hooks:
-        hook.remove()
-
-    worst = {"mean": 0.0, "var": 0.0}
-    ms = {True: 0.0, False: 0.0}
-    for name, x in inputs.items():
-        bn = copy.deepcopy(layers[name]).train()
-        # the step's bfloat16 parameters (half: cast from the masters)
-        for p in bn.parameters():
-            p.data = p.data.to(x.dtype)
-        with _bn_form(True):
-            former = bn.batch_stats(x)
-        present = bn.batch_stats(x)
-        for key, a, b in zip(("mean", "var"), present, former):
-            worst[key] = max(worst[key], _ulps(a, b))
-        xg = x.detach().requires_grad_()
-        g = torch.ones_like(x)
-        for form in (True, False):
-            with _bn_form(form), torch.enable_grad():
-                ms[form] += lab.time_ms(lambda: bn(xg).backward(g))
-    lab.report(f"batchnorm: {len(inputs)} BatchNorm layers in a bf16 train "
-               f"step; present vs former statistics: max {worst['mean']:.1f}"
-               f" ulp (mean), {worst['var']:.1f} ulp (var); forward + "
-               f"backward summed over the layers: {ms[False]:.4f} ms present"
-               f", {ms[True]:.4f} ms former")
-
-    iters = min(lab.iters, 5)
-    steps = {True: [], False: []}
-    with torch.enable_grad():
-        for form in (True, False, False, True):
-            with _bn_form(form):
-                one_step()
-                for _ in range(iters):
-                    if on_card:
-                        torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    one_step()
-                    if on_card:
-                        torch.cuda.synchronize()
-                    steps[form].append((time.perf_counter() - t0) * 1e3)
-    lab.report(f"batchnorm: the train step (host clock, card synchronised),"
-               f" median of {2 * iters} in turns: "
-               f"{np.median(steps[False]):.3f} ms present, "
-               f"{np.median(steps[True]):.3f} ms former "
-               f"(each turn's: present {[round(v, 3) for v in steps[False]]}"
-               f", former {[round(v, 3) for v in steps[True]]})")
-    del model, opt, step, state, inputs
-    if on_card:
-        torch.cuda.empty_cache()
-
 
 STAGES = {
     "attn": lambda lab: [stage_attn_typed(lab, dtype)
@@ -1093,8 +877,6 @@ STAGES = {
     "segscan": stage_segscan,
     "expand": stage_expand,
     "lidar": stage_lidar,
-    "profile": stage_profile,
-    "batchnorm": stage_batchnorm,
     "tracer": stage_tracer,
 }
 

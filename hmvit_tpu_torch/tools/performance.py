@@ -5,8 +5,7 @@ frame, as one JSON line.
 
 FLOPs are ``FlopCounterMode``'s count over one forward (matrix products
 and convolutions) plus the hand-written kernels' operation counts
-(:mod:`hmvit_tpu_torch.ops.opcount`), as ``python -m
-hmvit_tpu_torch.bench`` counts them; a multiply-add is 2.
+(:mod:`hmvit_tpu_torch.ops.opcount`); a multiply-add is 2.
 ``measure_fps`` times ``--iters`` forwards after one warm-up, between
 two ``torch.cuda.synchronize`` calls on the card.  ``--trace_dir`` writes
 a ``torch.profiler`` chrome trace of one forward there, which

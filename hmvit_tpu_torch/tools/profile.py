@@ -2,20 +2,22 @@
 ``hmvit_tpu/tools/profile.py``, which reads an xplane trace).
 
 Reads the chrome-trace JSON that ``torch.profiler`` exports
-(``export_chrome_trace``; ``python -m hmvit_tpu_torch.bench`` writes one
-with ``BENCH_TRACE_DIR`` set) and rolls its device events (kernels,
-memcpys, memsets) up into classes:
+(``export_chrome_trace``; ``python -m hmvit_tpu_torch.tools.performance
+--trace_dir`` writes one of a forward) and rolls its device events
+(kernels, memcpys, memsets) up into classes:
 
-    BENCH_TRACE_DIR=/tmp/trace python -m hmvit_tpu_torch.bench
-    python -m hmvit_tpu_torch.tools.profile /tmp/trace --frames 4 [--top 30]
+    python -m hmvit_tpu_torch.tools.performance --model_dir runs/<run> \\
+        --trace_dir /tmp/trace
+    python -m hmvit_tpu_torch.tools.profile /tmp/trace [--frames 1] [--top 30]
 
 ``--frames`` divides the totals by the number of traced frames, so the
-numbers read as ms/frame (of a traced train step: ``--frames 1``).  It prints the total device time, the time of
-each class, and the ``--top`` device operations with their counts per
-frame.  The classes: ``convolution``, ``GEMM``, ``elementwise``,
-``copy / permute``, ``reduction`` (reductions, norms, softmax, sort,
-scan, top-k), each hand-written kernel of ``csrc/`` by the name of its
-wrapper (``hand-written: pair_warp`` ...), ``memcpy / memset``, and
+numbers read as ms/frame (of a traced train step: ``--frames 1``).  It
+prints the total device time, the time of each class, and the ``--top``
+device operations with their counts per frame.  The classes:
+``convolution``, ``GEMM``, ``elementwise``, ``copy / permute``,
+``reduction`` (reductions, norms, softmax, sort, scan, top-k), each
+hand-written kernel of ``csrc/`` by the name of its wrapper
+(``hand-written: pair_warp`` ...), ``memcpy / memset``, and
 ``other``.  A device event's time is its own duration, so kernels that
 overlap are counted each in full.
 

@@ -107,7 +107,7 @@ def test_kernel_registered_with_its_symbol_and_source(name):
     assert params[-1] == "void* stream"
 
 
-def test_registry_is_exactly_the_nine_kernels():
+def test_registry_is_exactly_the_ten_kernels():
     assert sorted(cuda.KERNELS) == sorted(KERNELS) and len(KERNELS) == 10
     assert {src for _, src in KERNELS.values()} | set(INNER_SOURCES) == {
         p.name for p in cuda.CSRC_DIR.glob("*.cu")}

@@ -71,23 +71,46 @@ def test_box_corners_match_jax_package(order):
         jboxes.mask_corners_in_range(cw, rng_lim))
 
 
-def test_bench_entry_constants_equal_bench():
-    """The port's benchmark entry keeps its own copies of bench.py's
-    assumed reference rate and metric name, and a peak table of the same
-    shape ((device-name prefix, dense bf16 FLOP/s) pairs, looked up by
-    prefix)."""
-    from hmvit_tpu_torch import bench as pbench
+def test_train_case_constants_equal_bench():
+    """perf_lab's train case is ``bench.py::train_main``'s at its
+    defaults: remat on, batch 1, not bucketed, ``optax.adamw(2e-4)`` with
+    optax's weight decay and eps, the dropout key ``jax.random.key(1)``
+    and its postprocessor's anchor targets, read from its source without
+    running it."""
+    import ast
+    import inspect
 
-    assert pbench.ASSUMED_REFERENCE_FPS == bench.ASSUMED_REFERENCE_FPS
-    assert pbench.METRIC == ("frames/sec/chip 4-agent mixed-modality BEV "
-                             "inference")
-    assert bench.main.__code__.co_consts.count(pbench.METRIC) == 1
-    for table in (pbench.PEAK_BF16_FLOPS, bench.PEAK_BF16_FLOPS):
-        assert isinstance(table, tuple) and all(
-            isinstance(name, str) and isinstance(peak, float)
-            for name, peak in table)
-    for name, peak in pbench.PEAK_BF16_FLOPS:
-        assert pbench.peak_bf16_flops(name + " (any suffix)") == peak
+    import optax
+
+    from hmvit_tpu_torch import perf_lab
+
+    defaults = {k: p.default for k, p in
+                inspect.signature(bench.train_main).parameters.items()}
+    assert (defaults["remat"], defaults["batch_size"],
+            defaults["bucketed"]) == (True, 1, False)
+    calls, assigned, targets = {}, {}, []
+    for node in ast.walk(ast.parse(inspect.getsource(bench.train_main))):
+        if isinstance(node, ast.Call) and isinstance(node.func,
+                                                     ast.Attribute):
+            calls.setdefault(ast.unparse(node.func), []).append(node)
+        if isinstance(node, ast.Assign):
+            assigned[ast.unparse(node.targets[0])] = ast.unparse(node.value)
+        if isinstance(node, ast.Dict):
+            targets += [ast.literal_eval(v) for k, v in
+                        zip(node.keys, node.values)
+                        if isinstance(k, ast.Constant)
+                        and k.value == "target_args"]
+    (adamw,) = calls["optax.adamw"]
+    assert not adamw.keywords
+    assert [ast.literal_eval(a) for a in adamw.args] == [perf_lab.TRAIN_LR]
+    optax_defaults = inspect.signature(optax.adamw).parameters
+    assert optax_defaults["weight_decay"].default == \
+        perf_lab.TRAIN_WEIGHT_DECAY
+    assert optax_defaults["eps"].default == perf_lab.TRAIN_EPS
+    # the key every step of train_main is given
+    assert assigned["rng"] == f"jax.random.key({perf_lab.TRAIN_SEED})"
+    assert "step(state, jb, labels, rng)" in assigned.values()
+    assert targets == [perf_lab.TARGET_ARGS]
 
 
 def test_production_config_equals_bench():

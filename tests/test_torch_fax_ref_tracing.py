@@ -3,14 +3,18 @@ the tracer on, the trunk, each scale's cross-view block, the
 self-attention and the decoder are spans nested in ``camera``, in the
 order they run, and ``fax.score_elems`` counts the float32 score
 elements of every attention by its formula; off, nothing is made and the
-outputs keep their bits.  On the card (``-m gpu``, skipped elsewhere):
-no FAX span waits on the device at the published widths, and a graph
-captured with the tracer off has no event node, where the traced one
-has two a mark.
+outputs keep their bits; perf_lab's block is the camera of the
+benchmark's ``hmvit_fax_ref`` configuration.  On the card (``-m gpu``,
+skipped elsewhere): no FAX span waits on the device at the published
+widths, and a graph captured with the tracer off has no event node,
+where the traced one has two a mark.
 
     python -m pytest tests/test_torch_fax_ref_tracing.py -q -m gpu -s \\
         --noconftest
 """
+import json
+import os
+
 import pytest
 import torch
 
@@ -152,6 +156,17 @@ def test_count_goes_to_the_innermost_span():
     assert [s["counts"] for s in record["spans"]] == [{"x": 2},
                                                       {"x": 3, "y": 4}]
     assert record["counts_outside"] == {"x": 1}
+
+
+def test_the_block_is_the_benchmark_configurations_camera():
+    """perf_lab's FAX block (the tracer stage's, and this file's widths)
+    is the camera of the configuration the ``hmvit_fax_ref`` cell
+    serves."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "configs",
+        "hmvit_fax_ref.json")
+    with open(path) as f:
+        assert json.load(f)["model"]["camera"] == FAX_REF_CAMERA
 
 
 @pytest.fixture(scope="module")

@@ -7,7 +7,9 @@ fusion iterations of float32 sums); decoded boxes within 1e-3 m, kept
 box SETS equal (top-k and NMS may order equal scores differently).
 
 The ``use_fused_wa`` model is held to JAX at a 64^2 BEV map, the
-smallest the fused route's shape rule admits.
+smallest the fused route's shape rule admits.  A batch of two fleets
+equals each fleet's batch-1 forward and the JAX package's batch-2
+forward.
 
 Also: neither the port nor chip_smoke.py imports jax or flax, and
 chip_smoke.py refuses to run (and prints no result) without a CUDA
@@ -29,8 +31,9 @@ from hmvit_tpu.postprocess import decode_detections_device as jdecode
 from hmvit_tpu_torch.bridge import flax_to_state_dict
 from hmvit_tpu_torch.models.hmvit import HMViT
 from hmvit_tpu_torch.postprocess import decode_detections_device
+from hmvit_tpu_torch.serving import request_batch, serving_hints
 from hmvit_tpu_torch.utils.precision import strict_fp32
-from tiny_cfg import ANCHOR_ARGS
+from tiny_cfg import ANCHOR_ARGS, RANGE
 from torch_parity import bridged, close, flax_variables, japply, t, \
     tiny_batch, tiny_flagship_cfg, widened_bf16_einsum
 
@@ -509,3 +512,44 @@ def test_train_mode_is_refused(flagship):
     assert not any(m.training for m in model.modules())
     assert init_parameters(model, seed=0) is model
     assert not any(m.training for m in model.modules())
+
+
+@pytest.fixture(scope="module")
+def batch2():
+    """A batch of two tiny fleets (seed 0), and the port's tiny model with
+    the JAX package's weights."""
+    torch.set_num_threads(1)
+    cfg = tiny_flagship_cfg()
+    batch = request_batch(0, max_points=512, image_size=64, num_cams=2,
+                          lidar_range=RANGE, batch_size=2)
+    jm = JHMViT(cfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    v = flax_variables(jm, jb, train=False)
+    return dict(cfg=cfg, batch=batch, jm=jm, jb=jb, v=v,
+                model=bridged(HMViT(cfg), v).requires_grad_(False))
+
+
+def test_batch2_equals_two_batch1_forwards_and_jax(batch2):
+    """The serving hints of a batch of 2 (``serving_hints(...,
+    batch_size=2)``) count the cameras of the whole batch (4); the port's
+    forward then equals its batch-1 forward of each fleet (1e-5,
+    convolutions over another batch size) and the JAX package's batch-2
+    forward with the same hints but the camera bucket (1e-4, as above).
+    JAX's bucketed branch takes a bucket of 4 >= the 4 agents of ONE row
+    for an all-camera batch, so it is held with the run-both encoders it
+    is documented to equal."""
+    batch, model = batch2["batch"], batch2["model"]
+    hints = serving_hints(batch["mode"][0], 4, batch_size=2)
+    assert hints["camera_bucket"] == 4
+    with torch.no_grad():
+        out = model({k: t(x) for k, x in batch.items()}, **hints)
+        for i in range(2):
+            one = model({k: t(x[i:i + 1]) for k, x in batch.items()},
+                        **serving_hints(batch["mode"][i], 4))
+            for key in ("psm", "rm"):
+                close(out[key][i:i + 1], one[key].numpy(), 1e-5)
+    ref = japply(batch2["jm"], batch2["v"], batch2["jb"], train=False,
+                 **dict(hints, camera_bucket=None))
+    for key in ("psm", "rm"):
+        assert tuple(out[key].shape)[0] == 2
+        close(out[key], ref[key], 1e-4)

@@ -1,14 +1,11 @@
 """The port's stage-timing entry point, ``hmvit_tpu_torch.perf_lab``:
 its CPU rehearsal drives every stage (fusion, segmented scan, expansion,
-lidar, the per-stage profile of the serving frame, the BatchNorm
-statistics' two forms in a train step and the program's tracer over
-served frames and train steps, on a model of the production
-structure at test widths) through the kernels' plain twins at
-a tiny size (the stages' own
-bit-for-bit assertions hold there too), it
-refuses to run without a CUDA device unless ``--cpu`` is given, and an
-unknown stage raises.  No time printed here is a device time, and each
-line says so."""
+lidar, and the program's tracer over served frames and train steps, on
+a model of the production structure at test widths) through the
+kernels' plain twins at a tiny size (the stages' own bit-for-bit
+assertions hold there too), it refuses to run without a CUDA device
+unless ``--cpu`` is given, and an unknown stage raises.  No time printed
+here is a device time, and each line says so."""
 import pytest
 import torch
 
@@ -22,8 +19,7 @@ def _one_thread():
 
 @pytest.mark.parametrize("stage,lines", [
     ("attn", 2), ("pairwarp", 2), ("pairwarp_res", 6), ("fused_wa", 3),
-    ("segscan", 2), ("expand", 4), ("lidar", 4), ("profile", 14),
-    ("batchnorm", 2), ("tracer", 8)])
+    ("segscan", 2), ("expand", 4), ("lidar", 4), ("tracer", 8)])
 def test_cpu_rehearsal_runs_stage(stage, lines, capsys):
     assert perf_lab.main(["--cpu", "--iters", "1", stage]) == 0
     out = capsys.readouterr().out.strip().splitlines()
@@ -53,29 +49,9 @@ def test_stages_cover_the_production_shapes():
     assert (s.grid, s.points, s.pfn, s.clouds, s.expand_rows) == (
         512, 30000, 64, 2, 40000)
     assert s.voxel_size == pytest.approx((0.4, 0.4, 4.0))
-    assert sorted(perf_lab.STAGES) == ["attn", "batchnorm", "expand",
-                                       "fused_wa", "lidar", "pairwarp",
-                                       "pairwarp_res", "profile", "segscan",
+    assert sorted(perf_lab.STAGES) == ["attn", "expand", "fused_wa", "lidar",
+                                       "pairwarp", "pairwarp_res", "segscan",
                                        "tracer"]
-
-
-def test_profile_stage_reports_every_stage_of_both_servers(capsys):
-    """ms/frame without the profiler, five stage lines and the frame's
-    summary, for the split and the ``use_fused_wa`` server; on the CPU no
-    device time is reported, and the lines say so."""
-    assert perf_lab.main(["--cpu", "--iters", "2", "profile"]) == 0
-    out = capsys.readouterr().out.strip().splitlines()
-    for server, lines in (("split", out[:7]), ("use_fused_wa", out[7:])):
-        assert all(line.startswith(f"profile [{server}] ") for line in lines)
-        assert "2 requests, no profiler: median " in lines[0]
-        stages = [line.split("] ", 1)[1].split(":")[0] for line in lines[1:6]]
-        assert stages == ["lidar encoder", "camera encoder", "fusion",
-                          "decoder", "decode + NMS"]
-        assert all(" ms/frame between its first and last operation" in line
-                   and "device-busy time not measured" in line
-                   for line in lines[1:6])
-        assert "3 requests under the profiler" in lines[6]
-        assert "device-busy share not measured" in lines[6]
 
 
 def test_profile_helpers():

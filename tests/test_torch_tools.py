@@ -3,8 +3,10 @@
 cases of the JAX package's ``test_train_infra``, ``test_performance_cli``
 and ``test_sweep`` — train writes a run directory and resumes it,
 inference evaluates it under every fusion method, the sweep walks its
-grid, the performance runner reports it — and the intermediate AP of a
-run directory equal to the JAX tool's on the same weights and frames."""
+grid, the performance runner reports it — the intermediate AP of a
+run directory equal to the JAX tool's on the same weights and frames, and
+the performance runner's FLOP count: the counter's plus the hand-written
+kernels' operation counts."""
 import json
 import os
 import shutil
@@ -365,3 +367,74 @@ def test_tools_load_no_yaml_opencv_pillow_or_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), \
         res.stderr[-2000:]
+
+
+def test_flops_are_the_counter_plus_the_kernel_counts():
+    """``performance.count_flops`` = ``FlopCounterMode``'s count with the
+    plain twins hidden + the kernel formulas; each serving wrapper
+    recorded once a call (the tiny flagship at batch 1 on the split
+    route: pair warp x4, stripe x2, plain x2 for the fusion's grid
+    phases; the camera self-attention reaches the plain wrapper only on
+    CUDA tensors, and on the CPU the counter counts its einsums instead);
+    the twins' own FLOPs are not in the counter's count."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from hmvit_tpu_torch.models.hmvit import HMViT
+    from hmvit_tpu_torch.nn import init_parameters
+    from hmvit_tpu_torch.ops.opcount import record_kernel_ops
+    from hmvit_tpu_torch.serving import request_batch
+    from tiny_cfg import RANGE
+    from torch_parity import t, tiny_flagship_cfg
+
+    model = init_parameters(HMViT(tiny_flagship_cfg()), seed=0)
+    model.requires_grad_(False)  # the counter's module tracker hooks autograd
+    one = {k: t(x) for k, x in request_batch(
+        0, max_points=512, image_size=64, num_cams=2,
+        lidar_range=RANGE).items()}
+    total = performance.count_flops(model, one)
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter, record_kernel_ops() as calls:
+        model(one)
+    kernel_ops = sum(ops for _, ops in calls)
+    assert kernel_ops > 0
+    assert total == float(counter.get_total_flops()) + kernel_ops
+    names = [name for name, _ in calls]
+    assert {n: names.count(n) for n in set(names)} == {
+        "pair_warp": 4, "stripe_window_attention": 2,
+        "plain_window_attention": 2}
+    unhidden = FlopCounterMode(display=False)
+    with torch.no_grad(), unhidden:
+        model(one)
+    assert unhidden.get_total_flops() > counter.get_total_flops()
+
+
+def test_kernel_operation_formulas():
+    """The formulas chip_smoke.py's bounds and the FLOP count share: at
+    the production shapes (128^2 maps, window 8, 8 heads of 32, 4
+    agents) a multiply-add is 2 operations."""
+    from hmvit_tpu_torch.ops.opcount import attention_ops, pair_warp_ops
+
+    t, d, heads, windows = 64, 32, 8, 256
+    qk_pv = 2 * (2 * t * t * d)  # q k^T and p v per sender window
+    assert attention_ops(4, windows, t, 4, heads, d) == \
+        4 * windows * heads * 4 * qk_pv
+    typed = 2 * (2 * t * d * d)  # q W_att and v W_msg per sender window
+    assert attention_ops(4, windows, t, 4, heads, d, typed=True) == \
+        4 * windows * heads * 4 * (qk_pv + typed)
+    assert pair_warp_ops(3, 4, 128, 128, 512) == 12.0 * 3 * 4 * 128 ** 2 * 512
+
+
+def test_flop_counter_counts_bmm_with_out_dtype():
+    """``bmm(a, b, out_dtype=float32)`` (the bf16 [K|V] contraction's
+    product on the card) counts as a ``bmm``; the library's own formula
+    takes the dtype for the output's shape and raises."""
+    from hmvit_tpu_torch.ops.opcount import flop_counter
+
+    a = torch.empty(3, 40, 32, device="meta", dtype=torch.bfloat16)
+    b = torch.empty(3, 32, 24, device="meta", dtype=torch.bfloat16)
+    counter = flop_counter()
+    with counter:
+        out = torch.bmm(a, b, out_dtype=torch.float32)
+        torch.bmm(a, b)
+    assert out.dtype == torch.float32
+    assert counter.get_total_flops() == 2 * (2 * 3 * 40 * 32 * 24)

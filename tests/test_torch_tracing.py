@@ -116,18 +116,11 @@ class _TwinInBackward(torch.autograd.Function):
 
 
 def test_a_train_step_records_its_phases():
-    import argparse
+    from hmvit_tpu_torch import perf_lab
+    from hmvit_tpu_torch.serving import batch_to_device
 
-    from hmvit_tpu_torch import bench
-    from hmvit_tpu_torch.serving import batch_to_device, request_batch
-
-    args = argparse.Namespace(cpu=True, stem_s2d=False, no_remat=False,
-                              remat_stages=None, batch=1, bucketed=False)
-    state, step, _, labels = bench.build_train(args, torch.device("cpu"))
-    cfg = bench.train_config(args)
-    batch = request_batch(0, num_agents=bench.NUM_AGENTS, max_points=512,
-                          image_size=64, num_cams=2,
-                          lidar_range=cfg["lidar"]["lidar_range"])
+    lab = perf_lab.Lab("cpu", perf_lab.TINY, iters=1)
+    state, step, batch, labels = perf_lab._train_case(lab)
     state.model.HeteroDecoder_0.register_forward_hook(
         lambda m, args, out: (_TwinInBackward.apply(out[0]), out[1]))
     with tracing.on() as tracer:
